@@ -1,0 +1,20 @@
+"""Hand-written CUDA kernels for the H100 (``csrc/``), their wrappers and
+their plain PyTorch versions."""
+
+from keras_nerf_tpu_torch.kernels.ray_march import (
+    KERNELS,
+    fused_render_chunk,
+    kernel_supported,
+    pack_mlp_params,
+    ray_encoding_coeffs,
+    ray_march_mlp,
+    ray_march_quadrature,
+    reset_launch_counts,
+    sample_merge,
+)
+
+__all__ = [
+    "KERNELS", "fused_render_chunk", "kernel_supported", "pack_mlp_params",
+    "ray_encoding_coeffs", "ray_march_mlp", "ray_march_quadrature",
+    "reset_launch_counts", "sample_merge",
+]

@@ -1,0 +1,306 @@
+// ray_march_mlp: positional encoding and the radiance-field MLP per point.
+//
+// Replaces: the in-kernel encoding (keras_nerf_tpu/kernels/ray_march.py
+// :1259-1280, _sin_poly :875) and _forward_core (:369-426) of
+// _train_chunk_kernel, in its full and sigma_only forms. Each point's
+// encoding argument is rep = base_r + t * slope_r (per-ray coefficients
+// from ray_encoding_coeffs); cos lanes add pi/2, sin and cos lanes are
+// range-reduced by 2 pi before a degree-9 polynomial, raw lanes keep rep.
+// The MLP multiplies bf16 operands with float32 accumulation, adds the
+// float32 bias, applies relu and rounds to bf16 between layers, exactly the
+// TPU kernel's precision policy, in the packed layout of pack_mlp_params
+// (encoding blocks at lanes 0 and 64 of a 128-wide input, sigma in column
+// `units` of the fused sigma/feature matrix).
+//
+// Bound on the H100: operations. 8 x 256 with the 63 + 27 wide encodings
+// is 1.19 MFLOP per point (0.98 in sigma-only mode) against 16 B written;
+// a 4096 x 192 fine chunk is 0.93 TFLOP, 0.94 ms at 989 TFLOP/s.
+//
+// Design (a first, plain tensor-core version): one block of 8 warps per
+// tile of 64 points. The bf16 encoding tile and two bf16 activation tiles
+// (ping-pong, one per layer) live in shared memory; the weights (1.3 MB at
+// 8 x 256) stay in global memory and are read through L2/L1 as wmma
+// fragments. Each warp owns a 64 x 32 output block per layer, so every
+// weight element is read once per tile. Products run on the tensor cores
+// with nvcuda::wmma 16x16x16 bf16 -> f32; the accumulators go through a
+// per-warp float32 scratch for the bias/relu/bf16 epilogue. Not yet used:
+// wgmma, TMA and staged weight tiles in shared memory (later work).
+#include <cuda_bf16.h>
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+using bf16 = __nv_bfloat16;
+
+namespace {
+
+constexpr int kMaxLayers = 16;
+constexpr int kTile = 64;      // points per block
+constexpr int kWarps = 8;
+constexpr int kEncLanes = 128;
+constexpr int kEncLd = kEncLanes + 8;  // padded row strides (bf16 elements)
+
+}  // namespace
+
+// Device pointers of the pack_mlp_params arrays (kernel layout, row-major
+// [fan_in, fan_out]); mirrored by a ctypes Structure in kernels/ray_march.py.
+struct MlpWeights {
+  const bf16* trunk_w[kMaxLayers];
+  const bf16* trunk_enc_w[kMaxLayers];  // null where a layer skips the encoding
+  const float* trunk_b[kMaxLayers];
+  const bf16* w_sf;      // [u, u + 128], sigma in column u
+  const bf16* w_sf_enc;  // [128, u + 128] or null
+  const float* b_sf;     // [u + 128]
+  const bf16* w_rf_top;  // [u, u / 2]
+  const bf16* w_rf_enc;  // [128, u / 2]
+  const float* b_rf;     // [u / 2]
+  const bf16* w_rgb;     // [u / 2, 128], rgb in columns 0..2
+  const float* b_rgb;    // [128]
+  int n_layers;
+  int units;
+};
+
+namespace {
+
+using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+using AFrag = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using BFrag = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+
+// acc[m][f] += A[m*16.., 0..K) @ W[0..K, n0 + f*16..]; A in shared memory
+// (all 64 rows of the tile), W in global memory.
+template <int NF>
+__device__ __forceinline__ void mma_rows(AccFrag (&acc)[4][NF], const bf16* A,
+                                         int lda, const bf16* W, int ldw,
+                                         int K, int n0) {
+  AFrag a[4];
+  BFrag b;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) wmma::load_matrix_sync(a[m], A + m * 16 * lda + k0, lda);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      wmma::load_matrix_sync(b, W + (size_t)k0 * ldw + n0 + f * 16, ldw);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) wmma::mma_sync(acc[m][f], a[m], b, acc[m][f]);
+    }
+  }
+}
+
+template <int NF>
+__device__ __forceinline__ void zero(AccFrag (&acc)[4][NF]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[m][f], 0.f);
+}
+
+// out[:, n0..n0+NF*16) = bf16(act(acc + bias)), through the warp's scratch.
+template <int NF>
+__device__ __forceinline__ void store_bf16(AccFrag (&acc)[4][NF], float* scratch,
+                                           const float* bias, bool relu,
+                                           bf16* out, int ldo, int n0, int lane) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      wmma::store_matrix_sync(scratch, acc[m][f], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int rr = e >> 4, cc = e & 15, col = n0 + f * 16 + cc;
+        float v = __fadd_rn(scratch[e], bias[col]);
+        if (relu) v = fmaxf(v, 0.f);
+        out[(m * 16 + rr) * ldo + col] = __float2bfloat16_rn(v);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Dense layer over the tile: out = act(A @ W (+ E @ W_enc) + bias), the
+// output columns split over the warps in blocks of 32.
+__device__ void dense_layer(const bf16* A, int lda, int K, const bf16* W,
+                            const bf16* E, const bf16* W_enc, int N,
+                            const float* bias, bool relu, bf16* out, int ldo,
+                            float* scratch, int warp, int lane) {
+  for (int n0 = warp * 32; n0 < N; n0 += kWarps * 32) {
+    AccFrag acc[4][2];
+    zero(acc);
+    mma_rows(acc, A, lda, W, N, K, n0);
+    if (W_enc != nullptr) mma_rows(acc, E, kEncLd, W_enc, N, kEncLanes, n0);
+    store_bf16(acc, scratch, bias, relu, out, ldo, n0, lane);
+  }
+}
+
+// One 16-column head block (sigma or rgb) over the tile into float32
+// scratch rows: dst[p] for p in 0..63 gets column `col` of the block.
+__device__ void head16(const bf16* A, int lda, int K, const bf16* W, int ldw,
+                       const bf16* E, const bf16* W_enc, int n0,
+                       float* scratch, float* dst, int ncols, int lane) {
+  AccFrag acc[4][1];
+  zero(acc);
+  mma_rows(acc, A, lda, W, ldw, K, n0);
+  if (W_enc != nullptr) mma_rows(acc, E, kEncLd, W_enc, ldw, kEncLanes, n0);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    wmma::store_matrix_sync(scratch, acc[m][0], 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 16 * ncols; e += 32) {
+      const int rr = e / ncols, cc = e % ncols;
+      dst[(m * 16 + rr) * ncols + cc] = scratch[rr * 16 + cc];
+    }
+    __syncwarp();
+  }
+}
+
+// Horner steps as fused multiply-adds: the form XLA compiles the TPU
+// kernel's _sin_poly to on the CPU, so the reference tests compare like
+// with like; the plain version emulates each FMA in float64.
+__device__ __forceinline__ float sin_poly(float x) {
+  const float x2 = __fmul_rn(x, x);
+  float p = __fmaf_rn(0x1.22cac8p-19f, x2, -0x1.94d06cp-13f);
+  p = __fmaf_rn(p, x2, 0x1.105a2cp-7f);
+  p = __fmaf_rn(p, x2, -0x1.55426ap-3f);
+  p = __fmaf_rn(p, x2, 0x1.fffdd2p-1f);
+  return __fmul_rn(x, p);
+}
+
+template <bool kSigmaOnly>
+__global__ void __launch_bounds__(kWarps * 32)
+mlp_kernel(const MlpWeights w, const float* __restrict__ base,
+           const float* __restrict__ slope, const float* __restrict__ depths,
+           const float* __restrict__ masks, float* __restrict__ out, int P,
+           int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int u = w.units, half = u / 2, act_ld = u + 8;
+  bf16* enc = reinterpret_cast<bf16*>(smem);
+  bf16* act0 = enc + kTile * kEncLd;
+  bf16* act1 = act0 + kTile * act_ld;
+  float* scratch_all = reinterpret_cast<float*>(act1 + kTile * act_ld);
+  float* sig = scratch_all + kWarps * 256;  // [64] sigma pre-activation
+  float* rgb = sig + kTile;                 // [64 * 3] rgb pre-activation
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* scratch = scratch_all + warp * 256;
+  const int p0 = blockIdx.x * kTile;
+
+  // Positional encoding of the tile's points (ray_march.py:1259-1280).
+  for (int idx = threadIdx.x; idx < kTile * kEncLanes; idx += blockDim.x) {
+    const int pl = idx / kEncLanes, l = idx % kEncLanes, p = p0 + pl;
+    float v = 0.f;
+    if (p < P) {
+      const int r = p / S;
+      // rep = base + t * slope and the 2 pi reduction as single-rounding
+      // FMAs, as XLA contracts them (see sin_poly).
+      const float rep = __fmaf_rn(depths[p], slope[(size_t)r * kEncLanes + l],
+                                  base[(size_t)r * kEncLanes + l]);
+      if (masks[l] != 0.f) {
+        v = rep;
+      } else if (masks[kEncLanes + l] != 0.f || masks[2 * kEncLanes + l] != 0.f) {
+        const float shifted =
+            masks[2 * kEncLanes + l] != 0.f ? __fadd_rn(rep, knt::kHalfPi) : rep;
+        const float turns = rintf(__fmul_rn(shifted, knt::kInvTwoPi));
+        v = sin_poly(__fmaf_rn(-knt::kTwoPi, turns, shifted));
+      }
+    }
+    enc[pl * kEncLd + l] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+
+  // Trunk (_forward_core :387-400).
+  const bf16* h = enc;
+  int h_ld = kEncLd, h_k = kEncLanes;
+  bf16* bufs[2] = {act0, act1};
+  for (int i = 0; i < w.n_layers; ++i) {
+    bf16* dst = bufs[i & 1];
+    dense_layer(h, h_ld, h_k, w.trunk_w[i], enc, w.trunk_enc_w[i], u,
+                w.trunk_b[i], true, dst, act_ld, scratch, warp, lane);
+    __syncthreads();
+    h = dst;
+    h_ld = act_ld;
+    h_k = u;
+  }
+  bf16* spare = (h == act0) ? act1 : act0;
+
+  // Sigma: column u of the fused sigma/feature head (:404-418).
+  if (warp == kWarps - 1) {
+    head16(h, h_ld, u, w.w_sf, u + 128, enc, w.w_sf_enc, u, scratch, sig, 1, lane);
+    __syncwarp();
+    for (int pl = lane; pl < kTile; pl += 32) sig[pl] = fmaxf(__fadd_rn(sig[pl], w.b_sf[u]), 0.f);
+  }
+  if (kSigmaOnly) {
+    __syncthreads();
+    for (int pl = threadIdx.x; pl < kTile; pl += blockDim.x)
+      if (p0 + pl < P) out[p0 + pl] = sig[pl];
+    return;
+  }
+
+  // features = bf16(h @ w_sf[:, :u] (+ enc @ w_sf_enc[:, :u]) + b_sf), no relu.
+  for (int n0 = warp * 32; n0 < u; n0 += kWarps * 32) {
+    AccFrag acc[4][2];
+    zero(acc);
+    mma_rows(acc, h, h_ld, w.w_sf, u + 128, u, n0);
+    if (w.w_sf_enc != nullptr) mma_rows(acc, enc, kEncLd, w.w_sf_enc, u + 128, kEncLanes, n0);
+    store_bf16(acc, scratch, w.b_sf, false, spare, act_ld, n0, lane);
+  }
+  __syncthreads();
+  // rf = bf16(features @ w_rf_top + enc @ w_rf_enc + b_rf), no relu.
+  bf16* rf = const_cast<bf16*>(h);
+  dense_layer(spare, act_ld, u, w.w_rf_top, enc, w.w_rf_enc, half, w.b_rf,
+              false, rf, act_ld, scratch, warp, lane);
+  __syncthreads();
+  // rgb = sigmoid(rf @ w_rgb + b_rgb), columns 0..2.
+  if (warp == 0) {
+    head16(rf, act_ld, half, w.w_rgb, 128, nullptr, nullptr, 0, scratch, rgb, 3, lane);
+    __syncwarp();
+    for (int pl = lane; pl < kTile; pl += 32) {
+      const int p = p0 + pl;
+      if (p >= P) continue;
+      float4 o;
+      o.x = 1.f / (1.f + expf(-__fadd_rn(rgb[pl * 3 + 0], w.b_rgb[0])));
+      o.y = 1.f / (1.f + expf(-__fadd_rn(rgb[pl * 3 + 1], w.b_rgb[1])));
+      o.z = 1.f / (1.f + expf(-__fadd_rn(rgb[pl * 3 + 2], w.b_rgb[2])));
+      o.w = sig[pl];
+      reinterpret_cast<float4*>(out)[p] = o;
+    }
+  }
+}
+
+size_t smem_bytes(int units) {
+  return sizeof(bf16) * (size_t)kTile * (kEncLd + 2 * (units + 8)) +
+         sizeof(float) * (kWarps * 256 + kTile * 4);
+}
+
+}  // namespace
+
+// base, slope: [rays, 128]; depths: [rays, S]; masks: [3, 128] raw/sin/cos
+// lane selectors; out: [rays * S, 4] (r, g, b, sigma) or [rays * S] sigma.
+KNT_EXPORT int knt_ray_march_mlp(const MlpWeights* w, const float* base,
+                                 const float* slope, const float* depths,
+                                 const float* masks, float* out, int rays,
+                                 int S, int sigma_only, void* stream) {
+  const long long points = (long long)rays * S;
+  if (points <= 0) return 0;
+  if (w->n_layers < 1 || w->n_layers > kMaxLayers || w->units % 256 != 0 ||
+      points > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int P = (int)points;
+  const size_t smem = smem_bytes(w->units);
+  const int blocks = (P + kTile - 1) / kTile;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (sigma_only) {
+    err = cudaFuncSetAttribute(mlp_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mlp_kernel<true><<<blocks, kWarps * 32, smem, st>>>(*w, base, slope, depths,
+                                                        masks, out, P, S);
+  } else {
+    err = cudaFuncSetAttribute(mlp_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mlp_kernel<false><<<blocks, kWarps * 32, smem, st>>>(*w, base, slope, depths,
+                                                         masks, out, P, S);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,624 @@
+"""The ray-march kernels of the render path, for the H100, and their plain
+PyTorch versions (port of ``keras_nerf_tpu/kernels/ray_march.py``).
+
+The TPU's ``fused_train_chunk`` runs sampling, encoding, MLP and quadrature
+in one Pallas kernel per ray tile, with every activation in VMEM (a fine
+tile holds ~24 MB). An H100 SM has 227 KB of shared memory, so the port
+splits the no-grad pass into three CUDA kernels (``csrc/``), one library:
+
+* :data:`sample_merge` — inverse CDF of the coarse weights and the rank
+  merge with the coarse depths (the fine pass's prologue, ``s_m = -1``);
+* :data:`ray_march_mlp` — positional encoding and the MLP per point, bf16
+  tensor-core products with float32 accumulation, ``(r, g, b, sigma)`` or
+  sigma alone out;
+* :data:`ray_march_quadrature` — transmittance, weights, image, depth.
+
+The split costs one float32 ``[R, S, 4]`` round trip through device memory
+(16 B per point, ~13 MB per fine chunk), which is small beside the MLP's
+~1.2 MFLOP per point, and keeps each kernel simple.
+
+Each kernel is reached through a :class:`KernelWrapper`: a CUDA tensor
+launches the kernel (or raises), a CPU tensor runs the plain version, and
+``launches`` counts kernel launches only. The plain versions repeat the
+kernels' arithmetic in PyTorch (bf16-rounded operands, float32 products
+with TF32 off, the same float32 constants and operation order where it
+matters), so the CPU tests hold them against the JAX package and
+``chip_smoke.py`` holds the kernels against them on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from keras_nerf_tpu_torch.ops.encoding import (
+    _selection_constants,
+    block_permutation,
+    encoded_dim,
+)
+
+LANE = 128
+ENC_XYZ_OFF = 0    # xyz encoding block occupies lanes [0, 64)
+ENC_DIR_OFF = 64   # dir encoding block occupies lanes [64, 128)
+MAX_LAYERS = 16    # csrc/ray_march_mlp.cu: kMaxLayers
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded once to float32 (the value JAX computes with
+    and the CUDA sources spell as a hex literal)."""
+    return float(np.float32(x))
+
+
+_BIG = _f32(3.0e38)   # masked min/max fill
+_WEIGHT_EPS = _f32(1e-5)
+_LAST_DELTA = _f32(1e-10)
+_HALF_PI = _f32(np.pi / 2)
+_TWO_PI = _f32(2.0 * np.pi)
+_INV_TWO_PI = _f32(1.0 / (2.0 * np.pi))
+_SIN_COEFFS = tuple(_f32(c) for c in (
+    2.16657012e-6, -1.93030430e-4, 8.31153094e-3, -1.66630582e-1,
+    9.99983358e-1))
+
+
+def kernel_supported(config, pos_emb_xyz: int,
+                     pos_emb_dir: int) -> bool:
+    """Static shape envelope of the kernels (the JAX package's envelope)."""
+    u = config.dense_units
+    return (u % LANE == 0 and (u // 2) % LANE == 0
+            and encoded_dim(3, pos_emb_xyz) <= 64
+            and encoded_dim(3, pos_emb_dir) <= 64
+            and config.n_layers <= MAX_LAYERS)
+
+
+@functools.lru_cache(maxsize=None)
+def _enc128_constants(pos_emb_xyz: int, pos_emb_dir: int):
+    """``b [6, 128]`` (one nonzero per column) and masks ``[3, 128]``: the
+    xyz block-order encoding at lanes 0.., the dir one at lanes 64.."""
+    bx, mx = _selection_constants(3, pos_emb_xyz, "block")
+    bd, md = _selection_constants(3, pos_emb_dir, "block")
+    n_x, n_d = bx.shape[1], bd.shape[1]
+    b = np.zeros((6, LANE), np.float32)
+    masks = np.zeros((3, LANE), np.float32)
+    b[0:3, ENC_XYZ_OFF:ENC_XYZ_OFF + n_x] = bx
+    b[3:6, ENC_DIR_OFF:ENC_DIR_OFF + n_d] = bd
+    masks[:, ENC_XYZ_OFF:ENC_XYZ_OFF + n_x] = mx
+    masks[:, ENC_DIR_OFF:ENC_DIR_OFF + n_d] = md
+    return b, masks
+
+
+# Constants are uploaded to a device once: a host-to-card copy waits for the
+# stream, and every chunk needs them.
+@functools.lru_cache(maxsize=None)
+def _enc128_on(device: torch.device, pos_emb_xyz: int, pos_emb_dir: int):
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _enc128_constants(pos_emb_xyz, pos_emb_dir))
+
+
+@functools.lru_cache(maxsize=None)
+def _block_permutation_on(device: torch.device, num_freqs: int):
+    return torch.as_tensor(block_permutation(3, num_freqs), device=device)
+
+
+def ray_encoding_coeffs(origin: torch.Tensor, direction: torch.Tensor,
+                        pos_emb_xyz: int, pos_emb_dir: int):
+    """Per-ray ``(base [R, 128], slope [R, 128], masks [3, 128])`` with
+    ``rep = base + t * slope`` every encoding argument at depth ``t``
+    (`ray_march.py:137-164`). Each column has one nonzero scale, so the
+    products are formed elementwise in float32 — exact, and never TF32."""
+    b, masks = _enc128_on(origin.device, pos_emb_xyz, pos_emb_dir)
+    o = origin.to(torch.float32)
+    d = direction.to(torch.float32)
+    base = ((o[:, :, None] * b[None, 0:3]).sum(dim=1)
+            + (d[:, :, None] * b[None, 3:6]).sum(dim=1))
+    slope = (d[:, :, None] * b[None, 0:3]).sum(dim=1)
+    return base, slope, masks
+
+
+def pack_mlp_params(params, config, pos_emb_xyz: int,
+                    pos_emb_dir: int) -> dict:
+    """Reference-layout params -> the kernel layout of the JAX package's
+    ``pack_mlp_params`` (`ray_march.py:232-327`), array for array: bf16
+    weights, encoding rows permuted into block order inside ``[128, n]``
+    matrices, the sigma column fused after the features (column ``u``),
+    float32 biases ``[1, n]``."""
+    u = config.dense_units
+    if not kernel_supported(config, pos_emb_xyz, pos_emb_dir):
+        raise ValueError(
+            f"kernels require dense_units % {LANE} == 0, dense_units//2 % "
+            f"{LANE} == 0, encodings <= 64 dims and <= {MAX_LAYERS} layers "
+            f"(got units={u}, layers={config.n_layers}, Lx={pos_emb_xyz}, "
+            f"Ld={pos_emb_dir})")
+    dev = params["sigma"]["kernel"].device
+    in_x = encoded_dim(3, pos_emb_xyz)
+    in_d = encoded_dim(3, pos_emb_dir)
+    perm_x = _block_permutation_on(dev, pos_emb_xyz)
+    perm_d = _block_permutation_on(dev, pos_emb_dir)
+    skip = set(config.skip_indices())
+    last_skip = (config.n_layers - 1) in skip
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def enc128_rows(w_x=None, w_d=None, cols=None):
+        out = torch.zeros((LANE, cols), dtype=f32, device=dev)
+        if w_x is not None:
+            out[ENC_XYZ_OFF:ENC_XYZ_OFF + in_x] = w_x[perm_x]
+        if w_d is not None:
+            out[ENC_DIR_OFF:ENC_DIR_OFF + in_d] = w_d[perm_d]
+        return out
+
+    def w16(x):
+        return x.to(bf16).contiguous()
+
+    def b32(x):
+        return x.to(f32).reshape(1, -1).contiguous()
+
+    trunk_w, trunk_enc_w, trunk_b = [], [], []
+    for i, layer in enumerate(params["trunk"]):
+        w = layer["kernel"]
+        if i == 0:
+            trunk_w.append(w16(enc128_rows(w_x=w, cols=u)))
+            trunk_enc_w.append(None)
+        elif (i - 1) in skip:
+            trunk_w.append(w16(w[:u]))
+            trunk_enc_w.append(w16(enc128_rows(w_x=w[u:], cols=u)))
+        else:
+            trunk_w.append(w16(w))
+            trunk_enc_w.append(None)
+        trunk_b.append(b32(layer["bias"]))
+
+    w_sf_full = torch.cat([params["features"]["kernel"],
+                           params["sigma"]["kernel"]], dim=1)
+    w_sf_full = torch.nn.functional.pad(w_sf_full, (0, LANE - 1))
+    if last_skip:
+        w_sf, w_sf_enc = w_sf_full[:u], enc128_rows(w_x=w_sf_full[u:],
+                                                    cols=u + LANE)
+    else:
+        w_sf, w_sf_enc = w_sf_full, None
+    b_sf = torch.nn.functional.pad(
+        torch.cat([params["features"]["bias"], params["sigma"]["bias"]]),
+        (0, LANE - 1))
+    w_rf = params["rgb_features"]["kernel"]
+    w_rgb = torch.nn.functional.pad(params["rgb"]["kernel"], (0, LANE - 3))
+    b_rgb = torch.nn.functional.pad(params["rgb"]["bias"], (0, LANE - 3))
+    return {
+        "trunk_w": trunk_w,
+        "trunk_enc_w": trunk_enc_w,
+        "trunk_b": trunk_b,
+        "w_sf": w16(w_sf),
+        "w_sf_enc": None if w_sf_enc is None else w16(w_sf_enc),
+        "b_sf": b32(b_sf),
+        "w_rf_top": w16(w_rf[:u]),
+        "w_rf_enc": w16(enc128_rows(w_d=w_rf[u:], cols=u // 2)),
+        "b_rf": b32(params["rgb_features"]["bias"]),
+        "w_rgb": w16(w_rgb),
+        "b_rgb": b32(b_rgb),
+    }
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the card's reference).
+
+
+def _bf16_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 operands, float32 products and sums (the kernels' policy)."""
+    return a.to(torch.float32) @ w.to(torch.float32)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding: the float64 product of two
+    float32 values is exact, so only the sum rounds (then once more to
+    float32, which agrees with a true FMA but for rare double-rounding
+    ties)."""
+    f64 = torch.float64
+    a, b, c = (x.to(f64) if isinstance(x, torch.Tensor) else x
+               for x in (a, b, c))
+    return (a * b + c).to(torch.float32)
+
+
+def sin_poly(x: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's degree-9 sin on range-reduced arguments
+    (`ray_march.py:875-890`), with its float32 coefficients and the Horner
+    steps as FMAs — the form XLA compiles that kernel to on the CPU, which
+    the CUDA kernel follows with ``__fmaf_rn``."""
+    c9, c7, c5, c3, c1 = _SIN_COEFFS
+    x2 = x * x
+    p = _fma(c9, x2, c7)
+    p = _fma(p, x2, c5)
+    p = _fma(p, x2, c3)
+    p = _fma(p, x2, c1)
+    return x * p
+
+
+def encode_points(base: torch.Tensor, slope: torch.Tensor,
+                  depths: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """``[R, S, 128]`` bf16 encodings of the points ``t = depths [R, S]``
+    (`ray_march.py:1259-1280`): float32 ``rep = base + t slope``, +pi/2 on
+    the cos lanes, 2 pi range reduction, :func:`sin_poly`; raw lanes keep
+    ``rep``. The argument stays float32 throughout; ``rep`` and the
+    reduction are single-rounding FMAs, as in the CUDA kernel."""
+    rep = _fma(depths[..., None], slope[:, None, :], base[:, None, :])
+    m_raw, m_sin, m_cos = masks[0], masks[1], masks[2]
+    shifted = torch.where(m_cos != 0, rep + _HALF_PI, rep)
+    reduced = _fma(-_TWO_PI, torch.round(shifted * _INV_TWO_PI), shifted)
+    trig = torch.where((m_sin != 0) | (m_cos != 0), sin_poly(reduced),
+                       torch.zeros_like(rep))
+    enc = torch.where(m_raw != 0, rep, trig)
+    return enc.to(torch.bfloat16)
+
+
+def ray_march_mlp_plain(packed: dict, base: torch.Tensor, slope: torch.Tensor,
+                        depths: torch.Tensor, masks: torch.Tensor,
+                        sigma_only: bool = False) -> torch.Tensor:
+    """Plain version of the ``ray_march_mlp`` kernel: ``[R*S, 4]``
+    (sigmoid rgb, relu sigma) or ``[R*S]`` sigma (`_forward_core`)."""
+    u = packed["trunk_b"][0].shape[1]
+    enc = encode_points(base, slope, depths, masks).reshape(-1, LANE)
+    h = enc
+    for w, w_enc, b in zip(packed["trunk_w"], packed["trunk_enc_w"],
+                           packed["trunk_b"]):
+        acc = _bf16_mm(h, w)
+        if w_enc is not None:
+            acc = acc + _bf16_mm(enc, w_enc)
+        h = torch.relu(acc + b).to(torch.bfloat16)
+    w_sf, w_sf_enc, b_sf = packed["w_sf"], packed["w_sf_enc"], packed["b_sf"]
+    if sigma_only:
+        sig = _bf16_mm(h, w_sf[:, u:u + 1])
+        if w_sf_enc is not None:
+            sig = sig + _bf16_mm(enc, w_sf_enc[:, u:u + 1])
+        return torch.relu(sig + b_sf[:, u:u + 1])[:, 0]
+    sf = _bf16_mm(h, w_sf[:, :u + 1])
+    if w_sf_enc is not None:
+        sf = sf + _bf16_mm(enc, w_sf_enc[:, :u + 1])
+    sf = sf + b_sf[:, :u + 1]
+    features = sf[:, :u].to(torch.bfloat16)
+    sigma = torch.relu(sf[:, u])
+    rf = (_bf16_mm(features, packed["w_rf_top"])
+          + _bf16_mm(enc, packed["w_rf_enc"]) + packed["b_rf"]
+          ).to(torch.bfloat16)
+    rgb = torch.sigmoid(_bf16_mm(rf, packed["w_rgb"][:, :3])
+                        + packed["b_rgb"][:, :3])
+    return torch.cat([rgb, sigma[:, None]], dim=1)
+
+
+def ray_march_quadrature_plain(rgbs: torch.Tensor, t: torch.Tensor,
+                               white_background: bool = False,
+                               sigma_only: bool = False,
+                               emit_weights: bool = True):
+    """Plain version of the ``ray_march_quadrature`` kernel
+    (`_quadrature_fwd`, `_depth_lane3`): ``rgbs [R, S, 4]`` (or sigma
+    ``[R, S]`` when ``sigma_only``), ``t [R, S]`` -> ``(image [R, 3],
+    depth [R], weights [R, S] or None)``. Transmittance is
+    ``exp(-exclusive cumsum(sigma delta))`` in float32; the last delta is
+    1e-10. In sigma-only mode the image is zeros."""
+    r, s = t.shape
+    sigma = rgbs if sigma_only else rgbs[..., 3]
+    delta = torch.cat([t[:, 1:] - t[:, :-1],
+                       torch.full_like(t[:, :1], _LAST_DELTA)], dim=1)
+    x = sigma * delta
+    excl = torch.cat([torch.zeros_like(x[:, :1]),
+                      torch.cumsum(x[:, :-1], dim=1)], dim=1)
+    weights = (1.0 - torch.exp(-x)) * torch.exp(-excl)
+    depth = (weights * t).sum(dim=1)
+    if sigma_only:
+        image = torch.zeros((r, 3), dtype=t.dtype, device=t.device)
+    else:
+        image = (weights[..., None] * rgbs[..., :3]).sum(dim=1)
+        if white_background:
+            image = image + (1.0 - weights.sum(dim=1))[:, None]
+        image = torch.clamp(image, 0.0, 1.0)
+    return image, depth, (weights if emit_weights else None)
+
+
+def sample_merge_plain(cp: torch.Tensor, w: torch.Tensor,
+                       u: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``sample_merge`` kernel
+    (`_sample_merge_prologue`, ``s_m = -1``): ``cp``, ``w [R, s_c]``, sorted
+    ``u [R, n]`` -> merged sorted depths ``[R, s_c + n]``.
+
+    The CDF is built with sequential float32 sums over the bins, the order
+    the kernel's single thread uses, so the two agree to the bit; the
+    brackets are masked max/min over all bins and the merge counts ranks,
+    as in the TPU kernel."""
+    s_c = cp.shape[1]
+    big = _BIG
+    wp = w + _WEIGHT_EPS
+    tot = torch.zeros_like(wp[:, 0])
+    for i in range(s_c):
+        tot = tot + wp[:, i]
+    pdf = wp / tot[:, None]
+    incl = torch.zeros_like(tot)
+    cdf = torch.empty_like(wp)
+    for i in range(s_c):
+        incl = incl + pdf[:, i]
+        cdf[:, i] = incl - pdf[:, i]
+    total = incl
+    mids = 0.5 * (cp[:, :-1] + cp[:, 1:])
+    mid_last = mids.amax(dim=1)
+    mids = torch.cat([mids, mid_last[:, None]], dim=1)
+
+    le = cdf[:, None, :] <= u[:, :, None]                       # [R, n, s_c]
+    cdf_below = torch.where(le, cdf[:, None, :], -big).amax(dim=2)
+    cdf_above = torch.where(le, big, cdf[:, None, :]).amin(dim=2)
+    cdf_above = torch.where(cdf_above >= 0.5 * big, total[:, None], cdf_above)
+    bin_below = torch.where(le, mids[:, None, :], -big).amax(dim=2)
+    bin_above = torch.where(le, big, mids[:, None, :]).amin(dim=2)
+    bin_above = torch.where(bin_above >= 0.5 * big, mid_last[:, None],
+                            bin_above)
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < _WEIGHT_EPS, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    fine = bin_below + t * (bin_above - bin_below)
+
+    n = u.shape[1]
+    dev = cp.device
+    rank_c = (torch.arange(s_c, device=dev)
+              + (fine[:, None, :] < cp[:, :, None]).sum(dim=2))
+    rank_f = (torch.arange(n, device=dev)
+              + (cp[:, None, :] <= fine[:, :, None]).sum(dim=2))
+    out = torch.zeros((cp.shape[0], s_c + n), dtype=cp.dtype, device=dev)
+    out.scatter_(1, rank_c, cp)
+    out.scatter_(1, rank_f, fine)
+    return out
+
+
+# --------------------------------------------------------------------------
+# CUDA launches.
+
+
+class _MlpWeights(ctypes.Structure):
+    """Mirror of ``struct MlpWeights`` in csrc/ray_march_mlp.cu."""
+
+    _fields_ = [
+        ("trunk_w", ctypes.c_void_p * MAX_LAYERS),
+        ("trunk_enc_w", ctypes.c_void_p * MAX_LAYERS),
+        ("trunk_b", ctypes.c_void_p * MAX_LAYERS),
+        ("w_sf", ctypes.c_void_p),
+        ("w_sf_enc", ctypes.c_void_p),
+        ("b_sf", ctypes.c_void_p),
+        ("w_rf_top", ctypes.c_void_p),
+        ("w_rf_enc", ctypes.c_void_p),
+        ("b_rf", ctypes.c_void_p),
+        ("w_rgb", ctypes.c_void_p),
+        ("b_rgb", ctypes.c_void_p),
+        ("n_layers", ctypes.c_int),
+        ("units", ctypes.c_int),
+    ]
+
+
+def _check(t: torch.Tensor, name: str, dtype, device, shape=None):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    return t.data_ptr()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def _sample_merge_cuda(cp, w, u):
+    from keras_nerf_tpu_torch.kernels._build import load
+
+    lib = load()
+    dev = cp.device
+    r, s_c = cp.shape
+    n = u.shape[1]
+    if s_c < 2:
+        raise ValueError("sample_merge needs at least 2 coarse samples")
+    out = torch.empty((r, s_c + n), dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    with torch.cuda.device(dev):
+        _raise_on(lib.knt_sample_merge(
+            _check(cp, "cp", f32, dev), _check(w, "w", f32, dev, (r, s_c)),
+            _check(u, "u", f32, dev, (r, n)), out.data_ptr(), r, s_c, n,
+            _stream(dev)), "sample_merge")
+    return out
+
+
+def _mlp_struct(packed: dict, device: torch.device) -> _MlpWeights:
+    s = _MlpWeights()
+    n = len(packed["trunk_w"])
+    u = packed["trunk_b"][0].shape[1]
+    if n > MAX_LAYERS or u % 256:
+        raise ValueError(f"ray_march_mlp supports <= {MAX_LAYERS} layers of "
+                         f"a multiple of 256 units (got {n} x {u})")
+    bf16, f32 = torch.bfloat16, torch.float32
+    for i in range(n):
+        s.trunk_w[i] = _check(packed["trunk_w"][i], f"trunk_w[{i}]", bf16,
+                              device)
+        enc_w = packed["trunk_enc_w"][i]
+        s.trunk_enc_w[i] = (None if enc_w is None else
+                            _check(enc_w, f"trunk_enc_w[{i}]", bf16, device,
+                                   (LANE, u)))
+        s.trunk_b[i] = _check(packed["trunk_b"][i], f"trunk_b[{i}]", f32,
+                              device, (1, u))
+    s.w_sf = _check(packed["w_sf"], "w_sf", bf16, device, (u, u + LANE))
+    s.w_sf_enc = (None if packed["w_sf_enc"] is None else
+                  _check(packed["w_sf_enc"], "w_sf_enc", bf16, device,
+                         (LANE, u + LANE)))
+    s.b_sf = _check(packed["b_sf"], "b_sf", f32, device, (1, u + LANE))
+    s.w_rf_top = _check(packed["w_rf_top"], "w_rf_top", bf16, device,
+                        (u, u // 2))
+    s.w_rf_enc = _check(packed["w_rf_enc"], "w_rf_enc", bf16, device,
+                        (LANE, u // 2))
+    s.b_rf = _check(packed["b_rf"], "b_rf", f32, device, (1, u // 2))
+    s.w_rgb = _check(packed["w_rgb"], "w_rgb", bf16, device, (u // 2, LANE))
+    s.b_rgb = _check(packed["b_rgb"], "b_rgb", f32, device, (1, LANE))
+    s.n_layers = n
+    s.units = u
+    return s
+
+
+def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
+                        sigma_only=False):
+    from keras_nerf_tpu_torch.kernels._build import load
+
+    lib = load()
+    dev = base.device
+    r, s = depths.shape
+    f32 = torch.float32
+    weights = _mlp_struct(packed, dev)
+    shape = (r * s,) if sigma_only else (r * s, 4)
+    out = torch.empty(shape, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        _raise_on(lib.knt_ray_march_mlp(
+            ctypes.addressof(weights),
+            _check(base, "base", f32, dev, (r, LANE)),
+            _check(slope, "slope", f32, dev, (r, LANE)),
+            _check(depths, "depths", f32, dev),
+            _check(masks, "masks", f32, dev, (3, LANE)), out.data_ptr(), r, s,
+            int(sigma_only), _stream(dev)), "ray_march_mlp")
+    return out
+
+
+def _ray_march_quadrature_cuda(rgbs, t, white_background=False,
+                               sigma_only=False, emit_weights=True):
+    from keras_nerf_tpu_torch.kernels._build import load
+
+    lib = load()
+    dev = t.device
+    r, s = t.shape
+    f32 = torch.float32
+    image = torch.zeros((r, 3), dtype=f32, device=dev)
+    depth = torch.empty((r,), dtype=f32, device=dev)
+    weights = (torch.empty((r, s), dtype=f32, device=dev) if emit_weights
+               else None)
+    rgbs_shape = (r, s) if sigma_only else (r, s, 4)
+    with torch.cuda.device(dev):
+        _raise_on(lib.knt_ray_march_quadrature(
+            _check(rgbs, "rgbs", f32, dev, rgbs_shape),
+            _check(t, "t", f32, dev), image.data_ptr(), depth.data_ptr(),
+            None if weights is None else weights.data_ptr(), r, s,
+            int(white_background), int(sigma_only), _stream(dev)),
+            "ray_march_quadrature")
+    return image, depth, weights
+
+
+class KernelWrapper:
+    """One kernel's entry point: the CUDA kernel for CUDA tensors, its plain
+    version for CPU tensors. ``launches`` counts kernel launches only (the
+    plain version never touches it); ``source`` and ``replaces`` name the
+    CUDA source and the TPU kernel it ports."""
+
+    def __init__(self, name: str, plain, launch, source: str, replaces: str):
+        self.name = name
+        self.plain = plain
+        self._launch = launch
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def __call__(self, *args, **kwargs):
+        device = next(a.device for a in args if isinstance(a, torch.Tensor))
+        if device.type == "cpu":
+            return self.plain(*args, **kwargs)
+        if device.type != "cuda":
+            raise ValueError(f"{self.name}: unsupported device {device}")
+        out = self._launch(*args, **kwargs)
+        self.launches += 1
+        return out
+
+    def __repr__(self):
+        return f"KernelWrapper({self.name}, launches={self.launches})"
+
+
+_CSRC = "keras_nerf_tpu_torch/kernels/csrc/"
+_TPU = "keras_nerf_tpu/kernels/ray_march.py"
+
+# Each kernel replaces one part of the TPU's fused_train_chunk (:1384), named
+# by the line of that part: _sample_merge_prologue, _forward_core (with the
+# in-kernel encoding at :1259) and _quadrature_fwd (with the sigma_only
+# epilogue at :1296).
+sample_merge = KernelWrapper(
+    "sample_merge", sample_merge_plain, _sample_merge_cuda,
+    _CSRC + "sample_merge.cu", _TPU + ":987")
+ray_march_mlp = KernelWrapper(
+    "ray_march_mlp", ray_march_mlp_plain, _ray_march_mlp_cuda,
+    _CSRC + "ray_march_mlp.cu", _TPU + ":369")
+ray_march_quadrature = KernelWrapper(
+    "ray_march_quadrature", ray_march_quadrature_plain,
+    _ray_march_quadrature_cuda, _CSRC + "ray_march_quadrature.cu",
+    _TPU + ":1102")
+
+KERNELS = (sample_merge, ray_march_mlp, ray_march_quadrature)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def fused_render_chunk(packed: dict, origin: torch.Tensor,
+                       direction: torch.Tensor, points: torch.Tensor | None,
+                       pos_emb_xyz: int = 10,
+                       pos_emb_dir: int = 4, white_background: bool = False,
+                       emit_weights: bool = True, sigma_only: bool = False,
+                       sample_inputs: tuple | None = None):
+    """One model's no-grad pass over a ray chunk through the kernels: the
+    port's ``fused_train_chunk(with_grad=False)`` (`ray_march.py:1384`).
+
+    Args:
+      packed: :func:`pack_mlp_params` output (on the rays' device).
+      origin/direction: ``[R, 3]`` float32.
+      points: ``[R, S]`` sorted depths, or None with ``sample_inputs``.
+      sigma_only: density pass only (requires ``emit_weights``): the image
+        comes back zero and the colour heads are skipped.
+      sample_inputs: ``(cp [R, s_c], w [R, s_c], u [R, n])`` — sample the
+        fine depths from the coarse weights in :data:`sample_merge` and
+        merge them with ``cp`` (``s_m = -1``).
+
+    Returns ``(image [R, 3], depth [R], weights [R, S] or None)``.
+    """
+    if sigma_only and not emit_weights:
+        raise ValueError("sigma_only is the coarse render pass: it emits "
+                         "weights")
+    if sample_inputs is not None:
+        if points is not None:
+            raise ValueError("pass points or sample_inputs, not both")
+        cp, wc, u = (x.to(torch.float32).contiguous() for x in sample_inputs)
+        points = sample_merge(cp, wc, u)
+    points = points.to(torch.float32).contiguous()
+    base, slope, masks = ray_encoding_coeffs(origin, direction, pos_emb_xyz,
+                                             pos_emb_dir)
+    rgbs = ray_march_mlp(packed, base, slope, points, masks,
+                         sigma_only=sigma_only)
+    r, s = points.shape
+    rgbs = rgbs.reshape((r, s) if sigma_only else (r, s, 4))
+    return ray_march_quadrature(rgbs, points,
+                                white_background=white_background,
+                                sigma_only=sigma_only,
+                                emit_weights=emit_weights)
+
+
+def fwd_flop_per_point(config, pos_emb_xyz: int = 10,
+                       pos_emb_dir: int = 4, sigma_only: bool = False) -> int:
+    """Unpadded forward FLOPs per point (2 per multiply-add): the work the
+    function needs, whatever padding the kernel computes. 8 x 256 with
+    L = 10 / 4: 1,186,816 (982,528 sigma-only)."""
+    u = config.dense_units
+    in_x = encoded_dim(3, pos_emb_xyz)
+    in_d = encoded_dim(3, pos_emb_dir)
+    skip = set(config.skip_indices())
+    flops, width = 0, in_x
+    for i in range(config.n_layers):
+        flops += 2 * width * u
+        width = u + (in_x if i in skip else 0)
+    flops += 2 * width  # sigma
+    if sigma_only:
+        return flops
+    flops += 2 * width * u + 2 * (u + in_d) * (u // 2) + 2 * (u // 2) * 3
+    return flops

@@ -1,0 +1,58 @@
+"""Volume-rendering quadrature (port of ``keras_nerf_tpu/ops/rendering.py``).
+
+The reference (float32) path's semantics: the last delta is padded with
+``epsilon = 1e-10`` and the transmittance is the exclusive cumulative
+product of ``1 - alpha + epsilon`` (`keras_nerf/model/nerf/utils.py:17-58`).
+The kernel path's quadrature (``kernels/ray_march.py``) uses
+``exp(-exclusive cumsum)`` instead, as the TPU kernel does.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class RenderOutput(NamedTuple):
+    image: torch.Tensor    # [..., 3]
+    depth: torch.Tensor    # [...]
+    weights: torch.Tensor  # [..., S]
+
+
+def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
+    """``out[..., i] = prod(x[..., :i])``, ``out[..., 0] == 1``."""
+    inclusive = torch.cumprod(x, dim=-1)
+    return torch.cat([torch.ones_like(x[..., :1]), inclusive[..., :-1]],
+                     dim=-1)
+
+
+def render_rays(
+    rgb: torch.Tensor,
+    sigma: torch.Tensor,
+    sample_points: torch.Tensor,
+    *,
+    white_background: bool = False,
+    epsilon: float = 1e-10,
+) -> RenderOutput:
+    """``rgb [..., S, 3]``, ``sigma [..., S(, 1)]``, ``sample_points
+    [..., S]`` -> image ``[..., 3]``, depth ``[...]``, weights ``[..., S]``."""
+    if sigma.ndim == rgb.ndim:
+        sigma = sigma[..., 0]
+    dtype = sample_points.dtype
+    sigma = sigma.to(dtype)
+
+    delta = sample_points[..., 1:] - sample_points[..., :-1]
+    pad = torch.full_like(sample_points[..., :1], epsilon)
+    delta = torch.cat([delta, pad], dim=-1)
+
+    alpha = 1.0 - torch.exp(-sigma * delta)
+    transmittance = exclusive_cumprod(1.0 - alpha + epsilon)
+    weights = alpha * transmittance
+
+    image = torch.sum(weights[..., None] * rgb.to(dtype), dim=-2)
+    depth = torch.sum(weights * sample_points, dim=-1)
+    if white_background:
+        image = image + (1.0 - torch.sum(weights, dim=-1))[..., None]
+    image = torch.clamp(image, 0.0, 1.0)
+    return RenderOutput(image=image, depth=depth, weights=weights)

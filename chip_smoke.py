@@ -10,7 +10,9 @@ renders 4 orbit frames at 128^2 through ``inference.render_orbit`` with
 random weights from a fixed seed and checks that every kernel ran, that the
 frames are sane, and that the card's render matches the plain versions run
 on the CPU for a small frame. Finally it times each kernel and its plain
-version with CUDA events.
+version with CUDA events, and profiles the orbit render with
+``torch.profiler``: device time per frame by kernel and the device's busy
+share.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -36,8 +38,6 @@ CHUNK = 4096
 N_COARSE, N_FINE = 64, 128
 IMG = 128
 FRAMES = [0.0, 10.0, 20.0, 30.0]
-ORBIT = dict(fov=0.6911112070083618, phi=-30.0, z_translate=4.0, near=2.0,
-             far=6.0)
 
 # Tolerances of kernel vs plain version on the same inputs, with reasons.
 TOL = {
@@ -51,11 +51,12 @@ TOL = {
     # Float32 scan and sums in another order.
     "ray_march_quadrature": 1e-4,
 }
-# End to end, card vs the plain versions on the CPU: the two sides round the
-# bf16 activations of eight layers in different orders, and the fine depths
-# follow the coarse weights, so the JAX package's budgets for its bf16
-# kernel against its XLA path apply (test_pallas_kernel.py:69-71).
-E2E_TOL = {"image": 3e-2, "depth": 5e-2}
+# End to end, card vs the plain versions on the CPU: the fused-sampling
+# budget that the CPU test holds the port to against JAX
+# (test_pallas_kernel.py:431-434). The two sides round the bf16 activations
+# of eight layers after sums taken in different orders; in the fog scene
+# that moves the image and depth by a few 1e-4.
+E2E_TOL = {"image": 2e-3, "depth": 5e-3}
 # init_mlp's zero biases leave the density to the seed: sigma is the relu of
 # one random sum, and on the card seed 0 gives an almost empty scene (weight
 # sums ~0.007). A sigma bias of 1 turns every render into a fog that stops
@@ -95,7 +96,7 @@ def main() -> int:
 
     from keras_nerf_tpu_torch.data import generate_ray_batch, pose_spherical
     from keras_nerf_tpu_torch.data import get_focal_from_fov
-    from keras_nerf_tpu_torch.inference import render_orbit
+    from keras_nerf_tpu_torch.inference import ORBIT, render_orbit
     from keras_nerf_tpu_torch.kernels import (
         KERNELS,
         pack_mlp_params,
@@ -194,6 +195,12 @@ def main() -> int:
     fine_kern = ray_march_quadrature(fine_in, tf_plain, True, False, True)
     torch.cuda.synchronize()
     e5, ok5 = check("ray_march_quadrature", fine_kern, fine_plain)
+    # The mode the orbit render launches: no weights out.
+    fine_plain = ray_march_quadrature.plain(fine_in, tf_plain, True, False,
+                                            False)
+    fine_kern = ray_march_quadrature(fine_in, tf_plain, True, False, False)
+    torch.cuda.synchronize()
+    e6, ok6 = check("ray_march_quadrature", fine_kern, fine_plain)
     for label, err, ok, name in (
             (f"ray_march_mlp sigma-only [{CHUNK} x {N_COARSE}]", e1, ok1,
              "ray_march_mlp"),
@@ -204,10 +211,12 @@ def main() -> int:
             (f"ray_march_mlp full [{CHUNK} x {s_f}]", e4, ok4,
              "ray_march_mlp"),
             (f"ray_march_quadrature full [{CHUNK} x {s_f}]", e5, ok5,
-             "ray_march_quadrature")):
+             "ray_march_quadrature"),
+            (f"ray_march_quadrature full, no weights [{CHUNK} x {s_f}]", e6,
+             ok6, "ray_march_quadrature")):
         log(f"check {label}: max_abs_err {err:.3e} (tolerance "
             f"{TOL[name]:.0e}) {'ok' if ok else 'FAIL'}")
-    if not all((ok1, ok2, ok3, ok4, ok5)):
+    if not all((ok1, ok2, ok3, ok4, ok5, ok6)):
         fail("a kernel disagrees with its plain version")
 
     # ---- 4. main path: 4 orbit frames through render_orbit --------------
@@ -374,6 +383,10 @@ def main() -> int:
         tot[2] += per_frame * bms
         tot[3] = by
 
+    # ---- 6. profile: device time by kernel, device busy share -----------
+    log(json.dumps({"profile": _profile(nerf, render_orbit, ORBIT), "card":
+                    card}))
+
     entries = []
     for k in KERNELS:
         kms, pms, bms, by = totals[k.name]
@@ -391,6 +404,46 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _profile(nerf, render_orbit, orbit) -> dict:
+    """Render the orbit frames under ``torch.profiler``: host wall and
+    device busy ms per frame (the union of the card's activity spans), and
+    device ms per frame of the busiest kernels."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        render_orbit(nerf, FRAMES, img_wh=IMG, **orbit)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # The card's own activity (kernels, copies, fills); the GPU-side ranges
+    # of annotated aten ops only repeat the time of the kernels inside them.
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and not ev.is_user_annotation)
+    per_kernel = {}
+    busy_us, reach = 0.0, float("-inf")
+    for start, end, name in spans:
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("(")[0]
+        if len(name) > 80:
+            name = name[:40] + "..." + name[-37:]
+        per_kernel[name] = (per_kernel.get(name, 0.0)
+                            + (end - start) / 1e3 / len(FRAMES))
+        busy_us += max(0.0, end - max(start, reach))   # union of spans
+        reach = max(reach, end)
+    device_ms = busy_us / 1e3 / len(FRAMES) if spans else None
+    wall_ms = 1e3 * wall / len(FRAMES)
+    return {"frames": len(FRAMES), "img_wh": IMG,
+            "wall_ms_per_frame": wall_ms,
+            "device_ms_per_frame": device_ms,
+            "device_busy_share": device_ms / wall_ms if spans else None,
+            "device_ms_per_frame_by_kernel": dict(sorted(
+                per_kernel.items(), key=lambda kv: -kv[1])[:8])}
 
 
 def _fog(params):

@@ -19,6 +19,10 @@ import os
 import numpy as np
 import torch
 
+# The reference CLI's camera defaults (root ``inference.py:19-57``).
+ORBIT = dict(fov=0.6911112070083618, phi=-30.0, z_translate=4.0, near=2.0,
+             far=6.0)
+
 
 def render_orbit(nerf, thetas, *, img_wh: int, fov: float, phi: float,
                  z_translate: float, near: float, far: float,
@@ -84,12 +88,13 @@ def main(argv=None):
     parser.add_argument("--model_dirs", type=str, required=True)
     parser.add_argument("--ray_chunks", type=int, default=4096)
     parser.add_argument("--img_wh", type=int, default=128)
-    parser.add_argument("--near", type=float, default=2.0)
-    parser.add_argument("--far", type=float, default=6.0)
-    parser.add_argument("--fov", type=float, default=0.6911112070083618)
+    parser.add_argument("--near", type=float, default=ORBIT["near"])
+    parser.add_argument("--far", type=float, default=ORBIT["far"])
+    parser.add_argument("--fov", type=float, default=ORBIT["fov"])
     parser.add_argument("--white_bg", action="store_true")
-    parser.add_argument("--phi", type=float, default=-30.0)
-    parser.add_argument("--z_translate", type=float, default=4.0)
+    parser.add_argument("--phi", type=float, default=ORBIT["phi"])
+    parser.add_argument("--z_translate", type=float,
+                        default=ORBIT["z_translate"])
     parser.add_argument("--output_dir", type=str, default="output")
     parser.add_argument("--output_freq", type=int, default=10)
     parser.add_argument("--frame_batch", type=int, default=1,

@@ -10,9 +10,10 @@ merged with ``n_fine`` inverse-CDF samples of the coarse weights
 Two paths, chosen by the tri-state ``NeRFConfig.use_kernels`` (the
 counterpart of ``use_pallas``, `engine.py:452-466`):
 
-* kernels (``None`` when the architecture fits their envelope, or
-  ``True``): ``kernels/ray_march.py:fused_render_chunk`` — bf16 MLP
-  operands with float32 accumulation, float32 encoding and quadrature;
+* kernels (``True``; ``None`` on a card, and on the CPU when the
+  architecture fits their envelope):
+  ``kernels/ray_march.py:fused_render_chunk`` — bf16 MLP operands with
+  float32 accumulation, float32 encoding and quadrature;
 * reference (``False``): float32 ``apply_mlp`` + ``render_rays``.
 
 The fine draws ``u`` are injected: per-chunk ``[R, n_fine]`` tensors, or a
@@ -86,10 +87,14 @@ class NeRFConfig:
         return cls(**{**config, **overrides})
 
 
-def resolve_use_kernels(config: NeRFConfig) -> bool:
-    """``None``: kernels when the architecture fits their envelope;
-    ``True``: kernels (packing raises outside it); ``False``: reference."""
+def resolve_use_kernels(config: NeRFConfig, device: torch.device) -> bool:
+    """``True``: kernels (packing raises outside their envelope);
+    ``False``: reference. ``None``: kernels on a card, so an architecture
+    outside the envelope raises there rather than giving way to the
+    reference; on the CPU, kernels when the architecture fits."""
     if config.use_kernels is None:
+        if torch.device(device).type == "cuda":
+            return True
         return kernel_supported(config.mlp, config.pos_emb_xyz,
                                 config.pos_emb_dir)
     return config.use_kernels
@@ -197,7 +202,7 @@ def render_image_batch(coarse_params: Params, fine_params: Params, rays,
                          origin.device)
 
     outs_c, outs_f = [], []
-    if resolve_use_kernels(config):
+    if resolve_use_kernels(config, origin.device):
         packed_c = pack_mlp_params(coarse_params, config.mlp,
                                    config.pos_emb_xyz, config.pos_emb_dir)
         packed_f = pack_mlp_params(fine_params, config.mlp,

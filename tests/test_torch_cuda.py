@@ -14,6 +14,7 @@ another order), ray_march_quadrature 1e-4 (float32 scan order).
 import pytest
 import torch
 
+from keras_nerf_tpu_torch.inference import ORBIT, render_orbit
 from keras_nerf_tpu_torch.kernels import ray_march as trm
 from keras_nerf_tpu_torch.models import NeRF, NeRFConfig, init_mlp
 from keras_nerf_tpu_torch.ops import sorted_uniforms
@@ -106,14 +107,23 @@ def test_render_path_launches_every_kernel(cuda_device):
     nerf = NeRF(config=NeRFConfig(n_layers=8)).compile(
         image_height=64, image_width=64, ray_chunks=1024,
         white_background=True, device="cuda", seed=0)
-    from keras_nerf_tpu_torch.inference import render_orbit
 
     trm.reset_launch_counts()
-    images, depths = render_orbit(nerf, [0.0, 90.0], img_wh=64, fov=0.69,
-                                  phi=-30.0, z_translate=4.0, near=2.0,
-                                  far=6.0)
+    images, depths = render_orbit(nerf, [0.0, 90.0], img_wh=64, **ORBIT)
     chunks = 2 * 64 * 64 // 1024
     assert [k.launches for k in trm.KERNELS] == [chunks, 2 * chunks,
                                                  2 * chunks]
     assert images.shape == (2, 64, 64, 3)
     assert (images >= 0).all() and (images <= 1).all()
+
+
+def test_default_render_outside_the_kernel_envelope_raises(cuda_device):
+    # 128 units do not fit the kernels; the card never gives way to the
+    # float32 reference path unless use_kernels=False asks for it.
+    nerf = NeRF(config=NeRFConfig(n_layers=2, dense_units=128)).compile(
+        image_height=16, image_width=16, ray_chunks=256, device="cuda",
+        seed=0)
+    trm.reset_launch_counts()
+    with pytest.raises(ValueError, match="kernels require"):
+        render_orbit(nerf, [0.0], img_wh=16, **ORBIT)
+    assert [k.launches for k in trm.KERNELS] == [0, 0, 0]

@@ -1,6 +1,7 @@
 """Guards of the port: no JAX inside it, the card as the default device, and
 kernel wrappers that never launch (or count) on a CPU tensor."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -11,7 +12,12 @@ import torch
 from keras_nerf_tpu_torch import DEFAULT_DEVICE, resolve_device
 from keras_nerf_tpu_torch.kernels import KERNELS, _build
 from keras_nerf_tpu_torch.kernels import ray_march as trm
-from keras_nerf_tpu_torch.models import NeRF, NeRFConfig, init_mlp
+from keras_nerf_tpu_torch.models import (
+    NeRF,
+    NeRFConfig,
+    init_mlp,
+    resolve_use_kernels,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -79,6 +85,19 @@ def test_cpu_wrapper_calls_use_the_plain_version_and_count_nothing():
         trm.ray_march_mlp_plain(packed, base, slope, t, masks),
         rtol=0, atol=0)
     assert [k.launches for k in KERNELS] == [0, 0, 0]
+
+
+@pytest.mark.parametrize("units,device,want", [
+    (256, "cuda", True), (128, "cuda", True),
+    (256, "cpu", True), (128, "cpu", False)])
+def test_default_use_kernels_never_gives_way_on_a_card(units, device, want):
+    # 128 units lie outside the kernels' envelope: on a card the default
+    # still takes the kernel path, where packing raises.
+    cfg = NeRFConfig(n_layers=2, dense_units=units)
+    assert resolve_use_kernels(cfg, torch.device(device)) is want
+    for explicit in (True, False):
+        cfg = dataclasses.replace(cfg, use_kernels=explicit)
+        assert resolve_use_kernels(cfg, torch.device(device)) is explicit
 
 
 def test_wrappers_refuse_other_devices():

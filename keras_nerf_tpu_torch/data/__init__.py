@@ -1,5 +1,7 @@
-"""Camera poses and ray generation."""
+"""Scene data: Blender datasets, camera poses, ray generation and the
+synthetic scene fixture."""
 
+from keras_nerf_tpu_torch.data.loader import DatasetLoader, NeRFDataset
 from keras_nerf_tpu_torch.data.rays import (
     camera_plane_directions,
     generate_ray_batch,
@@ -7,5 +9,6 @@ from keras_nerf_tpu_torch.data.rays import (
 )
 from keras_nerf_tpu_torch.data.utils import get_focal_from_fov, pose_spherical
 
-__all__ = ["camera_plane_directions", "generate_ray_batch", "generate_rays",
-           "get_focal_from_fov", "pose_spherical"]
+__all__ = ["DatasetLoader", "NeRFDataset", "camera_plane_directions",
+           "generate_ray_batch", "generate_rays", "get_focal_from_fov",
+           "pose_spherical"]

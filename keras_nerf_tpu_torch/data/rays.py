@@ -15,9 +15,10 @@ from keras_nerf_tpu_torch.ops.sampling import stratified_sample_points
 
 
 def camera_plane_directions(image_height: int, image_width: int,
-                            focal: float, device="cpu",
+                            focal: float, device: torch.device | str,
                             dtype=torch.float32) -> torch.Tensor:
-    """``[H, W, 3]`` per-pixel camera-space vectors ``[x_c, -y_c, -1]``."""
+    """``[H, W, 3]`` per-pixel camera-space vectors ``[x_c, -y_c, -1]`` on
+    the caller's ``device``."""
     x = torch.arange(image_width, dtype=dtype, device=device)
     y = torch.arange(image_height, dtype=dtype, device=device)
     yy, xx = torch.meshgrid(y, x, indexing="ij")

@@ -122,7 +122,8 @@ def main(argv=None):
     nerf = NeRF(model_path=args.model_dirs)
     nerf.compile(batch_size=frame_batch, image_height=args.img_wh,
                  image_width=args.img_wh, ray_chunks=args.ray_chunks,
-                 white_background=args.white_bg, device=args.device)
+                 white_background=args.white_bg, is_training=False,
+                 device=args.device)
     images, depths = render_orbit(
         nerf, range(0, 360, args.output_freq), img_wh=args.img_wh,
         fov=args.fov, phi=args.phi, z_translate=args.z_translate,

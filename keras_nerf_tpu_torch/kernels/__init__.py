@@ -4,17 +4,23 @@ their plain PyTorch versions."""
 from keras_nerf_tpu_torch.kernels.ray_march import (
     KERNELS,
     fused_render_chunk,
+    fused_train_chunk,
     kernel_supported,
+    mlp_backward,
+    mlp_weight_grad,
     pack_mlp_params,
     ray_encoding_coeffs,
     ray_march_mlp,
     ray_march_quadrature,
     reset_launch_counts,
     sample_merge,
+    unpack_grads,
+    zero_grads,
 )
 
 __all__ = [
-    "KERNELS", "fused_render_chunk", "kernel_supported", "pack_mlp_params",
+    "KERNELS", "fused_render_chunk", "fused_train_chunk", "kernel_supported",
+    "mlp_backward", "mlp_weight_grad", "pack_mlp_params",
     "ray_encoding_coeffs", "ray_march_mlp", "ray_march_quadrature",
-    "reset_launch_counts", "sample_merge",
+    "reset_launch_counts", "sample_merge", "unpack_grads", "zero_grads",
 ]

@@ -133,10 +133,15 @@ def last_build() -> BuildResult | None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.knt_sample_merge.argtypes = [p, p, p, p, i, i, i, p]
-    lib.knt_sample_merge.restype = i
-    lib.knt_ray_march_mlp.argtypes = [p, p, p, p, p, p, i, i, i, p]
-    lib.knt_ray_march_mlp.restype = i
+    lib.knt_ray_march_mlp.argtypes = [p, p, p, p, p, p, i, i, i, p, p]
     lib.knt_ray_march_quadrature.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.knt_ray_march_quadrature.restype = i
+    lib.knt_ray_march_quadrature_grad.argtypes = [p] * 8 + [i, i, i, f, p]
+    lib.knt_mlp_backward.argtypes = [p, p, p, p, p, i, p]
+    lib.knt_mlp_weight_grad.argtypes = [p, i, i, i, p, p]
+    for fn in (lib.knt_sample_merge, lib.knt_ray_march_mlp,
+               lib.knt_ray_march_quadrature,
+               lib.knt_ray_march_quadrature_grad, lib.knt_mlp_backward,
+               lib.knt_mlp_weight_grad):
+        fn.restype = i

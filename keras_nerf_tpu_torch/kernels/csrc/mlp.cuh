@@ -1,0 +1,121 @@
+// The MLP's packed weights, its kept activations, and the tensor-core
+// helpers that ray_march_mlp.cu (forward) and mlp_backward.cu (dX chain)
+// share. Products are nvcuda::wmma 16x16x16 bf16 -> float32 fragments.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace knt {
+
+using bf16 = __nv_bfloat16;
+constexpr int kMaxLayers = 16;
+
+}  // namespace knt
+
+// Device pointers of the pack_mlp_params arrays (kernel layout, row-major
+// [fan_in, fan_out]); mirrored by a ctypes Structure in kernels/ray_march.py.
+struct MlpWeights {
+  const knt::bf16* trunk_w[knt::kMaxLayers];
+  const knt::bf16* trunk_enc_w[knt::kMaxLayers];  // null where a layer skips the encoding
+  const float* trunk_b[knt::kMaxLayers];
+  const knt::bf16* w_sf;      // [u, u + 128], sigma in column u
+  const knt::bf16* w_sf_enc;  // [128, u + 128] or null
+  const float* b_sf;          // [u + 128]
+  const knt::bf16* w_rf_top;  // [u, u / 2]
+  const knt::bf16* w_rf_enc;  // [128, u / 2]
+  const float* b_rf;          // [u / 2]
+  const knt::bf16* w_rgb;     // [u / 2, 128], rgb in columns 0..2
+  const float* b_rgb;         // [128]
+  int n_layers;
+  int units;
+};
+
+// The bf16 activations the train mode keeps for the backward, each a
+// row-major [points, width] array: enc [P, 128], h[i] [P, u], features
+// [P, u], rf [P, u / 2]. Mirrored in kernels/ray_march.py (_MlpStash).
+struct MlpStash {
+  knt::bf16* enc;
+  knt::bf16* h[knt::kMaxLayers];
+  knt::bf16* features;
+  knt::bf16* rf;
+};
+
+namespace knt {
+
+using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
+using AFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
+                                     nvcuda::wmma::row_major>;
+using BFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
+                                     nvcuda::wmma::row_major>;
+using BFragT = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
+                                      nvcuda::wmma::col_major>;
+
+// acc[m][f] += A[m*16.., 0..K) @ W[0..K, n0 + f*16..]; A in shared memory
+// (all 64 rows of a point tile), W row-major [K, ldw] in global memory.
+template <int NF>
+__device__ __forceinline__ void mma_rows(AccFrag (&acc)[4][NF], const bf16* A,
+                                         int lda, const bf16* W, int ldw,
+                                         int K, int n0) {
+  AFrag a[4];
+  BFrag b;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      nvcuda::wmma::load_matrix_sync(a[m], A + m * 16 * lda + k0, lda);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      nvcuda::wmma::load_matrix_sync(b, W + (size_t)k0 * ldw + n0 + f * 16, ldw);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) nvcuda::wmma::mma_sync(acc[m][f], a[m], b, acc[m][f]);
+    }
+  }
+}
+
+// acc[m][f] += A[m*16.., 0..K) @ W^T[0..K, n0 + f*16..] with W row-major
+// [N, ldw] in global memory: the dX products of the backward, which
+// contract a cotangent with the forward weight's fan_out axis.
+template <int NF>
+__device__ __forceinline__ void mma_rows_t(AccFrag (&acc)[4][NF], const bf16* A,
+                                           int lda, const bf16* W, int ldw,
+                                           int K, int n0) {
+  AFrag a[4];
+  BFragT b;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      nvcuda::wmma::load_matrix_sync(a[m], A + m * 16 * lda + k0, lda);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      nvcuda::wmma::load_matrix_sync(b, W + (size_t)(n0 + f * 16) * ldw + k0, ldw);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) nvcuda::wmma::mma_sync(acc[m][f], a[m], b, acc[m][f]);
+    }
+  }
+}
+
+template <int NF>
+__device__ __forceinline__ void zero(AccFrag (&acc)[4][NF]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int f = 0; f < NF; ++f) nvcuda::wmma::fill_fragment(acc[m][f], 0.f);
+}
+
+// Rows [0, rows) x columns [0, cols) of a bf16 shared-memory tile (row
+// stride lds) to global rows p0.. of a row-major [P, cols] array, 16 bytes
+// per thread and step. cols, lds and the row strides are multiples of 8.
+__device__ __forceinline__ void copy_tile_out(bf16* __restrict__ dst, int p0,
+                                              int rows, int cols, const bf16* src,
+                                              int lds) {
+  const int vec_per_row = cols / 8;
+  for (int v = threadIdx.x; v < rows * vec_per_row; v += blockDim.x) {
+    const int r = v / vec_per_row, c = (v % vec_per_row) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)(p0 + r) * cols + c) =
+        *reinterpret_cast<const uint4*>(src + r * lds + c);
+  }
+}
+
+}  // namespace knt

@@ -25,75 +25,26 @@
 // with nvcuda::wmma 16x16x16 bf16 -> f32; the accumulators go through a
 // per-warp float32 scratch for the bias/relu/bf16 epilogue. Not yet used:
 // wgmma, TMA and staged weight tiles in shared memory (later work).
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include "common.cuh"
+//
+// Train mode (a non-null MlpStash, full mode only): the forward of
+// fused_train_chunk(with_grad=True) (:1292-1294, keep_acts). As each bf16
+// tile is finished in shared memory (the encoding, every trunk layer, the
+// features, rf) the block also copies it, 16 bytes per thread, to the
+// stash in device memory, where mlp_backward and mlp_weight_grad read it:
+// 5,120 B written per point at 8 x 256 (1.5 ns at 3.35 TB/s), which makes
+// this mode bound by bytes beside its 1.19 MFLOP per point (1.2 ns). The
+// copies overlap the next layer's products, which read only shared memory.
+#include "mlp.cuh"
 
 using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+using namespace knt;
 
 namespace {
 
-constexpr int kMaxLayers = 16;
 constexpr int kTile = 64;      // points per block
 constexpr int kWarps = 8;
 constexpr int kEncLanes = 128;
 constexpr int kEncLd = kEncLanes + 8;  // padded row strides (bf16 elements)
-
-}  // namespace
-
-// Device pointers of the pack_mlp_params arrays (kernel layout, row-major
-// [fan_in, fan_out]); mirrored by a ctypes Structure in kernels/ray_march.py.
-struct MlpWeights {
-  const bf16* trunk_w[kMaxLayers];
-  const bf16* trunk_enc_w[kMaxLayers];  // null where a layer skips the encoding
-  const float* trunk_b[kMaxLayers];
-  const bf16* w_sf;      // [u, u + 128], sigma in column u
-  const bf16* w_sf_enc;  // [128, u + 128] or null
-  const float* b_sf;     // [u + 128]
-  const bf16* w_rf_top;  // [u, u / 2]
-  const bf16* w_rf_enc;  // [128, u / 2]
-  const float* b_rf;     // [u / 2]
-  const bf16* w_rgb;     // [u / 2, 128], rgb in columns 0..2
-  const float* b_rgb;    // [128]
-  int n_layers;
-  int units;
-};
-
-namespace {
-
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using AFrag = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using BFrag = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-
-// acc[m][f] += A[m*16.., 0..K) @ W[0..K, n0 + f*16..]; A in shared memory
-// (all 64 rows of the tile), W in global memory.
-template <int NF>
-__device__ __forceinline__ void mma_rows(AccFrag (&acc)[4][NF], const bf16* A,
-                                         int lda, const bf16* W, int ldw,
-                                         int K, int n0) {
-  AFrag a[4];
-  BFrag b;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) wmma::load_matrix_sync(a[m], A + m * 16 * lda + k0, lda);
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      wmma::load_matrix_sync(b, W + (size_t)k0 * ldw + n0 + f * 16, ldw);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) wmma::mma_sync(acc[m][f], a[m], b, acc[m][f]);
-    }
-  }
-}
-
-template <int NF>
-__device__ __forceinline__ void zero(AccFrag (&acc)[4][NF]) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[m][f], 0.f);
-}
 
 // out[:, n0..n0+NF*16) = bf16(act(acc + bias)), through the warp's scratch.
 template <int NF>
@@ -170,7 +121,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 mlp_kernel(const MlpWeights w, const float* __restrict__ base,
            const float* __restrict__ slope, const float* __restrict__ depths,
            const float* __restrict__ masks, float* __restrict__ out, int P,
-           int S) {
+           int S, const MlpStash stash) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int u = w.units, half = u / 2, act_ld = u + 8;
   bf16* enc = reinterpret_cast<bf16*>(smem);
@@ -183,6 +134,8 @@ mlp_kernel(const MlpWeights w, const float* __restrict__ base,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* scratch = scratch_all + warp * 256;
   const int p0 = blockIdx.x * kTile;
+  const bool train = stash.enc != nullptr;
+  const int rows = min(kTile, P - p0);
 
   // Positional encoding of the tile's points (ray_march.py:1259-1280).
   for (int idx = threadIdx.x; idx < kTile * kEncLanes; idx += blockDim.x) {
@@ -206,6 +159,7 @@ mlp_kernel(const MlpWeights w, const float* __restrict__ base,
     enc[pl * kEncLd + l] = __float2bfloat16_rn(v);
   }
   __syncthreads();
+  if (train) copy_tile_out(stash.enc, p0, rows, kEncLanes, enc, kEncLd);
 
   // Trunk (_forward_core :387-400).
   const bf16* h = enc;
@@ -216,6 +170,8 @@ mlp_kernel(const MlpWeights w, const float* __restrict__ base,
     dense_layer(h, h_ld, h_k, w.trunk_w[i], enc, w.trunk_enc_w[i], u,
                 w.trunk_b[i], true, dst, act_ld, scratch, warp, lane);
     __syncthreads();
+    // The next layer only reads dst, so the copy needs no barrier of its own.
+    if (train) copy_tile_out(stash.h[i], p0, rows, u, dst, act_ld);
     h = dst;
     h_ld = act_ld;
     h_k = u;
@@ -244,11 +200,13 @@ mlp_kernel(const MlpWeights w, const float* __restrict__ base,
     store_bf16(acc, scratch, w.b_sf, false, spare, act_ld, n0, lane);
   }
   __syncthreads();
+  if (train) copy_tile_out(stash.features, p0, rows, u, spare, act_ld);
   // rf = bf16(features @ w_rf_top + enc @ w_rf_enc + b_rf), no relu.
   bf16* rf = const_cast<bf16*>(h);
   dense_layer(spare, act_ld, u, w.w_rf_top, enc, w.w_rf_enc, half, w.b_rf,
               false, rf, act_ld, scratch, warp, lane);
   __syncthreads();
+  if (train) copy_tile_out(stash.rf, p0, rows, half, rf, act_ld);
   // rgb = sigmoid(rf @ w_rgb + b_rgb), columns 0..2.
   if (warp == 0) {
     head16(rf, act_ld, half, w.w_rgb, 128, nullptr, nullptr, 0, scratch, rgb, 3, lane);
@@ -274,17 +232,22 @@ size_t smem_bytes(int units) {
 }  // namespace
 
 // base, slope: [rays, 128]; depths: [rays, S]; masks: [3, 128] raw/sin/cos
-// lane selectors; out: [rays * S, 4] (r, g, b, sigma) or [rays * S] sigma.
+// lane selectors; out: [rays * S, 4] (r, g, b, sigma) or [rays * S] sigma;
+// stash: null, or (full mode only) the arrays of the train mode.
 KNT_EXPORT int knt_ray_march_mlp(const MlpWeights* w, const float* base,
                                  const float* slope, const float* depths,
                                  const float* masks, float* out, int rays,
-                                 int S, int sigma_only, void* stream) {
+                                 int S, int sigma_only, const MlpStash* stash,
+                                 void* stream) {
   const long long points = (long long)rays * S;
   if (points <= 0) return 0;
   if (w->n_layers < 1 || w->n_layers > kMaxLayers || w->units % 256 != 0 ||
       points > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  if (stash != nullptr && sigma_only) return (int)cudaErrorInvalidValue;
   const int P = (int)points;
+  MlpStash kept = {};
+  if (stash != nullptr) kept = *stash;
   const size_t smem = smem_bytes(w->units);
   const int blocks = (P + kTile - 1) / kTile;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -294,13 +257,13 @@ KNT_EXPORT int knt_ray_march_mlp(const MlpWeights* w, const float* base,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     mlp_kernel<true><<<blocks, kWarps * 32, smem, st>>>(*w, base, slope, depths,
-                                                        masks, out, P, S);
+                                                        masks, out, P, S, kept);
   } else {
     err = cudaFuncSetAttribute(mlp_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     mlp_kernel<false><<<blocks, kWarps * 32, smem, st>>>(*w, base, slope, depths,
-                                                         masks, out, P, S);
+                                                         masks, out, P, S, kept);
   }
   return (int)cudaGetLastError();
 }

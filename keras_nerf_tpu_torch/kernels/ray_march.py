@@ -1,21 +1,29 @@
-"""The ray-march kernels of the render path, for the H100, and their plain
-PyTorch versions (port of ``keras_nerf_tpu/kernels/ray_march.py``).
+"""The ray-march kernels, for the H100, and their plain PyTorch versions
+(port of ``keras_nerf_tpu/kernels/ray_march.py``).
 
-The TPU's ``fused_train_chunk`` runs sampling, encoding, MLP and quadrature
-in one Pallas kernel per ray tile, with every activation in VMEM (a fine
-tile holds ~24 MB). An H100 SM has 227 KB of shared memory, so the port
-splits the no-grad pass into three CUDA kernels (``csrc/``), one library:
+The TPU's ``fused_train_chunk`` runs sampling, encoding, MLP, quadrature
+and (for training) the loss cotangent and the whole backward in one Pallas
+kernel per ray tile, with every activation in VMEM (a fine tile holds
+~24 MB) and the weight gradients summed over a grid that runs in order. An
+H100 SM has 227 KB of shared memory and runs its blocks in no order, so the
+port splits the pass into CUDA kernels (``csrc/``), one library:
 
 * :data:`sample_merge` — inverse CDF of the coarse weights and the rank
   merge with the coarse depths (the fine pass's prologue, ``s_m = -1``);
 * :data:`ray_march_mlp` — positional encoding and the MLP per point, bf16
   tensor-core products with float32 accumulation, ``(r, g, b, sigma)`` or
-  sigma alone out;
-* :data:`ray_march_quadrature` — transmittance, weights, image, depth.
+  sigma alone out; in its train mode it also keeps every bf16 activation;
+* :data:`ray_march_quadrature` — transmittance, weights, image, depth; with
+  a target, also the head cotangents of the chunk's MSE;
+* :data:`mlp_backward` — the dX chain of the MLP's backward per point;
+* :data:`mlp_weight_grad` — dW and db of every packed array, summed over
+  the chunk's points in a fixed order.
 
-The split costs one float32 ``[R, S, 4]`` round trip through device memory
-(16 B per point, ~13 MB per fine chunk), which is small beside the MLP's
-~1.2 MFLOP per point, and keeps each kernel simple.
+The render split costs one float32 ``[R, S, 4]`` round trip through device
+memory (16 B per point), small beside the MLP's ~1.2 MFLOP per point. The
+training split keeps the activations and cotangents in device memory,
+~10 KB per point at 8 x 256 (:func:`alloc_stash`,
+:func:`alloc_cotangents`).
 
 Each kernel is reached through a :class:`KernelWrapper`: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version, and
@@ -41,6 +49,7 @@ from keras_nerf_tpu_torch.ops.encoding import (
 )
 
 LANE = 128
+D_HEAD = 16        # head cotangent columns: rgb 0..2 (sigma after features)
 ENC_XYZ_OFF = 0    # xyz encoding block occupies lanes [0, 64)
 ENC_DIR_OFF = 64   # dir encoding block occupies lanes [64, 128)
 MAX_LAYERS = 16    # csrc/ray_march_mlp.cu: kMaxLayers
@@ -248,20 +257,53 @@ def encode_points(base: torch.Tensor, slope: torch.Tensor,
     return enc.to(torch.bfloat16)
 
 
+def _bf16_blocks(points: int, widths: list, device) -> list:
+    """Contiguous bf16 ``[points, w]`` blocks of one allocation."""
+    buf = torch.empty(points * sum(widths), dtype=torch.bfloat16,
+                      device=device)
+    views, off = [], 0
+    for w in widths:
+        views.append(buf[off:off + points * w].view(points, w))
+        off += points * w
+    return views
+
+
+def alloc_stash(points: int, units: int, n_layers: int,
+                device: torch.device) -> dict:
+    """The bf16 activations that ``ray_march_mlp`` keeps for the backward
+    in its train mode, ``[P, width]`` blocks of one allocation:
+    ``enc [P, 128]``, ``h`` (one ``[P, u]`` per trunk layer),
+    ``features [P, u]``, ``rf [P, u / 2]`` — 5,120 B per point at 8 x 256."""
+    views = _bf16_blocks(points, [LANE] + [units] * n_layers
+                         + [units, units // 2], device)
+    return {"enc": views[0], "h": views[1:1 + n_layers],
+            "features": views[-2], "rf": views[-1]}
+
+
 def ray_march_mlp_plain(packed: dict, base: torch.Tensor, slope: torch.Tensor,
                         depths: torch.Tensor, masks: torch.Tensor,
-                        sigma_only: bool = False) -> torch.Tensor:
+                        sigma_only: bool = False,
+                        stash: dict | None = None) -> torch.Tensor:
     """Plain version of the ``ray_march_mlp`` kernel: ``[R*S, 4]``
-    (sigmoid rgb, relu sigma) or ``[R*S]`` sigma (`_forward_core`)."""
+    (sigmoid rgb, relu sigma) or ``[R*S]`` sigma (`_forward_core`). With
+    ``stash`` (:func:`alloc_stash`, full mode only) it also stores every
+    bf16 activation there: the train mode."""
     u = packed["trunk_b"][0].shape[1]
     enc = encode_points(base, slope, depths, masks).reshape(-1, LANE)
+    if stash is not None:
+        if sigma_only:
+            raise ValueError("the train mode (stash) runs the full MLP")
+        stash["enc"].copy_(enc)
     h = enc
-    for w, w_enc, b in zip(packed["trunk_w"], packed["trunk_enc_w"],
-                           packed["trunk_b"]):
+    for i, (w, w_enc, b) in enumerate(zip(packed["trunk_w"],
+                                          packed["trunk_enc_w"],
+                                          packed["trunk_b"])):
         acc = _bf16_mm(h, w)
         if w_enc is not None:
             acc = acc + _bf16_mm(enc, w_enc)
         h = torch.relu(acc + b).to(torch.bfloat16)
+        if stash is not None:
+            stash["h"][i].copy_(h)
     w_sf, w_sf_enc, b_sf = packed["w_sf"], packed["w_sf_enc"], packed["b_sf"]
     if sigma_only:
         sig = _bf16_mm(h, w_sf[:, u:u + 1])
@@ -277,6 +319,9 @@ def ray_march_mlp_plain(packed: dict, base: torch.Tensor, slope: torch.Tensor,
     rf = (_bf16_mm(features, packed["w_rf_top"])
           + _bf16_mm(enc, packed["w_rf_enc"]) + packed["b_rf"]
           ).to(torch.bfloat16)
+    if stash is not None:
+        stash["features"].copy_(features)
+        stash["rf"].copy_(rf)
     rgb = torch.sigmoid(_bf16_mm(rf, packed["w_rgb"][:, :3])
                         + packed["b_rgb"][:, :3])
     return torch.cat([rgb, sigma[:, None]], dim=1)
@@ -285,13 +330,25 @@ def ray_march_mlp_plain(packed: dict, base: torch.Tensor, slope: torch.Tensor,
 def ray_march_quadrature_plain(rgbs: torch.Tensor, t: torch.Tensor,
                                white_background: bool = False,
                                sigma_only: bool = False,
-                               emit_weights: bool = True):
+                               emit_weights: bool = True,
+                               target: torch.Tensor | None = None,
+                               loss_scale: float = 0.0):
     """Plain version of the ``ray_march_quadrature`` kernel
     (`_quadrature_fwd`, `_depth_lane3`): ``rgbs [R, S, 4]`` (or sigma
     ``[R, S]`` when ``sigma_only``), ``t [R, S]`` -> ``(image [R, 3],
     depth [R], weights [R, S] or None)``. Transmittance is
     ``exp(-exclusive cumsum(sigma delta))`` in float32; the last delta is
-    1e-10. In sigma-only mode the image is zeros."""
+    1e-10. In sigma-only mode the image is zeros.
+
+    With ``target [R, 3]`` (the ``with_grad`` mode, full only) it also
+    returns the head cotangents of ``loss_scale * sum((image - target)^2)
+    / 2`` — with ``loss_scale = 2 / (3 R_chunk)`` the gradient of the
+    chunk's MSE (`:1345-1349`) — through `_quadrature_bwd` (`:1158`):
+    ``d_rgb [R*S, 16]`` bf16, ``bf16(g_rgb rgb (1 - rgb))`` in columns 0..2
+    and zeros after, and ``d_sigma [R*S]`` bf16, ``bf16(delta dL/dx
+    [sigma > 0])`` with ``dL/dx_s = e_s T_s d_w_s - sum_{j>s} w_j d_w_j``.
+    The clip's subgradient is 1 inside (0, 1), 0.5 at exactly 0 or 1, 0
+    outside, as XLA's autodiff takes it."""
     r, s = t.shape
     sigma = rgbs if sigma_only else rgbs[..., 3]
     delta = torch.cat([t[:, 1:] - t[:, :-1],
@@ -299,16 +356,128 @@ def ray_march_quadrature_plain(rgbs: torch.Tensor, t: torch.Tensor,
     x = sigma * delta
     excl = torch.cat([torch.zeros_like(x[:, :1]),
                       torch.cumsum(x[:, :-1], dim=1)], dim=1)
-    weights = (1.0 - torch.exp(-x)) * torch.exp(-excl)
+    e, trans = torch.exp(-x), torch.exp(-excl)
+    weights = (1.0 - e) * trans
     depth = (weights * t).sum(dim=1)
     if sigma_only:
         image = torch.zeros((r, 3), dtype=t.dtype, device=t.device)
+        pre_clip = image
     else:
-        image = (weights[..., None] * rgbs[..., :3]).sum(dim=1)
+        pre_clip = (weights[..., None] * rgbs[..., :3]).sum(dim=1)
         if white_background:
-            image = image + (1.0 - weights.sum(dim=1))[:, None]
-        image = torch.clamp(image, 0.0, 1.0)
-    return image, depth, (weights if emit_weights else None)
+            pre_clip = pre_clip + (1.0 - weights.sum(dim=1))[:, None]
+        image = torch.clamp(pre_clip, 0.0, 1.0)
+    out = (image, depth, (weights if emit_weights else None))
+    if target is None:
+        return out
+    if sigma_only:
+        raise ValueError("the with_grad mode needs the colour: not "
+                         "sigma_only")
+    rgb = rgbs[..., :3]
+    d_image = (image - target) * _f32(loss_scale)
+    inside = (pre_clip > 0.0) & (pre_clip < 1.0)
+    boundary = (pre_clip == 0.0) | (pre_clip == 1.0)
+    d_pre = torch.where(inside, d_image,
+                        torch.where(boundary, 0.5 * d_image,
+                                    torch.zeros_like(d_image)))
+    d_w = (rgb * d_pre[:, None, :]).sum(dim=-1)
+    if white_background:
+        d_w = d_w - d_pre.sum(dim=-1)[:, None]
+    v = weights * d_w
+    incl_suffix = torch.flip(torch.cumsum(torch.flip(v, [1]), dim=1), [1])
+    suffix = torch.cat([incl_suffix[:, 1:], torch.zeros_like(v[:, :1])],
+                       dim=1)
+    d_x = e * trans * d_w - suffix
+    d_sigma = torch.where(sigma > 0.0, d_x * delta, torch.zeros_like(d_x))
+    g_rgb = weights[..., None] * d_pre[:, None, :]
+    d_rgb = torch.zeros((r * s, D_HEAD), dtype=torch.bfloat16,
+                        device=t.device)
+    d_rgb[:, :3] = (g_rgb * rgb * (1.0 - rgb)).reshape(r * s, 3)
+    return (*out, d_rgb, d_sigma.reshape(r * s).to(torch.bfloat16))
+
+
+def alloc_cotangents(points: int, units: int, n_layers: int,
+                     device: torch.device) -> dict:
+    """The bf16 cotangents ``mlp_backward`` writes for ``mlp_weight_grad``,
+    ``[P, width]`` blocks of one allocation: ``d_rf [P, u/2]``,
+    ``d_sf [P, u + 16]`` (``d_features`` in columns ``:u``, ``d_sigma_pre``
+    in column ``u``, zeros after) and ``d_pre`` (one ``[P, u]`` per trunk
+    layer) — 4,896 B per point at 8 x 256. ``mlp_backward`` adds the
+    quadrature's ``d_rgb [P, 16]`` under its name."""
+    views = _bf16_blocks(points, [units // 2, units + D_HEAD]
+                         + [units] * n_layers, device)
+    return {"d_rf": views[0], "d_sf": views[1], "d_pre": views[2:]}
+
+
+def mlp_backward_plain(d_rgb: torch.Tensor, d_sigma: torch.Tensor,
+                       packed: dict, stash: dict,
+                       cots: dict | None = None) -> dict:
+    """Plain version of the ``mlp_backward`` kernel: the dX chain of
+    `_backward_core` (`:804-872`) from the head cotangents of
+    ``ray_march_quadrature``'s with_grad mode. bf16 operands, float32
+    products; ``d_rf``, ``d_features`` and each trunk layer's
+    ``d_pre_i = bf16(d_h [h_i > 0])`` are rounded to bf16, ``d_h`` stays
+    float32 between them. Writes (and returns) :func:`alloc_cotangents`."""
+    p = d_rgb.shape[0]
+    u = packed["trunk_b"][0].shape[1]
+    n = len(packed["trunk_w"])
+    if cots is None:
+        cots = alloc_cotangents(p, u, n, d_rgb.device)
+    d_rf = _bf16_mm(d_rgb, packed["w_rgb"][:, :D_HEAD].T).to(torch.bfloat16)
+    d_features = _bf16_mm(d_rf, packed["w_rf_top"].T).to(torch.bfloat16)
+    d_sf = torch.zeros((p, u + D_HEAD), dtype=torch.bfloat16,
+                       device=d_rgb.device)
+    d_sf[:, :u] = d_features
+    d_sf[:, u] = d_sigma
+    cots["d_rgb"] = d_rgb
+    cots["d_rf"].copy_(d_rf)
+    cots["d_sf"].copy_(d_sf)
+    d_h = _bf16_mm(d_sf, packed["w_sf"][:, :u + D_HEAD].T)
+    for i in reversed(range(n)):
+        h = stash["h"][i]
+        d_pre = torch.where(h > 0, d_h, torch.zeros_like(d_h)).to(
+            torch.bfloat16)
+        cots["d_pre"][i].copy_(d_pre)
+        if i > 0:
+            d_h = _bf16_mm(d_pre, packed["trunk_w"][i].T)
+    return cots
+
+
+def weight_grad_tasks(stash: dict, cots: dict, grads: dict):
+    """``(A, G, out, bias_out)`` per packed weight array: ``out[:K, :N] +=
+    A^T G`` and ``bias_out[0, :N] += sum_p G`` over the points, with ``A
+    [P, K]`` and ``G [P, N]`` bf16 (`_backward_core`'s ``dW``/``rowsum``,
+    summed over the chunk as `_acc_out` (`:500`) does over the grid)."""
+    tasks = []
+    for i, (w, w_enc, b) in enumerate(zip(grads["trunk_w"],
+                                          grads["trunk_enc_w"],
+                                          grads["trunk_b"])):
+        a_in = stash["enc"] if i == 0 else stash["h"][i - 1]
+        tasks.append((a_in, cots["d_pre"][i], w, b))
+        if w_enc is not None:
+            tasks.append((stash["enc"], cots["d_pre"][i], w_enc, None))
+    tasks.append((stash["h"][-1], cots["d_sf"], grads["w_sf"], grads["b_sf"]))
+    if grads["w_sf_enc"] is not None:
+        tasks.append((stash["enc"], cots["d_sf"], grads["w_sf_enc"], None))
+    tasks.append((stash["features"], cots["d_rf"], grads["w_rf_top"],
+                  grads["b_rf"]))
+    tasks.append((stash["enc"], cots["d_rf"], grads["w_rf_enc"], None))
+    tasks.append((stash["rf"], cots["d_rgb"], grads["w_rgb"], grads["b_rgb"]))
+    return tasks
+
+
+def mlp_weight_grad_plain(stash: dict, cots: dict, grads: dict) -> dict:
+    """Plain version of the ``mlp_weight_grad`` kernel: adds ``dW = A^T G``
+    (float32 products of the bf16 operands) and ``db = sum G`` of every
+    packed array into the float32 accumulators ``grads`` (the packed
+    layout of :func:`pack_mlp_params`), and returns them."""
+    for a, g, out, bias in weight_grad_tasks(stash, cots, grads):
+        n = g.shape[1]
+        g32 = g.to(torch.float32)
+        out[:, :n] += a.to(torch.float32).T @ g32
+        if bias is not None:
+            bias[0, :n] += g32.sum(dim=0)
+    return grads
 
 
 def sample_merge_plain(cp: torch.Tensor, w: torch.Tensor,
@@ -463,8 +632,65 @@ def _mlp_struct(packed: dict, device: torch.device) -> _MlpWeights:
     return s
 
 
+class _MlpStash(ctypes.Structure):
+    """Mirror of ``struct MlpStash`` in csrc/common.cuh."""
+
+    _fields_ = [
+        ("enc", ctypes.c_void_p),
+        ("h", ctypes.c_void_p * MAX_LAYERS),
+        ("features", ctypes.c_void_p),
+        ("rf", ctypes.c_void_p),
+    ]
+
+
+class _MlpCotangents(ctypes.Structure):
+    """Mirror of ``struct MlpCotangents`` in csrc/mlp_backward.cu."""
+
+    _fields_ = [
+        ("d_rf", ctypes.c_void_p),
+        ("d_sf", ctypes.c_void_p),
+        ("d_pre", ctypes.c_void_p * MAX_LAYERS),
+    ]
+
+
+class _WgTask(ctypes.Structure):
+    """Mirror of ``struct WgTask`` in csrc/mlp_weight_grad.cu."""
+
+    _fields_ = [
+        ("a", ctypes.c_void_p),
+        ("g", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("bias_out", ctypes.c_void_p),
+        ("k", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("ldo", ctypes.c_int),
+        ("poff", ctypes.c_int),
+        ("bpoff", ctypes.c_int),
+    ]
+
+
+MAX_WG_TASKS = 40  # csrc/mlp_weight_grad.cu: kMaxTasks
+
+
+def _stash_struct(stash: dict, points: int, units: int, n_layers: int,
+                  device: torch.device) -> _MlpStash:
+    bf16 = torch.bfloat16
+    s = _MlpStash()
+    s.enc = _check(stash["enc"], "stash enc", bf16, device, (points, LANE))
+    if len(stash["h"]) != n_layers:
+        raise ValueError(f"stash holds {len(stash['h'])} trunk activations "
+                         f"for {n_layers} layers")
+    for i, h in enumerate(stash["h"]):
+        s.h[i] = _check(h, f"stash h[{i}]", bf16, device, (points, units))
+    s.features = _check(stash["features"], "stash features", bf16, device,
+                        (points, units))
+    s.rf = _check(stash["rf"], "stash rf", bf16, device,
+                  (points, units // 2))
+    return s
+
+
 def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
-                        sigma_only=False):
+                        sigma_only=False, stash=None):
     from keras_nerf_tpu_torch.kernels._build import load
 
     lib = load()
@@ -472,6 +698,12 @@ def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
     r, s = depths.shape
     f32 = torch.float32
     weights = _mlp_struct(packed, dev)
+    stash_s = None
+    if stash is not None:
+        if sigma_only:
+            raise ValueError("the train mode (stash) runs the full MLP")
+        stash_s = _stash_struct(stash, r * s, weights.units, weights.n_layers,
+                                dev)
     shape = (r * s,) if sigma_only else (r * s, 4)
     out = torch.empty(shape, dtype=f32, device=dev)
     with torch.cuda.device(dev):
@@ -481,12 +713,15 @@ def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
             _check(slope, "slope", f32, dev, (r, LANE)),
             _check(depths, "depths", f32, dev),
             _check(masks, "masks", f32, dev, (3, LANE)), out.data_ptr(), r, s,
-            int(sigma_only), _stream(dev)), "ray_march_mlp")
+            int(sigma_only),
+            None if stash_s is None else ctypes.addressof(stash_s),
+            _stream(dev)), "ray_march_mlp")
     return out
 
 
 def _ray_march_quadrature_cuda(rgbs, t, white_background=False,
-                               sigma_only=False, emit_weights=True):
+                               sigma_only=False, emit_weights=True,
+                               target=None, loss_scale=0.0):
     from keras_nerf_tpu_torch.kernels._build import load
 
     lib = load()
@@ -497,15 +732,121 @@ def _ray_march_quadrature_cuda(rgbs, t, white_background=False,
     depth = torch.empty((r,), dtype=f32, device=dev)
     weights = (torch.empty((r, s), dtype=f32, device=dev) if emit_weights
                else None)
+    w_ptr = None if weights is None else weights.data_ptr()
     rgbs_shape = (r, s) if sigma_only else (r, s, 4)
+    if target is None:
+        with torch.cuda.device(dev):
+            _raise_on(lib.knt_ray_march_quadrature(
+                _check(rgbs, "rgbs", f32, dev, rgbs_shape),
+                _check(t, "t", f32, dev), image.data_ptr(), depth.data_ptr(),
+                w_ptr, r, s, int(white_background), int(sigma_only),
+                _stream(dev)), "ray_march_quadrature")
+        return image, depth, weights
+    if sigma_only:
+        raise ValueError("the with_grad mode needs the colour: not "
+                         "sigma_only")
+    if s > 32 * 32:
+        raise ValueError(f"ray_march_quadrature's with_grad mode takes at "
+                         f"most 1024 samples per ray (got {s})")
+    d_rgb = torch.empty((r * s, D_HEAD), dtype=torch.bfloat16, device=dev)
+    d_sigma = torch.empty((r * s,), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        _raise_on(lib.knt_ray_march_quadrature(
+        _raise_on(lib.knt_ray_march_quadrature_grad(
             _check(rgbs, "rgbs", f32, dev, rgbs_shape),
-            _check(t, "t", f32, dev), image.data_ptr(), depth.data_ptr(),
-            None if weights is None else weights.data_ptr(), r, s,
-            int(white_background), int(sigma_only), _stream(dev)),
-            "ray_march_quadrature")
-    return image, depth, weights
+            _check(t, "t", f32, dev), _check(target, "target", f32, dev,
+                                             (r, 3)),
+            image.data_ptr(), depth.data_ptr(), w_ptr, d_rgb.data_ptr(),
+            d_sigma.data_ptr(), r, s, int(white_background),
+            _f32(loss_scale), _stream(dev)), "ray_march_quadrature")
+    return image, depth, weights, d_rgb, d_sigma
+
+
+def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None):
+    from keras_nerf_tpu_torch.kernels._build import load
+
+    lib = load()
+    dev = d_rgb.device
+    p = d_rgb.shape[0]
+    weights = _mlp_struct(packed, dev)
+    u, n = weights.units, weights.n_layers
+    stash_s = _stash_struct(stash, p, u, n, dev)
+    if cots is None:
+        cots = alloc_cotangents(p, u, n, dev)
+    bf16 = torch.bfloat16
+    ct = _MlpCotangents()
+    ct.d_rf = _check(cots["d_rf"], "d_rf", bf16, dev, (p, u // 2))
+    ct.d_sf = _check(cots["d_sf"], "d_sf", bf16, dev, (p, u + D_HEAD))
+    for i in range(n):
+        ct.d_pre[i] = _check(cots["d_pre"][i], f"d_pre[{i}]", bf16, dev,
+                             (p, u))
+    with torch.cuda.device(dev):
+        _raise_on(lib.knt_mlp_backward(
+            ctypes.addressof(weights),
+            _check(d_rgb, "d_rgb", bf16, dev, (p, D_HEAD)),
+            _check(d_sigma, "d_sigma", bf16, dev, (p,)),
+            ctypes.addressof(stash_s), ctypes.addressof(ct), p,
+            _stream(dev)), "mlp_backward")
+    cots["d_rgb"] = d_rgb
+    return cots
+
+
+def weight_grad_slices(points: int) -> int:
+    """Slices of the point axis that ``mlp_weight_grad`` sums separately
+    (then adds in order): a function of the point count alone, so one
+    input always gives one result, bit for bit."""
+    return max(1, min(32, points // 8192))
+
+
+def _mlp_weight_grad_cuda(stash, cots, grads):
+    from keras_nerf_tpu_torch.kernels._build import load
+
+    lib = load()
+    tasks = weight_grad_tasks(stash, cots, grads)
+    if len(tasks) > MAX_WG_TASKS:
+        raise ValueError(f"mlp_weight_grad takes at most {MAX_WG_TASKS} "
+                         f"weight arrays (got {len(tasks)})")
+    dev = stash["enc"].device
+    p = stash["enc"].shape[0]
+    slices = weight_grad_slices(p)
+    bf16, f32 = torch.bfloat16, torch.float32
+    table = (_WgTask * len(tasks))()
+    off = 0
+    for j, (a, g, out, bias) in enumerate(tasks):
+        k, n = a.shape[1], g.shape[1]
+        if k % 16 or n % 16 or out.shape[0] != k or out.shape[1] < n:
+            raise ValueError(f"mlp_weight_grad task {j}: A [P, {k}], G "
+                             f"[P, {n}] and out {tuple(out.shape)} do not "
+                             f"fit [K, >= N] with K, N multiples of 16")
+        t = table[j]
+        t.a = _check(a, f"A[{j}]", bf16, dev, (p, k))
+        t.g = _check(g, f"G[{j}]", bf16, dev, (p, n))
+        t.out = _check(out, f"out[{j}]", f32, dev)
+        t.bias_out = (None if bias is None else
+                      _check(bias, f"bias_out[{j}]", f32, dev,
+                             (1, out.shape[1])))
+        t.k, t.n, t.ldo = k, n, out.shape[1]
+        t.poff, t.bpoff = off, off + slices * k * n
+        off += slices * (k * n + (n if bias is not None else 0))
+    if off >= 2 ** 31:
+        raise ValueError("mlp_weight_grad: partial sums exceed 2^31 floats")
+    partial = torch.empty((off,), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        _raise_on(lib.knt_mlp_weight_grad(
+            ctypes.addressof(table), len(tasks), p, slices,
+            partial.data_ptr(), _stream(dev)), "mlp_weight_grad")
+    return grads
+
+
+def _first_tensor(x):
+    if isinstance(x, torch.Tensor):
+        return x
+    items = x.values() if isinstance(x, dict) else (
+        x if isinstance(x, (list, tuple)) else ())
+    for item in items:
+        found = _first_tensor(item)
+        if found is not None:
+            return found
+    return None
 
 
 class KernelWrapper:
@@ -523,7 +864,7 @@ class KernelWrapper:
         self.launches = 0
 
     def __call__(self, *args, **kwargs):
-        device = next(a.device for a in args if isinstance(a, torch.Tensor))
+        device = _first_tensor(args).device
         if device.type == "cpu":
             return self.plain(*args, **kwargs)
         if device.type != "cuda":
@@ -541,8 +882,9 @@ _TPU = "keras_nerf_tpu/kernels/ray_march.py"
 
 # Each kernel replaces one part of the TPU's fused_train_chunk (:1384), named
 # by the line of that part: _sample_merge_prologue, _forward_core (with the
-# in-kernel encoding at :1259) and _quadrature_fwd (with the sigma_only
-# epilogue at :1296).
+# in-kernel encoding at :1259), _quadrature_fwd (with the sigma_only
+# epilogue at :1296 and, with a target, _quadrature_bwd at :1158),
+# _backward_core's dX chain and its dW sums (_acc_out).
 sample_merge = KernelWrapper(
     "sample_merge", sample_merge_plain, _sample_merge_cuda,
     _CSRC + "sample_merge.cu", _TPU + ":987")
@@ -553,8 +895,15 @@ ray_march_quadrature = KernelWrapper(
     "ray_march_quadrature", ray_march_quadrature_plain,
     _ray_march_quadrature_cuda, _CSRC + "ray_march_quadrature.cu",
     _TPU + ":1102")
+mlp_backward = KernelWrapper(
+    "mlp_backward", mlp_backward_plain, _mlp_backward_cuda,
+    _CSRC + "mlp_backward.cu", _TPU + ":804")
+mlp_weight_grad = KernelWrapper(
+    "mlp_weight_grad", mlp_weight_grad_plain, _mlp_weight_grad_cuda,
+    _CSRC + "mlp_weight_grad.cu", _TPU + ":500")
 
-KERNELS = (sample_merge, ray_march_mlp, ray_march_quadrature)
+KERNELS = (sample_merge, ray_march_mlp, ray_march_quadrature, mlp_backward,
+           mlp_weight_grad)
 
 
 def reset_launch_counts() -> None:
@@ -586,12 +935,7 @@ def fused_render_chunk(packed: dict, origin: torch.Tensor,
     if sigma_only and not emit_weights:
         raise ValueError("sigma_only is the coarse render pass: it emits "
                          "weights")
-    if sample_inputs is not None:
-        if points is not None:
-            raise ValueError("pass points or sample_inputs, not both")
-        cp, wc, u = (x.to(torch.float32).contiguous() for x in sample_inputs)
-        points = sample_merge(cp, wc, u)
-    points = points.to(torch.float32).contiguous()
+    points = _pass_points(points, sample_inputs)
     base, slope, masks = ray_encoding_coeffs(origin, direction, pos_emb_xyz,
                                              pos_emb_dir)
     rgbs = ray_march_mlp(packed, base, slope, points, masks,
@@ -602,6 +946,162 @@ def fused_render_chunk(packed: dict, origin: torch.Tensor,
                                 white_background=white_background,
                                 sigma_only=sigma_only,
                                 emit_weights=emit_weights)
+
+
+def _pass_points(points, sample_inputs):
+    if sample_inputs is not None:
+        if points is not None:
+            raise ValueError("pass points or sample_inputs, not both")
+        cp, wc, u = (x.to(torch.float32).contiguous() for x in sample_inputs)
+        points = sample_merge(cp, wc, u)
+    return points.to(torch.float32).contiguous()
+
+
+def zero_grads(packed: dict) -> dict:
+    """Float32 zeros in the layout of :func:`pack_mlp_params` (None where
+    the packed dict has None): the accumulators of the packed gradient."""
+    def z(x):
+        return None if x is None else torch.zeros(
+            x.shape, dtype=torch.float32, device=x.device)
+    return {k: [z(x) for x in v] if isinstance(v, list) else z(v)
+            for k, v in packed.items()}
+
+
+# Sub-launch size of the training kernels: at 8 x 256 the stash and the
+# cotangents take ~10 KB per point, so a 16384-ray fine chunk (3.1 M points,
+# 31 GB) runs as three launches of about 1 M points each (10 GB).
+MAX_TRAIN_POINTS = 1 << 20
+
+
+def train_sub_launches(rays: int, samples: int) -> list[tuple]:
+    """``(r0, r1)`` ray ranges of the training sub-launches: the fewest
+    that keep each near :data:`MAX_TRAIN_POINTS` points, split evenly."""
+    n = max(1, -(-rays * samples // MAX_TRAIN_POINTS))
+    step = -(-rays // n)
+    return [(r0, min(rays, r0 + step)) for r0 in range(0, rays, step)]
+
+
+def fused_train_chunk(packed: dict, origin: torch.Tensor,
+                      direction: torch.Tensor, points: torch.Tensor | None,
+                      target: torch.Tensor, pos_emb_xyz: int = 10,
+                      pos_emb_dir: int = 4, white_background: bool = False,
+                      emit_weights: bool = True,
+                      sample_inputs: tuple | None = None,
+                      grads: dict | None = None):
+    """One model's pass over a ray chunk through the kernels, with the
+    packed gradient of the chunk's MSE: the port of the TPU's
+    ``fused_train_chunk(with_grad=True)`` (`ray_march.py:1384`); its
+    no-grad modes are :func:`fused_render_chunk`.
+
+    For each sub-launch of whole rays (:func:`train_sub_launches`), in
+    order:
+    :data:`ray_march_mlp` in its train mode (forward, every bf16 activation
+    kept), :data:`ray_march_quadrature` with the target (image, depth,
+    weights and the head cotangents of the loss), :data:`mlp_backward` (the
+    dX chain) and :data:`mlp_weight_grad` (dW and db, added into
+    ``grads``). The fine pass's :data:`sample_merge` runs once over the
+    chunk first.
+
+    Args:
+      packed: :func:`pack_mlp_params` output.
+      origin/direction: ``[R, 3]`` float32; ``target [R, 3]`` float32.
+      points / sample_inputs: as in :func:`fused_render_chunk`.
+      grads: float32 accumulators (:func:`zero_grads`) to add this chunk's
+        gradient into; new zeros when None.
+
+    Returns ``(image [R, 3], depth [R], weights [R, S] or None, grads)``:
+    ``grads`` holds (plus what it held) the packed gradient of
+    ``mean((clip(image) - target)^2)`` over the chunk (`:1345-1362`).
+    """
+    if target is None:
+        raise ValueError("fused_train_chunk needs the target colours")
+    points = _pass_points(points, sample_inputs)
+    base, slope, masks = ray_encoding_coeffs(origin, direction, pos_emb_xyz,
+                                             pos_emb_dir)
+    target = target.to(torch.float32).contiguous()
+    if grads is None:
+        grads = zero_grads(packed)
+    r, s = points.shape
+    u = packed["trunk_b"][0].shape[1]
+    n_layers = len(packed["trunk_w"])
+    dev = points.device
+    # The MSE cotangent 2 (image - target) / (3 R) of the WHOLE chunk.
+    loss_scale = 2.0 / (3 * r)
+    image = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    depth = torch.empty((r,), dtype=torch.float32, device=dev)
+    weights = (torch.empty((r, s), dtype=torch.float32, device=dev)
+               if emit_weights else None)
+    for r0, r1 in train_sub_launches(r, s):
+        stash = alloc_stash((r1 - r0) * s, u, n_layers, dev)
+        rgbs = ray_march_mlp(packed, base[r0:r1], slope[r0:r1],
+                             points[r0:r1], masks, stash=stash)
+        img, dep, w, d_rgb, d_sigma = ray_march_quadrature(
+            rgbs.reshape(r1 - r0, s, 4), points[r0:r1], white_background,
+            False, emit_weights, target=target[r0:r1], loss_scale=loss_scale)
+        cots = mlp_backward(d_rgb, d_sigma, packed, stash)
+        mlp_weight_grad(stash, cots, grads)
+        image[r0:r1] = img
+        depth[r0:r1] = dep
+        if weights is not None:
+            weights[r0:r1] = w
+        del stash, rgbs, cots   # one sub-launch's workspace at a time
+    return image, depth, weights, grads
+
+
+def unpack_grads(d_packed: dict, config, pos_emb_xyz: int,
+                 pos_emb_dir: int) -> dict:
+    """Packed-layout gradients -> the reference-layout parameter tree: the
+    inverse of :func:`pack_mlp_params` array for array (`ray_march.py:
+    657-708`), with the encoding rows taken back out of block order."""
+    u = config.dense_units
+    in_x = encoded_dim(3, pos_emb_xyz)
+    in_d = encoded_dim(3, pos_emb_dir)
+    dev = d_packed["w_sf"].device
+    inv_x = torch.argsort(_block_permutation_on(dev, pos_emb_xyz))
+    inv_d = torch.argsort(_block_permutation_on(dev, pos_emb_dir))
+    skip = set(config.skip_indices())
+    n = config.n_layers
+
+    def unpack_xyz(rows128):
+        return rows128[ENC_XYZ_OFF:ENC_XYZ_OFF + in_x][inv_x]
+
+    def unpack_dir(rows128):
+        return rows128[ENC_DIR_OFF:ENC_DIR_OFF + in_d][inv_d]
+
+    trunk = []
+    for i in range(n):
+        if i == 0:
+            kernel = unpack_xyz(d_packed["trunk_w"][0])
+        elif (i - 1) in skip:
+            kernel = torch.cat([d_packed["trunk_w"][i],
+                                unpack_xyz(d_packed["trunk_enc_w"][i])])
+        else:
+            kernel = d_packed["trunk_w"][i]
+        trunk.append({"kernel": kernel, "bias": d_packed["trunk_b"][i][0]})
+    d_sf = d_packed["w_sf"]
+    if (n - 1) in skip:
+        d_sf = torch.cat([d_sf, unpack_xyz(d_packed["w_sf_enc"])])
+    b_sf = d_packed["b_sf"][0]
+    return {
+        "trunk": trunk,
+        "sigma": {"kernel": d_sf[:, u:u + 1], "bias": b_sf[u:u + 1]},
+        "features": {"kernel": d_sf[:, :u], "bias": b_sf[:u]},
+        "rgb_features": {
+            "kernel": torch.cat([d_packed["w_rf_top"],
+                                 unpack_dir(d_packed["w_rf_enc"])]),
+            "bias": d_packed["b_rf"][0]},
+        "rgb": {"kernel": d_packed["w_rgb"][:, :3],
+                "bias": d_packed["b_rgb"][0, :3]},
+    }
+
+
+def bwd_dx_flop_per_point(config) -> int:
+    """Unpadded FLOPs per point of the backward's dX products (those whose
+    input is an activation; the encoding gets no cotangent): 8 x 256 gives
+    1,115,392. The dW products equal the forward's FLOPs."""
+    u = config.dense_units
+    return (2 * 3 * (u // 2) + 2 * (u // 2) * u + 2 * (u + 1) * u
+            + 2 * u * u * (config.n_layers - 1))
 
 
 def fwd_flop_per_point(config, pos_emb_xyz: int = 10,

@@ -1,20 +1,24 @@
-"""Coarse + fine rendering engine, no-grad render path (port of
-``keras_nerf_tpu/models/engine.py``).
+"""Coarse + fine NeRF engine: rendering, training and evaluation steps
+(port of ``keras_nerf_tpu/models/engine.py``).
 
-``render_image_batch`` chunks the rays (the JAX package's ``lax.scan``
-becomes a Python loop over chunks) and renders each chunk twice: a coarse
-pass over the stratified depths, then a fine pass over the coarse depths
-merged with ``n_fine`` inverse-CDF samples of the coarse weights
-(`keras_nerf/model/nerf/nerf.py:175-304`).
+``render_image_batch`` and ``train_step`` chunk the rays (the JAX package's
+``lax.scan`` becomes a Python loop over chunks) and run each chunk twice: a
+coarse pass over the stratified depths, then a fine pass over the coarse
+depths merged with ``n_fine`` inverse-CDF samples of the coarse weights
+(`keras_nerf/model/nerf/nerf.py:175-473`). The fine loss never reaches the
+coarse parameters: the fine pass samples from the coarse weights as data.
 
 Two paths, chosen by the tri-state ``NeRFConfig.use_kernels`` (the
 counterpart of ``use_pallas``, `engine.py:452-466`):
 
 * kernels (``True``; ``None`` on a card, and on the CPU when the
-  architecture fits their envelope):
-  ``kernels/ray_march.py:fused_render_chunk`` — bf16 MLP operands with
-  float32 accumulation, float32 encoding and quadrature;
-* reference (``False``): float32 ``apply_mlp`` + ``render_rays``.
+  architecture fits their envelope): ``kernels/ray_march.py`` —
+  ``fused_render_chunk`` to render, ``fused_train_chunk`` to train, whose
+  packed gradients are accumulated over the chunks and unpacked once;
+  bf16 MLP operands with float32 accumulation, float32 encoding and
+  quadrature;
+* reference (``False``): float32 ``apply_mlp`` + ``render_rays``, and
+  torch autograd per chunk for training.
 
 The fine draws ``u`` are injected: per-chunk ``[R, n_fine]`` tensors, or a
 ``torch.Generator`` that makes them with :func:`sorted_uniforms`.
@@ -23,20 +27,26 @@ The fine draws ``u`` are injected: per-chunk ``[R, n_fine]`` tensors, or a
 from __future__ import annotations
 
 import dataclasses
-from collections.abc import Sequence
+from collections.abc import Callable, Sequence
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from keras_nerf_tpu_torch.kernels.ray_march import (
     fused_render_chunk,
+    fused_train_chunk,
     kernel_supported,
     pack_mlp_params,
+    unpack_grads,
+    zero_grads,
 )
-from keras_nerf_tpu_torch.models.mlp import MLPConfig, apply_mlp
+from keras_nerf_tpu_torch.models.mlp import MLPConfig, apply_mlp, init_mlp
 from keras_nerf_tpu_torch.ops.encoding import (
     encode_position_and_directions,
     encoded_dim,
 )
+from keras_nerf_tpu_torch.ops.metrics import psnr, ssim
 from keras_nerf_tpu_torch.ops.rendering import RenderOutput, render_rays
 from keras_nerf_tpu_torch.ops.sampling import (
     invert_cdf,
@@ -108,7 +118,10 @@ def render_chunk(params: Params, origin: torch.Tensor,
     ``coarse_weights`` (and draws ``u``) this is the fine pass: sample and
     merge, then render. Returns ``(RenderOutput, depths used)``."""
     if coarse_weights is not None:
-        fine_points = invert_cdf(u, midpoints(coarse_points), coarse_weights)
+        # The coarse weights are data here: the fine loss never reaches the
+        # coarse parameters (`nerf.py:390-417`).
+        fine_points = invert_cdf(u, midpoints(coarse_points),
+                                 coarse_weights.detach())
         points = merge_sorted(coarse_points, fine_points)
     else:
         points = coarse_points
@@ -135,18 +148,31 @@ def render_chunk_pair(coarse_params: Params, fine_params: Params,
 def _fused_chunk_pair(packed_c: dict, packed_f: dict, origin: torch.Tensor,
                       direction: torch.Tensor, coarse_points: torch.Tensor,
                       u: torch.Tensor, config: NeRFConfig,
-                      with_weights: bool = True, coarse_image: bool = True):
-    """Coarse pass (sigma-only when its image is unused) then the fine pass
-    with in-kernel sampling off the coarse weights (`engine.py:496-571`,
-    render modes)."""
+                      with_weights: bool = True, coarse_image: bool = True,
+                      target: torch.Tensor | None = None,
+                      grads: tuple = (None, None)):
+    """Coarse pass then the fine pass with in-kernel sampling off the
+    coarse weights (`engine.py:496-571`). Without ``target`` these are the
+    render modes (the coarse pass sigma-only when its image is unused).
+    With ``target`` they are the train modes: each pass adds the packed
+    gradient of its chunk MSE into its accumulator of ``grads`` and sees
+    only its own packed weights, and the fine pass emits no weights."""
     kw = dict(pos_emb_xyz=config.pos_emb_xyz, pos_emb_dir=config.pos_emb_dir,
               white_background=config.white_background)
-    out_c = fused_render_chunk(packed_c, origin, direction, coarse_points,
-                               sigma_only=not coarse_image, **kw)
-    out_f = fused_render_chunk(packed_f, origin, direction, None,
-                               emit_weights=with_weights,
-                               sample_inputs=(coarse_points, out_c[2], u),
-                               **kw)
+    if target is None:
+        out_c = fused_render_chunk(packed_c, origin, direction, coarse_points,
+                                   sigma_only=not coarse_image, **kw)
+        out_f = fused_render_chunk(packed_f, origin, direction, None,
+                                   emit_weights=with_weights,
+                                   sample_inputs=(coarse_points, out_c[2], u),
+                                   **kw)
+        return out_c, out_f
+    out_c = fused_train_chunk(packed_c, origin, direction, coarse_points,
+                              target, grads=grads[0], **kw)
+    out_f = fused_train_chunk(packed_f, origin, direction, None, target,
+                              emit_weights=False,
+                              sample_inputs=(coarse_points, out_c[2], u),
+                              grads=grads[1], **kw)
     return out_c, out_f
 
 
@@ -232,3 +258,265 @@ def render_image_batch(coarse_params: Params, fine_params: Params, rays,
         return res
 
     return unchunk(outs_c), unchunk(outs_f)
+
+
+# --------------------------------------------------------------------------
+# Training and evaluation.
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts/lists (None leaves pass
+    through when ``fn`` accepts them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of nested dicts/lists, in key order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def global_norm(tree) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over every leaf (``optax.global_norm``)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x))
+                          for x in tree_leaves(tree)))
+
+
+class TrainState(NamedTuple):
+    """Two parameter trees, two optimizer states and the step count
+    (`engine.py:133-140`)."""
+
+    coarse_params: Params
+    fine_params: Params
+    coarse_opt: dict
+    fine_opt: dict
+    step: int
+
+
+def init_params(generator: torch.Generator, config: NeRFConfig,
+                device=None) -> tuple[Params, Params]:
+    """Independent coarse and fine parameter trees, drawn in that order."""
+    return tuple(init_mlp(generator, config.mlp, config.in_xyz,
+                          config.in_dir, device) for _ in range(2))
+
+
+def exponential_lr(learning_rate: float, lr_final: float,
+                   decay_steps: int) -> Callable[[int], float]:
+    """``optax.exponential_decay(learning_rate, max(decay_steps, 1),
+    lr_final / learning_rate, end_value=lr_final)`` (`engine.py:151-161`):
+    ``lr * rate ** (count / steps)`` in float32, held at ``lr`` for
+    ``count <= 0`` and clipped at ``lr_final``."""
+    steps = max(int(decay_steps), 1)
+    rate = lr_final / learning_rate
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        if count <= 0 or rate == 0:
+            return learning_rate
+        value = float(f32(learning_rate)
+                      * np.power(f32(rate), f32(count) / f32(steps)))
+        return max(value, lr_final) if rate < 1.0 else min(value, lr_final)
+
+    return schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """optax's ``adam`` (bias-corrected, ``eps`` outside the square root,
+    ``eps_root = 0``) or ``sgd`` (no momentum), as plain tensor updates.
+
+    The state is a dict: ``count``, ``mu`` and ``nu`` (trees shaped like the
+    parameters) for Adam; ``schedule_count`` when the learning rate is a
+    schedule. Counts are Python ints, so an update never waits for the
+    card. ``utils/convert.py`` maps the state to and from optax's."""
+
+    name: str
+    learning_rate: float | Callable[[int], float]
+    b1, b2, eps = 0.9, 0.999, 1e-8     # optax.adam's defaults
+
+    def init(self, params: Params) -> dict:
+        state = {}
+        if self.name == "adam":
+            state = {"count": 0, "mu": tree_map(torch.zeros_like, params),
+                     "nu": tree_map(torch.zeros_like, params)}
+        if callable(self.learning_rate):
+            state["schedule_count"] = 0
+        return state
+
+    def update(self, grads: Params, state: dict,
+               params: Params) -> tuple[Params, dict]:
+        """``(new params, new state)``; the inputs are left as they are."""
+        state = dict(state)
+        lr = self.learning_rate
+        if callable(lr):
+            lr = lr(state["schedule_count"])
+            state["schedule_count"] += 1
+        updates = grads
+        if self.name == "adam":
+            b1, b2 = self.b1, self.b2
+            count = state["count"] + 1
+            mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads,
+                          state["mu"])
+            nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
+                          state["nu"])
+            c1 = float(np.float32(1) - np.float32(b1) ** count)
+            c2 = float(np.float32(1) - np.float32(b2) ** count)
+            updates = tree_map(
+                lambda m, v: (m / c1) / (torch.sqrt(v / c2) + self.eps),
+                mu, nu)
+            state.update(count=count, mu=mu, nu=nu)
+        step = -float(np.float32(lr))
+        return tree_map(lambda p, u: p + step * u, params, updates), state
+
+
+def make_optimizer(optimizer: str, learning_rate=1e-3) -> Optimizer:
+    """``"adam"`` or ``"sgd"`` (`engine.py:164-183`); ``learning_rate`` may
+    be a schedule (:func:`exponential_lr`)."""
+    name = optimizer.lower()
+    if name not in ("adam", "sgd"):
+        raise ValueError(f"optimizer {optimizer!r} is not ported yet (the "
+                         f"JAX package's others are queued in ROADMAP.md); "
+                         f"use 'adam' or 'sgd'")
+    return Optimizer(name, learning_rate)
+
+
+def init_train_state(generator: torch.Generator, config: NeRFConfig,
+                     optimizer: Optimizer, device=None) -> TrainState:
+    coarse, fine = init_params(generator, config, device)
+    return TrainState(coarse, fine, optimizer.init(coarse),
+                      optimizer.init(fine), 0)
+
+
+def mse_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    """Scalar MSE with the Keras argument order (`engine.py:445-449`)."""
+    return torch.mean(torch.square(y_pred - y_true))
+
+
+def _batch_metrics(images_c, images_f, target, loss_c, loss_f) -> dict:
+    """Coarse/fine x loss/psnr/ssim, PSNR and SSIM averaged over the batch
+    images (`engine.py:574-584`)."""
+    return {
+        "coarse_loss": loss_c,
+        "coarse_psnr": torch.mean(psnr(images_c, target)),
+        "coarse_ssim": torch.mean(ssim(images_c, target)),
+        "fine_loss": loss_f,
+        "fine_psnr": torch.mean(psnr(images_f, target)),
+        "fine_ssim": torch.mean(ssim(images_f, target)),
+    }
+
+
+def _chunked_batch(batch, config: NeRFConfig, ray_chunks: int):
+    images, (origin, direction, points) = batch
+    b, h, w = images.shape[:3]
+    num_rays = b * h * w
+    if ray_chunks > num_rays or num_rays % ray_chunks:
+        raise ValueError(f"ray_chunks {ray_chunks} must divide the rays of "
+                         f"the batch ({num_rays})")
+    n = num_rays // ray_chunks
+    return (origin.reshape(n, ray_chunks, 3),
+            direction.reshape(n, ray_chunks, 3),
+            points.reshape(n, ray_chunks, config.n_coarse),
+            images[..., :3].reshape(n, ray_chunks, 3).to(torch.float32))
+
+
+def _fused_grads(state: TrainState, chunks, draws, config: NeRFConfig):
+    """The kernel path: pack once, add every chunk's packed gradients into
+    two accumulators, unpack once (`engine.py:712-753`)."""
+    enc = (config.pos_emb_xyz, config.pos_emb_dir)
+    packed_c = pack_mlp_params(state.coarse_params, config.mlp, *enc)
+    packed_f = pack_mlp_params(state.fine_params, config.mlp, *enc)
+    acc = (zero_grads(packed_c), zero_grads(packed_f))
+    images = ([], [])
+    for o, d, t, tgt, u in zip(*chunks, draws):
+        outs = _fused_chunk_pair(packed_c, packed_f, o, d, t, u, config,
+                                 target=tgt, grads=acc)
+        for img, out in zip(images, outs):
+            img.append(out[0])
+    grads = tuple(unpack_grads(a, config.mlp, *enc) for a in acc)
+    return grads, images
+
+
+def _autograd_grads(state: TrainState, chunks, draws, config: NeRFConfig):
+    """The reference path: torch autograd per chunk over ``apply_mlp`` and
+    ``render_rays``; ``.grad`` sums the chunks (`engine.py:754-787`)."""
+    params = tuple(tree_map(lambda x: x.detach().requires_grad_(True), p)
+                   for p in (state.coarse_params, state.fine_params))
+    images = ([], [])
+    for o, d, t, tgt, u in zip(*chunks, draws):
+        outs = render_chunk_pair(*params, o, d, t, u, config)
+        sum(mse_loss(tgt, out.image) for out in outs).backward()
+        for img, out in zip(images, outs):
+            img.append(out.image.detach())
+    grads = tuple(tree_map(lambda x: x.grad, p) for p in params)
+    return grads, images
+
+
+def train_step(state: TrainState, batch,
+               fine_draws: torch.Generator | Sequence[torch.Tensor],
+               optimizer: Optimizer, config: NeRFConfig,
+               ray_chunks: int) -> tuple[TrainState, dict]:
+    """One optimizer step over one batch of whole-image rays
+    (`engine.py:587-833`, `nerf.py:332-473`).
+
+    Per chunk, each model's MSE and its gradient; gradients summed over the
+    chunks and scaled by ``1 / num_chunks``; one update per model. Metrics
+    are 0-d tensors on the rays' device (nothing waits for the card): the
+    six of :func:`_batch_metrics` (losses are the means of the chunk
+    losses) plus ``coarse_grad_norm`` and ``fine_grad_norm``.
+
+    Args:
+      batch: ``(images [B, H, W, 3 or 4], (origin, direction, points))``.
+      fine_draws: a ``torch.Generator`` on the rays' device, or one sorted
+        ``[ray_chunks, n_fine]`` draw tensor per chunk.
+    """
+    images = batch[0]
+    chunks = _chunked_batch(batch, config, ray_chunks)
+    num_chunks = chunks[0].shape[0]
+    draws = _chunk_draws(fine_draws, num_chunks, ray_chunks, config.n_fine,
+                         chunks[0].device)
+    path = (_fused_grads if resolve_use_kernels(config, chunks[0].device)
+            else _autograd_grads)
+    (grads_c, grads_f), (imgs_c, imgs_f) = path(state, chunks, draws, config)
+    inv = 1.0 / num_chunks
+    grads_c = tree_map(lambda g: g * inv, grads_c)
+    grads_f = tree_map(lambda g: g * inv, grads_f)
+    target = chunks[3]
+    loss_c, loss_f = (torch.stack([mse_loss(tgt, img) for tgt, img in
+                                   zip(target, imgs)]).mean()
+                      for imgs in (imgs_c, imgs_f))
+    coarse, opt_c = optimizer.update(grads_c, state.coarse_opt,
+                                     state.coarse_params)
+    fine, opt_f = optimizer.update(grads_f, state.fine_opt, state.fine_params)
+    new_state = TrainState(coarse, fine, opt_c, opt_f, state.step + 1)
+    shape = images.shape[:3] + (3,)
+    metrics = _batch_metrics(torch.cat(imgs_c).reshape(shape),
+                             torch.cat(imgs_f).reshape(shape),
+                             target.reshape(shape), loss_c, loss_f)
+    metrics["coarse_grad_norm"] = global_norm(grads_c)
+    metrics["fine_grad_norm"] = global_norm(grads_f)
+    return new_state, metrics
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, batch,
+              fine_draws: torch.Generator | Sequence[torch.Tensor],
+              config: NeRFConfig, ray_chunks: int) -> dict:
+    """Chunked render without weights, then the six metrics over the whole
+    images (`engine.py:836-878`); 0-d tensors on the rays' device."""
+    images, rays = batch
+    target = images[..., :3].to(torch.float32)
+    out_c, out_f = render_image_batch(state.coarse_params, state.fine_params,
+                                      rays, fine_draws, config, ray_chunks,
+                                      with_weights=False)
+    img_c, img_f = out_c["image"], out_f["image"]
+    return _batch_metrics(img_c, img_f, target, mse_loss(target, img_c),
+                          mse_loss(target, img_f))

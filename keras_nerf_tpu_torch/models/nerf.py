@@ -1,11 +1,14 @@
-"""The user-facing NeRF model, render path (port of
-``keras_nerf_tpu/models/nerf.py``): construct from hyperparameters, a
-:class:`NeRFConfig` or a checkpoint directory, ``compile`` for a device and
-image shape, then ``predict_and_render_images``."""
+"""The user-facing NeRF model (port of ``keras_nerf_tpu/models/nerf.py``):
+construct from hyperparameters, a :class:`NeRFConfig` or a checkpoint
+directory, ``compile`` for a device, image shape and optimizer, then
+``fit``/``evaluate`` or ``predict_and_render_images``; ``save_model`` writes
+the JAX package's checkpoint format. The state is an explicit
+:class:`~keras_nerf_tpu_torch.models.engine.TrainState`."""
 
 from __future__ import annotations
 
 import logging
+import math
 from collections.abc import Sequence
 
 import torch
@@ -13,12 +16,31 @@ import torch
 from keras_nerf_tpu_torch.device import resolve_device
 from keras_nerf_tpu_torch.models import engine
 from keras_nerf_tpu_torch.models.engine import NeRFConfig
-from keras_nerf_tpu_torch.models.mlp import init_mlp
 from keras_nerf_tpu_torch.utils import checkpoint
 
 
+class MeanTracker:
+    """Running mean over an epoch (`tf.keras.metrics.Mean` stand-in)."""
+
+    def __init__(self):
+        self.total, self.count = 0.0, 0
+
+    def update(self, value: float):
+        self.total += float(value)
+        self.count += 1
+
+    def result(self) -> float:
+        return self.total / max(self.count, 1)
+
+    def reset(self):
+        self.total, self.count = 0.0, 0
+
+
 class NeRF:
-    """Coarse + fine NeRF (reference `nerf.py:11`), inference only."""
+    """Coarse + fine NeRF with chunked training (reference `nerf.py:11`)."""
+
+    METRIC_NAMES = ("coarse_loss", "coarse_psnr", "coarse_ssim",
+                    "fine_loss", "fine_psnr", "fine_ssim")
 
     def __init__(self, n_coarse: int = 64, n_fine: int = 128,
                  pos_emb_xyz: int = 10, pos_emb_dir: int = 4,
@@ -35,17 +57,35 @@ class NeRF:
                 n_coarse=n_coarse, n_fine=n_fine, pos_emb_xyz=pos_emb_xyz,
                 pos_emb_dir=pos_emb_dir, n_layers=n_layers,
                 dense_units=dense_units, skip_layer=skip_layer)
-        self.coarse_params = None
-        self.fine_params = None
+        self.state: engine.TrainState | None = None
         self.device = None
+        self._train_config = None
 
-    def compile(self, batch_size: int = 1, image_height: int = 128,
+    @property
+    def coarse_params(self):
+        return None if self.state is None else self.state.coarse_params
+
+    @property
+    def fine_params(self):
+        return None if self.state is None else self.state.fine_params
+
+    # ------------------------------------------------------------------ setup
+
+    def compile(self, optimizer: str = "adam", loss: str = "mse",
+                batch_size: int = 1, image_height: int = 128,
                 image_width: int = 128, ray_chunks: int = 1024,
-                white_background: bool = False, device="cuda",
-                use_kernels: bool | None = None, seed: int = 42):
-        """Fix shapes and device; load the checkpoint's weights (or draw
-        random ones from ``seed``). ``ray_chunks`` is clamped to the rays
-        of one batch and must divide them (`nerf.py:78-114`)."""
+                white_background: bool = False, is_training: bool = True,
+                learning_rate: float = 1e-3, lr_final: float = 0.0,
+                lr_decay_steps: int = 0, seed: int = 42, device="cuda",
+                use_kernels: bool | None = None):
+        """Fix shapes, device and optimizer; restore the checkpoint's
+        weights and optimizer state, or draw random weights from ``seed``
+        (`nerf.py:79-354`). ``ray_chunks`` is clamped to the rays of one
+        batch and must divide them. ``lr_final > 0`` with
+        ``lr_decay_steps > 0`` decays the learning rate exponentially."""
+        if loss not in ("mse", None):
+            raise ValueError(f"loss {loss!r}: only 'mse' is ported (custom "
+                             f"losses are queued in ROADMAP.md)")
         self.device = resolve_device(device)
         self.config = NeRFConfig(**{**self.config.to_model_config(),
                                     "white_background": white_background,
@@ -53,38 +93,203 @@ class NeRF:
         self.batch_size = batch_size
         self.image_height = image_height
         self.image_width = image_width
-        num_rays = batch_size * image_height * image_width
-        self.ray_chunks = min(ray_chunks, num_rays)
-        if num_rays % self.ray_chunks:
+        self.num_rays = batch_size * image_height * image_width
+        self.ray_chunks = min(ray_chunks, self.num_rays)
+        if self.num_rays % self.ray_chunks:
             raise ValueError(f"ray_chunks {self.ray_chunks} must divide the "
-                             f"number of rays {num_rays}")
+                             f"number of rays {self.num_rays}")
+        if is_training:
+            self._train_config = {
+                "optimizer": optimizer, "learning_rate": float(learning_rate),
+                "lr_final": float(lr_final),
+                "lr_decay_steps": int(lr_decay_steps),
+                "white_background": bool(white_background),
+                "pixel_sampling": False, "occupancy_train": 0,
+                "num_coarse_samples": self.config.n_coarse,
+                "num_fine_samples": self.config.n_fine,
+                "pos_emb_xyz": self.config.pos_emb_xyz,
+                "pos_emb_dir": self.config.pos_emb_dir}
+            if self.model_path is not None and self.state is None:
+                checkpoint.warn_train_config_mismatch(self.model_path,
+                                                      self._train_config)
+        lr = learning_rate
+        if lr_final > 0.0 and lr_decay_steps > 0:
+            lr = engine.exponential_lr(learning_rate, lr_final,
+                                       lr_decay_steps)
+        self.optimizer = engine.make_optimizer(optimizer, lr)
+        if self.state is None:
+            init = torch.Generator(device=self.device).manual_seed(seed)
+            state = engine.init_train_state(init, self.config, self.optimizer)
+            if self.model_path is not None:
+                logging.info("Loading NeRF weights from %s", self.model_path)
+                state = checkpoint.load_train_state(self.model_path, state,
+                                                    self.device)
+            self.state = state
+        self._seed = seed
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed + 1)
-        if self.model_path is not None:
-            self.load_model(self.model_path)
-        elif self.coarse_params is None:
-            init = torch.Generator(device=self.device)
-            init.manual_seed(seed)
-            cfg = self.config
-            self.coarse_params = init_mlp(init, cfg.mlp, cfg.in_xyz,
-                                          cfg.in_dir)
-            self.fine_params = init_mlp(init, cfg.mlp, cfg.in_xyz,
-                                        cfg.in_dir)
+        self._train_draws = torch.Generator(device=self.device)
+        self._train_draws.manual_seed(seed + 2)
+        self.metrics = {n: MeanTracker() for n in self.METRIC_NAMES}
+        self.val_metrics = {n: MeanTracker() for n in self.METRIC_NAMES}
         return self
 
-    def load_model(self, path: str):
-        """Restore architecture and weights from a checkpoint directory
-        written by ``keras_nerf_tpu``; runtime options are kept."""
-        if self.device is None:
+    def _require_compiled(self):
+        if self.state is None:
             raise RuntimeError("call compile() first")
+
+    def _on_device(self, batch):
+        images, rays = batch
+        return (torch.as_tensor(images, dtype=torch.float32,
+                                device=self.device),
+                tuple(torch.as_tensor(x, dtype=torch.float32,
+                                      device=self.device) for x in rays))
+
+    def _eval_draws(self) -> torch.Generator:
+        """The same fine draws for every evaluation (JAX's fixed eval
+        key)."""
+        return torch.Generator(device=self.device).manual_seed(self._seed + 3)
+
+    # ------------------------------------------------------------------ steps
+
+    def _train_step(self, batch, fine_draws=None) -> dict:
+        """One step; the metrics stay 0-d tensors on the device."""
+        self.state, metrics = engine.train_step(
+            self.state, self._on_device(batch),
+            self._train_draws if fine_draws is None else fine_draws,
+            self.optimizer, self.config, self.ray_chunks)
+        return metrics
+
+    def _record(self, trackers: dict, metrics: dict, where: str) -> dict:
+        for k, v in metrics.items():
+            if k in trackers:
+                trackers[k].update(v)
+        for name in ("coarse_grad_norm", "fine_grad_norm"):
+            g = metrics.get(name)
+            if g is not None and (g == 0.0 or not math.isfinite(g)):
+                logging.warning("%s = %s %s", name, g, where)
+        return metrics
+
+    def train_step(self, batch, fine_draws=None) -> dict[str, float]:
+        """One gradient step; returns the six metrics and both gradient
+        norms as floats (`nerf.py:332-473`)."""
+        self._require_compiled()
+        metrics = {k: float(v) for k, v in
+                   self._train_step(batch, fine_draws).items()}
+        return self._record(self.metrics, metrics,
+                            f"at step {self.state.step}")
+
+    def _eval_step(self, batch, fine_draws=None) -> dict:
+        return engine.eval_step(
+            self.state, self._on_device(batch),
+            self._eval_draws() if fine_draws is None else fine_draws,
+            self.config, self.ray_chunks)
+
+    def test_step(self, batch, fine_draws=None) -> dict[str, float]:
+        """Full chunked render plus the six metrics (`nerf.py:475-497`)."""
+        self._require_compiled()
+        metrics = {k: float(v) for k, v in
+                   self._eval_step(batch, fine_draws).items()}
+        return self._record(self.val_metrics, metrics, "in evaluation")
+
+    def evaluate(self, dataset) -> dict[str, float]:
+        """Mean metrics of :meth:`test_step` over a dataset."""
+        self._require_compiled()
+        for tracker in self.val_metrics.values():
+            tracker.reset()
+        n = 0
+        for batch in dataset:
+            self.test_step(batch)
+            n += 1
+        if n == 0:
+            raise ValueError("evaluate: dataset yielded no batches")
+        return {k: t.result() for k, t in self.val_metrics.items()}
+
+    @staticmethod
+    def _fetch(pending: list[dict]) -> list[dict]:
+        """Per-step metric tensors -> floats, in one copy from the device."""
+        if not pending:
+            return []
+        keys = list(pending[0])
+        values = torch.stack([torch.stack([m[k].float() for k in keys])
+                              for m in pending]).cpu().tolist()
+        return [dict(zip(keys, row)) for row in values]
+
+    # -------------------------------------------------------------------- fit
+
+    def fit(self, train_dataset, validation_data=None, epochs: int = 1,
+            initial_epoch: int = 0, callbacks=(), verbose: bool = True):
+        """Keras-style epoch loop (`nerf.py:665-786`). Callbacks get
+        ``set_model(self)``, ``on_train_batch_end(batch, logs)`` and
+        ``on_epoch_end(epoch, logs)`` with the train means and their
+        ``val_`` twins. Step metrics stay on the device and reach the host
+        once per epoch (`nerf.py:686-692`), unless a verbose callback wants
+        them every batch. Returns one logs dict per epoch."""
+        self._require_compiled()
+        for cb in callbacks:
+            if hasattr(cb, "set_model"):
+                cb.set_model(self)
+        eager = any(hasattr(cb, "on_train_batch_end")
+                    and getattr(cb, "verbose", True) for cb in callbacks)
+        history = []
+        for epoch in range(initial_epoch, epochs):
+            for tracker in (*self.metrics.values(),
+                            *self.val_metrics.values()):
+                tracker.reset()
+            pending = []
+            for batch_idx, batch in enumerate(train_dataset):
+                if eager:
+                    logs = self.train_step(batch)
+                    for cb in callbacks:
+                        if hasattr(cb, "on_train_batch_end"):
+                            cb.on_train_batch_end(batch_idx, logs)
+                else:
+                    pending.append(self._train_step(batch))
+            for batch_idx, logs in enumerate(self._fetch(pending)):
+                self._record(self.metrics, logs,
+                             f"(epoch {epoch} batch {batch_idx})")
+                for cb in callbacks:
+                    if hasattr(cb, "on_train_batch_end"):
+                        cb.on_train_batch_end(batch_idx, logs)
+            if validation_data is not None:
+                val = self._fetch([self._eval_step(batch)
+                                   for batch in validation_data])
+                for logs in val:
+                    self._record(self.val_metrics, logs, "in validation")
+            logs = {k: t.result() for k, t in self.metrics.items()}
+            logs.update({f"val_{k}": t.result()
+                         for k, t in self.val_metrics.items()})
+            history.append(logs)
+            if verbose:
+                logging.info("epoch %d: %s", epoch, " ".join(
+                    f"{k}={v:.4f}" for k, v in logs.items()))
+            for cb in callbacks:
+                if hasattr(cb, "on_epoch_end"):
+                    cb.on_epoch_end(epoch, logs)
+        return history
+
+    # ----------------------------------------------------------- persistence
+
+    def save_model(self, path: str, weights_only: bool = False):
+        """Config JSON, both weight files and the optimizer state
+        (`nerf.py:790-797`), readable by ``keras_nerf_tpu``."""
+        self._require_compiled()
+        checkpoint.save_model(path, self.state, self.config,
+                              weights_only=weights_only,
+                              train_config=self._train_config)
+
+    def load_model(self, path: str):
+        """Restore architecture, weights and optimizer state from a
+        checkpoint directory; runtime options are kept."""
+        self._require_compiled()
         old = self.config
         self.config = checkpoint.load_model_config(
             path, white_background=old.white_background,
             use_kernels=old.use_kernels)
         self.model_path = path
         logging.info("Loading NeRF weights from %s", path)
-        self.coarse_params, self.fine_params = checkpoint.load_params(
-            path, self.device)
+        self.state = checkpoint.load_train_state(path, self.state,
+                                                 self.device)
 
     def predict_and_render_images(
             self, rays, with_weights: bool = True, coarse_image: bool = True,
@@ -94,8 +299,7 @@ class NeRF:
         fine)`` dicts (`nerf.py:229-304`). ``with_weights=False`` drops the
         per-sample weights; ``coarse_image=False`` skips the coarse colour
         heads (coarse image zero) — the orbit renderer uses both."""
-        if self.coarse_params is None:
-            raise RuntimeError("call compile() first")
+        self._require_compiled()
         rays = tuple(torch.as_tensor(x, dtype=torch.float32,
                                      device=self.device) for x in rays)
         return engine.render_image_batch(

@@ -8,15 +8,26 @@ Without a card every test skips (the ``cuda_device`` fixture decides at run
 time, so every process collects the same tests). Tolerances as in
 ``chip_smoke.py``: sample_merge 1e-6 (same float32 operations in the same
 order), ray_march_mlp 3e-2 (bf16 activations rounded after sums taken in
-another order), ray_march_quadrature 1e-4 (float32 scan order).
+another order), ray_march_quadrature 1e-4 (float32 scan order). The
+training kernels, on the same inputs as their plain versions:
+
+* bf16 arrays (kept activations, cotangents) are held relative to their
+  largest magnitude: 1e-2 where one rounding can flip (one bf16 step is
+  at most 2^-7 of a value), 3e-2 where flips compound through the layers;
+  and by the norm of the difference relative to their own norm, 1e-2, so
+  that garbled small entries cannot hide under the largest;
+* float32 weight gradients by relative norm 1e-3 and relative max 1e-2:
+  the same bf16 operands summed over the points in another order.
 """
+
+import math
 
 import pytest
 import torch
 
 from keras_nerf_tpu_torch.inference import ORBIT, render_orbit
 from keras_nerf_tpu_torch.kernels import ray_march as trm
-from keras_nerf_tpu_torch.models import NeRF, NeRFConfig, init_mlp
+from keras_nerf_tpu_torch.models import NeRF, NeRFConfig, engine, init_mlp
 from keras_nerf_tpu_torch.ops import sorted_uniforms
 
 pytestmark = pytest.mark.cuda
@@ -112,9 +123,151 @@ def test_render_path_launches_every_kernel(cuda_device):
     images, depths = render_orbit(nerf, [0.0, 90.0], img_wh=64, **ORBIT)
     chunks = 2 * 64 * 64 // 1024
     assert [k.launches for k in trm.KERNELS] == [chunks, 2 * chunks,
-                                                 2 * chunks]
+                                                 2 * chunks, 0, 0]
     assert images.shape == (2, 64, 64, 3)
     assert (images >= 0).all() and (images <= 1).all()
+
+
+def _train_inputs(device, r=512, s=64, n_layers=8, skip=4, seed=3):
+    """A fog (sigma bias 1) over random rays, with random targets: every
+    head and every layer gets a non-trivial cotangent."""
+    cfg = NeRFConfig(n_layers=n_layers, skip_layer=skip)
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = init_mlp(g, cfg.mlp, cfg.in_xyz, cfg.in_dir)
+    params["sigma"]["bias"] += 1.0
+    packed = trm.pack_mlp_params(params, cfg.mlp, 10, 4)
+    o = torch.zeros(r, 3, device=device)
+    o[:, 2] = 4.0
+    d = torch.nn.functional.normalize(
+        torch.randn(r, 3, generator=g, device=device), dim=-1)
+    t = torch.sort(torch.rand(r, s, generator=g, device=device) * 4 + 2,
+                   dim=-1).values
+    target = torch.rand(r, 3, generator=g, device=device)
+    base, slope, masks = trm.ray_encoding_coeffs(o, d, 10, 4)
+    return cfg, packed, base, slope, t, masks, target
+
+
+def _rel_max(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _assert_bf16_close(got, want, rel_max, label=""):
+    assert _rel_max(got, want) <= rel_max, label
+    got, want = got.float(), want.float()
+    assert float((got - want).norm() / want.norm().clamp_min(1e-30)) <= 1e-2, \
+        label
+
+
+def _plain_chain(cfg, packed, base, slope, t, masks, target):
+    """The plain forward, quadrature and backward of one sub-launch."""
+    r, s = t.shape
+    stash = trm.alloc_stash(r * s, cfg.dense_units, cfg.n_layers, t.device)
+    rgbs = trm.ray_march_mlp_plain(packed, base, slope, t, masks, stash=stash)
+    quad = trm.ray_march_quadrature_plain(
+        rgbs.reshape(r, s, 4), t, True, False, True, target=target,
+        loss_scale=2.0 / (3 * r))
+    cots = trm.mlp_backward_plain(quad[3], quad[4], packed, stash)
+    return stash, rgbs, quad, cots
+
+
+@pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1)])
+def test_ray_march_mlp_train_mode_matches_plain(cuda_device, n_layers, skip):
+    cfg, packed, base, slope, t, masks, _ = _train_inputs(
+        cuda_device, n_layers=n_layers, skip=skip)
+    r, s = t.shape
+    stash_k = trm.alloc_stash(r * s, 256, n_layers, cuda_device)
+    stash_p = trm.alloc_stash(r * s, 256, n_layers, cuda_device)
+    got = trm.ray_march_mlp(packed, base, slope, t, masks, stash=stash_k)
+    want = trm.ray_march_mlp_plain(packed, base, slope, t, masks,
+                                   stash=stash_p)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 3e-2
+    for name in ("enc", "features", "rf"):
+        _assert_bf16_close(stash_k[name], stash_p[name], 3e-2, name)
+    for i in range(n_layers):
+        _assert_bf16_close(stash_k["h"][i], stash_p["h"][i], 3e-2, i)
+
+
+@pytest.mark.parametrize("white_bg", [True, False])
+def test_ray_march_quadrature_with_grad_matches_plain(cuda_device, white_bg):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    r, s = 300, 192
+    t = torch.sort(torch.rand(r, s, generator=g, device=cuda_device) * 4 + 2,
+                   dim=-1).values
+    rgbs = torch.rand(r, s, 4, generator=g, device=cuda_device)
+    rgbs[..., 3] *= 3
+    rgbs[::7, :, 3] = 0.0          # empty rays: white pixels clip at 1
+    target = torch.rand(r, 3, generator=g, device=cuda_device)
+    kw = dict(target=target, loss_scale=2.0 / (3 * r))
+    got = trm.ray_march_quadrature(rgbs, t, white_bg, False, True, **kw)
+    want = trm.ray_march_quadrature_plain(rgbs, t, white_bg, False, True,
+                                          **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], want[:3]):
+        assert float((a - b).abs().max()) <= 1e-4
+    for a, b in zip(got[3:], want[3:]):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        _assert_bf16_close(a, b, 1e-2)
+
+
+@pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1)])
+def test_mlp_backward_matches_plain(cuda_device, n_layers, skip):
+    cfg, packed, base, slope, t, masks, target = _train_inputs(
+        cuda_device, n_layers=n_layers, skip=skip)
+    stash, _, quad, want = _plain_chain(cfg, packed, base, slope, t, masks,
+                                        target)
+    got = trm.mlp_backward(quad[3], quad[4], packed, stash)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got["d_rf"], want["d_rf"], 1e-2, "d_rf")
+    _assert_bf16_close(got["d_sf"], want["d_sf"], 1e-2, "d_sf")
+    for i in range(n_layers):
+        _assert_bf16_close(got["d_pre"][i], want["d_pre"][i], 3e-2, i)
+
+
+@pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1)])
+def test_mlp_weight_grad_matches_plain_and_repeats_bit_for_bit(
+        cuda_device, n_layers, skip):
+    cfg, packed, base, slope, t, masks, target = _train_inputs(
+        cuda_device, n_layers=n_layers, skip=skip)
+    stash, _, _, cots = _plain_chain(cfg, packed, base, slope, t, masks,
+                                     target)
+    want = trm.mlp_weight_grad_plain(stash, cots, trm.zero_grads(packed))
+    runs = [trm.mlp_weight_grad(stash, cots, trm.zero_grads(packed))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for (got, again, ref) in zip(*(engine.tree_leaves(x)
+                                   for x in (*runs, want))):
+        assert torch.equal(got, again)
+        diff = got - ref
+        assert float(diff.norm() / ref.norm().clamp_min(1e-30)) <= 1e-3
+        assert _rel_max(got, ref) <= 1e-2
+
+
+def test_default_train_step_runs_through_the_kernels(cuda_device):
+    cfg = NeRFConfig(n_coarse=16, n_fine=16, n_layers=8,
+                     white_background=True)
+    nerf = NeRF(config=cfg).compile(
+        optimizer="adam", image_height=32, image_width=32, ray_chunks=512,
+        white_background=True, device="cuda", seed=0)
+    assert engine.resolve_use_kernels(nerf.config, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    images = torch.rand(1, 32, 32, 4, generator=g, device=cuda_device)
+    rays = (torch.zeros(1, 32, 32, 3, device=cuda_device) + torch.tensor(
+                [0.0, 0.0, 4.0], device=cuda_device),
+            torch.nn.functional.normalize(torch.randn(
+                1, 32, 32, 3, generator=g, device=cuda_device), dim=-1),
+            torch.sort(torch.rand(1, 32, 32, 16, generator=g,
+                                  device=cuda_device) * 4 + 2, -1).values)
+    trm.reset_launch_counts()
+    metrics = nerf.train_step((images, rays))
+    chunks = 32 * 32 // 512
+    assert {k.name: k.launches for k in trm.KERNELS} == {
+        "sample_merge": chunks, "ray_march_mlp": 2 * chunks,
+        "ray_march_quadrature": 2 * chunks, "mlp_backward": 2 * chunks,
+        "mlp_weight_grad": 2 * chunks}
+    assert all(map(math.isfinite, metrics.values()))
+    assert metrics["coarse_grad_norm"] > 0 and metrics["fine_grad_norm"] > 0
 
 
 def test_default_render_outside_the_kernel_envelope_raises(cuda_device):
@@ -126,4 +279,4 @@ def test_default_render_outside_the_kernel_envelope_raises(cuda_device):
     trm.reset_launch_counts()
     with pytest.raises(ValueError, match="kernels require"):
         render_orbit(nerf, [0.0], img_wh=16, **ORBIT)
-    assert [k.launches for k in trm.KERNELS] == [0, 0, 0]
+    assert [k.launches for k in trm.KERNELS] == [0, 0, 0, 0, 0]

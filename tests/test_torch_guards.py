@@ -77,14 +77,55 @@ def test_cpu_wrapper_calls_use_the_plain_version_and_count_nothing():
     fine = trm.fused_render_chunk(packed, o, d, None,
                                   sample_inputs=(t, coarse[2], u))
     assert fine[0].shape == (4, 3) and fine[2].shape == (4, 16)
-    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
     # The wrapper ran exactly the plain function.
     base, slope, masks = trm.ray_encoding_coeffs(o, d, 10, 4)
     torch.testing.assert_close(
         trm.ray_march_mlp(packed, base, slope, t, masks),
         trm.ray_march_mlp_plain(packed, base, slope, t, masks),
         rtol=0, atol=0)
-    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
+
+
+def test_cpu_train_step_launches_nothing():
+    trm.reset_launch_counts()
+    cfg = NeRFConfig(n_coarse=8, n_fine=8, n_layers=2, white_background=True)
+    nerf = NeRF(config=cfg).compile(image_height=4, image_width=8,
+                                    ray_chunks=16, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(2)
+    rays = (torch.tensor([0.0, 0.0, 4.0]).expand(1, 4, 8, 3),
+            torch.nn.functional.normalize(torch.randn(1, 4, 8, 3,
+                                                      generator=g), dim=-1),
+            torch.sort(torch.rand(1, 4, 8, 8, generator=g) * 4 + 2,
+                       -1).values)
+    metrics = nerf.train_step((torch.rand(1, 4, 8, 4, generator=g), rays))
+    assert resolve_use_kernels(nerf.config, torch.device("cpu"))
+    assert metrics["fine_grad_norm"] > 0
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
+
+
+def test_camera_rays_and_params_take_the_callers_device():
+    """Neither default falls back to the CPU: camera vectors take the
+    caller's device, parameters default to the card."""
+    import inspect
+
+    import numpy as np
+
+    from keras_nerf_tpu_torch.data.rays import camera_plane_directions
+    from keras_nerf_tpu_torch.utils.convert import params_from_jax
+
+    device = inspect.signature(camera_plane_directions).parameters["device"]
+    assert device.default is inspect.Parameter.empty
+    with pytest.raises(TypeError):
+        camera_plane_directions(4, 4, 2.0)
+    assert camera_plane_directions(4, 4, 2.0, "cpu").device.type == "cpu"
+    tree = {"w": [np.ones((2, 2), np.float32)]}
+    assert params_from_jax(tree, "cpu")["w"][0].device.type == "cpu"
+    if torch.cuda.is_available():
+        assert params_from_jax(tree)["w"][0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            params_from_jax(tree)
 
 
 @pytest.mark.parametrize("units,device,want", [

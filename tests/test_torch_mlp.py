@@ -41,7 +41,7 @@ def test_apply_mlp_matches_jax(n_layers, skip_layer):
                                   jnp.asarray(enc_d), cfg_j)
     cfg_t = tmlp.MLPConfig(n_layers=n_layers, dense_units=256,
                            skip_layer=skip_layer)
-    rgb_t, sig_t = tmlp.apply_mlp(params_from_jax(params),
+    rgb_t, sig_t = tmlp.apply_mlp(params_from_jax(params, "cpu"),
                                   torch.as_tensor(enc_x),
                                   torch.as_tensor(enc_d), cfg_t)
     np.testing.assert_allclose(rgb_t.numpy(), np.asarray(rgb_j), atol=1e-5)
@@ -54,7 +54,7 @@ def test_pack_mlp_params_matches_jax_array_for_array(n_layers, skip_layer):
     want = jrm.pack_mlp_params(params, cfg_j, 10, 4)
     cfg_t = tmlp.MLPConfig(n_layers=n_layers, dense_units=256,
                            skip_layer=skip_layer)
-    got = trm.pack_mlp_params(params_from_jax(params), cfg_t, 10, 4)
+    got = trm.pack_mlp_params(params_from_jax(params, "cpu"), cfg_t, 10, 4)
     assert set(got) == set(want)
     for key in want:
         w_list = want[key] if isinstance(want[key], list) else [want[key]]
@@ -113,7 +113,7 @@ def test_init_mlp_has_reference_layout():
 
 def test_params_round_trip():
     _, params = _jax_params(3, 2)
-    back = params_to_jax(params_from_jax(params))
+    back = params_to_jax(params_from_jax(params, "cpu"))
     for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(back)):
         np.testing.assert_array_equal(a, b)
 

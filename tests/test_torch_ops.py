@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from keras_nerf_tpu.ops import encoding as jenc
+from keras_nerf_tpu.ops import metrics as jmetrics
 from keras_nerf_tpu.ops import rendering as jrender
 from keras_nerf_tpu.ops import sampling as jsamp
 from keras_nerf_tpu_torch.ops import encoding as tenc
+from keras_nerf_tpu_torch.ops import metrics as tmetrics
 from keras_nerf_tpu_torch.ops import rendering as trender
 from keras_nerf_tpu_torch.ops import sampling as tsamp
 
@@ -157,3 +159,18 @@ def test_sample_pdf_sorted_uses_generator_draws():
 
 def test_jax_is_on_cpu():
     assert jax.devices()[0].platform == "cpu"
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 3), (1, 8, 12, 3)])
+def test_psnr_and_ssim_match_jax(shape):
+    """Per-image PSNR and SSIM (the 8 x 12 image clamps the window to 8)."""
+    rng = np.random.default_rng(9)
+    a = rng.uniform(size=shape).astype(np.float32)
+    b = np.clip(a + rng.normal(scale=0.1, size=shape), 0, 1).astype(
+        np.float32)
+    for name in ("mse", "psnr", "ssim"):
+        want = np.asarray(getattr(jmetrics, name)(jnp.asarray(a),
+                                                  jnp.asarray(b)))
+        got = getattr(tmetrics, name)(_t(a), _t(b)).numpy()
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, atol=ATOL, err_msg=name)

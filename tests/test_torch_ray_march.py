@@ -38,7 +38,8 @@ def model():
     params = jax.tree.map(np.asarray, jmlp.init_mlp(
         jax.random.PRNGKey(2), cfg_j, 63, 27))
     cfg_t = MLPConfig(n_layers=N_LAYERS, dense_units=256, skip_layer=SKIP)
-    packed_t = trm.pack_mlp_params(params_from_jax(params), cfg_t, 10, 4)
+    packed_t = trm.pack_mlp_params(params_from_jax(params, "cpu"), cfg_t,
+                                   10, 4)
     return cfg_j, jax_pack(params, cfg_j, 10, 4), packed_t
 
 

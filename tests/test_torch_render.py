@@ -73,7 +73,7 @@ def _jax_render(scene, cfg, **kw):
 def _port_render(scene, cfg, **kw):
     params_c, params_f, rays, _, draws = scene
     return tengine.render_image_batch(
-        params_from_jax(params_c), params_from_jax(params_f),
+        params_from_jax(params_c, "cpu"), params_from_jax(params_f, "cpu"),
         tuple(torch.as_tensor(x) for x in rays),
         [torch.tensor(u) for u in draws], cfg, CHUNK, **kw)
 
@@ -118,7 +118,7 @@ def test_render_draws_from_a_generator(scene):
     for _ in range(2):
         g = torch.Generator().manual_seed(5)
         outs.append(tengine.render_image_batch(
-            params_from_jax(params_c), params_from_jax(params_f),
+            params_from_jax(params_c, "cpu"), params_from_jax(params_f, "cpu"),
             tuple(torch.as_tensor(x) for x in rays), g, cfg, CHUNK,
             with_weights=False))
     assert outs[0][1]["image"].shape == (B, H, W, 3)
@@ -127,7 +127,7 @@ def test_render_draws_from_a_generator(scene):
                                   outs[1][1]["image"].numpy())
     with pytest.raises(ValueError):
         tengine.render_image_batch(
-            params_from_jax(params_c), params_from_jax(params_f),
+            params_from_jax(params_c, "cpu"), params_from_jax(params_f, "cpu"),
             tuple(torch.as_tensor(x) for x in rays), [], cfg, CHUNK)
 
 
@@ -146,15 +146,15 @@ def test_nerf_loads_a_jax_checkpoint(scene, tmp_path):
                  ray_chunks=CHUNK, white_background=True, device="cpu")
     for mine, theirs in ((nerf.coarse_params, state.coarse_params),
                          (nerf.fine_params, state.fine_params)):
-        for a, b in zip(jax.tree.leaves(params_from_jax(
-                jax.tree.map(np.asarray, theirs))), jax.tree.leaves(mine)):
+        theirs = params_from_jax(jax.tree.map(np.asarray, theirs), "cpu")
+        for a, b in zip(jax.tree.leaves(theirs), jax.tree.leaves(mine)):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
     _, _, rays, _, draws = scene
     draws = [torch.tensor(u) for u in draws]
     got_c, got_f = nerf.predict_and_render_images(rays, fine_draws=draws)
     want_c, want_f = tengine.render_image_batch(
-        params_from_jax(jax.tree.map(np.asarray, state.coarse_params)),
-        params_from_jax(jax.tree.map(np.asarray, state.fine_params)),
+        params_from_jax(jax.tree.map(np.asarray, state.coarse_params), "cpu"),
+        params_from_jax(jax.tree.map(np.asarray, state.fine_params), "cpu"),
         tuple(torch.as_tensor(x) for x in rays), draws, nerf.config, CHUNK)
     for k in want_f:
         np.testing.assert_array_equal(got_f[k].numpy(), want_f[k].numpy())

@@ -15,10 +15,17 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   2048-ray chunks (and ``mlp_weight_grad`` against itself, bit for bit),
   trains 20 steps through ``NeRF.fit`` on an in-memory spheres scene, takes
   one step at 16384-ray chunks (peak memory), and holds one card step
-  against the same step on the CPU.
+  against the same step on the CPU;
+* train with a custom loss (``compile(loss=l1)``): holds ``apply_mlp``
+  (T5, with and without its stash), the output-head mode of
+  ``mlp_backward`` and ``fused_mlp_backward`` (T6) against their plain
+  versions at the same chunks, trains 20 steps through ``NeRF.fit``, takes
+  one step at 16384-ray chunks, holds a step with the MSE as a callable
+  (T5/T6) against the fused MSE step (T3), and the card's L1 step against
+  the CPU's.
 
 Each path's launch counts are read just after it runs. Then every kernel
-and its plain version is timed with CUDA events, and both paths are
+and its plain version is timed with CUDA events, and the three paths are
 profiled with ``torch.profiler``: device time by kernel and the device's
 busy share.
 
@@ -88,6 +95,10 @@ TRAIN_TOL = {
     # and relative max.
     "mlp_weight_grad": {"rel_norm": 1e-3, "rel": 1e-2},
 }
+# T5 is ray_march_mlp's MLP over a given encoding: held as its train mode.
+# T6 ends in mlp_weight_grad's sums: held as they are, per leaf.
+TRAIN_TOL["apply_mlp"] = TRAIN_TOL["ray_march_mlp"]
+TRAIN_TOL["fused_mlp_backward"] = TRAIN_TOL["mlp_weight_grad"]
 # Card step vs the same step on the CPU: the JAX package's budgets for its
 # fused train step against XLA (test_pallas_kernel.py:336-349,380-389).
 STEP_TOL = {"loss_rtol": 0.03, "grad_rel_norm": 0.03, "grad_rel_max": 0.12}
@@ -102,6 +113,23 @@ E2E_TOL = {"image": 2e-3, "depth": 5e-3}
 # sums ~0.007). A sigma bias of 1 turns every render into a fog that stops
 # most of each ray, so the image and depth checks depend on every kernel.
 SIGMA_BIAS = 1.0
+# Launches per training chunk of each path: the fused MSE step (T3) and the
+# custom-loss step (T5 forward and recompute, T6's head/dX and dW, per pass).
+MSE_LAUNCHES = {"sample_merge": 1, "ray_march_mlp": 2,
+                "ray_march_quadrature": 2, "mlp_backward": 2,
+                "mlp_weight_grad": 2}
+CUSTOM_LAUNCHES = {"apply_mlp": 4, "mlp_backward": 2, "mlp_weight_grad": 2}
+
+
+def l1_loss(y_true, y_pred):
+    """The custom-loss path's loss: mean absolute error."""
+    return (y_pred - y_true).abs().mean()
+
+
+def mse_callable(y_true, y_pred):
+    """The MSE as a callable of its own: not ``engine.mse_loss``, so it
+    trains through T5/T6, not T3."""
+    return ((y_pred - y_true) ** 2).mean()
 
 
 def log(msg: str) -> None:
@@ -278,9 +306,9 @@ def main() -> int:
     wall = time.perf_counter() - t0
     render_launches = {k.name: k.launches for k in KERNELS}
     chunks = len(FRAMES) * IMG * IMG // CHUNK
-    expected = {"sample_merge": chunks, "ray_march_mlp": 2 * chunks,
-                "ray_march_quadrature": 2 * chunks, "mlp_backward": 0,
-                "mlp_weight_grad": 0}
+    expected = {k.name: 0 for k in KERNELS}
+    expected.update(sample_merge=chunks, ray_march_mlp=2 * chunks,
+                    ray_march_quadrature=2 * chunks)
     log(f"main path: {len(FRAMES)} frames {IMG}^2 in {wall:.3f} s "
         f"({1e3 * wall / len(FRAMES):.1f} ms/frame wall, host clock) "
         f"{card_tag}; launches {render_launches}")
@@ -351,15 +379,52 @@ def main() -> int:
         if not ok:
             fail(f"{label} disagrees with its plain version")
 
+    # T5 and T6 at the same shapes, on the custom loss's cotangents.
+    for name, err, rel, rel_norm, ok, label in _custom_kernel_checks(
+            train_in):
+        errors[name] = max(errors.get(name, 0.0), err)
+        old = rel_errors.get(name, (0.0, 0.0))
+        rel_errors[name] = (max(old[0], rel), max(old[1], rel_norm))
+        log(f"check {label}: max_abs_err {err:.3e}, relative max "
+            f"{rel:.3e}, relative norm {rel_norm:.3e} (tolerance "
+            f"{TRAIN_TOL[name]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{label} disagrees with its plain version")
+
     # ---- 6. main path: training through NeRF.fit -------------------------
-    tnerf, dataset, train_launches, n_steps = _train_main_path(cfg,
-                                                               card_tag)
+    dataset = _train_dataset()
+    tnerf = _compile_train(NeRF(config=cfg), "mse")
+    train_launches, n_steps = _fit_main_path(tnerf, dataset, MSE_LAUNCHES,
+                                             "train", card_tag)
 
     # One step at the round-5 recipe's chunk: launches and peak memory.
-    _big_chunk_step(tnerf, dataset, card_tag)
+    _big_chunk_step(tnerf, dataset, card_tag, "mse")
 
-    # Card step vs the same step on the CPU, from the trained weights.
-    _train_step_vs_cpu(tnerf, cfg, gen)
+    # ---- 6b. main path of the custom loss: the trained model compiled
+    # again with loss=l1 (it keeps its weights and Adam state) and fit.
+    # From random weights, L1 on this mostly white scene empties it within
+    # a few steps on every path, the float32 reference's included.
+    _compile_train(tnerf, l1_loss)
+    custom_launches, _ = _fit_main_path(tnerf, dataset, CUSTOM_LAUNCHES,
+                                        "train custom (l1)", card_tag)
+    _big_chunk_step(tnerf, dataset, card_tag, l1_loss)
+
+    # 16^2 steps from the trained weights: the card against the CPU on
+    # both paths, and T5/T6 against T3 on the same MSE.
+    small = _small_step_inputs(gen)
+    _compare_steps(f"train step {E2E_IMG}^2, card kernels vs CPU plain "
+                   f"versions", tnerf.state, small, cfg,
+                   ("cuda", None), ("cpu", None))
+    _compare_steps(f"l1 train step {E2E_IMG}^2, card kernels vs CPU plain "
+                   f"versions", tnerf.state, small, cfg,
+                   ("cuda", l1_loss), ("cpu", l1_loss))
+    # The two paths sample their fine depths from their own coarse
+    # weights, which differ by the kernels' rounding; each pass on the
+    # same points follows.
+    _compare_steps(f"mse step {E2E_IMG}^2 on the card, as a callable "
+                   f"(T5/T6) vs mse_loss (T3)", tnerf.state, small, cfg,
+                   ("cuda", mse_callable), ("cuda", None))
+    _compare_passes(tnerf.state, small, cfg)
 
     # ---- 7. times ---------------------------------------------------------
     # One call per kernel mode at its path's chunk shape, with the least
@@ -399,7 +464,9 @@ def main() -> int:
                 PEAK_F32_FLOPS)),
     ]
     modes += _train_modes(train_in, cfg)
-    totals = {"render": {}, "train": {}}
+    modes += _custom_modes(train_in, cfg)
+    totals = {"render": {}, "train": {}, "custom": {}}
+    timed = []   # (kernel, path, mode, launches per unit, ms, plain, bound)
     for k, path, mode, call, count, (bms, by), *design in modes:
         kms = _time_ms(lambda: call(k), 20)
         paced = _time_ms(lambda: call(k), 20, spin=False)
@@ -411,7 +478,9 @@ def main() -> int:
             f"{kms / bms:.1f}x bound"
             + (f", the design's bytes {dms:.4f} ms/launch" if design else "")
             + f", {count} launches per "
-            f"{'frame' if path == 'render' else 'step'} {card_tag}")
+            f"{'frame' if path == 'render' else path + ' step'} "
+            f"{card_tag}")
+        timed.append((k, path, mode, count, kms, pms, bms))
         tot = totals[path].setdefault(k.name, [0.0, 0.0, 0.0, {}, None])
         tot[0] += count * kms
         tot[1] += count * pms
@@ -420,33 +489,60 @@ def main() -> int:
         if design:
             tot[4] = (tot[4] or 0.0) + count * dms
     _t3_bound(cfg, totals["train"], card_tag)
+    _t5_t6_times(train_in, cfg, timed, card_tag)
 
     # ---- 8. profile: device time by kernel, device busy share -----------
     log(json.dumps({"profile": _profile(
         lambda: render_orbit(nerf, FRAMES, img_wh=IMG, **ORBIT),
         len(FRAMES), "frame"), "card": card}))
-    log(json.dumps({"profile_train": _profile(
-        lambda: tnerf.fit(dataset, epochs=1, verbose=False), len(dataset),
-        "step"), "card": card}))
+    for key, loss in (("profile_train", "mse"),
+                      ("profile_train_custom", l1_loss)):
+        _compile_train(tnerf, loss)
+        log(json.dumps({key: _profile(
+            lambda: tnerf.fit(dataset, epochs=1, verbose=False),
+            len(dataset), "step"), "card": card}))
 
     entries = []
+    step_per = (f"{IMG}^2 train step, {IMG * IMG // TRAIN_CHUNK} chunks of "
+                f"{TRAIN_CHUNK} rays")
     for k in KERNELS:
-        kms, pms, bms, by, dms = totals["train"][k.name]
-        log(f"time {k.name}: {kms:.4f} ms/step kernel, {pms:.3f} ms/step "
-            f"plain, bound {bms:.4f} ms/step ({_by(by)})"
-            + (f", the design's bytes {dms:.4f} ms/step" if dms else "")
-            + f" {card_tag}")
+        by_path = {"render": render_launches[k.name],
+                   "train": train_launches[k.name],
+                   "train_custom": custom_launches[k.name]}
+        for path in ("train", "custom"):
+            if k.name not in totals[path]:
+                continue
+            kms, pms, bms, by, dms = totals[path][k.name]
+            unit = "ms/step" if path == "train" else "ms/custom step"
+            log(f"time {k.name}: {kms:.4f} {unit} kernel, {pms:.3f} {unit} "
+                f"plain, bound {bms:.4f} {unit} ({_by(by)})"
+                + (f", the design's bytes {dms:.4f} {unit}" if dms else "")
+                + f" {card_tag}")
+        # The numbers of the MSE step where the kernel runs there, else of
+        # the custom-loss step.
+        path = "train" if k.name in totals["train"] else "custom"
+        kms, pms, bms, by, dms = totals[path][k.name]
         entry = {
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": train_launches[k.name],
+            "replaces": k.replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errors[k.name],
             "rel_err": dict(zip(("max", "norm"), rel_errors[k.name])),
             "tolerance": {"render": TOL.get(k.name),
                           "train": TRAIN_TOL.get(k.name)},
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": _by(by),
             "library_ms": None, "design_bytes_ms": dms,
-            "per": f"{IMG}^2 train step, {IMG * IMG // TRAIN_CHUNK} chunks "
-                   f"of {TRAIN_CHUNK} rays; launches over {n_steps} steps"}
+            "per": (f"{step_per}" if path == "train" else
+                    f"{step_per}, loss l1 (custom)")
+                   + f"; launches over {n_steps} steps of each path and "
+                     f"{len(FRAMES)} frames"}
+        if path == "train" and k.name in totals["custom"]:
+            kms, pms, bms, by, dms = totals["custom"][k.name]
+            entry["custom_step"] = {
+                "launches": custom_launches[k.name], "ms": kms,
+                "plain_ms": pms, "bound_ms": bms, "bound_by": _by(by),
+                "design_bytes_ms": dms,
+                "per": f"{step_per}, loss l1 (custom)"}
         if k.name in totals["render"]:
             kms, pms, bms, by, _ = totals["render"][k.name]
             log(f"time {k.name}: {kms:.4f} ms/frame kernel, {pms:.3f} "
@@ -623,8 +719,9 @@ def _train_inputs(cfg, gen) -> dict:
                                         tc, True, False, True)[2]
     u = sorted_uniforms(gen, (TRAIN_CHUNK,), N_FINE)
     tf = trm.sample_merge.plain(tc, wc, u)
-    return {"cfg": cfg, "packed": packed, "base": base, "slope": slope,
-            "masks": masks, "target": target, "wc": wc, "u": u,
+    return {"cfg": cfg, "packed": packed, "o": o, "d": d, "base": base,
+            "slope": slope, "masks": masks, "target": target, "wc": wc,
+            "u": u,
             "passes": {"coarse": {"t": tc, "weights": True},
                        "fine": {"t": tf, "weights": False}}}
 
@@ -732,6 +829,75 @@ def _train_kernel_checks(ti: dict):
         p.update(stash=stash_p, cots=cots_p, rgbs=rgbs, quad=q_p)
 
 
+def _custom_kernel_checks(ti: dict):
+    """T5 and T6 against their plain versions at both passes' training
+    shapes, on the points of :func:`_train_inputs`: ``apply_mlp`` without
+    and with its stash, ``mlp_backward``'s output-head mode, and
+    ``fused_mlp_backward`` whole (twice: identical bits). The output
+    cotangent is the chunk's L1 loss's, through the reference quadrature.
+    Yields :func:`_held` tuples and keeps the inputs in ``ti`` for the
+    timing phase."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models.engine import tree_leaves
+    from keras_nerf_tpu_torch.ops import render_rays
+
+    cfg, packed = ti["cfg"], ti["packed"]
+    u, n = cfg.dense_units, cfg.n_layers
+    for p in ti["passes"].values():
+        t = p["t"]
+        r, s = t.shape
+        pts = r * s
+        shape = f"[{r} x {s}]"
+        enc = trm.encode_block128(*trm.ray_points(ti["o"], ti["d"], t),
+                                  cfg.pos_emb_xyz, cfg.pos_emb_dir)
+        out_k = trm.apply_mlp(packed, enc)
+        out_p = trm.apply_mlp.plain(packed, enc)
+        torch.cuda.synchronize()
+        yield _held("apply_mlp", [(out_k, out_p)], f"apply_mlp {shape}")
+        del out_k, out_p
+        stash_k = trm.alloc_stash(pts, u, n, t.device, enc=enc)
+        stash_p = trm.alloc_stash(pts, u, n, t.device, enc=enc)
+        y_k = trm.apply_mlp(packed, enc, stash=stash_k)
+        y_p = trm.apply_mlp.plain(packed, enc, stash=stash_p)
+        torch.cuda.synchronize()
+        pairs = [(stash_k[k], stash_p[k]) for k in ("features", "rf")]
+        pairs += list(zip(stash_k["h"], stash_p["h"]))
+        yield _held("apply_mlp", pairs + [(y_k, y_p)],
+                    f"apply_mlp with a stash, outputs and kept activations "
+                    f"{shape}", err=float((y_k - y_p).abs().max()))
+        del stash_k, y_k
+
+        y = y_p.detach().requires_grad_(True)
+        image = render_rays(y[:, :3].reshape(r, s, 3), y[:, 3].reshape(r, s),
+                            t, white_background=True).image
+        l1_loss(ti["target"], image).backward()
+        g = y.grad.to(torch.bfloat16)
+        head = (g, y_p, packed, stash_p)
+        cots_k = trm.mlp_backward(*head, from_output=True)
+        cots_p = trm.mlp_backward.plain(*head, from_output=True)
+        torch.cuda.synchronize()
+        pairs = [(cots_k[k], cots_p[k]) for k in ("d_rgb", "d_rf", "d_sf")]
+        pairs += list(zip(cots_k["d_pre"], cots_p["d_pre"]))
+        yield _held("mlp_backward", pairs,
+                    f"mlp_backward output-head mode, every cotangent "
+                    f"{shape}")
+        del cots_k
+
+        want = trm.fused_mlp_backward_plain(packed, enc, g)
+        runs = [trm.fused_mlp_backward(packed, enc, g) for _ in range(2)]
+        torch.cuda.synchronize()
+        leaves = [tree_leaves(x) for x in (*runs, want)]
+        same = all(torch.equal(a, b) for a, b in zip(leaves[0], leaves[1]))
+        log(f"check fused_mlp_backward {shape}: two runs identical bits: "
+            f"{same}")
+        yield _held("fused_mlp_backward", list(zip(leaves[0], leaves[2])),
+                    f"fused_mlp_backward (T6), every packed gradient, twice "
+                    f"{shape}", extra_ok=same)
+        p.update(enc=enc, g=g, y=y_p, t6_stash=stash_p, t6_cots=cots_p)
+
+
 class _StepLog:
     """A quiet callback: keeps each step's metrics, fetched once per epoch
     (``verbose = False`` leaves fit's deferred fetch on)."""
@@ -745,26 +911,38 @@ class _StepLog:
         self.logs.append(logs)
 
 
-def _train_main_path(cfg, card_tag):
-    """20 steps of ``NeRF.fit`` at 128^2, 2048-ray chunks, Adam at 1e-3,
-    on 5 views of the spheres scene; counts every kernel's launches."""
+def _train_dataset():
+    """The training views: 5 poses of the spheres scene at 128^2."""
+    from keras_nerf_tpu_torch.data import NeRFDataset
+    from keras_nerf_tpu_torch.inference import ORBIT
+
+    images, poses, focal = _spheres_scene(TRAIN_POSES, seed=0)
+    return NeRFDataset(images, poses, focal=focal, near=ORBIT["near"],
+                       far=ORBIT["far"], n_samples=N_COARSE, batch_size=1,
+                       shuffle=True, seed=0, device="cuda")
+
+
+def _compile_train(nerf, loss, ray_chunks: int = TRAIN_CHUNK):
+    """``nerf.compile`` for training at 128^2 with Adam at 1e-3 and
+    ``loss``; a compiled model keeps its weights and optimizer state."""
+    return nerf.compile(
+        optimizer="adam", loss=loss, batch_size=1, image_height=IMG,
+        image_width=IMG, ray_chunks=ray_chunks, white_background=True,
+        learning_rate=1e-3, device="cuda", seed=0)
+
+
+def _fit_main_path(nerf, dataset, per_chunk: dict, label: str, card_tag):
+    """A warm-up step, then 20 steps of ``NeRF.fit`` of the compiled
+    ``nerf`` (:func:`_compile_train`); counts every kernel's launches
+    against ``per_chunk`` (launches per chunk, 0 for a kernel not named)
+    and checks that the metrics are finite, the gradients nonzero and the
+    fine loss falls."""
     import math
 
     import torch
 
-    from keras_nerf_tpu_torch.data import NeRFDataset
-    from keras_nerf_tpu_torch.inference import ORBIT
     from keras_nerf_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from keras_nerf_tpu_torch.models import NeRF
 
-    images, poses, focal = _spheres_scene(TRAIN_POSES, seed=0)
-    dataset = NeRFDataset(images, poses, focal=focal, near=ORBIT["near"],
-                          far=ORBIT["far"], n_samples=N_COARSE, batch_size=1,
-                          shuffle=True, seed=0, device="cuda")
-    nerf = NeRF(config=cfg).compile(
-        optimizer="adam", batch_size=1, image_height=IMG, image_width=IMG,
-        ray_chunks=TRAIN_CHUNK, white_background=True, learning_rate=1e-3,
-        device="cuda", seed=0)
     nerf.train_step(next(iter(dataset)))        # warm-up
     torch.cuda.synchronize()
     steps = _StepLog()
@@ -776,35 +954,36 @@ def _train_main_path(cfg, card_tag):
     launches = {k.name: k.launches for k in KERNELS}
     n = len(steps.logs)
     chunks = IMG * IMG // TRAIN_CHUNK
-    expected = {k.name: 2 * n * chunks for k in KERNELS}
-    expected["sample_merge"] = n * chunks
+    expected = {k.name: n * chunks * per_chunk.get(k.name, 0)
+                for k in KERNELS}
     fine = [m["fine_loss"] for m in steps.logs]
-    log(f"train main path: {n} steps of NeRF.fit at {IMG}^2, ray_chunks "
+    log(f"{label} main path: {n} steps of NeRF.fit at {IMG}^2, ray_chunks "
         f"{TRAIN_CHUNK}, in {wall:.3f} s: {1e3 * wall / n:.1f} ms/step, "
         f"{n * IMG * IMG / wall:.0f} rays/s (wall, host clock) {card_tag}; "
         f"launches {launches}")
-    log("train main path: fine_loss by step "
+    log(f"{label} main path: fine_loss by step "
         + " ".join(f"{v:.4f}" for v in fine))
-    log(f"train main path: grad norms coarse "
+    log(f"{label} main path: grad norms coarse "
         f"{min(m['coarse_grad_norm'] for m in steps.logs):.3e}.."
         f"{max(m['coarse_grad_norm'] for m in steps.logs):.3e}, fine "
         f"{min(m['fine_grad_norm'] for m in steps.logs):.3e}.."
         f"{max(m['fine_grad_norm'] for m in steps.logs):.3e}")
     if n != TRAIN_POSES * TRAIN_EPOCHS or launches != expected:
-        fail(f"train launch counts {launches} != expected {expected}")
+        fail(f"{label} launch counts {launches} != expected {expected}")
     if not all(math.isfinite(v) for m in steps.logs for v in m.values()):
-        fail("non-finite training metrics")
+        fail(f"{label}: non-finite training metrics")
     if not all(m[k] > 0.0 for m in steps.logs
                for k in ("coarse_grad_norm", "fine_grad_norm")):
-        fail("a gradient norm is zero")
+        fail(f"{label}: a gradient norm is zero")
     if not sum(fine[-5:]) / 5 < fine[0]:
-        fail(f"the fine loss did not fall: {fine}")
-    return nerf, dataset, launches, n
+        fail(f"{label}: the fine loss did not fall: {fine}")
+    return launches, n
 
 
-def _big_chunk_step(nerf, dataset, card_tag):
-    """One step at 16384-ray chunks: the fine pass runs in sub-launches of
-    about 1 M points; prints the peak device memory."""
+def _big_chunk_step(nerf, dataset, card_tag, loss):
+    """One step at 16384-ray chunks, compiled with ``loss``: the fine pass
+    (T3) or its backward (T6) runs in sub-launches of about 1 M points;
+    prints the peak device memory."""
     import math
 
     import torch
@@ -812,10 +991,7 @@ def _big_chunk_step(nerf, dataset, card_tag):
     from keras_nerf_tpu_torch.kernels import KERNELS, reset_launch_counts
     from keras_nerf_tpu_torch.kernels.ray_march import train_sub_launches
 
-    kw = dict(optimizer="adam", batch_size=1, image_height=IMG,
-              image_width=IMG, white_background=True, learning_rate=1e-3,
-              device="cuda", seed=0)
-    nerf.compile(ray_chunks=BIG_CHUNK, **kw)
+    _compile_train(nerf, loss, BIG_CHUNK)
     batch = next(iter(dataset))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -825,12 +1001,24 @@ def _big_chunk_step(nerf, dataset, card_tag):
     metrics = nerf.train_step(batch)
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS}
-    subs = (len(train_sub_launches(BIG_CHUNK, N_COARSE))
-            + len(train_sub_launches(BIG_CHUNK, N_COARSE + N_FINE)))
-    expected = {k.name: subs for k in KERNELS}
-    expected["sample_merge"] = IMG * IMG // BIG_CHUNK
+    chunks = IMG * IMG // BIG_CHUNK
+    expected = {k.name: 0 for k in KERNELS}
+    if loss == "mse":
+        subs = chunks * (len(train_sub_launches(BIG_CHUNK, N_COARSE))
+                         + len(train_sub_launches(BIG_CHUNK,
+                                                  N_COARSE + N_FINE)))
+        expected.update(ray_march_mlp=subs, ray_march_quadrature=subs,
+                        mlp_backward=subs, mlp_weight_grad=subs,
+                        sample_merge=chunks)
+    else:   # forward per pass, then the recompute per sub-launch
+        subs = chunks * sum(len(train_sub_launches(BIG_CHUNK * s, 1))
+                            for s in (N_COARSE, N_COARSE + N_FINE))
+        expected.update(apply_mlp=2 * chunks + subs, mlp_backward=subs,
+                        mlp_weight_grad=subs)
     peak = torch.cuda.max_memory_allocated()
-    log(f"train step at ray_chunks {BIG_CHUNK}: {1e3 * wall:.1f} ms wall, "
+    name = "mse" if loss == "mse" else loss.__name__
+    log(f"train step ({name}) at ray_chunks {BIG_CHUNK}: "
+        f"{1e3 * wall:.1f} ms wall, "
         f"peak device memory {peak / 2**30:.2f} GiB "
         f"({(peak - base_mem) / 2**30:.2f} GiB above the step's start) "
         f"{card_tag}; launches {launches}")
@@ -838,20 +1026,16 @@ def _big_chunk_step(nerf, dataset, card_tag):
         fail(f"launch counts {launches} != expected {expected}")
     if not all(math.isfinite(v) for v in metrics.values()):
         fail("non-finite metrics at the large chunk")
-    nerf.compile(ray_chunks=TRAIN_CHUNK, **kw)
+    _compile_train(nerf, loss)
 
 
-def _train_step_vs_cpu(nerf, cfg, gen):
-    """One SGD (lr 1) step of the card from the trained weights against the
-    same step on the CPU's plain versions: 16^2, 2 chunks, same rays,
-    targets and draws. The parameter change is the gradient."""
-    import numpy as np
+def _small_step_inputs(gen):
+    """A 16^2 view of the spheres scene (2 chunks) with its rays and fine
+    draws, on the card."""
     import torch
 
     from keras_nerf_tpu_torch.data import generate_ray_batch
     from keras_nerf_tpu_torch.inference import ORBIT
-    from keras_nerf_tpu_torch.models import engine
-    from keras_nerf_tpu_torch.models.engine import tree_leaves
     from keras_nerf_tpu_torch.ops import sorted_uniforms
 
     images, poses, focal = _spheres_scene(1, seed=2, img=E2E_IMG)
@@ -862,40 +1046,124 @@ def _train_step_vs_cpu(nerf, cfg, gen):
     batch = (torch.as_tensor(images, device="cuda"), rays)
     draws = [sorted_uniforms(gen, (E2E_CHUNK,), N_FINE)
              for _ in range(E2E_IMG * E2E_IMG // E2E_CHUNK)]
+    return batch, draws
+
+
+def _compare_steps(label, state, small, cfg, run_a, run_b):
+    """One SGD (lr 1) step from ``state``'s weights on the same batch and
+    draws for each run ``(device, loss_fn)``, held at ``STEP_TOL``: losses
+    relative, per-leaf gradients (the parameter change) of both models by
+    relative norm and relative max, ``run_b`` the reference."""
+    import numpy as np
+    import torch
+
+    from keras_nerf_tpu_torch.models import engine
+    from keras_nerf_tpu_torch.models.engine import tree_leaves
+
+    batch, draws = small
     opt = engine.make_optimizer("sgd", 1.0)
-    cpu = torch.device("cpu")
-    params = (nerf.state.coarse_params, nerf.state.fine_params)
     results = []
-    for device in ("cuda", cpu):
-        p0 = [_to(p, device) for p in params]
-        state = engine.TrainState(p0[0], p0[1], {}, {}, 0)
+    for device, loss_fn in (run_a, run_b):
+        device = torch.device(device)
+        p0 = [_to(p, device) for p in (state.coarse_params,
+                                       state.fine_params)]
+        s0 = engine.TrainState(p0[0], p0[1], {}, {}, 0)
         moved = (batch[0].to(device), tuple(x.to(device) for x in batch[1]))
-        s1, metrics = engine.train_step(state, moved,
+        s1, metrics = engine.train_step(s0, moved,
                                         [x.to(device) for x in draws], opt,
-                                        cfg, E2E_CHUNK)
+                                        cfg, E2E_CHUNK, loss_fn=loss_fn)
         grads = [[(a - b).double().cpu() for a, b in
                   zip(tree_leaves(p), tree_leaves(q))]
                  for p, q in zip(p0, (s1.coarse_params, s1.fine_params))]
         results.append(({k: float(v) for k, v in metrics.items()}, grads))
-    (m_g, g_g), (m_c, g_c) = results
-    loss_err = max(abs(m_g[k] - m_c[k]) / abs(m_c[k])
+    (m_a, g_a), (m_b, g_b) = results
+    loss_err = max(abs(m_a[k] - m_b[k]) / abs(m_b[k])
                    for k in ("coarse_loss", "fine_loss"))
+    worst = {}
+    for model, leaves_a, leaves_b in zip(("coarse", "fine"), g_a, g_b):
+        worst[model] = _worst_leaf(zip(leaves_a, leaves_b))
+    log(f"{label}: loss relative err {loss_err:.3e} (tolerance "
+        f"{STEP_TOL['loss_rtol']}); worst leaf gradient relative norm / "
+        f"max " + ", ".join(
+            f"{m} {w[0]:.3e} / {w[1]:.3e}" for m, w in worst.items())
+        + f" (tolerance {STEP_TOL['grad_rel_norm']} / "
+        f"{STEP_TOL['grad_rel_max']}); losses "
+        f"{m_a['coarse_loss']:.5f}/{m_a['fine_loss']:.5f} vs "
+        f"{m_b['coarse_loss']:.5f}/{m_b['fine_loss']:.5f}")
+    if not (np.isfinite(loss_err) and loss_err <= STEP_TOL["loss_rtol"]
+            and all(map(_within_step_tol, worst.values()))):
+        fail(f"{label}: the two steps disagree")
+
+
+def _worst_leaf(pairs):
+    """(worst relative norm, worst relative max) over (got, reference)
+    gradient leaves."""
     rel_norm = rel_max = 0.0
-    for a, b in zip(sum(g_g, []), sum(g_c, [])):
+    for a, b in pairs:
+        a, b = a.double().cpu(), b.double().cpu()
         rel_norm = max(rel_norm, float((a - b).norm() / b.norm()))
         rel_max = max(rel_max, float((a - b).abs().max() / b.abs().max()))
-    log(f"train step {E2E_IMG}^2, card kernels vs CPU plain versions: loss "
-        f"relative err {loss_err:.3e} (tolerance {STEP_TOL['loss_rtol']}), "
-        f"worst leaf gradient relative norm {rel_norm:.3e} (tolerance "
-        f"{STEP_TOL['grad_rel_norm']}), relative max {rel_max:.3e} "
-        f"(tolerance {STEP_TOL['grad_rel_max']}); losses card "
-        f"{m_g['coarse_loss']:.5f}/{m_g['fine_loss']:.5f}, cpu "
-        f"{m_c['coarse_loss']:.5f}/{m_c['fine_loss']:.5f}")
-    if not (np.isfinite([loss_err, rel_norm, rel_max]).all()
-            and loss_err <= STEP_TOL["loss_rtol"]
-            and rel_norm <= STEP_TOL["grad_rel_norm"]
-            and rel_max <= STEP_TOL["grad_rel_max"]):
-        fail("the card's train step disagrees with the plain versions")
+    return rel_norm, rel_max
+
+
+def _within_step_tol(worst) -> bool:
+    import math
+
+    return (all(math.isfinite(x) for x in worst)
+            and worst[0] <= STEP_TOL["grad_rel_norm"]
+            and worst[1] <= STEP_TOL["grad_rel_max"])
+
+
+def _compare_passes(state, small, cfg):
+    """Each pass of the first 16^2 chunk on the same points through both
+    training paths on the card: ``fused_train_chunk`` (T3) against
+    autograd of the MSE through ``render_chunk``'s kernel branch (T5/T6)
+    and ``render_rays``; the coarse pass on its stratified depths, the fine
+    pass on the depths that ``sample_merge`` draws from T3's coarse
+    weights. Loss and every gradient leaf held at ``STEP_TOL`` (the
+    budgets of test_pallas_kernel.py:308-349, which compares T3 with
+    autodiff on shared points)."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models import engine
+
+    (images, (origin, direction, points)), draws = small
+    n = E2E_CHUNK
+    o = origin.reshape(-1, 3)[:n].contiguous()
+    d = direction.reshape(-1, 3)[:n].contiguous()
+    tc = points.reshape(-1, N_COARSE)[:n].contiguous()
+    target = images[..., :3].reshape(-1, 3)[:n].contiguous()
+    enc = (cfg.pos_emb_xyz, cfg.pos_emb_dir)
+    kw = dict(pos_emb_xyz=cfg.pos_emb_xyz, pos_emb_dir=cfg.pos_emb_dir,
+              white_background=cfg.white_background)
+    packed_c = trm.pack_mlp_params(state.coarse_params, cfg.mlp, *enc)
+    weights_c = trm.fused_render_chunk(packed_c, o, d, tc, **kw)[2]
+    tf = trm.sample_merge(tc, weights_c, draws[0])
+    for name, params, t in (("coarse", state.coarse_params, tc),
+                            ("fine", state.fine_params, tf)):
+        packed = trm.pack_mlp_params(params, cfg.mlp, *enc)
+        image3, _, _, g3 = trm.fused_train_chunk(packed, o, d, t, target,
+                                                 **kw)
+        g3 = trm.unpack_grads(g3, cfg.mlp, *enc)
+        leaves = engine.tree_map(
+            lambda x: x.detach().clone().requires_grad_(True), params)
+        out, _ = engine.render_chunk(leaves, o, d, t, cfg)
+        loss = mse_callable(target, out.image)
+        loss.backward()
+        loss3 = float(engine.mse_loss(target, image3))
+        loss_err = abs(float(loss.detach()) - loss3) / loss3
+        worst = _worst_leaf(zip(
+            engine.tree_leaves(engine.tree_map(lambda x: x.grad, leaves)),
+            engine.tree_leaves(engine.tree_map(lambda g, x: g, g3, leaves))))
+        log(f"{name} pass [{n} x {t.shape[1]}] on the same points, MSE "
+            f"through T5/T6 vs T3 on the card: loss relative err "
+            f"{loss_err:.3e} (tolerance {STEP_TOL['loss_rtol']}), worst "
+            f"leaf gradient relative norm {worst[0]:.3e} / max "
+            f"{worst[1]:.3e} (tolerance {STEP_TOL['grad_rel_norm']} / "
+            f"{STEP_TOL['grad_rel_max']})")
+        if not (loss_err <= STEP_TOL["loss_rtol"] and _within_step_tol(worst)):
+            fail(f"the {name} pass through T5/T6 disagrees with T3")
 
 
 def _train_modes(ti: dict, cfg) -> list:
@@ -964,6 +1232,125 @@ def _train_modes(ti: dict, cfg) -> list:
              grad_bytes + pts * (stash_b + cots_b + 2 * trm.D_HEAD)),
         ]
     return modes
+
+
+def _custom_modes(ti: dict, cfg) -> list:
+    """The timing modes of the custom-loss step's kernels at one 2048-ray
+    chunk per pass, each launched once per chunk: 8 times per 128^2 step.
+
+    Bounds as for T3: T5's forward, and T6's least work split as the
+    forward (the recompute), dX (``mlp_backward``) and dW
+    (``mlp_weight_grad``), at the bf16 peak, against each function's own
+    inputs and outputs; the stash and cotangents the split moves come apart
+    as the design's bytes."""
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models.engine import tree_leaves
+
+    packed = ti["packed"]
+    u, n = cfg.dense_units, cfg.n_layers
+    per_step = IMG * IMG // TRAIN_CHUNK
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       tree_leaves(packed))
+    grad_bytes = 2 * F32B * sum(t.numel() for t in tree_leaves(packed))
+    kept_b = 2 * (n * u + u + u // 2)              # the stash less enc
+    cots_b = 2 * (u // 2 + u + trm.D_HEAD + n * u)
+    io_b = 2 * 128 + 4 * F32B                      # enc in, (rgb, sigma) out
+    head_b = 4 * 2 + 4 * F32B                      # g bf16, y float32
+    fwd = trm.fwd_flop_per_point(cfg.mlp)
+    dx = trm.bwd_dx_flop_per_point(cfg.mlp)
+    modes = []
+    for name, p in ti["passes"].items():
+        pts = p["enc"].shape[0]
+        shape = f"[{TRAIN_CHUNK} x {p['t'].shape[1]}]"
+        stash = trm.alloc_stash(pts, u, n, p["enc"].device, enc=p["enc"])
+        cots = trm.alloc_cotangents(pts, u, n, p["enc"].device)
+        acc = trm.zero_grads(packed)
+        fwd_bound = _bound(weight_bytes + pts * io_b, pts * fwd,
+                           PEAK_BF16_FLOPS)
+        modes += [
+            (trm.apply_mlp, "custom", f"forward {name} {shape}",
+             lambda f, p=p: f(packed, p["enc"]), per_step, fwd_bound),
+            (trm.apply_mlp, "custom", f"recompute (stash) {name} {shape}",
+             lambda f, p=p, stash=stash: f(packed, p["enc"], stash=stash),
+             per_step, fwd_bound, weight_bytes + pts * (io_b + kept_b)),
+            (trm.mlp_backward, "custom", f"output head {name} {shape}",
+             lambda f, p=p, cots=cots: f(p["g"], p["y"], packed,
+                                         p["t6_stash"], cots,
+                                         from_output=True),
+             per_step, _bound(weight_bytes + pts * head_b, pts * dx,
+                              PEAK_BF16_FLOPS),
+             weight_bytes + pts * (head_b + 2 * n * u + cots_b
+                                   + 2 * trm.D_HEAD)),
+            (trm.mlp_weight_grad, "custom", f"{name} {shape}",
+             lambda f, p=p, acc=acc: f(p["t6_stash"], p["t6_cots"], acc),
+             per_step, _bound(grad_bytes, pts * fwd, PEAK_BF16_FLOPS),
+             grad_bytes + pts * (2 * 128 + kept_b + cots_b
+                                 + 2 * trm.D_HEAD)),
+        ]
+    return modes
+
+
+def _t5_t6_times(ti: dict, cfg, timed: list, card_tag):
+    """T5 (``apply_mlp``'s forward launches, from the timing phase's
+    ``timed`` modes) and T6 (``fused_mlp_backward`` whole, timed here) per
+    128^2 custom-loss step, beside their plain versions and bounds: T5's
+    least work is the forward's unpadded products, T6's the forward, dX and
+    dW (3,489,024 FLOP per point at 8 x 256), at 989 TFLOP/s."""
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models.engine import tree_leaves
+
+    packed = ti["packed"]
+    per_step = IMG * IMG // TRAIN_CHUNK
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       tree_leaves(packed))
+    grad_bytes = 2 * F32B * sum(t.numel() for t in tree_leaves(packed))
+    fwd = trm.fwd_flop_per_point(cfg.mlp)
+    t6_flop = 2 * fwd + trm.bwd_dx_flop_per_point(cfg.mlp)
+    t6 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "by": {}}
+    for name, p in ti["passes"].items():
+        pts = p["enc"].shape[0]
+        kms = _time_ms(lambda p=p: trm.fused_mlp_backward(packed, p["enc"],
+                                                          p["g"]), 10)
+        pms = _time_ms(lambda p=p: trm.fused_mlp_backward_plain(
+            packed, p["enc"], p["g"]), 2)
+        bms, by = _bound(weight_bytes + grad_bytes + pts * (2 * 128 + 8),
+                         pts * t6_flop, PEAK_BF16_FLOPS)
+        log(f"time fused_mlp_backward (T6) {name} [{TRAIN_CHUNK} x "
+            f"{p['t'].shape[1]}]: {kms:.4f} ms/call kernels, {pms:.3f} "
+            f"ms/call plain, bound {bms:.4f} ms/call ({by}), "
+            f"{kms / bms:.1f}x bound, {per_step} calls per custom step "
+            f"{card_tag}")
+        t6["ms"] += per_step * kms
+        t6["plain_ms"] += per_step * pms
+        t6["bound_ms"] += per_step * bms
+        t6["by"][by] = t6["by"].get(by, 0.0) + per_step * bms
+    t6["by"] = _by(t6["by"])
+    # T5 is the forward half of apply_mlp's launches.
+    fwd = [(count * kms, count * pms, count * bms)
+           for k, path, mode, count, kms, pms, bms in timed
+           if k is trm.apply_mlp and mode.startswith("forward")]
+    fwd_ms, fwd_plain, fwd_bound = (sum(x) for x in zip(*fwd))
+    log(f"T5 (apply_mlp forward, 16 launches) per {IMG}^2 custom step: "
+        f"{fwd_ms:.4f} ms kernel, {fwd_plain:.3f} ms plain, bound "
+        f"{fwd_bound:.4f} ms (operations), {fwd_ms / fwd_bound:.1f}x "
+        f"{card_tag}")
+    log(f"T6 (fused_mlp_backward, 16 calls) per {IMG}^2 custom step: "
+        f"{t6['ms']:.4f} ms kernels, {t6['plain_ms']:.3f} ms plain, bound "
+        f"{t6['bound_ms']:.4f} ms ({t6['by']}), "
+        f"{t6['ms'] / t6['bound_ms']:.1f}x {card_tag}")
+    log(json.dumps({"t5_t6_per_custom_step": {
+        "T5_apply_mlp_forward": {"launches": 2 * per_step, "ms": fwd_ms,
+                                 "plain_ms": fwd_plain,
+                                 "bound_ms": fwd_bound,
+                                 "bound_by": "operations"},
+        "T6_fused_mlp_backward": {
+            "calls": 2 * per_step, "ms": t6["ms"],
+            "plain_ms": t6["plain_ms"], "bound_ms": t6["bound_ms"],
+            "bound_by": t6["by"]},
+        "kernel_ms_by_mode": {f"{k.name} {mode}": count * kms
+                              for k, path, mode, count, kms, _, _ in timed
+                              if path == "custom"},
+        "card": card_tag.strip("[]")}}))
 
 
 def _t3_bound(cfg, train_totals: dict, card_tag):

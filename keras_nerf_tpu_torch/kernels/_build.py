@@ -138,10 +138,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.knt_ray_march_mlp.argtypes = [p, p, p, p, p, p, i, i, i, p, p]
     lib.knt_ray_march_quadrature.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.knt_ray_march_quadrature_grad.argtypes = [p] * 8 + [i, i, i, f, p]
+    lib.knt_apply_mlp.argtypes = [p, p, p, i, p, p]
     lib.knt_mlp_backward.argtypes = [p, p, p, p, p, i, p]
+    lib.knt_mlp_backward_from_output.argtypes = [p] * 6 + [i, p]
     lib.knt_mlp_weight_grad.argtypes = [p, i, i, i, p, p]
     for fn in (lib.knt_sample_merge, lib.knt_ray_march_mlp,
-               lib.knt_ray_march_quadrature,
+               lib.knt_apply_mlp, lib.knt_ray_march_quadrature,
                lib.knt_ray_march_quadrature_grad, lib.knt_mlp_backward,
-               lib.knt_mlp_weight_grad):
+               lib.knt_mlp_backward_from_output, lib.knt_mlp_weight_grad):
         fn.restype = i

@@ -17,6 +17,16 @@
 // masks come from the trunk activations the forward kept (MlpStash). The
 // encoding gets no cotangent: positions are data.
 //
+// Output-head mode (knt_mlp_backward_from_output): the head step of the
+// TPU's fused_mlp_backward / _mlp_bwd_kernel (:562-579), which starts from
+// the cotangent of the MLP's outputs rather than of the quadrature. It reads
+// g [P, 4] bf16 (rgb 0..2, sigma 3; rounded before the kernel, :745-747)
+// and y [P, 4] float32, the recompute's (sigmoid rgb, relu sigma), forms
+//   d_rgb_pre   = bf16(g_rgb rgb (1 - rgb))    (float32 products, this order)
+//   d_sigma_pre = bf16(g_sigma [sigma > 0])
+// in the prologue, writes d_rgb_pre as [P, 16] for mlp_weight_grad and runs
+// the same chain. 34 B more per point than the quadrature mode reads.
+//
 // Bound on the H100: bytes, as this kernel's inputs and outputs stand. Per
 // point at 8 x 256 it reads 34 B of head cotangents and 4 KB of kept trunk
 // activations and writes 4.9 KB of cotangents (2.7 ns at 3.35 TB/s) against
@@ -89,10 +99,14 @@ __device__ void dx_layer(const bf16* A, int lda, int K, const bf16* W, int ldw,
   }
 }
 
+// The head cotangents come from d_rgb [P, 16] and d_sigma [P] (quadrature
+// mode), or, where g is not null, from g and y (output-head mode), which
+// also writes d_rgb_out [P, 16].
 __global__ void __launch_bounds__(kWarps * 32)
 mlp_backward_kernel(const MlpWeights w, const bf16* __restrict__ d_rgb,
-                    const bf16* __restrict__ d_sigma, const MlpStash st,
-                    const MlpCotangents ct, int P) {
+                    const bf16* __restrict__ d_sigma, const bf16* __restrict__ g,
+                    const float* __restrict__ y, bf16* __restrict__ d_rgb_out,
+                    const MlpStash st, const MlpCotangents ct, int P) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int u = w.units, half = u / 2, n = w.n_layers;
   const int ld_sf = u + kHead + 8, ld_a = u + 8, ld_rf = half + 8, ld_rgb = kHead + 8;
@@ -108,13 +122,28 @@ mlp_backward_kernel(const MlpWeights w, const bf16* __restrict__ d_rgb,
   const int rows = min(kTile, P - p0);
 
   // The head cotangents of the tile (zero past the last point).
-  for (int v = threadIdx.x; v < kTile * 2; v += blockDim.x) {
-    const int r = v >> 1, c = (v & 1) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) val = *reinterpret_cast<const uint4*>(d_rgb + (size_t)(p0 + r) * kHead + c);
-    *reinterpret_cast<uint4*>(rgb + r * ld_rgb + c) = val;
+  const bool from_output = g != nullptr;
+  if (from_output) {
+    for (int v = threadIdx.x; v < kTile * kHead; v += blockDim.x) {
+      const int r = v / kHead, c = v % kHead;
+      float val = 0.f;
+      if (r < rows && c < 3) {
+        const size_t i = (size_t)(p0 + r) * 4 + c;
+        const float yv = y[i];
+        val = __fmul_rn(__fmul_rn(__bfloat162float(g[i]), yv), __fsub_rn(1.f, yv));
+      }
+      rgb[r * ld_rgb + c] = __float2bfloat16_rn(val);
+    }
+  } else {
+    for (int v = threadIdx.x; v < kTile * 2; v += blockDim.x) {
+      const int r = v >> 1, c = (v & 1) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows) val = *reinterpret_cast<const uint4*>(d_rgb + (size_t)(p0 + r) * kHead + c);
+      *reinterpret_cast<uint4*>(rgb + r * ld_rgb + c) = val;
+    }
   }
   __syncthreads();
+  if (from_output) copy_tile_out(d_rgb_out, p0, rows, kHead, rgb, ld_rgb);
 
   // d_rf = bf16(d_rgb_pre @ w_rgb^T): w_rgb is [u/2, 128], columns 16.. are
   // padding and never read.
@@ -130,7 +159,11 @@ mlp_backward_kernel(const MlpWeights w, const bf16* __restrict__ d_rgb,
   for (int v = threadIdx.x; v < kTile * kHead; v += blockDim.x) {
     const int r = v / kHead, c = v % kHead;
     bf16 val = __float2bfloat16_rn(0.f);
-    if (c == 0 && r < rows) val = d_sigma[p0 + r];
+    if (c == 0 && r < rows) {
+      const size_t p = (size_t)(p0 + r);
+      if (!from_output) val = d_sigma[p];
+      else if (y[p * 4 + 3] > 0.f) val = g[p * 4 + 3];
+    }
     sf[r * ld_sf + u + c] = val;
   }
   __syncthreads();
@@ -162,14 +195,9 @@ size_t smem_bytes(int units) {
          sizeof(float) * kWarps * 256;
 }
 
-}  // namespace
-
-// w: the packed weights; d_rgb [P, 16], d_sigma [P] bf16 from
-// knt_ray_march_quadrature_grad; st: the train mode's kept activations;
-// ct: the cotangent arrays to write.
-KNT_EXPORT int knt_mlp_backward(const MlpWeights* w, const bf16* d_rgb,
-                                const bf16* d_sigma, const MlpStash* st,
-                                const MlpCotangents* ct, int P, void* stream) {
+int launch(const MlpWeights* w, const bf16* d_rgb, const bf16* d_sigma, const bf16* g,
+           const float* y, bf16* d_rgb_out, const MlpStash* st, const MlpCotangents* ct,
+           int P, void* stream) {
   if (P <= 0) return 0;
   if (w->n_layers < 1 || w->n_layers > kMaxLayers || w->units % 256 != 0)
     return (int)cudaErrorInvalidValue;
@@ -179,6 +207,28 @@ KNT_EXPORT int knt_mlp_backward(const MlpWeights* w, const bf16* d_rgb,
   if (err != cudaSuccess) return (int)err;
   const int blocks = (P + kTile - 1) / kTile;
   mlp_backward_kernel<<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      *w, d_rgb, d_sigma, *st, *ct, P);
+      *w, d_rgb, d_sigma, g, y, d_rgb_out, *st, *ct, P);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// w: the packed weights; d_rgb [P, 16], d_sigma [P] bf16 from
+// knt_ray_march_quadrature_grad; st: the train mode's kept activations;
+// ct: the cotangent arrays to write.
+KNT_EXPORT int knt_mlp_backward(const MlpWeights* w, const bf16* d_rgb,
+                                const bf16* d_sigma, const MlpStash* st,
+                                const MlpCotangents* ct, int P, void* stream) {
+  return launch(w, d_rgb, d_sigma, nullptr, nullptr, nullptr, st, ct, P, stream);
+}
+
+// The output-head mode: g [P, 4] bf16 output cotangent, y [P, 4] float32
+// outputs of the recompute (knt_apply_mlp with a stash); writes d_rgb_out
+// [P, 16] besides ct.
+KNT_EXPORT int knt_mlp_backward_from_output(const MlpWeights* w, const bf16* g,
+                                            const float* y, bf16* d_rgb_out,
+                                            const MlpStash* st, const MlpCotangents* ct,
+                                            int P, void* stream) {
+  if (g == nullptr || y == nullptr || d_rgb_out == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(w, nullptr, nullptr, g, y, d_rgb_out, st, ct, P, stream);
 }

@@ -34,6 +34,17 @@
 // 5,120 B written per point at 8 x 256 (1.5 ns at 3.35 TB/s), which makes
 // this mode bound by bytes beside its 1.19 MFLOP per point (1.2 ns). The
 // copies overlap the next layer's products, which read only shared memory.
+//
+// Input mode (knt_apply_mlp, the apply_mlp wrapper): the TPU's
+// fused_apply_mlp / _mlp_fwd_kernel (:438-493), the same _forward_core over
+// points encoded outside the kernel (encode_block128, [P, 128] bf16). The
+// block reads its encoded tile from device memory, 16 bytes per thread,
+// instead of building it from base + t * slope; the rest is the full mode,
+// (r, g, b, sigma) out. With a stash it is fused_mlp_backward's recompute:
+// the stash's enc block is the input itself, so only the trunk activations,
+// the features and rf are written. Bound: operations, 1.19 MFLOP per point
+// against 272 B read and written (0.08 ns at 3.35 TB/s); with a stash,
+// bytes (4,864 B written per point, 1.5 ns).
 #include "mlp.cuh"
 
 using namespace nvcuda;
@@ -116,12 +127,13 @@ __device__ __forceinline__ float sin_poly(float x) {
   return __fmul_rn(x, p);
 }
 
-template <bool kSigmaOnly>
+// kEncIn: the input mode, the encoded tile read from enc_in [P, 128].
+template <bool kSigmaOnly, bool kEncIn>
 __global__ void __launch_bounds__(kWarps * 32)
 mlp_kernel(const MlpWeights w, const float* __restrict__ base,
            const float* __restrict__ slope, const float* __restrict__ depths,
-           const float* __restrict__ masks, float* __restrict__ out, int P,
-           int S, const MlpStash stash) {
+           const float* __restrict__ masks, const bf16* __restrict__ enc_in,
+           float* __restrict__ out, int P, int S, const MlpStash stash) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int u = w.units, half = u / 2, act_ld = u + 8;
   bf16* enc = reinterpret_cast<bf16*>(smem);
@@ -134,32 +146,44 @@ mlp_kernel(const MlpWeights w, const float* __restrict__ base,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* scratch = scratch_all + warp * 256;
   const int p0 = blockIdx.x * kTile;
-  const bool train = stash.enc != nullptr;
+  const bool train = stash.features != nullptr;
   const int rows = min(kTile, P - p0);
 
-  // Positional encoding of the tile's points (ray_march.py:1259-1280).
-  for (int idx = threadIdx.x; idx < kTile * kEncLanes; idx += blockDim.x) {
-    const int pl = idx / kEncLanes, l = idx % kEncLanes, p = p0 + pl;
-    float v = 0.f;
-    if (p < P) {
-      const int r = p / S;
-      // rep = base + t * slope and the 2 pi reduction as single-rounding
-      // FMAs, as XLA contracts them (see sin_poly).
-      const float rep = __fmaf_rn(depths[p], slope[(size_t)r * kEncLanes + l],
-                                  base[(size_t)r * kEncLanes + l]);
-      if (masks[l] != 0.f) {
-        v = rep;
-      } else if (masks[kEncLanes + l] != 0.f || masks[2 * kEncLanes + l] != 0.f) {
-        const float shifted =
-            masks[2 * kEncLanes + l] != 0.f ? __fadd_rn(rep, knt::kHalfPi) : rep;
-        const float turns = rintf(__fmul_rn(shifted, knt::kInvTwoPi));
-        v = sin_poly(__fmaf_rn(-knt::kTwoPi, turns, shifted));
-      }
+  if (kEncIn) {
+    // The encoded tile (zero past the last point), 16 bytes per thread.
+    constexpr int kVecs = kEncLanes / 8;
+    for (int v = threadIdx.x; v < kTile * kVecs; v += blockDim.x) {
+      const int pl = v / kVecs, c = (v % kVecs) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (pl < rows)
+        val = *reinterpret_cast<const uint4*>(enc_in + (size_t)(p0 + pl) * kEncLanes + c);
+      *reinterpret_cast<uint4*>(enc + pl * kEncLd + c) = val;
     }
-    enc[pl * kEncLd + l] = __float2bfloat16_rn(v);
+  } else {
+    // Positional encoding of the tile's points (ray_march.py:1259-1280).
+    for (int idx = threadIdx.x; idx < kTile * kEncLanes; idx += blockDim.x) {
+      const int pl = idx / kEncLanes, l = idx % kEncLanes, p = p0 + pl;
+      float v = 0.f;
+      if (p < P) {
+        const int r = p / S;
+        // rep = base + t * slope and the 2 pi reduction as single-rounding
+        // FMAs, as XLA contracts them (see sin_poly).
+        const float rep = __fmaf_rn(depths[p], slope[(size_t)r * kEncLanes + l],
+                                    base[(size_t)r * kEncLanes + l]);
+        if (masks[l] != 0.f) {
+          v = rep;
+        } else if (masks[kEncLanes + l] != 0.f || masks[2 * kEncLanes + l] != 0.f) {
+          const float shifted =
+              masks[2 * kEncLanes + l] != 0.f ? __fadd_rn(rep, knt::kHalfPi) : rep;
+          const float turns = rintf(__fmul_rn(shifted, knt::kInvTwoPi));
+          v = sin_poly(__fmaf_rn(-knt::kTwoPi, turns, shifted));
+        }
+      }
+      enc[pl * kEncLd + l] = __float2bfloat16_rn(v);
+    }
   }
   __syncthreads();
-  if (train) copy_tile_out(stash.enc, p0, rows, kEncLanes, enc, kEncLd);
+  if (train && !kEncIn) copy_tile_out(stash.enc, p0, rows, kEncLanes, enc, kEncLd);
 
   // Trunk (_forward_core :387-400).
   const bf16* h = enc;
@@ -229,6 +253,24 @@ size_t smem_bytes(int units) {
          sizeof(float) * (kWarps * 256 + kTile * 4);
 }
 
+template <bool kSigmaOnly, bool kEncIn>
+int launch(const MlpWeights* w, const float* base, const float* slope,
+           const float* depths, const float* masks, const bf16* enc_in, float* out,
+           int P, int S, const MlpStash& kept, cudaStream_t st) {
+  const size_t smem = smem_bytes(w->units);
+  const cudaError_t err = cudaFuncSetAttribute(
+      mlp_kernel<kSigmaOnly, kEncIn>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (P + kTile - 1) / kTile;
+  mlp_kernel<kSigmaOnly, kEncIn><<<blocks, kWarps * 32, smem, st>>>(
+      *w, base, slope, depths, masks, enc_in, out, P, S, kept);
+  return (int)cudaGetLastError();
+}
+
+bool weights_ok(const MlpWeights* w) {
+  return w->n_layers >= 1 && w->n_layers <= kMaxLayers && w->units % 256 == 0;
+}
+
 }  // namespace
 
 // base, slope: [rays, 128]; depths: [rays, S]; masks: [3, 128] raw/sin/cos
@@ -241,29 +283,26 @@ KNT_EXPORT int knt_ray_march_mlp(const MlpWeights* w, const float* base,
                                  void* stream) {
   const long long points = (long long)rays * S;
   if (points <= 0) return 0;
-  if (w->n_layers < 1 || w->n_layers > kMaxLayers || w->units % 256 != 0 ||
-      points > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  if (!weights_ok(w) || points > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (stash != nullptr && sigma_only) return (int)cudaErrorInvalidValue;
   const int P = (int)points;
   MlpStash kept = {};
   if (stash != nullptr) kept = *stash;
-  const size_t smem = smem_bytes(w->units);
-  const int blocks = (P + kTile - 1) / kTile;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (sigma_only) {
-    err = cudaFuncSetAttribute(mlp_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    mlp_kernel<true><<<blocks, kWarps * 32, smem, st>>>(*w, base, slope, depths,
-                                                        masks, out, P, S, kept);
-  } else {
-    err = cudaFuncSetAttribute(mlp_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    mlp_kernel<false><<<blocks, kWarps * 32, smem, st>>>(*w, base, slope, depths,
-                                                         masks, out, P, S, kept);
-  }
-  return (int)cudaGetLastError();
+  if (sigma_only)
+    return launch<true, false>(w, base, slope, depths, masks, nullptr, out, P, S, kept, st);
+  return launch<false, false>(w, base, slope, depths, masks, nullptr, out, P, S, kept, st);
+}
+
+// enc: [P, 128] bf16 encoded points; out: [P, 4] (r, g, b, sigma); stash:
+// null, or the recompute's arrays, whose enc block is `enc` itself.
+KNT_EXPORT int knt_apply_mlp(const MlpWeights* w, const bf16* enc, float* out,
+                             int P, const MlpStash* stash, void* stream) {
+  if (P <= 0) return 0;
+  if (!weights_ok(w)) return (int)cudaErrorInvalidValue;
+  if (stash != nullptr && stash->enc != enc) return (int)cudaErrorInvalidValue;
+  MlpStash kept = {};
+  if (stash != nullptr) kept = *stash;
+  return launch<false, true>(w, nullptr, nullptr, nullptr, nullptr, enc, out, P, 1, kept,
+                             (cudaStream_t)stream);
 }

@@ -19,6 +19,16 @@ port splits the pass into CUDA kernels (``csrc/``), one library:
 * :data:`mlp_weight_grad` — dW and db of every packed array, summed over
   the chunk's points in a fixed order.
 
+The TPU's two kernels over pre-encoded points, the forward and backward of
+the custom-loss path's :func:`fused_point_forward`, reuse them:
+
+* :data:`apply_mlp` — ``fused_apply_mlp`` (T5): ``ray_march_mlp``'s MLP
+  over an encoded ``[P, 128]`` input (:func:`encode_block128`), with a
+  stash mode for the recompute;
+* :func:`fused_mlp_backward` — ``fused_mlp_backward`` (T6): ``apply_mlp``
+  with a stash, ``mlp_backward`` in its output-head mode and
+  ``mlp_weight_grad``.
+
 The render split costs one float32 ``[R, S, 4]`` round trip through device
 memory (16 B per point), small beside the MLP's ~1.2 MFLOP per point. The
 training split keeps the activations and cotangents in device memory,
@@ -47,6 +57,7 @@ from keras_nerf_tpu_torch.ops.encoding import (
     block_permutation,
     encoded_dim,
 )
+from keras_nerf_tpu_torch.ops.rendering import RenderOutput, render_rays
 
 LANE = 128
 D_HEAD = 16        # head cotangent columns: rgb 0..2 (sigma after features)
@@ -257,6 +268,53 @@ def encode_points(base: torch.Tensor, slope: torch.Tensor,
     return enc.to(torch.bfloat16)
 
 
+@functools.lru_cache(maxsize=None)
+def _enc128_columns_on(device: torch.device, pos_emb_xyz: int,
+                       pos_emb_dir: int):
+    """The one nonzero of each column of ``b`` (:func:`_enc128_constants`):
+    its row (0 where the column is empty) and its value, and the masks as
+    booleans."""
+    b, masks = _enc128_constants(pos_emb_xyz, pos_emb_dir)
+    rows = np.abs(b).argmax(axis=0)
+    scale = b[rows, np.arange(LANE)]
+    return (torch.as_tensor(rows, device=device),
+            torch.as_tensor(scale, device=device),
+            torch.as_tensor(masks != 0, device=device))
+
+
+def encode_block128(positions: torch.Tensor, directions: torch.Tensor,
+                    pos_emb_xyz: int = 10,
+                    pos_emb_dir: int = 4) -> torch.Tensor:
+    """``([P, 3], [P, 3]) -> [P, 128]`` bf16 block-order encodings, xyz at
+    lanes 0.., view direction at lanes 64.. (`ray_march.py:107-134`).
+
+    ``rep = [p, d] @ b`` has one nonzero term per column, so it is the one
+    float32 product, exact as the reference's HIGHEST-precision dot; then
+    ``rep``, ``sin(rep)`` or ``cos(rep)`` per lane with true sin and cos
+    (not :func:`sin_poly`), rounded once to bf16."""
+    rows, scale, masks = _enc128_columns_on(positions.device, pos_emb_xyz,
+                                            pos_emb_dir)
+    x6 = torch.cat([positions, directions], dim=-1).to(torch.float32)
+    rep = x6[..., rows] * scale
+    zero = torch.zeros((), dtype=torch.float32, device=rep.device)
+    enc = torch.where(masks[0], rep, torch.where(
+        masks[1], torch.sin(rep), torch.where(masks[2], torch.cos(rep),
+                                              zero)))
+    return enc.to(torch.bfloat16)
+
+
+def ray_points(origin: torch.Tensor, direction: torch.Tensor,
+               points: torch.Tensor):
+    """``(positions [R*S, 3], directions [R*S, 3])`` of the depths ``points
+    [R, S]`` along the rays ``[R, 3]`` (`engine.py:243-245`). ``o + d t``
+    rounds once, as XLA's fused multiply-add does (ROADMAP C1)."""
+    r, s = points.shape
+    positions = _fma(direction[:, None, :], points[..., None],
+                     origin[:, None, :])
+    dirs = direction[:, None, :].expand(r, s, 3)
+    return positions.reshape(r * s, 3), dirs.reshape(r * s, 3)
+
+
 def _bf16_blocks(points: int, widths: list, device) -> list:
     """Contiguous bf16 ``[points, w]`` blocks of one allocation."""
     buf = torch.empty(points * sum(widths), dtype=torch.bfloat16,
@@ -269,15 +327,20 @@ def _bf16_blocks(points: int, widths: list, device) -> list:
 
 
 def alloc_stash(points: int, units: int, n_layers: int,
-                device: torch.device) -> dict:
+                device: torch.device, enc: torch.Tensor | None = None) -> dict:
     """The bf16 activations that ``ray_march_mlp`` keeps for the backward
     in its train mode, ``[P, width]`` blocks of one allocation:
     ``enc [P, 128]``, ``h`` (one ``[P, u]`` per trunk layer),
-    ``features [P, u]``, ``rf [P, u / 2]`` — 5,120 B per point at 8 x 256."""
-    views = _bf16_blocks(points, [LANE] + [units] * n_layers
-                         + [units, units // 2], device)
-    return {"enc": views[0], "h": views[1:1 + n_layers],
-            "features": views[-2], "rf": views[-1]}
+    ``features [P, u]``, ``rf [P, u / 2]`` — 5,120 B per point at 8 x 256.
+    With ``enc`` given (``apply_mlp``'s stash mode) the stash's ``enc`` is
+    that tensor, not a copy."""
+    widths = [units] * n_layers + [units, units // 2]
+    views = _bf16_blocks(points, ([] if enc is not None else [LANE])
+                         + widths, device)
+    if enc is None:
+        enc, views = views[0], views[1:]
+    return {"enc": enc, "h": views[:n_layers], "features": views[-2],
+            "rf": views[-1]}
 
 
 def ray_march_mlp_plain(packed: dict, base: torch.Tensor, slope: torch.Tensor,
@@ -288,12 +351,37 @@ def ray_march_mlp_plain(packed: dict, base: torch.Tensor, slope: torch.Tensor,
     (sigmoid rgb, relu sigma) or ``[R*S]`` sigma (`_forward_core`). With
     ``stash`` (:func:`alloc_stash`, full mode only) it also stores every
     bf16 activation there: the train mode."""
-    u = packed["trunk_b"][0].shape[1]
     enc = encode_points(base, slope, depths, masks).reshape(-1, LANE)
     if stash is not None:
         if sigma_only:
             raise ValueError("the train mode (stash) runs the full MLP")
         stash["enc"].copy_(enc)
+    return _mlp_plain(packed, enc, sigma_only, stash)
+
+
+def _check_stash_enc(enc: torch.Tensor, stash: dict | None) -> None:
+    if stash is not None and stash["enc"].data_ptr() != enc.data_ptr():
+        raise ValueError("apply_mlp's stash must hold the input as its enc "
+                         "block (alloc_stash(..., enc=enc))")
+
+
+def apply_mlp_plain(packed: dict, enc: torch.Tensor,
+                    stash: dict | None = None) -> torch.Tensor:
+    """Plain version of the ``apply_mlp`` kernel (`fused_apply_mlp`,
+    `ray_march.py:438-493`): ``enc [P, 128]`` bf16 -> ``[P, 4]`` float32
+    (sigmoid rgb, relu sigma), the MLP of :func:`ray_march_mlp_plain`. With
+    ``stash`` (whose ``enc`` is ``enc`` itself) it also stores the trunk
+    activations, the features and rf: the recompute of T6."""
+    _check_stash_enc(enc, stash)
+    return _mlp_plain(packed, enc, False, stash)
+
+
+def _mlp_plain(packed: dict, enc: torch.Tensor, sigma_only: bool,
+               stash: dict | None) -> torch.Tensor:
+    """`_forward_core` over ``enc [P, 128]`` bf16: bf16 operands, float32
+    products and bias, relu and bf16 rounding between layers; ``stash``
+    takes every activation after the encoding."""
+    u = packed["trunk_b"][0].shape[1]
     h = enc
     for i, (w, w_enc, b) in enumerate(zip(packed["trunk_w"],
                                           packed["trunk_enc_w"],
@@ -409,15 +497,37 @@ def alloc_cotangents(points: int, units: int, n_layers: int,
     return {"d_rf": views[0], "d_sf": views[1], "d_pre": views[2:]}
 
 
+def output_head_cotangents(g: torch.Tensor, y: torch.Tensor):
+    """T6's head step (`_mlp_bwd_kernel` :562-579): from the bf16 output
+    cotangent ``g [P, 4]`` and the forward's ``y [P, 4]`` (sigmoid rgb,
+    relu sigma), ``d_rgb [P, 16]`` bf16 with ``bf16(g_rgb rgb (1 - rgb))``
+    in columns 0..2, and ``d_sigma [P]`` bf16, ``g_sigma`` where ``sigma >
+    0`` and 0 elsewhere."""
+    g = g.to(torch.float32)
+    d_rgb = torch.zeros((g.shape[0], D_HEAD), dtype=torch.bfloat16,
+                        device=g.device)
+    d_rgb[:, :3] = g[:, :3] * y[:, :3] * (1.0 - y[:, :3])
+    d_sigma = torch.where(y[:, 3] > 0.0, g[:, 3], torch.zeros_like(g[:, 3]))
+    return d_rgb, d_sigma.to(torch.bfloat16)
+
+
 def mlp_backward_plain(d_rgb: torch.Tensor, d_sigma: torch.Tensor,
                        packed: dict, stash: dict,
-                       cots: dict | None = None) -> dict:
+                       cots: dict | None = None,
+                       from_output: bool = False) -> dict:
     """Plain version of the ``mlp_backward`` kernel: the dX chain of
     `_backward_core` (`:804-872`) from the head cotangents of
     ``ray_march_quadrature``'s with_grad mode. bf16 operands, float32
     products; ``d_rf``, ``d_features`` and each trunk layer's
     ``d_pre_i = bf16(d_h [h_i > 0])`` are rounded to bf16, ``d_h`` stays
-    float32 between them. Writes (and returns) :func:`alloc_cotangents`."""
+    float32 between them. Writes (and returns) :func:`alloc_cotangents`.
+
+    ``from_output=True`` is the output-head mode of T6: the first two
+    arguments are then the output cotangent ``g [P, 4]`` bf16 and the
+    forward's output ``y [P, 4]`` float32, and the head cotangents are
+    :func:`output_head_cotangents` of them."""
+    if from_output:
+        d_rgb, d_sigma = output_head_cotangents(d_rgb, d_sigma)
     p = d_rgb.shape[0]
     u = packed["trunk_b"][0].shape[1]
     n = len(packed["trunk_w"])
@@ -719,6 +829,31 @@ def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
     return out
 
 
+def _apply_mlp_cuda(packed, enc, stash=None):
+    from keras_nerf_tpu_torch.kernels._build import load
+
+    lib = load()
+    dev = enc.device
+    p = enc.shape[0]
+    weights = _mlp_struct(packed, dev)
+    _check(enc, "enc", torch.bfloat16, dev, (p, LANE))
+    if enc.data_ptr() % 16:
+        raise ValueError("apply_mlp reads enc 16 bytes at a time: its data "
+                         "must be 16-byte aligned")
+    stash_s = None
+    if stash is not None:
+        _check_stash_enc(enc, stash)
+        stash_s = _stash_struct(stash, p, weights.units, weights.n_layers,
+                                dev)
+    out = torch.empty((p, 4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _raise_on(lib.knt_apply_mlp(
+            ctypes.addressof(weights), enc.data_ptr(), out.data_ptr(), p,
+            None if stash_s is None else ctypes.addressof(stash_s),
+            _stream(dev)), "apply_mlp")
+    return out
+
+
 def _ray_march_quadrature_cuda(rgbs, t, white_background=False,
                                sigma_only=False, emit_weights=True,
                                target=None, loss_scale=0.0):
@@ -761,7 +896,8 @@ def _ray_march_quadrature_cuda(rgbs, t, white_background=False,
     return image, depth, weights, d_rgb, d_sigma
 
 
-def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None):
+def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None,
+                       from_output=False):
     from keras_nerf_tpu_torch.kernels._build import load
 
     lib = load()
@@ -779,13 +915,23 @@ def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None):
     for i in range(n):
         ct.d_pre[i] = _check(cots["d_pre"][i], f"d_pre[{i}]", bf16, dev,
                              (p, u))
-    with torch.cuda.device(dev):
-        _raise_on(lib.knt_mlp_backward(
-            ctypes.addressof(weights),
-            _check(d_rgb, "d_rgb", bf16, dev, (p, D_HEAD)),
-            _check(d_sigma, "d_sigma", bf16, dev, (p,)),
-            ctypes.addressof(stash_s), ctypes.addressof(ct), p,
-            _stream(dev)), "mlp_backward")
+    if from_output:
+        g, y = d_rgb, d_sigma
+        d_rgb = torch.empty((p, D_HEAD), dtype=bf16, device=dev)
+        with torch.cuda.device(dev):
+            _raise_on(lib.knt_mlp_backward_from_output(
+                ctypes.addressof(weights), _check(g, "g", bf16, dev, (p, 4)),
+                _check(y, "y", torch.float32, dev, (p, 4)), d_rgb.data_ptr(),
+                ctypes.addressof(stash_s), ctypes.addressof(ct), p,
+                _stream(dev)), "mlp_backward")
+    else:
+        with torch.cuda.device(dev):
+            _raise_on(lib.knt_mlp_backward(
+                ctypes.addressof(weights),
+                _check(d_rgb, "d_rgb", bf16, dev, (p, D_HEAD)),
+                _check(d_sigma, "d_sigma", bf16, dev, (p,)),
+                ctypes.addressof(stash_s), ctypes.addressof(ct), p,
+                _stream(dev)), "mlp_backward")
     cots["d_rgb"] = d_rgb
     return cots
 
@@ -901,9 +1047,13 @@ mlp_backward = KernelWrapper(
 mlp_weight_grad = KernelWrapper(
     "mlp_weight_grad", mlp_weight_grad_plain, _mlp_weight_grad_cuda,
     _CSRC + "mlp_weight_grad.cu", _TPU + ":500")
+# The TPU's fused_apply_mlp (T5), through ray_march_mlp.cu's input mode.
+apply_mlp = KernelWrapper(
+    "apply_mlp", apply_mlp_plain, _apply_mlp_cuda,
+    _CSRC + "ray_march_mlp.cu", _TPU + ":438")
 
 KERNELS = (sample_merge, ray_march_mlp, ray_march_quadrature, mlp_backward,
-           mlp_weight_grad)
+           mlp_weight_grad, apply_mlp)
 
 
 def reset_launch_counts() -> None:
@@ -919,6 +1069,7 @@ def fused_render_chunk(packed: dict, origin: torch.Tensor,
                        sample_inputs: tuple | None = None):
     """One model's no-grad pass over a ray chunk through the kernels: the
     port's ``fused_train_chunk(with_grad=False)`` (`ray_march.py:1384`).
+    The JAX package's ``fused_render_chunk`` is :func:`point_render_chunk`.
 
     Args:
       packed: :func:`pack_mlp_params` output (on the rays' device).
@@ -946,6 +1097,25 @@ def fused_render_chunk(packed: dict, origin: torch.Tensor,
                                 white_background=white_background,
                                 sigma_only=sigma_only,
                                 emit_weights=emit_weights)
+
+
+def point_render_chunk(packed: dict, origin: torch.Tensor,
+                       direction: torch.Tensor, points: torch.Tensor,
+                       pos_emb_xyz: int = 10, pos_emb_dir: int = 4,
+                       white_background: bool = False) -> RenderOutput:
+    """No-grad render of a chunk through :data:`apply_mlp`: the port of the
+    JAX package's ``fused_render_chunk`` (`ray_march.py:762-796`), whose
+    name the port gives to the ray-march kernels' render pass.
+
+    :func:`ray_points`, :func:`encode_block128`, ``apply_mlp``, then the
+    reference quadrature ``render_rays``. ``points [R, S]`` sorted depths;
+    returns ``RenderOutput(image [R, 3], depth [R], weights [R, S])``."""
+    r, s = points.shape
+    enc = encode_block128(*ray_points(origin, direction, points),
+                          pos_emb_xyz, pos_emb_dir)
+    out = apply_mlp(packed, enc)
+    return render_rays(out[:, :3].reshape(r, s, 3), out[:, 3].reshape(r, s),
+                       points, white_background=white_background)
 
 
 def _pass_points(points, sample_inputs):
@@ -1046,6 +1216,117 @@ def fused_train_chunk(packed: dict, origin: torch.Tensor,
             weights[r0:r1] = w
         del stash, rgbs, cots   # one sub-launch's workspace at a time
     return image, depth, weights, grads
+
+
+def _mlp_backward_pass(packed: dict, enc: torch.Tensor, g: torch.Tensor,
+                       grads: dict | None, forward, backward, weight_grad):
+    if grads is None:
+        grads = zero_grads(packed)
+    u = packed["trunk_b"][0].shape[1]
+    n_layers = len(packed["trunk_w"])
+    for p0, p1 in train_sub_launches(enc.shape[0], 1):
+        stash = alloc_stash(p1 - p0, u, n_layers, enc.device, enc=enc[p0:p1])
+        y = forward(packed, enc[p0:p1], stash)
+        cots = backward(g[p0:p1], y, packed, stash, from_output=True)
+        weight_grad(stash, cots, grads)
+        del stash, y, cots   # one sub-launch's workspace at a time
+    return grads
+
+
+def fused_mlp_backward(packed: dict, enc: torch.Tensor, g: torch.Tensor,
+                       grads: dict | None = None) -> dict:
+    """The packed parameter gradient of the MLP over encoded points for the
+    output cotangent ``g [P, 4]`` bf16 (rgb 0..2, sigma 3): the port of the
+    TPU's ``fused_mlp_backward`` (T6, `ray_march.py:518-654`).
+
+    For each sub-launch of at most :data:`MAX_TRAIN_POINTS` points, in
+    order: :data:`apply_mlp` with a stash (the forward recomputed, every
+    bf16 activation kept), :data:`mlp_backward` in its output-head mode and
+    :data:`mlp_weight_grad`, which adds dW and db into ``grads`` (new zeros
+    when None) in a fixed order. Returns ``grads``."""
+    return _mlp_backward_pass(packed, enc, g, grads, apply_mlp,
+                              mlp_backward, mlp_weight_grad)
+
+
+def fused_mlp_backward_plain(packed: dict, enc: torch.Tensor, g: torch.Tensor,
+                             grads: dict | None = None) -> dict:
+    """:func:`fused_mlp_backward` through the kernels' plain versions, on
+    any device: the card's reference for it."""
+    return _mlp_backward_pass(packed, enc, g, grads, apply_mlp.plain,
+                              mlp_backward.plain, mlp_weight_grad.plain)
+
+
+def _tree_leaves(tree) -> list:
+    """Leaves of nested dicts (in sorted key order) and lists."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _tree_rebuild(like, leaves):
+    """``like``'s structure with the leaves taken in :func:`_tree_leaves`
+    order from the iterator ``leaves``."""
+    if isinstance(like, dict):
+        return {k: _tree_rebuild(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return [_tree_rebuild(v, leaves) for v in like]
+    return next(leaves)
+
+
+class _FusedPointForward(torch.autograd.Function):
+    """Forward T5 (:data:`apply_mlp`), backward T6
+    (:func:`fused_mlp_backward`, recomputing the forward), as the JAX
+    package's custom_vjp (`ray_march.py:731-759`)."""
+
+    @staticmethod
+    def forward(ctx, spec, positions, directions, *leaves):
+        config, pos_emb_xyz, pos_emb_dir, like = spec
+        params = _tree_rebuild(like, iter(leaves))
+        enc = encode_block128(positions, directions, pos_emb_xyz,
+                              pos_emb_dir)
+        packed = pack_mlp_params(params, config, pos_emb_xyz, pos_emb_dir)
+        out = apply_mlp(packed, enc)
+        ctx.save_for_backward(enc)
+        ctx.packed, ctx.spec = packed, spec
+        return out[:, :3].contiguous(), out[:, 3:4].contiguous()
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_sigma):
+        (enc,) = ctx.saved_tensors
+        config, pos_emb_xyz, pos_emb_dir, _ = ctx.spec
+        p = enc.shape[0]
+        zeros = enc.new_zeros((p, 1), dtype=torch.float32)
+        if g_rgb is None:
+            g_rgb = zeros.expand(p, 3)
+        if g_sigma is None:
+            g_sigma = zeros
+        # bf16, as the TPU's cotangent tile (`:745-747`).
+        g = torch.cat([g_rgb, g_sigma], dim=1).to(torch.bfloat16).contiguous()
+        d_packed = fused_mlp_backward(ctx.packed, enc, g)
+        d_params = unpack_grads(d_packed, config, pos_emb_xyz, pos_emb_dir)
+        # Positions and directions are data: no cotangent (`:755-756`).
+        return (None, None, None, *_tree_leaves(d_params))
+
+
+def fused_point_forward(params: dict, positions: torch.Tensor,
+                        directions: torch.Tensor, config,
+                        pos_emb_xyz: int = 10, pos_emb_dir: int = 4):
+    """Differentiable encoding + MLP over points: ``(params, positions
+    [P, 3], directions [P, 3]) -> (rgb [P, 3], sigma [P, 1])`` float32, the
+    port of the JAX package's ``fused_point_forward`` custom_vjp
+    (`ray_march.py:711-759`).
+
+    Forward: :func:`encode_block128`, :func:`pack_mlp_params`, then
+    :data:`apply_mlp` (T5); ``enc`` and the packed weights are kept for the
+    backward. Backward: the output cotangent rounded to bf16,
+    :func:`fused_mlp_backward` (T6, which recomputes the forward rather than
+    keep ~5 KB of activations per point in the autograd graph) and
+    :func:`unpack_grads`. Positions and directions get no gradient."""
+    leaves = _tree_leaves(params)
+    spec = (config, pos_emb_xyz, pos_emb_dir, params)
+    return _FusedPointForward.apply(spec, positions, directions, *leaves)
 
 
 def unpack_grads(d_packed: dict, config, pos_emb_xyz: int,

@@ -13,10 +13,12 @@ counterpart of ``use_pallas``, `engine.py:452-466`):
 
 * kernels (``True``; ``None`` on a card, and on the CPU when the
   architecture fits their envelope): ``kernels/ray_march.py`` —
-  ``fused_render_chunk`` to render, ``fused_train_chunk`` to train, whose
-  packed gradients are accumulated over the chunks and unpacked once;
-  bf16 MLP operands with float32 accumulation, float32 encoding and
-  quadrature;
+  ``fused_render_chunk`` to render, ``fused_train_chunk`` to train with the
+  MSE, whose packed gradients are accumulated over the chunks and unpacked
+  once; bf16 MLP operands with float32 accumulation, float32 encoding and
+  quadrature. A callable loss trains by torch autograd per chunk through
+  ``render_chunk``'s kernel branch, ``fused_point_forward`` (forward T5,
+  backward T6) and ``render_rays``;
 * reference (``False``): float32 ``apply_mlp`` + ``render_rays``, and
   torch autograd per chunk for training.
 
@@ -34,10 +36,12 @@ import numpy as np
 import torch
 
 from keras_nerf_tpu_torch.kernels.ray_march import (
+    fused_point_forward,
     fused_render_chunk,
     fused_train_chunk,
     kernel_supported,
     pack_mlp_params,
+    ray_points,
     unpack_grads,
     zero_grads,
 )
@@ -114,9 +118,12 @@ def render_chunk(params: Params, origin: torch.Tensor,
                  direction: torch.Tensor, coarse_points: torch.Tensor,
                  config: NeRFConfig, u: torch.Tensor | None = None,
                  coarse_weights: torch.Tensor | None = None):
-    """Reference (float32) render of one chunk through one MLP. With
-    ``coarse_weights`` (and draws ``u``) this is the fine pass: sample and
-    merge, then render. Returns ``(RenderOutput, depths used)``."""
+    """Differentiable render of one chunk through one MLP
+    (`engine.py:201-258`). With ``coarse_weights`` (and draws ``u``) this is
+    the fine pass: sample and merge, then render. When
+    :func:`resolve_use_kernels` is true the points go through
+    ``fused_point_forward`` (T5 forward, T6 backward), else through the
+    float32 ``apply_mlp``. Returns ``(RenderOutput, depths used)``."""
     if coarse_weights is not None:
         # The coarse weights are data here: the fine loss never reaches the
         # coarse parameters (`nerf.py:390-417`).
@@ -125,9 +132,20 @@ def render_chunk(params: Params, origin: torch.Tensor,
         points = merge_sorted(coarse_points, fine_points)
     else:
         points = coarse_points
-    enc_xyz, enc_dir = encode_position_and_directions(
-        origin, direction, points, config.pos_emb_xyz, config.pos_emb_dir)
-    rgb, sigma = apply_mlp(params, enc_xyz, enc_dir, config.mlp)
+    if resolve_use_kernels(config, origin.device):
+        # Positions and directions are data here, as in the kernel's
+        # contract: no cotangent reaches them.
+        positions, dirs = ray_points(origin, direction, points)
+        rgb, sigma = fused_point_forward(
+            params, positions, dirs, config.mlp, config.pos_emb_xyz,
+            config.pos_emb_dir)
+        rgb = rgb.reshape(*points.shape, 3)
+        sigma = sigma.reshape(*points.shape, 1)
+    else:
+        enc_xyz, enc_dir = encode_position_and_directions(
+            origin, direction, points, config.pos_emb_xyz,
+            config.pos_emb_dir)
+        rgb, sigma = apply_mlp(params, enc_xyz, enc_dir, config.mlp)
     out = render_rays(rgb, sigma, points,
                       white_background=config.white_background)
     return out, points
@@ -401,6 +419,17 @@ def mse_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.square(y_pred - y_true))
 
 
+def _use_fused_train(config: NeRFConfig, loss_fn, device) -> bool:
+    """The fused T3 path (`fused_train_chunk`, whose kernels form the MSE
+    cotangent themselves) trains when the kernels are on, the architecture
+    fits them and the loss is the default MSE (`engine.py:469-478`); any
+    other callable trains by autograd through ``render_chunk``."""
+    return (resolve_use_kernels(config, device)
+            and loss_fn in (None, mse_loss)
+            and kernel_supported(config.mlp, config.pos_emb_xyz,
+                                 config.pos_emb_dir))
+
+
 def _batch_metrics(images_c, images_f, target, loss_c, loss_f) -> dict:
     """Coarse/fine x loss/psnr/ssim, PSNR and SSIM averaged over the batch
     images (`engine.py:574-584`)."""
@@ -429,8 +458,8 @@ def _chunked_batch(batch, config: NeRFConfig, ray_chunks: int):
 
 
 def _fused_grads(state: TrainState, chunks, draws, config: NeRFConfig):
-    """The kernel path: pack once, add every chunk's packed gradients into
-    two accumulators, unpack once (`engine.py:712-753`)."""
+    """The fused MSE path: pack once, add every chunk's packed gradients
+    into two accumulators, unpack once (`engine.py:712-753`)."""
     enc = (config.pos_emb_xyz, config.pos_emb_dir)
     packed_c = pack_mlp_params(state.coarse_params, config.mlp, *enc)
     packed_f = pack_mlp_params(state.fine_params, config.mlp, *enc)
@@ -445,15 +474,18 @@ def _fused_grads(state: TrainState, chunks, draws, config: NeRFConfig):
     return grads, images
 
 
-def _autograd_grads(state: TrainState, chunks, draws, config: NeRFConfig):
-    """The reference path: torch autograd per chunk over ``apply_mlp`` and
-    ``render_rays``; ``.grad`` sums the chunks (`engine.py:754-787`)."""
+def _autograd_grads(state: TrainState, chunks, draws, config: NeRFConfig,
+                    loss_fn):
+    """Torch autograd per chunk over ``render_chunk_pair`` of ``loss_fn``'s
+    coarse + fine loss; ``.grad`` sums the chunks (`engine.py:754-787`).
+    The kernel branch of ``render_chunk`` (T5/T6) or the float32
+    reference."""
     params = tuple(tree_map(lambda x: x.detach().requires_grad_(True), p)
                    for p in (state.coarse_params, state.fine_params))
     images = ([], [])
     for o, d, t, tgt, u in zip(*chunks, draws):
         outs = render_chunk_pair(*params, o, d, t, u, config)
-        sum(mse_loss(tgt, out.image) for out in outs).backward()
+        sum(loss_fn(tgt, out.image) for out in outs).backward()
         for img, out in zip(images, outs):
             img.append(out.image.detach())
     grads = tuple(tree_map(lambda x: x.grad, p) for p in params)
@@ -463,34 +495,41 @@ def _autograd_grads(state: TrainState, chunks, draws, config: NeRFConfig):
 def train_step(state: TrainState, batch,
                fine_draws: torch.Generator | Sequence[torch.Tensor],
                optimizer: Optimizer, config: NeRFConfig,
-               ray_chunks: int) -> tuple[TrainState, dict]:
+               ray_chunks: int, loss_fn=None) -> tuple[TrainState, dict]:
     """One optimizer step over one batch of whole-image rays
     (`engine.py:587-833`, `nerf.py:332-473`).
 
-    Per chunk, each model's MSE and its gradient; gradients summed over the
-    chunks and scaled by ``1 / num_chunks``; one update per model. Metrics
-    are 0-d tensors on the rays' device (nothing waits for the card): the
-    six of :func:`_batch_metrics` (losses are the means of the chunk
-    losses) plus ``coarse_grad_norm`` and ``fine_grad_norm``.
+    Per chunk, each model's loss and its gradient; gradients summed over
+    the chunks and scaled by ``1 / num_chunks``; one update per model.
+    Metrics are 0-d tensors on the rays' device (nothing waits for the
+    card): the six of :func:`_batch_metrics` (losses are the means of the
+    chunk losses) plus ``coarse_grad_norm`` and ``fine_grad_norm``.
 
     Args:
       batch: ``(images [B, H, W, 3 or 4], (origin, direction, points))``.
       fine_draws: a ``torch.Generator`` on the rays' device, or one sorted
         ``[ray_chunks, n_fine]`` draw tensor per chunk.
+      loss_fn: ``loss(y_true, y_pred) -> scalar`` applied per chunk;
+        :func:`mse_loss` by default, which the fused T3 path trains
+        (:func:`_use_fused_train`).
     """
+    if loss_fn is None:
+        loss_fn = mse_loss
     images = batch[0]
     chunks = _chunked_batch(batch, config, ray_chunks)
     num_chunks = chunks[0].shape[0]
     draws = _chunk_draws(fine_draws, num_chunks, ray_chunks, config.n_fine,
                          chunks[0].device)
-    path = (_fused_grads if resolve_use_kernels(config, chunks[0].device)
-            else _autograd_grads)
-    (grads_c, grads_f), (imgs_c, imgs_f) = path(state, chunks, draws, config)
+    if _use_fused_train(config, loss_fn, chunks[0].device):
+        grads, (imgs_c, imgs_f) = _fused_grads(state, chunks, draws, config)
+    else:
+        grads, (imgs_c, imgs_f) = _autograd_grads(state, chunks, draws,
+                                                  config, loss_fn)
     inv = 1.0 / num_chunks
-    grads_c = tree_map(lambda g: g * inv, grads_c)
-    grads_f = tree_map(lambda g: g * inv, grads_f)
+    grads_c, grads_f = (tree_map(lambda g: g * inv, x) for x in grads)
     target = chunks[3]
-    loss_c, loss_f = (torch.stack([mse_loss(tgt, img) for tgt, img in
+    # The reported losses are loss_fn's of the chunk images (`:768-769`).
+    loss_c, loss_f = (torch.stack([loss_fn(tgt, img) for tgt, img in
                                    zip(target, imgs)]).mean()
                       for imgs in (imgs_c, imgs_f))
     coarse, opt_c = optimizer.update(grads_c, state.coarse_opt,
@@ -509,14 +548,17 @@ def train_step(state: TrainState, batch,
 @torch.no_grad()
 def eval_step(state: TrainState, batch,
               fine_draws: torch.Generator | Sequence[torch.Tensor],
-              config: NeRFConfig, ray_chunks: int) -> dict:
+              config: NeRFConfig, ray_chunks: int, loss_fn=None) -> dict:
     """Chunked render without weights, then the six metrics over the whole
-    images (`engine.py:836-878`); 0-d tensors on the rays' device."""
+    images, the losses by ``loss_fn`` (:func:`mse_loss` by default;
+    `engine.py:836-878`); 0-d tensors on the rays' device."""
+    if loss_fn is None:
+        loss_fn = mse_loss
     images, rays = batch
     target = images[..., :3].to(torch.float32)
     out_c, out_f = render_image_batch(state.coarse_params, state.fine_params,
                                       rays, fine_draws, config, ray_chunks,
                                       with_weights=False)
     img_c, img_f = out_c["image"], out_f["image"]
-    return _batch_metrics(img_c, img_f, target, mse_loss(target, img_c),
-                          mse_loss(target, img_f))
+    return _batch_metrics(img_c, img_f, target, loss_fn(target, img_c),
+                          loss_fn(target, img_f))

@@ -71,7 +71,7 @@ class NeRF:
 
     # ------------------------------------------------------------------ setup
 
-    def compile(self, optimizer: str = "adam", loss: str = "mse",
+    def compile(self, optimizer: str = "adam", loss="mse",
                 batch_size: int = 1, image_height: int = 128,
                 image_width: int = 128, ray_chunks: int = 1024,
                 white_background: bool = False, is_training: bool = True,
@@ -82,10 +82,17 @@ class NeRF:
         weights and optimizer state, or draw random weights from ``seed``
         (`nerf.py:79-354`). ``ray_chunks`` is clamped to the rays of one
         batch and must divide them. ``lr_final > 0`` with
-        ``lr_decay_steps > 0`` decays the learning rate exponentially."""
-        if loss not in ("mse", None):
-            raise ValueError(f"loss {loss!r}: only 'mse' is ported (custom "
-                             f"losses are queued in ROADMAP.md)")
+        ``lr_decay_steps > 0`` decays the learning rate exponentially.
+        ``loss`` is ``"mse"``, None or a callable ``loss(y_true, y_pred) ->
+        scalar``, applied per chunk in training and to the whole images in
+        evaluation (`nerf.py:106-115`)."""
+        if callable(loss):
+            self.loss_fn = loss
+        elif loss in ("mse", None):
+            self.loss_fn = engine.mse_loss
+        else:
+            raise ValueError(f"unsupported loss: {loss!r} (pass 'mse' or a "
+                             f"callable loss(y_true, y_pred) -> scalar)")
         self.device = resolve_device(device)
         self.config = NeRFConfig(**{**self.config.to_model_config(),
                                     "white_background": white_background,
@@ -157,7 +164,7 @@ class NeRF:
         self.state, metrics = engine.train_step(
             self.state, self._on_device(batch),
             self._train_draws if fine_draws is None else fine_draws,
-            self.optimizer, self.config, self.ray_chunks)
+            self.optimizer, self.config, self.ray_chunks, self.loss_fn)
         return metrics
 
     def _record(self, trackers: dict, metrics: dict, where: str) -> dict:
@@ -183,7 +190,7 @@ class NeRF:
         return engine.eval_step(
             self.state, self._on_device(batch),
             self._eval_draws() if fine_draws is None else fine_draws,
-            self.config, self.ray_chunks)
+            self.config, self.ray_chunks, self.loss_fn)
 
     def test_step(self, batch, fine_draws=None) -> dict[str, float]:
         """Full chunked render plus the six metrics (`nerf.py:475-497`)."""

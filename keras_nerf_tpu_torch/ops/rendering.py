@@ -54,5 +54,13 @@ def render_rays(
     depth = torch.sum(weights * sample_points, dim=-1)
     if white_background:
         image = image + (1.0 - torch.sum(weights, dim=-1))[..., None]
-    image = torch.clamp(image, 0.0, 1.0)
-    return RenderOutput(image=image, depth=depth, weights=weights)
+    return RenderOutput(image=clip01(image), depth=depth, weights=weights)
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``x`` clipped to ``[0, 1]`` with ``jnp.clip``'s gradient: 1 inside,
+    0.5 at exactly 0 or 1 (``lax.max``/``lax.min`` split ties), 0 outside.
+    ``torch.clamp`` passes 1 at the bounds, which an empty ray on a white
+    background reaches exactly."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, zero), zero + 1.0)

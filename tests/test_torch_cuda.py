@@ -18,6 +18,13 @@ training kernels, on the same inputs as their plain versions:
   that garbled small entries cannot hide under the largest;
 * float32 weight gradients by relative norm 1e-3 and relative max 1e-2:
   the same bf16 operands summed over the points in another order.
+
+``apply_mlp`` (T5) is held as ``ray_march_mlp`` is, and the output-head
+mode of ``mlp_backward`` (T6's head) as its quadrature mode. T6 whole
+(``fused_mlp_backward``: recompute, dX chain, dW) is held as the dX chain's
+cotangents, relative max 3e-2 and relative norm 1e-2: the recompute's and
+the chain's bf16 flips compound into the first trunk layers' gradients
+(about 5e-3 relative norm at 8 x 256 on this test's loss).
 """
 
 import math
@@ -123,7 +130,7 @@ def test_render_path_launches_every_kernel(cuda_device):
     images, depths = render_orbit(nerf, [0.0, 90.0], img_wh=64, **ORBIT)
     chunks = 2 * 64 * 64 // 1024
     assert [k.launches for k in trm.KERNELS] == [chunks, 2 * chunks,
-                                                 2 * chunks, 0, 0]
+                                                 2 * chunks, 0, 0, 0]
     assert images.shape == (2, 64, 64, 3)
     assert (images >= 0).all() and (images <= 1).all()
 
@@ -265,7 +272,7 @@ def test_default_train_step_runs_through_the_kernels(cuda_device):
     assert {k.name: k.launches for k in trm.KERNELS} == {
         "sample_merge": chunks, "ray_march_mlp": 2 * chunks,
         "ray_march_quadrature": 2 * chunks, "mlp_backward": 2 * chunks,
-        "mlp_weight_grad": 2 * chunks}
+        "mlp_weight_grad": 2 * chunks, "apply_mlp": 0}
     assert all(map(math.isfinite, metrics.values()))
     assert metrics["coarse_grad_norm"] > 0 and metrics["fine_grad_norm"] > 0
 
@@ -279,4 +286,105 @@ def test_default_render_outside_the_kernel_envelope_raises(cuda_device):
     trm.reset_launch_counts()
     with pytest.raises(ValueError, match="kernels require"):
         render_orbit(nerf, [0.0], img_wh=16, **ORBIT)
-    assert [k.launches for k in trm.KERNELS] == [0, 0, 0, 0, 0]
+    assert [k.launches for k in trm.KERNELS] == [0] * len(trm.KERNELS)
+
+
+def _encoded_points(device, n_layers, skip, p=4096, seed=5):
+    """Encoded points along random rays, a fog's weights and the output
+    cotangent of an L1 loss of the rendered rays against random targets
+    (the plain forward, ``render_rays`` and autograd): every column of the
+    head sees a non-trivial value, with the signs a loss gives them."""
+    from keras_nerf_tpu_torch.ops import render_rays
+
+    r = p // 64
+    cfg, packed, base, slope, t, masks, target = _train_inputs(
+        device, r=r, n_layers=n_layers, skip=skip, seed=seed)
+    o = torch.zeros(r, 3, device=device)
+    o[:, 2] = 4.0
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = torch.nn.functional.normalize(
+        torch.randn(r, 3, generator=g, device=device), dim=-1)
+    enc = trm.encode_block128(*trm.ray_points(o, d, t))
+    y = trm.apply_mlp_plain(packed, enc).requires_grad_(True)
+    image = render_rays(y[:, :3].reshape(r, 64, 3), y[:, 3].reshape(r, 64),
+                        t, white_background=True).image
+    (image - target).abs().mean().backward()
+    return cfg, packed, enc, y.grad.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_layers,skip", [(8, 4), (2, 1)])
+def test_apply_mlp_and_its_stash_match_plain(cuda_device, n_layers, skip):
+    cfg, packed, enc, _ = _encoded_points(cuda_device, n_layers, skip)
+    p = enc.shape[0]
+    before = trm.apply_mlp.launches
+    got = trm.apply_mlp(packed, enc)
+    stash_k = trm.alloc_stash(p, 256, n_layers, cuda_device, enc=enc)
+    stash_p = trm.alloc_stash(p, 256, n_layers, cuda_device, enc=enc)
+    got_s = trm.apply_mlp(packed, enc, stash=stash_k)
+    want = trm.apply_mlp_plain(packed, enc)
+    want_s = trm.apply_mlp_plain(packed, enc, stash=stash_p)
+    torch.cuda.synchronize()
+    assert trm.apply_mlp.launches == before + 2
+    assert got.shape == (p, 4) and torch.equal(got, got_s)
+    assert float((got - want).abs().max()) <= 3e-2
+    assert float((got_s - want_s).abs().max()) <= 3e-2
+    for name in ("features", "rf"):
+        _assert_bf16_close(stash_k[name], stash_p[name], 3e-2, name)
+    for i in range(n_layers):
+        _assert_bf16_close(stash_k["h"][i], stash_p["h"][i], 3e-2, i)
+
+
+@pytest.mark.parametrize("n_layers,skip", [(8, 4), (2, 1)])
+def test_mlp_backward_output_head_mode_matches_plain(cuda_device, n_layers,
+                                                     skip):
+    cfg, packed, enc, cot = _encoded_points(cuda_device, n_layers, skip)
+    p = enc.shape[0]
+    stash = trm.alloc_stash(p, 256, n_layers, cuda_device, enc=enc)
+    y = trm.apply_mlp_plain(packed, enc, stash=stash)
+    got = trm.mlp_backward(cot, y, packed, stash, from_output=True)
+    want = trm.mlp_backward_plain(cot, y, packed, stash, from_output=True)
+    torch.cuda.synchronize()
+    assert got["d_rgb"].shape == (p, trm.D_HEAD)
+    _assert_bf16_close(got["d_rgb"], want["d_rgb"], 1e-2, "d_rgb")
+    _assert_bf16_close(got["d_rf"], want["d_rf"], 1e-2, "d_rf")
+    _assert_bf16_close(got["d_sf"], want["d_sf"], 1e-2, "d_sf")
+    for i in range(n_layers):
+        _assert_bf16_close(got["d_pre"][i], want["d_pre"][i], 3e-2, i)
+
+
+def test_fused_mlp_backward_matches_plain_and_repeats_bit_for_bit(
+        cuda_device):
+    cfg, packed, enc, cot = _encoded_points(cuda_device, 8, 4)
+    want = trm.fused_mlp_backward_plain(packed, enc, cot)
+    runs = [trm.fused_mlp_backward(packed, enc, cot) for _ in range(2)]
+    torch.cuda.synchronize()
+    for got, again, ref in zip(*(engine.tree_leaves(x)
+                                 for x in (*runs, want))):
+        assert torch.equal(got, again)
+        _assert_bf16_close(got, ref, 3e-2)
+
+
+def test_callable_loss_step_runs_through_t5_and_t6(cuda_device):
+    cfg = NeRFConfig(n_coarse=16, n_fine=16, n_layers=8,
+                     white_background=True)
+    nerf = NeRF(config=cfg).compile(
+        optimizer="adam", loss=lambda y, p: (p - y).abs().mean(),
+        image_height=32, image_width=32, ray_chunks=512,
+        white_background=True, device="cuda", seed=0)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    images = torch.rand(1, 32, 32, 4, generator=g, device=cuda_device)
+    rays = (torch.zeros(1, 32, 32, 3, device=cuda_device) + torch.tensor(
+                [0.0, 0.0, 4.0], device=cuda_device),
+            torch.nn.functional.normalize(torch.randn(
+                1, 32, 32, 3, generator=g, device=cuda_device), dim=-1),
+            torch.sort(torch.rand(1, 32, 32, 16, generator=g,
+                                  device=cuda_device) * 4 + 2, -1).values)
+    trm.reset_launch_counts()
+    metrics = nerf.train_step((images, rays))
+    chunks = 32 * 32 // 512
+    assert {k.name: k.launches for k in trm.KERNELS} == {
+        "sample_merge": 0, "ray_march_mlp": 0, "ray_march_quadrature": 0,
+        "mlp_backward": 2 * chunks, "mlp_weight_grad": 2 * chunks,
+        "apply_mlp": 4 * chunks}
+    assert all(map(math.isfinite, metrics.values()))
+    assert metrics["coarse_grad_norm"] > 0 and metrics["fine_grad_norm"] > 0

@@ -141,6 +141,27 @@ def test_default_use_kernels_never_gives_way_on_a_card(units, device, want):
         assert resolve_use_kernels(cfg, torch.device(device)) is explicit
 
 
+def test_callable_loss_takes_the_kernel_branch_and_mse_the_fused_path():
+    """On a card (a CUDA-typed device; no card needed), the default MSE
+    trains through the fused T3 path and any other callable through
+    render_chunk's kernel branch, fused_point_forward (T5/T6)."""
+    from keras_nerf_tpu_torch.models.engine import _use_fused_train, mse_loss
+
+    cuda = torch.device("cuda")
+    cfg = NeRFConfig(n_layers=2)
+    assert resolve_use_kernels(cfg, cuda)
+    assert _use_fused_train(cfg, mse_loss, cuda)
+    assert _use_fused_train(cfg, None, cuda)
+    assert not _use_fused_train(cfg, lambda y, p: (p - y).abs().mean(), cuda)
+    # Outside the kernels' envelope neither gives way: render_chunk's kernel
+    # branch packs the weights, and packing raises.
+    small = NeRFConfig(n_layers=2, dense_units=128)
+    assert resolve_use_kernels(small, cuda)
+    assert not _use_fused_train(small, mse_loss, cuda)
+    assert not _use_fused_train(dataclasses.replace(cfg, use_kernels=False),
+                                mse_loss, cuda)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.empty(2, 8, device="meta")
     with pytest.raises(ValueError):

@@ -22,12 +22,20 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   versions at the same chunks, trains 20 steps through ``NeRF.fit``, takes
   one step at 16384-ray chunks, holds a step with the MSE as a callable
   (T5/T6) against the fused MSE step (T3), and the card's L1 step against
-  the CPU's.
+  the CPU's;
+* the int8 render tier (``compile(quantized_render=True)``): calibrates the
+  fog weights through ``quantize_render_params``, holds
+  ``ray_march_mlp_int8`` (T4) against its plain version in both modes at
+  4096-ray chunks, renders 4 orbit frames through ``render_orbit`` and
+  holds a 16^2 int8 frame against the same int8 weights on the CPU;
+* the tensor-core ceiling probe (T7): holds ``mma_ceiling`` against its
+  plain version and runs ``profile_mma_ceiling.measure`` (TFLOP/s of the
+  MLP kernels' product loop alone).
 
 Each path's launch counts are read just after it runs. Then every kernel
-and its plain version is timed with CUDA events, and the three paths are
-profiled with ``torch.profiler``: device time by kernel and the device's
-busy share.
+and its plain version is timed with CUDA events, and the four model paths
+are profiled with ``torch.profiler``: device time by kernel and the
+device's busy share.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -46,6 +54,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak, 700 W
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak, 700 W
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 F32B = 4
@@ -70,7 +79,23 @@ TOL = {
     "ray_march_mlp": 3e-2,
     # Float32 scan and sums in another order.
     "ray_march_quadrature": 1e-4,
+    # int8 codes and int32 sums are exact and the float32 epilogue runs in
+    # the plain version's order, one rounding per step: only expf in the
+    # sigmoid differs (~1e-7), unless an encoding lane that the plain
+    # version's float64 FMA emulation double-rounds moves one code by one
+    # step.
+    "ray_march_mlp_int8": 1e-3,
+    # Relative to the largest output: bf16 activations rounded after sums in
+    # another order, through 16 layers (as ray_march_mlp).
+    "mma_ceiling": 3e-2,
 }
+# The probe's shapes, the TPU script's defaults: measured, and checked with
+# the chain cut to 2 passes (16 layers): bf16 roundings of sums taken in
+# another order compound through the layers, and at the 16 passes measured
+# the kernel and the plain version drift about 7e-2 of the largest output
+# apart on an H100.
+CEILING_RUN = dict(t=1536, u=256, rep=16, grid=128)
+CEILING_CHECK = dict(CEILING_RUN, rep=2)
 # Training kernels vs plain versions on the same inputs. bf16 arrays are
 # held relative to their largest magnitude ("rel") and, so that garbled
 # small entries cannot hide under the largest, by the norm of the
@@ -178,6 +203,7 @@ def main() -> int:
     from keras_nerf_tpu_torch.kernels.ray_march import fwd_flop_per_point
     from keras_nerf_tpu_torch.models import NeRF, NeRFConfig, init_mlp
     from keras_nerf_tpu_torch.models.engine import (
+        quantize_render_params,
         render_image_batch,
         tree_leaves,
     )
@@ -365,6 +391,18 @@ def main() -> int:
     if any(e2e[k] > E2E_TOL[k] for k in e2e):
         fail("card render disagrees with the plain versions")
 
+    # ---- 4b. the int8 render tier (T4) ------------------------------------
+    # Calibrated on the 128^2 frame's rays, the fog weights as both models.
+    packed_q = quantize_render_params(params, fine_params, rays, gen, cfg)
+    torch.cuda.synchronize()
+    int8_in = _int8_kernel_checks(packed_q, base, slope, masks, tc, u, errors)
+    quantized_launches, qnerf = _quantized_main_path(nerf, cfg, images,
+                                                     card_tag)
+    _quantized_e2e(packed_q, params, fine_params, cfg, gen)
+
+    # ---- 4c. the tensor-core ceiling probe (T7) ---------------------------
+    probe_launches, ceiling_in = _ceiling_probe(errors, card_tag)
+
     # ---- 5. training kernels against their plain versions ----------------
     train_in = _train_inputs(cfg, gen)
     rel_errors = {}
@@ -465,7 +503,10 @@ def main() -> int:
     ]
     modes += _train_modes(train_in, cfg)
     modes += _custom_modes(train_in, cfg)
-    totals = {"render": {}, "train": {}, "custom": {}}
+    modes += _quantized_modes(int8_in, cfg)
+    modes += _ceiling_modes(ceiling_in)
+    totals = {"render": {}, "train": {}, "custom": {}, "quantized": {},
+              "probe": {}}
     timed = []   # (kernel, path, mode, launches per unit, ms, plain, bound)
     for k, path, mode, call, count, (bms, by), *design in modes:
         kms = _time_ms(lambda: call(k), 20)
@@ -477,9 +518,7 @@ def main() -> int:
             f"ms/launch plain, bound {bms:.4f} ms/launch ({by}), "
             f"{kms / bms:.1f}x bound"
             + (f", the design's bytes {dms:.4f} ms/launch" if design else "")
-            + f", {count} launches per "
-            f"{'frame' if path == 'render' else path + ' step'} "
-            f"{card_tag}")
+            + f", {count} launches per {_UNIT[path]} {card_tag}")
         timed.append((k, path, mode, count, kms, pms, bms))
         tot = totals[path].setdefault(k.name, [0.0, 0.0, 0.0, {}, None])
         tot[0] += count * kms
@@ -495,6 +534,9 @@ def main() -> int:
     log(json.dumps({"profile": _profile(
         lambda: render_orbit(nerf, FRAMES, img_wh=IMG, **ORBIT),
         len(FRAMES), "frame"), "card": card}))
+    log(json.dumps({"profile_quantized": _profile(
+        lambda: render_orbit(qnerf, FRAMES, img_wh=IMG, **ORBIT),
+        len(FRAMES), "frame"), "card": card}))
     for key, loss in (("profile_train", "mse"),
                       ("profile_train_custom", l1_loss)):
         _compile_train(tnerf, loss)
@@ -505,37 +547,46 @@ def main() -> int:
     entries = []
     step_per = (f"{IMG}^2 train step, {IMG * IMG // TRAIN_CHUNK} chunks of "
                 f"{TRAIN_CHUNK} rays")
+    per = {"train": step_per, "custom": f"{step_per}, loss l1 (custom)",
+           "quantized": f"{IMG}^2 int8 frame, {per_frame} chunks of {CHUNK} "
+                        f"rays",
+           "probe": "one probe run: each mode once at T={t}, u={u}, "
+                    "rep={rep}, grid={grid}".format(**CEILING_RUN)}
     for k in KERNELS:
         by_path = {"render": render_launches[k.name],
                    "train": train_launches[k.name],
-                   "train_custom": custom_launches[k.name]}
-        for path in ("train", "custom"):
+                   "train_custom": custom_launches[k.name],
+                   "render_quantized": quantized_launches[k.name],
+                   "ceiling_probe": probe_launches[k.name]}
+        for path in ("train", "custom", "quantized", "probe"):
             if k.name not in totals[path]:
                 continue
             kms, pms, bms, by, dms = totals[path][k.name]
-            unit = "ms/step" if path == "train" else "ms/custom step"
+            unit = f"ms/{_UNIT[path]}"
             log(f"time {k.name}: {kms:.4f} {unit} kernel, {pms:.3f} {unit} "
                 f"plain, bound {bms:.4f} {unit} ({_by(by)})"
                 + (f", the design's bytes {dms:.4f} {unit}" if dms else "")
                 + f" {card_tag}")
         # The numbers of the MSE step where the kernel runs there, else of
-        # the custom-loss step.
-        path = "train" if k.name in totals["train"] else "custom"
+        # the first other path it runs on.
+        path = next(p for p in ("train", "custom", "quantized", "probe")
+                    if k.name in totals[p])
         kms, pms, bms, by, dms = totals[path][k.name]
         entry = {
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": errors[k.name],
-            "rel_err": dict(zip(("max", "norm"), rel_errors[k.name])),
+            "rel_err": dict(zip(("max", "norm"), rel_errors.get(
+                k.name, (None, None)))),
             "tolerance": {"render": TOL.get(k.name),
                           "train": TRAIN_TOL.get(k.name)},
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": _by(by),
             "library_ms": None, "design_bytes_ms": dms,
-            "per": (f"{step_per}" if path == "train" else
-                    f"{step_per}, loss l1 (custom)")
-                   + f"; launches over {n_steps} steps of each path and "
-                     f"{len(FRAMES)} frames"}
+            "per": per[path]
+                   + f"; launches over {n_steps} steps of each train path, "
+                     f"{len(FRAMES)} frames of each render path and one "
+                     f"probe run"}
         if path == "train" and k.name in totals["custom"]:
             kms, pms, bms, by, dms = totals["custom"][k.name]
             entry["custom_step"] = {
@@ -559,6 +610,12 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# What one launch count of each timing path is per.
+_UNIT = {"render": "frame", "train": "train step",
+         "custom": "custom step", "quantized": "int8 frame",
+         "probe": "probe run"}
 
 
 def _by(shares: dict) -> str:
@@ -651,9 +708,10 @@ def _profile(run, units: int, unit: str) -> dict:
 
 
 def _to(params, device):
+    """Parameters (or an int8 dict, whose None entries stay) on ``device``."""
     from keras_nerf_tpu_torch.models.engine import tree_map
 
-    return tree_map(lambda x: x.to(device), params)
+    return tree_map(lambda x: None if x is None else x.to(device), params)
 
 
 def _fog(params):
@@ -1370,6 +1428,248 @@ def _t3_bound(cfg, train_totals: dict, card_tag):
         f"(bf16 dense, 700 W); the kernels' bounds add up to {bounds:.3f} "
         f"ms; the bytes the split moves (kept activations and cotangents, "
         f"padding included) take {design:.3f} ms at 3.35 TB/s {card_tag}")
+
+
+# ---------------------------------------------------------------------------
+# The int8 render tier and the tensor-core ceiling probe.
+
+
+def _int8_kernel_checks(packed_q, base, slope, masks, tc, u, errors):
+    """T4 against its plain version on the same inputs at the orbit's
+    shapes: the coarse model sigma-only on the stratified depths [4096 x
+    64], the fine model in full on the depths ``sample_merge`` draws from
+    the int8 coarse weights [4096 x 192]. Returns the timing phase's
+    inputs."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+
+    q_c, q_f = packed_q
+    sig_k = trm.ray_march_mlp_int8(q_c, base, slope, tc, masks,
+                                   sigma_only=True)
+    sig_p = trm.ray_march_mlp_int8.plain(q_c, base, slope, tc, masks,
+                                         sigma_only=True)
+    wc = trm.ray_march_quadrature.plain(sig_p.reshape(CHUNK, N_COARSE), tc,
+                                        True, True, True)[2]
+    tf = trm.sample_merge.plain(tc, wc, u)
+    rgbs_k = trm.ray_march_mlp_int8(q_f, base, slope, tf, masks)
+    rgbs_p = trm.ray_march_mlp_int8.plain(q_f, base, slope, tf, masks)
+    torch.cuda.synchronize()
+    tol = TOL["ray_march_mlp_int8"]
+    ok = True
+    for label, got, want in (
+            (f"sigma-only (coarse) [{CHUNK} x {N_COARSE}]", sig_k, sig_p),
+            (f"full (fine) [{CHUNK} x {N_COARSE + N_FINE}]", rgbs_k, rgbs_p)):
+        diff = (got - want).abs()
+        err = float(diff.max())
+        errors["ray_march_mlp_int8"] = max(
+            errors.get("ray_march_mlp_int8", 0.0), err)
+        good = bool(torch.isfinite(got).all()) and err <= tol
+        ok = ok and good
+        sigma = want if want.dim() == 1 else want[:, 3]
+        log(f"check ray_march_mlp_int8 {label}: max_abs_err {err:.3e} "
+            f"(tolerance {tol:.0e}), outputs not bit-equal "
+            f"{int((diff > 0).sum())}/{diff.numel()}, sigma max "
+            f"{float(sigma.max()):.3f} {'ok' if good else 'FAIL'}")
+    if not ok:
+        fail("ray_march_mlp_int8 disagrees with its plain version")
+    return {"q": packed_q, "base": base, "slope": slope, "masks": masks,
+            "tc": tc, "tf": tf}
+
+
+def _quantized_main_path(nerf, cfg, bf16_images, card_tag):
+    """The int8 orbit: a model compiled with ``quantized_render=True`` on
+    the bf16 model's weights renders 4 frames through ``render_orbit``.
+    The first run calibrates (``apply_mlp``'s stash mode, once per model)
+    and both passes of every chunk run ``ray_march_mlp_int8``, never
+    ``ray_march_mlp``; a second run, timed, calibrates nothing. Prints the
+    int8 frames' difference from the bf16 frames of the same poses and
+    draws. Returns the second run's launch counts and the model."""
+    import numpy as np
+    import torch
+
+    from keras_nerf_tpu_torch.inference import ORBIT, render_orbit
+    from keras_nerf_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from keras_nerf_tpu_torch.models import NeRF
+
+    qnerf = NeRF(config=cfg)
+    qnerf.compile(batch_size=1, image_height=IMG, image_width=IMG,
+                  ray_chunks=CHUNK, white_background=True, device="cuda",
+                  seed=0, quantized_render=True)
+    qnerf.state = nerf.state
+    chunks = len(FRAMES) * IMG * IMG // CHUNK
+    expected = {k.name: 0 for k in KERNELS}
+    expected.update(sample_merge=chunks, ray_march_quadrature=2 * chunks,
+                    ray_march_mlp_int8=2 * chunks)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    render_orbit(qnerf, FRAMES, img_wh=IMG, **ORBIT)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    calibrating = {k.name: k.launches for k in KERNELS}
+    if calibrating != {**expected, "apply_mlp": 2}:
+        fail(f"int8 orbit with calibration: launch counts {calibrating} != "
+             f"expected {expected} and 2 apply_mlp (the calibration)")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    images, depths = render_orbit(qnerf, FRAMES, img_wh=IMG, **ORBIT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    per_frame = {k: v // len(FRAMES) for k, v in launches.items() if v}
+    log(f"int8 main path: {len(FRAMES)} frames {IMG}^2 in {wall:.3f} s "
+        f"({1e3 * wall / len(FRAMES):.1f} ms/frame wall, host clock; the "
+        f"first run, calibration included, {first:.3f} s) {card_tag}; "
+        f"launches per frame {per_frame}; with calibration {calibrating}")
+    if launches != expected:
+        fail(f"int8 orbit: launch counts {launches} != expected {expected}")
+    if images.shape != (len(FRAMES), IMG, IMG, 3) or not (
+            np.isfinite(images).all() and images.min() >= 0.0
+            and images.max() <= 1.0 and np.isfinite(depths).all()):
+        fail("int8 frames malformed, not finite or outside [0, 1]")
+    diff = np.abs(images - bf16_images)
+    log(f"int8 frames vs bf16 frames (same weights, poses and draws): image "
+        f"max abs {diff.max():.4f} mean {diff.mean():.3e}; image mean "
+        f"{images.mean():.4f} (bf16 {bf16_images.mean():.4f}), std "
+        f"{images.std():.4f}, depth mean {depths.mean():.4f}")
+    return launches, qnerf
+
+
+def _quantized_e2e(packed_q, params, fine_params, cfg, gen):
+    """A 16^2 int8 render on the card against the same int8 weights moved
+    to the CPU (the plain versions), same rays and draws, held at the
+    fused-sampling budget ``E2E_TOL``."""
+    import torch
+
+    from keras_nerf_tpu_torch.data import (
+        generate_ray_batch,
+        get_focal_from_fov,
+        pose_spherical,
+    )
+    from keras_nerf_tpu_torch.inference import ORBIT
+    from keras_nerf_tpu_torch.models.engine import render_image_batch
+    from keras_nerf_tpu_torch.ops import sorted_uniforms
+
+    rays = generate_ray_batch(
+        pose_spherical(30.0, ORBIT["phi"], ORBIT["z_translate"])[None], gen,
+        image_height=E2E_IMG, image_width=E2E_IMG,
+        focal=get_focal_from_fov(ORBIT["fov"], E2E_IMG), near=ORBIT["near"],
+        far=ORBIT["far"], n_samples=N_COARSE)
+    draws = [sorted_uniforms(gen, (E2E_IMG * E2E_IMG,), N_FINE)]
+    cpu = torch.device("cpu")
+    _, card = render_image_batch(params, fine_params, rays, draws, cfg,
+                                 E2E_IMG * E2E_IMG, packed_q=packed_q)
+    _, host = render_image_batch(
+        _to(params, cpu), _to(fine_params, cpu),
+        tuple(x.to(cpu) for x in rays), [x.to(cpu) for x in draws], cfg,
+        E2E_IMG * E2E_IMG, packed_q=tuple(_to(q, cpu) for q in packed_q))
+    diff = {k: (card[k].cpu() - host[k]).abs() for k in ("image", "depth")}
+    err = {k: float(v.max()) for k, v in diff.items()}
+    log(f"int8 end to end {E2E_IMG}^2, card kernels vs CPU plain versions "
+        f"(same int8 weights): " + ", ".join(
+            f"{k} max_abs_err {err[k]:.3e} mean {float(v.mean()):.3e} "
+            f"(tolerance {E2E_TOL[k]:.0e})" for k, v in diff.items()))
+    if any(err[k] > E2E_TOL[k] for k in err):
+        fail("the card's int8 render disagrees with the plain versions")
+
+
+def _ceiling_probe(errors, card_tag):
+    """``mma_ceiling`` against its plain version at the probe's shapes
+    ``CEILING_CHECK`` (both modes, a bias so that ``epi`` adds one, each
+    grid step's own seed), then the probe's own entry point
+    ``profile_mma_ceiling.measure`` at ``CEILING_RUN`` with 3 timed calls
+    per mode: its launch counts and TFLOP/s."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import (
+        KERNELS,
+        mma_ceiling,
+        reset_launch_counts,
+    )
+    from keras_nerf_tpu_torch.kernels.ceiling import MODES, make_inputs
+    from keras_nerf_tpu_torch.profile_mma_ceiling import measure
+
+    c = CEILING_CHECK
+    ws, bs, seed = make_inputs(c["grid"], c["u"], "cuda", seed=1,
+                               bias_scale=0.05)
+    seed += torch.arange(c["grid"], device="cuda").repeat_interleave(8)[
+        :, None] * 1e-2
+    for mode in MODES:
+        got = mma_ceiling(ws, bs, seed, c["t"], c["rep"], mode)
+        want = mma_ceiling.plain(ws, bs, seed, c["t"], c["rep"], mode)
+        torch.cuda.synchronize()
+        err = _rel_max(got, want)
+        errors["mma_ceiling"] = max(errors.get("mma_ceiling", 0.0),
+                                    float((got - want).abs().max()))
+        ok = bool(torch.isfinite(got).all()) and err <= TOL["mma_ceiling"]
+        log(f"check mma_ceiling {mode} [{c['grid']} x {c['t']}, u "
+            f"{c['u']}, rep {c['rep']}]: relative max err {err:.3e} "
+            f"(tolerance {TOL['mma_ceiling']:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("mma_ceiling disagrees with its plain version")
+    reset_launch_counts()
+    rows = measure(iters=3, **CEILING_RUN)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    expected = {k.name: 0 for k in KERNELS}
+    expected["mma_ceiling"] = len(MODES) * 4
+    for r in rows:
+        log(f"ceiling probe {r['mode']}: T={r['T']} U={r['U']} rep="
+            f"{r['rep']} grid={r['grid']}: {r['ms']:.3f} ms/call, "
+            f"{r['tflops']:.1f} TFLOP/s ({100 * r['share_of_peak']:.1f}% of "
+            f"989 TFLOP/s bf16 dense) {card_tag}")
+    if launches != expected:
+        fail(f"ceiling probe launch counts {launches} != {expected}")
+    # The timing phase's inputs, as measure makes them.
+    return launches, make_inputs(CEILING_RUN["grid"], CEILING_RUN["u"],
+                                 "cuda")
+
+
+def _quantized_modes(qi: dict, cfg) -> list:
+    """T4's timing modes at the orbit's chunks, each launched 4 times per
+    frame: the coarse model sigma-only and the fine model in full. Bound:
+    the unpadded forward's operations at the dense int8 rate, against the
+    per-ray coefficients, depths, int8 weights and scales in and the
+    outputs out."""
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models.engine import tree_leaves
+
+    per_frame = IMG * IMG // CHUNK
+    q_c, q_f = qi["q"]
+    modes = []
+    for q, t, sigma_only, label in ((q_c, qi["tc"], True, "sigma-only"),
+                                    (q_f, qi["tf"], False, "full")):
+        pts = t.numel()
+        nbytes = (sum(x.numel() * x.element_size() for x in tree_leaves(q))
+                  + 2 * CHUNK * 128 * F32B + pts * F32B
+                  + pts * F32B * (1 if sigma_only else 4))
+        flop = pts * trm.fwd_flop_per_point(cfg.mlp, sigma_only=sigma_only)
+        modes.append((trm.ray_march_mlp_int8, "quantized",
+                      f"{label} [{CHUNK} x {t.shape[1]}]",
+                      lambda f, q=q, t=t, so=sigma_only: f(
+                          q, qi["base"], qi["slope"], t, qi["masks"],
+                          sigma_only=so),
+                      per_frame, _bound(nbytes, flop, PEAK_INT8_OPS)))
+    return modes
+
+
+def _ceiling_modes(inputs: tuple) -> list:
+    """T7's timing modes: one call of each mode at the TPU script's
+    defaults. Bound: its products at the bf16 peak (it moves about 1 MB)."""
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.kernels.ceiling import MODES, ceiling_flop
+
+    c = CEILING_RUN
+    ws, bs, seed = inputs
+    flop = ceiling_flop(c["grid"], c["t"], c["u"], c["rep"])
+    # The weights and the seed read once, the [grid * 8, 128] slice written.
+    nbytes = (sum(x.numel() * x.element_size() for x in (*ws, *bs))
+              + 2 * seed.numel() * seed.element_size())
+    return [(trm.mma_ceiling, "probe", f"{mode} [T={c['t']}, u={c['u']}, "
+             f"rep={c['rep']}, grid={c['grid']}]",
+             lambda f, mode=mode: f(ws, bs, seed, c["t"], c["rep"], mode), 1,
+             _bound(nbytes, flop, PEAK_BF16_FLOPS)) for mode in MODES]
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ Loads a checkpoint written by ``keras_nerf_tpu`` (``--model_dirs``), builds
 ``pose_spherical`` cameras for theta in ``0..350`` step ``--output_freq``,
 renders each frame's fine image and depth through the kernel path and
 writes ``{name}.gif`` and ``{name}_depth.gif`` at 20 fps. Runs on ``cuda``
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given; ``--quantized_render`` renders through the
+int8 tier.
 """
 
 from __future__ import annotations
@@ -99,6 +100,12 @@ def main(argv=None):
     parser.add_argument("--output_freq", type=int, default=10)
     parser.add_argument("--frame_batch", type=int, default=1,
                         help="orbit frames rendered per call")
+    parser.add_argument("--quantized_render", action="store_true",
+                        help="opt-in int8 render tier: W8A8 int8 tensor-core "
+                             "products (the ray_march_mlp_int8 kernel) with "
+                             "static scales calibrated once on the first "
+                             "frame's rays; sampling and quadrature are "
+                             "unchanged")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument("--verbose", action="store_true")
@@ -123,7 +130,7 @@ def main(argv=None):
     nerf.compile(batch_size=frame_batch, image_height=args.img_wh,
                  image_width=args.img_wh, ray_chunks=args.ray_chunks,
                  white_background=args.white_bg, is_training=False,
-                 device=args.device)
+                 device=args.device, quantized_render=args.quantized_render)
     images, depths = render_orbit(
         nerf, range(0, 360, args.output_freq), img_wh=args.img_wh,
         fov=args.fov, phi=args.phi, z_translate=args.z_translate,

@@ -1,14 +1,12 @@
 // ray_march_mlp: positional encoding and the radiance-field MLP per point.
 //
 // Replaces: the in-kernel encoding (keras_nerf_tpu/kernels/ray_march.py
-// :1259-1280, _sin_poly :875) and _forward_core (:369-426) of
-// _train_chunk_kernel, in its full and sigma_only forms. Each point's
-// encoding argument is rep = base_r + t * slope_r (per-ray coefficients
-// from ray_encoding_coeffs); cos lanes add pi/2, sin and cos lanes are
-// range-reduced by 2 pi before a degree-9 polynomial, raw lanes keep rep.
-// The MLP multiplies bf16 operands with float32 accumulation, adds the
-// float32 bias, applies relu and rounds to bf16 between layers, exactly the
-// TPU kernel's precision policy, in the packed layout of pack_mlp_params
+// :1259-1280, _sin_poly :875; encode.cuh, which ray_march_mlp_int8.cu
+// shares) and _forward_core (:369-426) of _train_chunk_kernel, in its full
+// and sigma_only forms. The MLP multiplies bf16 operands with float32
+// accumulation, adds the float32 bias, applies relu and rounds to bf16
+// between layers, exactly the TPU kernel's precision policy, in the packed
+// layout of pack_mlp_params
 // (encoding blocks at lanes 0 and 64 of a 128-wide input, sigma in column
 // `units` of the fused sigma/feature matrix).
 //
@@ -45,6 +43,7 @@
 // the features and rf are written. Bound: operations, 1.19 MFLOP per point
 // against 272 B read and written (0.08 ns at 3.35 TB/s); with a stash,
 // bytes (4,864 B written per point, 1.5 ns).
+#include "encode.cuh"
 #include "mlp.cuh"
 
 using namespace nvcuda;
@@ -54,7 +53,6 @@ namespace {
 
 constexpr int kTile = 64;      // points per block
 constexpr int kWarps = 8;
-constexpr int kEncLanes = 128;
 constexpr int kEncLd = kEncLanes + 8;  // padded row strides (bf16 elements)
 
 // out[:, n0..n0+NF*16) = bf16(act(acc + bias)), through the warp's scratch.
@@ -115,18 +113,6 @@ __device__ void head16(const bf16* A, int lda, int K, const bf16* W, int ldw,
   }
 }
 
-// Horner steps as fused multiply-adds: the form XLA compiles the TPU
-// kernel's _sin_poly to on the CPU, so the reference tests compare like
-// with like; the plain version emulates each FMA in float64.
-__device__ __forceinline__ float sin_poly(float x) {
-  const float x2 = __fmul_rn(x, x);
-  float p = __fmaf_rn(0x1.22cac8p-19f, x2, -0x1.94d06cp-13f);
-  p = __fmaf_rn(p, x2, 0x1.105a2cp-7f);
-  p = __fmaf_rn(p, x2, -0x1.55426ap-3f);
-  p = __fmaf_rn(p, x2, 0x1.fffdd2p-1f);
-  return __fmul_rn(x, p);
-}
-
 // kEncIn: the input mode, the encoded tile read from enc_in [P, 128].
 template <bool kSigmaOnly, bool kEncIn>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -163,22 +149,7 @@ mlp_kernel(const MlpWeights w, const float* __restrict__ base,
     // Positional encoding of the tile's points (ray_march.py:1259-1280).
     for (int idx = threadIdx.x; idx < kTile * kEncLanes; idx += blockDim.x) {
       const int pl = idx / kEncLanes, l = idx % kEncLanes, p = p0 + pl;
-      float v = 0.f;
-      if (p < P) {
-        const int r = p / S;
-        // rep = base + t * slope and the 2 pi reduction as single-rounding
-        // FMAs, as XLA contracts them (see sin_poly).
-        const float rep = __fmaf_rn(depths[p], slope[(size_t)r * kEncLanes + l],
-                                    base[(size_t)r * kEncLanes + l]);
-        if (masks[l] != 0.f) {
-          v = rep;
-        } else if (masks[kEncLanes + l] != 0.f || masks[2 * kEncLanes + l] != 0.f) {
-          const float shifted =
-              masks[2 * kEncLanes + l] != 0.f ? __fadd_rn(rep, knt::kHalfPi) : rep;
-          const float turns = rintf(__fmul_rn(shifted, knt::kInvTwoPi));
-          v = sin_poly(__fmaf_rn(-knt::kTwoPi, turns, shifted));
-        }
-      }
+      const float v = p < P ? encode_lane(base, slope, depths, masks, p, l, S) : 0.f;
       enc[pl * kEncLd + l] = __float2bfloat16_rn(v);
     }
   }

@@ -29,6 +29,17 @@ the custom-loss path's :func:`fused_point_forward`, reuse them:
   with a stash, ``mlp_backward`` in its output-head mode and
   ``mlp_weight_grad``.
 
+Two more kernels have a wrapper here and their plain versions in modules of
+their own:
+
+* :data:`ray_march_mlp_int8` — the int8 render tier's trunk and heads (T4,
+  ``kernels/quantize.py:forward_core_int8``): the encoding of
+  ``ray_march_mlp``, kept float32, then W8A8 products with exact int32 sums
+  and static scales; :func:`fused_render_chunk`'s ``quantized`` mode;
+* :data:`mma_ceiling` — the tensor-core ceiling probe (T7,
+  ``scripts/profile_mxu_ceiling.py``), ``kernels/ceiling.py``, timed by
+  ``python -m keras_nerf_tpu_torch.profile_mma_ceiling``.
+
 The render split costs one float32 ``[R, S, 4]`` round trip through device
 memory (16 B per point), small beside the MLP's ~1.2 MFLOP per point. The
 training split keeps the activations and cotangents in device memory,
@@ -57,6 +68,11 @@ from keras_nerf_tpu_torch.ops.encoding import (
     block_permutation,
     encoded_dim,
 )
+from keras_nerf_tpu_torch.kernels.ceiling import (
+    mma_ceiling_cuda,
+    mma_ceiling_plain,
+)
+from keras_nerf_tpu_torch.kernels.quantize import ray_march_mlp_int8_plain
 from keras_nerf_tpu_torch.ops.rendering import RenderOutput, render_rays
 
 LANE = 128
@@ -251,21 +267,29 @@ def sin_poly(x: torch.Tensor) -> torch.Tensor:
     return x * p
 
 
-def encode_points(base: torch.Tensor, slope: torch.Tensor,
-                  depths: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """``[R, S, 128]`` bf16 encodings of the points ``t = depths [R, S]``
-    (`ray_march.py:1259-1280`): float32 ``rep = base + t slope``, +pi/2 on
-    the cos lanes, 2 pi range reduction, :func:`sin_poly`; raw lanes keep
-    ``rep``. The argument stays float32 throughout; ``rep`` and the
-    reduction are single-rounding FMAs, as in the CUDA kernel."""
+def encode_points_f32(base: torch.Tensor, slope: torch.Tensor,
+                      depths: torch.Tensor,
+                      masks: torch.Tensor) -> torch.Tensor:
+    """``[R, S, 128]`` float32 encodings of the points ``t = depths [R, S]``
+    (`ray_march.py:1259-1280`, ``enc_f32``): ``rep = base + t slope``,
+    +pi/2 on the cos lanes, 2 pi range reduction, :func:`sin_poly`; raw
+    lanes keep ``rep``. ``rep`` and the reduction are single-rounding FMAs,
+    as in the CUDA kernels (``csrc/encode.cuh``). The int8 tier quantizes
+    these values; :func:`encode_points` rounds them to bf16."""
     rep = _fma(depths[..., None], slope[:, None, :], base[:, None, :])
     m_raw, m_sin, m_cos = masks[0], masks[1], masks[2]
     shifted = torch.where(m_cos != 0, rep + _HALF_PI, rep)
     reduced = _fma(-_TWO_PI, torch.round(shifted * _INV_TWO_PI), shifted)
     trig = torch.where((m_sin != 0) | (m_cos != 0), sin_poly(reduced),
                        torch.zeros_like(rep))
-    enc = torch.where(m_raw != 0, rep, trig)
-    return enc.to(torch.bfloat16)
+    return torch.where(m_raw != 0, rep, trig)
+
+
+def encode_points(base: torch.Tensor, slope: torch.Tensor,
+                  depths: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """``[R, S, 128]`` bf16 encodings of the points: :func:`encode_points_f32`
+    rounded once to bf16, the input of the bf16 MLP."""
+    return encode_points_f32(base, slope, depths, masks).to(torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -646,6 +670,14 @@ def sample_merge_plain(cp: torch.Tensor, w: torch.Tensor,
 # CUDA launches.
 
 
+# The per-model arrays of struct MlpInt8Weights, in its order.
+_INT8_HEAD_ARRAYS = (
+    "w_feat", "u_feat", "b_feat", "w_sig", "u_sig", "b_sig", "w_feat_enc",
+    "u_feat_enc", "w_sig_enc", "u_sig_enc", "enc_r_sf", "r_feat", "w_rf_top",
+    "u_rf_top", "w_rf_enc", "u_rf_enc", "enc_r_rf", "b_rf", "r_rf", "w_rgb",
+    "u_rgb", "b_rgb")
+
+
 class _MlpWeights(ctypes.Structure):
     """Mirror of ``struct MlpWeights`` in csrc/ray_march_mlp.cu."""
 
@@ -854,6 +886,108 @@ def _apply_mlp_cuda(packed, enc, stash=None):
     return out
 
 
+class _MlpInt8Weights(ctypes.Structure):
+    """Mirror of ``struct MlpInt8Weights`` in csrc/ray_march_mlp_int8.cu."""
+
+    _fields_ = [
+        ("trunk_w", ctypes.c_void_p * MAX_LAYERS),
+        ("trunk_u", ctypes.c_void_p * MAX_LAYERS),
+        ("trunk_b", ctypes.c_void_p * MAX_LAYERS),
+        ("trunk_r", ctypes.c_void_p * MAX_LAYERS),
+        ("trunk_enc_w", ctypes.c_void_p * MAX_LAYERS),
+        ("trunk_enc_u", ctypes.c_void_p * MAX_LAYERS),
+        ("enc_r", ctypes.c_void_p * MAX_LAYERS),
+        *((name, ctypes.c_void_p) for name in _INT8_HEAD_ARRAYS),
+        ("n_layers", ctypes.c_int),
+        ("units", ctypes.c_int),
+    ]
+
+
+def _mlp_int8_struct(q: dict, device: torch.device):
+    """The device pointers of a :func:`quantize_packed` dict, each array
+    checked for its device, type, contiguity and shape, with the int8
+    weights transposed to ``[fan_out, fan_in]`` for the kernel's
+    column-major B fragments. Returns the structure and the transposed
+    copies, which must live until the launch is enqueued."""
+    s = _MlpInt8Weights()
+    keep = []
+    n = len(q["trunk_w"])
+    u = q["trunk_b"][0].shape[1]
+    if n > MAX_LAYERS or u % 256:
+        raise ValueError(f"ray_march_mlp_int8 supports <= {MAX_LAYERS} layers "
+                         f"of a multiple of 256 units (got {n} x {u})")
+    i8, f32 = torch.int8, torch.float32
+    half = u // 2
+
+    def opt(x, name, dtype, shape):
+        if x is None:
+            return None
+        ptr = _check(x, name, dtype, device, shape)
+        if dtype is not i8:
+            return ptr
+        keep.append(x.t().contiguous())
+        return keep[-1].data_ptr()
+
+    for i in range(n):
+        fan = LANE if i == 0 else u
+        s.trunk_w[i] = opt(q["trunk_w"][i], f"trunk_w[{i}]", i8, (fan, u))
+        for key in ("trunk_u", "trunk_b", "trunk_r"):
+            getattr(s, key)[i] = _check(q[key][i], f"{key}[{i}]", f32,
+                                        device, (1, u))
+        s.trunk_enc_w[i] = opt(q["trunk_enc_w"][i], f"trunk_enc_w[{i}]", i8,
+                               (LANE, u))
+        s.trunk_enc_u[i] = opt(q["trunk_enc_u"][i], f"trunk_enc_u[{i}]", f32,
+                               (1, u))
+        s.enc_r[i] = opt(q["enc_r"][i], f"enc_r[{i}]", f32, (1, LANE))
+        if i and (q["trunk_enc_w"][i] is None) != (q["enc_r"][i] is None):
+            raise ValueError(f"layer {i}: trunk_enc_w and enc_r must both be "
+                             f"given or both be None")
+    if q["enc_r"][0] is None or q["trunk_enc_w"][0] is not None:
+        raise ValueError("layer 0 reads the encoding through trunk_w[0] and "
+                         "enc_r[0]")
+    shapes = {"w_feat": (u, u), "w_sig": (u, LANE), "w_feat_enc": (LANE, u),
+              "w_sig_enc": (LANE, LANE), "w_rf_top": (u, half),
+              "w_rf_enc": (LANE, half), "w_rgb": (half, LANE),
+              "u_feat": (1, u), "b_feat": (1, u), "r_feat": (1, u),
+              "u_sig": (1, LANE), "b_sig": (1, LANE),
+              "u_feat_enc": (1, u), "u_sig_enc": (1, LANE),
+              "enc_r_sf": (1, LANE), "u_rf_top": (1, half),
+              "u_rf_enc": (1, half), "enc_r_rf": (1, LANE), "b_rf": (1, half),
+              "r_rf": (1, half), "u_rgb": (1, LANE), "b_rgb": (1, LANE)}
+    last = ("w_feat_enc", "u_feat_enc", "w_sig_enc", "u_sig_enc", "enc_r_sf")
+    if len({q[k] is None for k in last}) != 1:
+        raise ValueError(f"{', '.join(last)} must all be given or all None")
+    for name in _INT8_HEAD_ARRAYS:
+        dtype = i8 if name.startswith("w_") else f32
+        if q[name] is None and name not in last:
+            raise ValueError(f"{name} is missing")
+        setattr(s, name, opt(q[name], name, dtype, shapes[name]))
+    s.n_layers = n
+    s.units = u
+    return s, keep
+
+
+def _ray_march_mlp_int8_cuda(q, base, slope, depths, masks, sigma_only=False):
+    from keras_nerf_tpu_torch.kernels._build import load
+
+    lib = load()
+    dev = base.device
+    r, s = depths.shape
+    f32 = torch.float32
+    weights, _transposed = _mlp_int8_struct(q, dev)
+    out = torch.empty((r * s,) if sigma_only else (r * s, 4), dtype=f32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        _raise_on(lib.knt_ray_march_mlp_int8(
+            ctypes.addressof(weights),
+            _check(base, "base", f32, dev, (r, LANE)),
+            _check(slope, "slope", f32, dev, (r, LANE)),
+            _check(depths, "depths", f32, dev),
+            _check(masks, "masks", f32, dev, (3, LANE)), out.data_ptr(), r, s,
+            int(sigma_only), _stream(dev)), "ray_march_mlp_int8")
+    return out
+
+
 def _ray_march_quadrature_cuda(rgbs, t, white_background=False,
                                sigma_only=False, emit_weights=True,
                                target=None, loss_scale=0.0):
@@ -1051,9 +1185,17 @@ mlp_weight_grad = KernelWrapper(
 apply_mlp = KernelWrapper(
     "apply_mlp", apply_mlp_plain, _apply_mlp_cuda,
     _CSRC + "ray_march_mlp.cu", _TPU + ":438")
+# The int8 trunk of fused_train_chunk(quantized=True) (T4).
+ray_march_mlp_int8 = KernelWrapper(
+    "ray_march_mlp_int8", ray_march_mlp_int8_plain, _ray_march_mlp_int8_cuda,
+    _CSRC + "ray_march_mlp_int8.cu", "keras_nerf_tpu/kernels/quantize.py:248")
+# The tensor-core ceiling probe (T7), on no path of the package.
+mma_ceiling = KernelWrapper(
+    "mma_ceiling", mma_ceiling_plain, mma_ceiling_cuda,
+    _CSRC + "mma_ceiling.cu", "scripts/profile_mxu_ceiling.py:87")
 
 KERNELS = (sample_merge, ray_march_mlp, ray_march_quadrature, mlp_backward,
-           mlp_weight_grad, apply_mlp)
+           mlp_weight_grad, apply_mlp, ray_march_mlp_int8, mma_ceiling)
 
 
 def reset_launch_counts() -> None:
@@ -1066,13 +1208,17 @@ def fused_render_chunk(packed: dict, origin: torch.Tensor,
                        pos_emb_xyz: int = 10,
                        pos_emb_dir: int = 4, white_background: bool = False,
                        emit_weights: bool = True, sigma_only: bool = False,
-                       sample_inputs: tuple | None = None):
+                       sample_inputs: tuple | None = None,
+                       quantized: bool = False):
     """One model's no-grad pass over a ray chunk through the kernels: the
     port's ``fused_train_chunk(with_grad=False)`` (`ray_march.py:1384`).
     The JAX package's ``fused_render_chunk`` is :func:`point_render_chunk`.
 
     Args:
-      packed: :func:`pack_mlp_params` output (on the rays' device).
+      packed: :func:`pack_mlp_params` output (on the rays' device), or with
+        ``quantized`` a :func:`~keras_nerf_tpu_torch.kernels.quantize.
+        quantize_packed` dict: the int8 render tier, whose MLP is
+        :data:`ray_march_mlp_int8` (`ray_march.py:1285-1290`).
       origin/direction: ``[R, 3]`` float32.
       points: ``[R, S]`` sorted depths, or None with ``sample_inputs``.
       sigma_only: density pass only (requires ``emit_weights``): the image
@@ -1089,8 +1235,8 @@ def fused_render_chunk(packed: dict, origin: torch.Tensor,
     points = _pass_points(points, sample_inputs)
     base, slope, masks = ray_encoding_coeffs(origin, direction, pos_emb_xyz,
                                              pos_emb_dir)
-    rgbs = ray_march_mlp(packed, base, slope, points, masks,
-                         sigma_only=sigma_only)
+    mlp = ray_march_mlp_int8 if quantized else ray_march_mlp
+    rgbs = mlp(packed, base, slope, points, masks, sigma_only=sigma_only)
     r, s = points.shape
     rgbs = rgbs.reshape((r, s) if sigma_only else (r, s, 4))
     return ray_march_quadrature(rgbs, points,

@@ -22,6 +22,10 @@ counterpart of ``use_pallas``, `engine.py:452-466`):
 * reference (``False``): float32 ``apply_mlp`` + ``render_rays``, and
   torch autograd per chunk for training.
 
+The int8 render tier (:func:`quantize_render_params`, then
+``render_image_batch(packed_q=...)``) runs on the kernel path only: both
+passes through ``ray_march_mlp_int8`` (T4); the reference path ignores it.
+
 The fine draws ``u`` are injected: per-chunk ``[R, n_fine]`` tensors, or a
 ``torch.Generator`` that makes them with :func:`sorted_uniforms`.
 """
@@ -35,7 +39,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from keras_nerf_tpu_torch.kernels.quantize import (
+    collect_act_amax,
+    quantize_packed,
+)
 from keras_nerf_tpu_torch.kernels.ray_march import (
+    encode_block128,
     fused_point_forward,
     fused_render_chunk,
     fused_train_chunk,
@@ -168,23 +177,28 @@ def _fused_chunk_pair(packed_c: dict, packed_f: dict, origin: torch.Tensor,
                       u: torch.Tensor, config: NeRFConfig,
                       with_weights: bool = True, coarse_image: bool = True,
                       target: torch.Tensor | None = None,
-                      grads: tuple = (None, None)):
+                      grads: tuple = (None, None), quantized: bool = False):
     """Coarse pass then the fine pass with in-kernel sampling off the
     coarse weights (`engine.py:496-571`). Without ``target`` these are the
-    render modes (the coarse pass sigma-only when its image is unused).
-    With ``target`` they are the train modes: each pass adds the packed
+    render modes (the coarse pass sigma-only when its image is unused);
+    ``quantized`` renders with the int8 dicts of
+    :func:`quantize_render_params` as ``packed_c``/``packed_f``. With
+    ``target`` they are the train modes: each pass adds the packed
     gradient of its chunk MSE into its accumulator of ``grads`` and sees
     only its own packed weights, and the fine pass emits no weights."""
     kw = dict(pos_emb_xyz=config.pos_emb_xyz, pos_emb_dir=config.pos_emb_dir,
               white_background=config.white_background)
     if target is None:
         out_c = fused_render_chunk(packed_c, origin, direction, coarse_points,
-                                   sigma_only=not coarse_image, **kw)
+                                   sigma_only=not coarse_image,
+                                   quantized=quantized, **kw)
         out_f = fused_render_chunk(packed_f, origin, direction, None,
                                    emit_weights=with_weights,
                                    sample_inputs=(coarse_points, out_c[2], u),
-                                   **kw)
+                                   quantized=quantized, **kw)
         return out_c, out_f
+    if quantized:
+        raise ValueError("the int8 tier renders only: it has no gradients")
     out_c = fused_train_chunk(packed_c, origin, direction, coarse_points,
                               target, grads=grads[0], **kw)
     out_f = fused_train_chunk(packed_f, origin, direction, None, target,
@@ -216,7 +230,8 @@ def render_image_batch(coarse_params: Params, fine_params: Params, rays,
                        fine_draws: torch.Generator | Sequence[torch.Tensor],
                        config: NeRFConfig, ray_chunks: int,
                        with_weights: bool = True,
-                       coarse_image: bool = True) -> tuple[dict, dict]:
+                       coarse_image: bool = True,
+                       packed_q: tuple | None = None) -> tuple[dict, dict]:
     """Full-image chunked render (`engine.py:290-382`).
 
     Args:
@@ -227,6 +242,10 @@ def render_image_batch(coarse_params: Params, fine_params: Params, rays,
         the fine kernel pass when False).
       coarse_image: False declares the coarse image unused: it comes back
         zero and the kernel path's coarse pass is sigma-only.
+      packed_q: ``(coarse, fine)`` int8 dicts of
+        :func:`quantize_render_params`: the int8 render tier, whose passes
+        run through ``ray_march_mlp_int8`` (kernel path only; the reference
+        path ignores it, as the JAX package's XLA path does).
 
     Returns ``(coarse, fine)`` dicts of ``image [B,H,W,3]``,
     ``depth [B,H,W]`` and, when ``with_weights``, ``weights [B,H,W,S]``.
@@ -247,14 +266,18 @@ def render_image_batch(coarse_params: Params, fine_params: Params, rays,
 
     outs_c, outs_f = [], []
     if resolve_use_kernels(config, origin.device):
-        packed_c = pack_mlp_params(coarse_params, config.mlp,
-                                   config.pos_emb_xyz, config.pos_emb_dir)
-        packed_f = pack_mlp_params(fine_params, config.mlp,
-                                   config.pos_emb_xyz, config.pos_emb_dir)
+        if packed_q is not None:
+            packed_c, packed_f = packed_q
+        else:
+            packed_c, packed_f = (
+                pack_mlp_params(p, config.mlp, config.pos_emb_xyz,
+                                config.pos_emb_dir)
+                for p in (coarse_params, fine_params))
         for i in range(num_chunks):
             out_c, out_f = _fused_chunk_pair(
                 packed_c, packed_f, o[i], d[i], t[i], draws[i], config,
-                with_weights=with_weights, coarse_image=coarse_image)
+                with_weights=with_weights, coarse_image=coarse_image,
+                quantized=packed_q is not None)
             outs_c.append(RenderOutput(*out_c))
             outs_f.append(RenderOutput(*out_f))
     else:
@@ -276,6 +299,61 @@ def render_image_batch(coarse_params: Params, fine_params: Params, rays,
         return res
 
     return unchunk(outs_c), unchunk(outs_f)
+
+
+@torch.no_grad()
+def quantize_render_params(coarse_params: Params, fine_params: Params, rays,
+                           fine_draws: torch.Generator | torch.Tensor,
+                           config: NeRFConfig, n_calib_rays: int = 1024):
+    """Calibrate and quantize both MLPs for the int8 render tier
+    (`engine.py:385-442`); returns ``(coarse_q, fine_q)`` for
+    :func:`render_image_batch`'s ``packed_q``.
+
+    Runs once per checkpoint, outside the per-frame loop. At most
+    ``n_calib_rays`` rays of ``rays``, taken with the ceil stride so that
+    they span the image (contiguous leading rays are background only and
+    mis-calibrate), go through the float32 reference path for the coarse
+    weights, then :func:`invert_cdf` and :func:`merge_sorted` for the fine
+    depths; the coarse model is calibrated on the stratified points and the
+    fine one on the merged points, the distributions each renders.
+    :func:`collect_act_amax` reads the ranges from ``apply_mlp``'s stash
+    (T5 on a card) over :func:`encode_block128` of the points.
+
+    Args:
+      fine_draws: a ``torch.Generator`` on the rays' device, or the sorted
+        draws ``[n_calib, n_fine]`` themselves (JAX's key is not portable).
+    """
+    origin, direction, points = rays
+    num_rays = origin[..., 0].numel()
+    # Ceil stride: floor would fall back to contiguous leading rays whenever
+    # num_rays < 2 n_calib_rays, and drop the bottom of the image otherwise.
+    stride = max(1, -(-num_rays // n_calib_rays))
+    o, d, t = (x.reshape(num_rays, -1)[::stride][:n_calib_rays].contiguous()
+               for x in (origin, direction, points))
+    n = o.shape[0]
+    out_c, _ = render_chunk(coarse_params, o, d, t,
+                            dataclasses.replace(config, use_kernels=False))
+    if isinstance(fine_draws, torch.Generator):
+        u = sorted_uniforms(fine_draws, (n,), config.n_fine)
+    else:
+        u = torch.as_tensor(fine_draws, dtype=torch.float32, device=o.device)
+        if tuple(u.shape) != (n, config.n_fine):
+            raise ValueError(f"calibration draws must be [{n}, "
+                             f"{config.n_fine}], got {tuple(u.shape)}")
+    fine_points = merge_sorted(t, invert_cdf(u, midpoints(t), out_c.weights))
+    out = []
+    for params, pts in ((coarse_params, t), (fine_params, fine_points)):
+        packed = pack_mlp_params(params, config.mlp, config.pos_emb_xyz,
+                                 config.pos_emb_dir)
+        # o + d t rounded twice, as the JAX package's block_enc (`:428-432`)
+        # computes it (unlike render_chunk's single-rounding ray_points).
+        pos = o[:, None, :] + d[:, None, :] * pts[..., None]
+        enc = encode_block128(pos.reshape(-1, 3),
+                              d[:, None, :].expand(pos.shape).reshape(-1, 3),
+                              config.pos_emb_xyz, config.pos_emb_dir)
+        out.append(quantize_packed(
+            packed, collect_act_amax(packed, enc, config.mlp), config.mlp))
+    return tuple(out)
 
 
 # --------------------------------------------------------------------------

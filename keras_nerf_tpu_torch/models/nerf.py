@@ -77,7 +77,8 @@ class NeRF:
                 white_background: bool = False, is_training: bool = True,
                 learning_rate: float = 1e-3, lr_final: float = 0.0,
                 lr_decay_steps: int = 0, seed: int = 42, device="cuda",
-                use_kernels: bool | None = None):
+                use_kernels: bool | None = None,
+                quantized_render: bool = False):
         """Fix shapes, device and optimizer; restore the checkpoint's
         weights and optimizer state, or draw random weights from ``seed``
         (`nerf.py:79-354`). ``ray_chunks`` is clamped to the rays of one
@@ -85,7 +86,15 @@ class NeRF:
         ``lr_decay_steps > 0`` decays the learning rate exponentially.
         ``loss`` is ``"mse"``, None or a callable ``loss(y_true, y_pred) ->
         scalar``, applied per chunk in training and to the whole images in
-        evaluation (`nerf.py:106-115`)."""
+        evaluation (`nerf.py:106-115`).
+
+        ``quantized_render`` opts :meth:`predict_and_render_images` into
+        the int8 render tier, calibrated on its first rays
+        (:meth:`_ensure_packed_q`); training and evaluation are untouched.
+        It needs the kernel path: with ``use_kernels=False`` (or on the CPU
+        with an architecture outside the kernels' envelope) it is ignored
+        with a warning, as the JAX package does (`nerf.py:337-348`); on a
+        card it always runs the int8 kernel."""
         if callable(loss):
             self.loss_fn = loss
         elif loss in ("mse", None):
@@ -137,6 +146,14 @@ class NeRF:
         self._generator.manual_seed(seed + 1)
         self._train_draws = torch.Generator(device=self.device)
         self._train_draws.manual_seed(seed + 2)
+        self.quantized_render = bool(quantized_render)
+        if (self.quantized_render
+                and not engine.resolve_use_kernels(self.config, self.device)):
+            logging.warning("quantized_render requires the kernel render "
+                            "path; flag ignored")
+            self.quantized_render = False
+        self._packed_q = None
+        self._packed_q_state = None
         self.metrics = {n: MeanTracker() for n in self.METRIC_NAMES}
         self.val_metrics = {n: MeanTracker() for n in self.METRIC_NAMES}
         return self
@@ -309,8 +326,26 @@ class NeRF:
         self._require_compiled()
         rays = tuple(torch.as_tensor(x, dtype=torch.float32,
                                      device=self.device) for x in rays)
+        if self.quantized_render:
+            self._ensure_packed_q(rays, torch.Generator(
+                device=self.device).manual_seed(self._seed + 4))
         return engine.render_image_batch(
             self.coarse_params, self.fine_params, rays,
             self._generator if fine_draws is None else fine_draws,
             self.config, self.ray_chunks, with_weights=with_weights,
-            coarse_image=coarse_image)
+            coarse_image=coarse_image,
+            packed_q=self._packed_q if self.quantized_render else None)
+
+    def _ensure_packed_q(self, rays, fine_draws):
+        """Calibrate and quantize the int8 render weights once per state
+        object (`nerf.py:536-554`), on this call's rays (strided over the
+        image, :func:`engine.quantize_render_params`) with the calibration
+        draws ``fine_draws``. Any weight change (a train step, a checkpoint
+        load) replaces ``self.state`` and so calibrates again."""
+        if self._packed_q is not None and self._packed_q_state is self.state:
+            return
+        self._packed_q = engine.quantize_render_params(
+            self.coarse_params, self.fine_params, rays, fine_draws,
+            self.config)
+        self._packed_q_state = self.state
+        logging.info("quantized_render: int8 weights calibrated")

@@ -5,7 +5,8 @@ trees.
 are numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side, or a
 checkpoint read by ``utils/checkpoint.py``) and returns the same tree of
 float32 torch tensors; ``params_to_jax`` is its inverse. Both packages then
-compute the same function from the same numbers.
+compute the same function from the same numbers. ``quantized_from_jax``
+carries the int8 render tier's weights and scales across the same way.
 
 ``opt_state_to_jax`` writes the port's optimizer state
 (:class:`~keras_nerf_tpu_torch.models.engine.Optimizer`) in flax's
@@ -46,6 +47,24 @@ def params_to_jax(tree):
     if isinstance(tree, (list, tuple)):
         return [params_to_jax(v) for v in tree]
     return tree.detach().to("cpu", torch.float32).numpy()
+
+
+def quantized_from_jax(q: dict, device=None) -> dict:
+    """The JAX package's ``quantize_packed`` dict (numpy leaves, lists with
+    None kept) -> the port's (:func:`~keras_nerf_tpu_torch.kernels.quantize.
+    quantize_packed`): int8 weights stay int8, scales and biases float32, on
+    ``device`` (the card unless the caller says otherwise)."""
+    device = resolve_device(device)
+
+    def leaf(x):
+        if x is None:
+            return None
+        a = np.asarray(x)
+        a = a if a.dtype == np.int8 else a.astype(np.float32)
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return {k: [leaf(x) for x in v] if isinstance(v, (list, tuple))
+            else leaf(v) for k, v in q.items()}
 
 
 def state_dict_form(tree):

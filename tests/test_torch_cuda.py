@@ -25,6 +25,13 @@ mode of ``mlp_backward`` (T6's head) as its quadrature mode. T6 whole
 cotangents, relative max 3e-2 and relative norm 1e-2: the recompute's and
 the chain's bf16 flips compound into the first trunk layers' gradients
 (about 5e-3 relative norm at 8 x 256 on this test's loss).
+
+``ray_march_mlp_int8`` (T4) is held at 1e-3: its int8 codes and int32 sums
+are exact and its float32 epilogue runs in the plain version's order, so
+only ``expf`` in the sigmoid differs (~1e-7), unless an encoding lane that
+the plain version's float64 FMA emulation double-rounds moves one code by
+one step. ``mma_ceiling`` (T7) is held as ``ray_march_mlp``, relative to its
+largest output, 3e-2.
 """
 
 import math
@@ -130,7 +137,7 @@ def test_render_path_launches_every_kernel(cuda_device):
     images, depths = render_orbit(nerf, [0.0, 90.0], img_wh=64, **ORBIT)
     chunks = 2 * 64 * 64 // 1024
     assert [k.launches for k in trm.KERNELS] == [chunks, 2 * chunks,
-                                                 2 * chunks, 0, 0, 0]
+                                                 2 * chunks, 0, 0, 0, 0, 0]
     assert images.shape == (2, 64, 64, 3)
     assert (images >= 0).all() and (images <= 1).all()
 
@@ -272,7 +279,8 @@ def test_default_train_step_runs_through_the_kernels(cuda_device):
     assert {k.name: k.launches for k in trm.KERNELS} == {
         "sample_merge": chunks, "ray_march_mlp": 2 * chunks,
         "ray_march_quadrature": 2 * chunks, "mlp_backward": 2 * chunks,
-        "mlp_weight_grad": 2 * chunks, "apply_mlp": 0}
+        "mlp_weight_grad": 2 * chunks, "apply_mlp": 0,
+        "ray_march_mlp_int8": 0, "mma_ceiling": 0}
     assert all(map(math.isfinite, metrics.values()))
     assert metrics["coarse_grad_norm"] > 0 and metrics["fine_grad_norm"] > 0
 
@@ -385,6 +393,72 @@ def test_callable_loss_step_runs_through_t5_and_t6(cuda_device):
     assert {k.name: k.launches for k in trm.KERNELS} == {
         "sample_merge": 0, "ray_march_mlp": 0, "ray_march_quadrature": 0,
         "mlp_backward": 2 * chunks, "mlp_weight_grad": 2 * chunks,
-        "apply_mlp": 4 * chunks}
+        "apply_mlp": 4 * chunks, "ray_march_mlp_int8": 0, "mma_ceiling": 0}
     assert all(map(math.isfinite, metrics.values()))
     assert metrics["coarse_grad_norm"] > 0 and metrics["fine_grad_norm"] > 0
+
+
+def _int8_chunk(device, n_layers, skip, r=512, s=64, seed=6):
+    """A fog's weights quantized on the card from its own points (the
+    ranges read from apply_mlp's stash), and the chunk's encoding
+    coefficients."""
+    from keras_nerf_tpu_torch.kernels import quantize as tq
+
+    cfg, packed, base, slope, t, masks, _ = _train_inputs(
+        device, r=r, s=s, n_layers=n_layers, skip=skip, seed=seed)
+    enc = trm.encode_points(base, slope, t, masks).reshape(-1, 128)
+    q = tq.quantize_packed(packed, tq.collect_act_amax(packed, enc, cfg.mlp),
+                           cfg.mlp)
+    return q, base, slope, t, masks
+
+
+@pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1), (3, 2)])
+@pytest.mark.parametrize("sigma_only", [True, False])
+def test_ray_march_mlp_int8_matches_plain(cuda_device, n_layers, skip,
+                                          sigma_only):
+    q, base, slope, t, masks = _int8_chunk(cuda_device, n_layers, skip)
+    before = trm.ray_march_mlp_int8.launches
+    got = trm.ray_march_mlp_int8(q, base, slope, t, masks,
+                                 sigma_only=sigma_only)
+    torch.cuda.synchronize()
+    assert trm.ray_march_mlp_int8.launches == before + 1
+    want = trm.ray_march_mlp_int8.plain(q, base, slope, t, masks,
+                                        sigma_only=sigma_only)
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-3
+    sigma = got if sigma_only else got[:, 3]
+    assert float(sigma.max()) > 0.1          # the fog is not empty
+
+
+@pytest.mark.parametrize("mode", ["bare", "epi"])
+def test_mma_ceiling_matches_plain(cuda_device, mode):
+    from keras_nerf_tpu_torch.kernels import ceiling
+
+    ws, bs, seed = ceiling.make_inputs(4, 256, cuda_device, seed=2,
+                                       bias_scale=0.05)
+    seed[8:] = 0.5
+    got = trm.mma_ceiling(ws, bs, seed, 256, 2, mode)
+    want = trm.mma_ceiling.plain(ws, bs, seed, 256, 2, mode)
+    torch.cuda.synchronize()
+    assert _rel_max(got, want) <= 3e-2
+    assert float(want.abs().max()) > 0.0
+
+
+def test_quantized_render_runs_the_int8_kernel_and_never_the_bf16_one(
+        cuda_device):
+    nerf = NeRF(config=NeRFConfig(n_layers=8)).compile(
+        image_height=64, image_width=64, ray_chunks=1024,
+        white_background=True, device="cuda", seed=0, quantized_render=True)
+    assert nerf.quantized_render
+    trm.reset_launch_counts()
+    images, _ = render_orbit(nerf, [0.0, 90.0], img_wh=64, **ORBIT)
+    chunks = 2 * 64 * 64 // 1024
+    # Calibration reads its ranges through apply_mlp's stash, once per model.
+    assert {k.name: k.launches for k in trm.KERNELS} == {
+        "sample_merge": chunks, "ray_march_mlp": 0,
+        "ray_march_quadrature": 2 * chunks, "mlp_backward": 0,
+        "mlp_weight_grad": 0, "apply_mlp": 2,
+        "ray_march_mlp_int8": 2 * chunks, "mma_ceiling": 0}
+    assert images.shape == (2, 64, 64, 3)
+    assert (images >= 0).all() and (images <= 1).all()

@@ -168,13 +168,74 @@ def test_wrappers_refuse_other_devices():
         trm.sample_merge(x, x, x)
 
 
+def _int8_inputs(device="cpu"):
+    """A quantized 2-layer model and a chunk of 4 rays x 8 depths."""
+    from keras_nerf_tpu_torch.kernels.quantize import (
+        collect_act_amax,
+        quantize_packed,
+    )
+
+    cfg = NeRFConfig(n_coarse=8, n_fine=8, n_layers=2)
+    params = init_mlp(torch.Generator().manual_seed(0), cfg.mlp, cfg.in_xyz,
+                      cfg.in_dir)
+    packed = trm.pack_mlp_params(params, cfg.mlp, 10, 4)
+    g = torch.Generator().manual_seed(1)
+    o = torch.zeros(4, 3)
+    o[:, 2] = 4.0
+    d = torch.nn.functional.normalize(torch.randn(4, 3, generator=g), dim=-1)
+    t = torch.sort(torch.rand(4, 8, generator=g) * 4 + 2, dim=-1).values
+    enc = trm.encode_block128(*trm.ray_points(o, d, t))
+    q = quantize_packed(packed, collect_act_amax(packed, enc, cfg.mlp),
+                        cfg.mlp)
+    return q, trm.ray_encoding_coeffs(o, d, 10, 4), t
+
+
+def test_new_wrappers_use_the_plain_version_on_the_cpu_and_count_nothing():
+    """ray_march_mlp_int8 (T4) and mma_ceiling (T7): a CPU tensor runs the
+    plain version, bit for bit, and counts no launch."""
+    from keras_nerf_tpu_torch.kernels import ceiling
+
+    trm.reset_launch_counts()
+    q, (base, slope, masks), t = _int8_inputs()
+    for sigma_only in (False, True):
+        torch.testing.assert_close(
+            trm.ray_march_mlp_int8(q, base, slope, t, masks,
+                                   sigma_only=sigma_only),
+            trm.ray_march_mlp_int8.plain(q, base, slope, t, masks,
+                                         sigma_only=sigma_only),
+            rtol=0, atol=0)
+    ws, bs, seed = ceiling.make_inputs(1, 128, "cpu")
+    torch.testing.assert_close(trm.mma_ceiling(ws, bs, seed, 64, 1, "epi"),
+                               trm.mma_ceiling.plain(ws, bs, seed, 64, 1,
+                                                     "epi"), rtol=0, atol=0)
+    assert trm.ray_march_mlp_int8.launches == trm.mma_ceiling.launches == 0
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
+
+
+def test_new_wrappers_refuse_other_devices():
+    from keras_nerf_tpu_torch.kernels import ceiling
+
+    from keras_nerf_tpu_torch.models.engine import tree_map
+
+    q, (base, slope, masks), t = _int8_inputs()
+    q = tree_map(lambda x: None if x is None else x.to("meta"), q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trm.ray_march_mlp_int8(q, *(x.to("meta")
+                                    for x in (base, slope, t, masks)))
+    ws, bs, seed = ceiling.make_inputs(1, 128, "cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        trm.mma_ceiling([w.to("meta") for w in ws], bs, seed, 64, 1)
+
+
 def test_kernels_name_their_sources_and_tpu_counterparts():
     for k in KERNELS:
         assert os.path.exists(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(":")
         with open(os.path.join(REPO, path)) as f:
-            assert f.readlines()[int(line) - 1].startswith("def _"), \
-                k.replaces
+            text = f.readlines()[int(line) - 1]
+        # The TPU kernel's function, or the probe's pallas_call.
+        assert text.startswith("def ") or "pl.pallas_call(" in text, \
+            k.replaces
     assert {p.name for p in _build.sources()} == {
         os.path.basename(k.source) for k in KERNELS}
 

@@ -30,12 +30,22 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   holds a 16^2 int8 frame against the same int8 weights on the CPU;
 * the tensor-core ceiling probe (T7): holds ``mma_ceiling`` against its
   plain version and runs ``profile_mma_ceiling.measure`` (TFLOP/s of the
-  MLP kernels' product loop alone).
+  MLP kernels' product loop alone);
+* the occupancy render (``inference --occupancy_grid 128``): bakes the fog
+  weights' 128^3 grid through ``NeRF.bake_occupancy`` (8 ``apply_mlp``
+  launches, one chunk held against its plain version), holds
+  ``sample_merge`` in its no-merge and partner modes, ``ray_march_mlp`` and
+  ``ray_march_mlp_int8`` in full mode and ``ray_march_quadrature`` without
+  weights against their plain versions at 4096 rays x 64 samples over the
+  grid's probe bins, renders 4 orbit frames
+  through ``render_orbit(occupancy_samples=64)`` in bf16 and int8 (4
+  ``sample_merge``, 4 full MLP and 4 quadrature launches per frame) and
+  holds a 16^2 occupancy frame against the CPU's on the card's grid.
 
 Each path's launch counts are read just after it runs. Then every kernel
-and its plain version is timed with CUDA events, and the four model paths
-are profiled with ``torch.profiler``: device time by kernel and the
-device's busy share.
+and its plain version is timed with CUDA events, and the five model paths
+(the occupancy render among them) are profiled with ``torch.profiler``:
+device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -67,6 +77,15 @@ TRAIN_CHUNK = 2048         # the training CLI's default --ray_chunks
 BIG_CHUNK = 16384          # the round-5 recipe's --ray_chunks
 TRAIN_POSES, TRAIN_EPOCHS = 5, 4   # 20 steps
 E2E_IMG, E2E_CHUNK = 16, 128       # 2 chunks
+# inference --occupancy_grid 128 --occupancy_samples 64, 64 probe bins.
+OCC_GRID, OCC_SAMPLES, OCC_PROBE = 128, 64, 64
+# The fog has no surface: at the inference CLI's default threshold (1.0)
+# its grid comes out empty or full, depending on the draw of the weights.
+# The threshold is set, as a user sets --sigma_threshold for a scene, at
+# this quantile of the density over the voxels: after one dilation about
+# half the grid is occupied, so the probe bins' CDF is far from uniform.
+OCC_QUANTILE = 0.8
+OCC_SHARE = (0.05, 0.95)
 
 # Tolerances of kernel vs plain version on the same inputs, with reasons.
 TOL = {
@@ -254,6 +273,7 @@ def main() -> int:
     u = sorted_uniforms(gen, (CHUNK,), N_FINE)
 
     errors = {}
+    rel_errors = {}
 
     def check(name, got, want):
         got = [g for g in got if g is not None]
@@ -277,8 +297,8 @@ def main() -> int:
     torch.cuda.synchronize()
     e2, ok2 = check("ray_march_quadrature", coarse_kern, coarse_plain)
     wc = coarse_plain[2]
-    tf_plain = sample_merge.plain(tc, wc, u)
-    tf_kern = sample_merge(tc, wc, u)
+    tf_plain = sample_merge.plain(tc, wc, u, tc)
+    tf_kern = sample_merge(tc, wc, u, tc)
     torch.cuda.synchronize()
     e3, ok3 = check("sample_merge", [tf_kern], [tf_plain])
     rgbs_plain = ray_march_mlp.plain(packed, base, slope, tf_plain, masks)
@@ -403,9 +423,12 @@ def main() -> int:
     # ---- 4c. the tensor-core ceiling probe (T7) ---------------------------
     probe_launches, ceiling_in = _ceiling_probe(errors, card_tag)
 
+    # ---- 4d. the occupancy render (B9: sample_merge's other two modes) ---
+    occ_in = _occupancy_phases(nerf, cfg, gen, (o, d, tc), errors,
+                               rel_errors, card_tag)
+
     # ---- 5. training kernels against their plain versions ----------------
     train_in = _train_inputs(cfg, gen)
-    rel_errors = {}
     for name, err, rel, rel_norm, ok, label in _train_kernel_checks(
             train_in):
         errors[name] = max(errors.get(name, 0.0), err)
@@ -485,7 +508,7 @@ def main() -> int:
     # (9 with the depth sum); + the weight sum and rgb sums (16).
     modes = [  # kernel, path, mode, call, launches per unit, bound
         (sample_merge, "render", f"[{CHUNK}, {N_COARSE} + {N_FINE}]",
-         lambda f: f(tc, wc, u), per_frame, _merge_bound(CHUNK)),
+         lambda f: f(tc, wc, u, tc), per_frame, _merge_bound(CHUNK)),
         (ray_march_mlp, "render", f"sigma-only [{CHUNK} x {N_COARSE}]",
          lambda f: f(packed, base, slope, tc, masks, sigma_only=True),
          per_frame, mlp_bound(CHUNK * N_COARSE, True)),
@@ -505,8 +528,9 @@ def main() -> int:
     modes += _custom_modes(train_in, cfg)
     modes += _quantized_modes(int8_in, cfg)
     modes += _ceiling_modes(ceiling_in)
+    modes += _occupancy_modes(occ_in, cfg)
     totals = {"render": {}, "train": {}, "custom": {}, "quantized": {},
-              "probe": {}}
+              "probe": {}, "occupancy": {}, "bake": {}, "merge_partner": {}}
     timed = []   # (kernel, path, mode, launches per unit, ms, plain, bound)
     for k, path, mode, call, count, (bms, by), *design in modes:
         kms = _time_ms(lambda: call(k), 20)
@@ -529,6 +553,7 @@ def main() -> int:
             tot[4] = (tot[4] or 0.0) + count * dms
     _t3_bound(cfg, totals["train"], card_tag)
     _t5_t6_times(train_in, cfg, timed, card_tag)
+    _bake_times(occ_in, cfg, card_tag)
 
     # ---- 8. profile: device time by kernel, device busy share -----------
     log(json.dumps({"profile": _profile(
@@ -536,6 +561,10 @@ def main() -> int:
         len(FRAMES), "frame"), "card": card}))
     log(json.dumps({"profile_quantized": _profile(
         lambda: render_orbit(qnerf, FRAMES, img_wh=IMG, **ORBIT),
+        len(FRAMES), "frame"), "card": card}))
+    log(json.dumps({"profile_occupancy": _profile(
+        lambda: render_orbit(occ_in["nerf"], FRAMES, img_wh=IMG,
+                             occupancy_samples=OCC_SAMPLES, **ORBIT),
         len(FRAMES), "frame"), "card": card}))
     for key, loss in (("profile_train", "mse"),
                       ("profile_train_custom", l1_loss)):
@@ -557,7 +586,11 @@ def main() -> int:
                    "train": train_launches[k.name],
                    "train_custom": custom_launches[k.name],
                    "render_quantized": quantized_launches[k.name],
-                   "ceiling_probe": probe_launches[k.name]}
+                   "ceiling_probe": probe_launches[k.name],
+                   "occupancy_bake": occ_in["bake_launches"][k.name],
+                   "render_occupancy": occ_in["launches"][k.name],
+                   "render_occupancy_quantized":
+                       occ_in["q_launches"][k.name]}
         for path in ("train", "custom", "quantized", "probe"):
             if k.name not in totals[path]:
                 continue
@@ -585,8 +618,8 @@ def main() -> int:
             "library_ms": None, "design_bytes_ms": dms,
             "per": per[path]
                    + f"; launches over {n_steps} steps of each train path, "
-                     f"{len(FRAMES)} frames of each render path and one "
-                     f"probe run"}
+                     f"{len(FRAMES)} frames of each render path, one bake "
+                     f"and one probe run"}
         if path == "train" and k.name in totals["custom"]:
             kms, pms, bms, by, dms = totals["custom"][k.name]
             entry["custom_step"] = {
@@ -604,6 +637,29 @@ def main() -> int:
                 "plain_ms": pms, "bound_ms": bms, "bound_by": _by(by),
                 "per": f"{IMG}^2 frame, {per_frame} chunks of {CHUNK} rays; "
                        f"launches over {len(FRAMES)} frames"}
+        occ_per = {
+            "occupancy": ("occupancy_frame", occ_in["launches"],
+                          f"{IMG}^2 occupancy frame, {per_frame} chunks of "
+                          f"{CHUNK} rays x {OCC_SAMPLES} samples; launches "
+                          f"over {len(FRAMES)} frames"),
+            "bake": ("occupancy_bake", occ_in["bake_launches"],
+                     f"one {OCC_GRID}^3 bake, {OCC_GRID ** 3 // 262144} "
+                     f"launches of 262,144 voxels"),
+            "merge_partner": ("merge_partner", {k.name: 0},
+                              f"one call at [{CHUNK}, {OCC_PROBE} bins, "
+                              f"{N_COARSE} + {OCC_SAMPLES}], the "
+                              f"occupancy-train tier's shape, on no path "
+                              f"yet")}
+        for path, (key, launches, what) in occ_per.items():
+            if k.name not in totals[path]:
+                continue
+            kms, pms, bms, by, _ = totals[path][k.name]
+            log(f"time {k.name} ({key}): {kms:.4f} ms kernel, {pms:.3f} ms "
+                f"plain, bound {bms:.4f} ms ({_by(by)}) per {what} "
+                f"{card_tag}")
+            entry[key] = {"launches": launches[k.name], "ms": kms,
+                          "plain_ms": pms, "bound_ms": bms,
+                          "bound_by": _by(by), "per": what}
         entries.append(entry)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
@@ -615,7 +671,8 @@ def main() -> int:
 # What one launch count of each timing path is per.
 _UNIT = {"render": "frame", "train": "train step",
          "custom": "custom step", "quantized": "int8 frame",
-         "probe": "probe run"}
+         "probe": "probe run", "occupancy": "occupancy frame",
+         "bake": "bake", "merge_partner": "call"}
 
 
 def _by(shares: dict) -> str:
@@ -630,14 +687,21 @@ def _bound(nbytes, ops, peak_ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _merge_bound(rays):
-    """sample_merge per ray, by the least work the function needs: 6
-    float32 operations per coarse bin (eps, sum, divide, prefix sum,
-    midpoint), a binary search plus 6 operations of interpolation per draw,
-    and a binary search into the other array per merged depth."""
-    lg_c, lg_f = (N_COARSE - 1).bit_length(), (N_FINE - 1).bit_length()
-    ops = rays * (6 * N_COARSE + N_FINE * (2 * lg_c + 6) + N_COARSE * lg_f)
-    nbytes = rays * (2 * N_COARSE + N_FINE + N_COARSE + N_FINE) * F32B
+def _merge_bound(rays, s_c=N_COARSE, n=N_FINE, s_m=-1):
+    """sample_merge, by the least work the function needs: per ray 6
+    float32 operations per bin (eps, sum, divide, prefix sum, midpoint), a
+    binary search plus 6 operations of interpolation per draw, and, where
+    it merges (``s_m != 0``), a binary search into the draws per partner
+    depth; bytes: bins, weights, draws and partner read, depths written.
+    ``s_m`` is the TPU prologue's: -1, the fine pass, merges with its bins,
+    the coarse depths of each ray (read once); 0 and > 0 are the occupancy
+    paths, whose bins are the probe-bin centres, the same for every ray:
+    one row per call."""
+    s_p = s_c if s_m < 0 else s_m
+    lg_c, lg_f = (s_c - 1).bit_length(), (n - 1).bit_length()
+    ops = rays * (6 * s_c + n * (2 * lg_c + 6) + s_p * lg_f)
+    bins = rays * s_c if s_m < 0 else s_c
+    nbytes = (bins + rays * (s_c + n + max(s_m, 0) + s_p + n)) * F32B
     return _bound(nbytes, ops, PEAK_F32_FLOPS)
 
 
@@ -776,7 +840,7 @@ def _train_inputs(cfg, gen) -> dict:
     wc = trm.ray_march_quadrature.plain(rgbs.reshape(TRAIN_CHUNK, N_COARSE, 4),
                                         tc, True, False, True)[2]
     u = sorted_uniforms(gen, (TRAIN_CHUNK,), N_FINE)
-    tf = trm.sample_merge.plain(tc, wc, u)
+    tf = trm.sample_merge.plain(tc, wc, u, tc)
     return {"cfg": cfg, "packed": packed, "o": o, "d": d, "base": base,
             "slope": slope, "masks": masks, "target": target, "wc": wc,
             "u": u,
@@ -828,7 +892,7 @@ def _train_kernel_checks(ti: dict):
     cfg, packed = ti["cfg"], ti["packed"]
     u, n = cfg.dense_units, cfg.n_layers
     tc = ti["passes"]["coarse"]["t"]
-    tf_k = trm.sample_merge(tc, ti["wc"], ti["u"])
+    tf_k = trm.sample_merge(tc, ti["wc"], ti["u"], tc)
     torch.cuda.synchronize()
     yield _held("sample_merge", [(tf_k, ti["passes"]["fine"]["t"])],
                 f"sample_merge train [{TRAIN_CHUNK}, {N_COARSE} + {N_FINE}]")
@@ -1197,7 +1261,7 @@ def _compare_passes(state, small, cfg):
               white_background=cfg.white_background)
     packed_c = trm.pack_mlp_params(state.coarse_params, cfg.mlp, *enc)
     weights_c = trm.fused_render_chunk(packed_c, o, d, tc, **kw)[2]
-    tf = trm.sample_merge(tc, weights_c, draws[0])
+    tf = trm.sample_merge(tc, weights_c, draws[0], tc)
     for name, params, t in (("coarse", state.coarse_params, tc),
                             ("fine", state.fine_params, tf)):
         packed = trm.pack_mlp_params(params, cfg.mlp, *enc)
@@ -1253,7 +1317,7 @@ def _train_modes(ti: dict, cfg) -> list:
     dx = trm.bwd_dx_flop_per_point(cfg.mlp)
     modes = [(trm.sample_merge, "train", f"[{TRAIN_CHUNK}, {N_COARSE} + "
               f"{N_FINE}]", lambda f: f(ti["passes"]["coarse"]["t"], ti["wc"],
-                                        ti["u"]),
+                                        ti["u"], ti["passes"]["coarse"]["t"]),
               per_step, _merge_bound(TRAIN_CHUNK))]
     for name, p in ti["passes"].items():
         t, r = p["t"], TRAIN_CHUNK
@@ -1451,7 +1515,7 @@ def _int8_kernel_checks(packed_q, base, slope, masks, tc, u, errors):
                                          sigma_only=True)
     wc = trm.ray_march_quadrature.plain(sig_p.reshape(CHUNK, N_COARSE), tc,
                                         True, True, True)[2]
-    tf = trm.sample_merge.plain(tc, wc, u)
+    tf = trm.sample_merge.plain(tc, wc, u, tc)
     rgbs_k = trm.ray_march_mlp_int8(q_f, base, slope, tf, masks)
     rgbs_p = trm.ray_march_mlp_int8.plain(q_f, base, slope, tf, masks)
     torch.cuda.synchronize()
@@ -1670,6 +1734,343 @@ def _ceiling_modes(inputs: tuple) -> list:
              f"rep={c['rep']}, grid={c['grid']}]",
              lambda f, mode=mode: f(ws, bs, seed, c["t"], c["rep"], mode), 1,
              _bound(nbytes, flop, PEAK_BF16_FLOPS)) for mode in MODES]
+
+
+# ---------------------------------------------------------------------------
+# The occupancy render.
+
+
+class _CallLog:
+    """Within ``with``, counts every plain-version call of the kernels and
+    records ``ray_march_mlp``'s ``sigma_only`` flag per kernel launch (the
+    launch counts cannot tell its modes apart)."""
+
+    def __enter__(self):
+        from keras_nerf_tpu_torch.kernels import KERNELS, ray_march_mlp
+
+        self.plain_calls, self.mlp_modes = 0, []
+        self._saved = [(k, k.plain, k._launch) for k in KERNELS]
+
+        def counted(plain):
+            def call(*args, **kwargs):
+                self.plain_calls += 1
+                return plain(*args, **kwargs)
+            return call
+
+        for k, plain, _ in self._saved:
+            k.plain = counted(plain)
+        launch = ray_march_mlp._launch
+
+        def mlp_launch(*args, **kwargs):
+            self.mlp_modes.append(bool(kwargs.get("sigma_only", False)))
+            return launch(*args, **kwargs)
+
+        ray_march_mlp._launch = mlp_launch
+        return self
+
+    def __exit__(self, *exc):
+        for k, plain, launch in self._saved:
+            k.plain, k._launch = plain, launch
+        return False
+
+
+def _occupancy_phases(nerf, cfg, gen, chunk_rays, errors, rel_errors,
+                      card_tag) -> dict:
+    """The occupancy render at full width: ``inference --occupancy_grid 128
+    --occupancy_samples 64``, 64 probe bins, ``ray_chunks`` 4096, on the
+    fog weights of the bf16 orbit (``nerf``).
+
+    The bake (``NeRF.bake_occupancy``: 8 ``apply_mlp`` launches of 262,144
+    voxels, one chunk held against its plain version) with its occupied
+    share held in ``OCC_SHARE``; ``sample_merge`` against its plain version
+    at 4096 rays over the grid's probe bins, without merge (``TOL``) and
+    with the 64 stratified depths as partner (``TRAIN_TOL``); the full MLP
+    in bf16 and int8 and the quadrature at the same chunk against their
+    plain versions (``TOL``); 4 orbit frames
+    through ``render_orbit(occupancy_samples=64)`` in bf16 and then int8,
+    with their launch counts, modes and plain calls; a 16^2 occupancy frame
+    against the CPU's on the card's grid (``E2E_TOL``). Returns the inputs
+    of the timing and profile phases."""
+    import numpy as np
+    import torch
+
+    from keras_nerf_tpu_torch.data import (
+        generate_ray_batch,
+        get_focal_from_fov,
+        pose_spherical,
+    )
+    from keras_nerf_tpu_torch.inference import ORBIT, render_orbit
+    from keras_nerf_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models import NeRF
+    from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+    from keras_nerf_tpu_torch.ops import sorted_uniforms
+
+    dev = torch.device("cuda")
+
+    def compiled(quantized):
+        m = NeRF(config=cfg)
+        m.compile(batch_size=1, image_height=IMG, image_width=IMG,
+                  ray_chunks=CHUNK, white_background=True, device="cuda",
+                  seed=0, quantized_render=quantized)
+        m.state = nerf.state
+        return m
+
+    onerf = compiled(False)
+    packed = trm.pack_mlp_params(onerf.fine_params, cfg.mlp, cfg.pos_emb_xyz,
+                                 cfg.pos_emb_dir)
+    coords = occ_mod.grid_coordinates(OCC_GRID, device=dev).reshape(-1, 3)
+    density = occ_mod.model_density_fn(onerf.fine_params, onerf.config)
+    threshold = float(torch.quantile(density(coords[::64]), OCC_QUANTILE))
+    # One bake chunk, kernel against plain version.
+    chunk = coords[:occ_mod.DENSITY_CHUNK]
+    enc = trm.encode_block128(chunk, torch.tensor(
+        [0.0, 0.0, -1.0], device=dev).expand(chunk.shape), cfg.pos_emb_xyz,
+        cfg.pos_emb_dir)
+    held = _held("apply_mlp", [(trm.apply_mlp(packed, enc)[:, 3],
+                                trm.apply_mlp.plain(packed, enc)[:, 3])],
+                 f"apply_mlp, the bake's sigma [{occ_mod.DENSITY_CHUNK}]")
+    name, err, rel, rel_norm, ok, label = held
+    errors[name] = max(errors.get(name, 0.0), err)
+    old = rel_errors.get(name, (0.0, 0.0))
+    rel_errors[name] = (max(old[0], rel), max(old[1], rel_norm))
+    log(f"check {label}: max_abs_err {err:.3e}, relative max {rel:.3e}, "
+        f"relative norm {rel_norm:.3e} (tolerance {TRAIN_TOL[name]}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label} disagrees with its plain version")
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    grid = onerf.bake_occupancy(OCC_GRID, sigma_threshold=threshold)
+    torch.cuda.synchronize()
+    bake_wall = time.perf_counter() - t0
+    bake_launches = {k.name: k.launches for k in KERNELS}
+    share = float(grid.mean())
+    expected = {k.name: 0 for k in KERNELS}
+    expected["apply_mlp"] = OCC_GRID ** 3 // occ_mod.DENSITY_CHUNK
+    log(f"occupancy bake {OCC_GRID}^3 at sigma_threshold {threshold:.4f} "
+        f"(the {OCC_QUANTILE} quantile), dilate 1: occupied share "
+        f"{share:.4f} (must lie in {OCC_SHARE}), {1e3 * bake_wall:.1f} ms "
+        f"wall {card_tag}; launches {bake_launches}")
+    if bake_launches != expected:
+        fail(f"bake launch counts {bake_launches} != expected {expected}")
+    if not OCC_SHARE[0] <= share <= OCC_SHARE[1]:
+        fail(f"occupied share {share} outside {OCC_SHARE}: the probe bins' "
+             f"CDF would be uniform")
+
+    # B9 on the card: both new modes at one chunk over the grid.
+    o, d, tc = chunk_rays
+    mids, occ = occ_mod.occupancy_along_rays(o, d, grid, ORBIT["near"],
+                                             ORBIT["far"], OCC_PROBE)
+    mids = mids.contiguous()
+    u = sorted_uniforms(gen, (CHUNK,), OCC_SAMPLES)
+    for label, mp, tol in (
+            (f"no merge [{CHUNK}, {OCC_PROBE} bins -> {OCC_SAMPLES}]", None,
+             TOL["sample_merge"]),
+            (f"partner [{CHUNK}, {OCC_PROBE} bins, {N_COARSE} + "
+             f"{OCC_SAMPLES}]", tc, TRAIN_TOL["sample_merge"]["abs"])):
+        got = trm.sample_merge(mids, occ, u, mp)
+        want = trm.sample_merge.plain(mids, occ, u, mp)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errors["sample_merge"] = max(errors["sample_merge"], err)
+        good = (bool(torch.isfinite(got).all()) and err <= tol
+                and bool((got[:, 1:] >= got[:, :-1]).all()))
+        log(f"check sample_merge {label}: max_abs_err {err:.3e} (tolerance "
+            f"{tol:.0e}), bit-equal {bool(torch.equal(got, want))}, rays "
+            f"with an occupied bin {int((occ.sum(1) > 0).sum())}/{CHUNK} "
+            f"{'ok' if good else 'FAIL'}")
+        if not good:
+            fail("sample_merge disagrees with its plain version")
+
+    # The path: 4 orbit frames, bf16 then int8.
+    chunks = len(FRAMES) * IMG * IMG // CHUNK
+    orbit = dict(img_wh=IMG, occupancy_samples=OCC_SAMPLES, **ORBIT)
+    qnerf = compiled(True)
+    qnerf.bake_occupancy(OCC_GRID, sigma_threshold=threshold)
+    render_orbit(onerf, FRAMES[:1], **orbit)      # warm-up
+    render_orbit(qnerf, FRAMES[:1], **orbit)      # warm-up, calibration
+    chunk_in = _occupancy_chunk_checks(packed, qnerf._packed_q[1], cfg, o, d,
+                                       mids, occ, u, errors)
+    runs = {}
+    for label, m, mlp in (("bf16", onerf, "ray_march_mlp"),
+                          ("int8", qnerf, "ray_march_mlp_int8")):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with _CallLog() as calls:
+            t0 = time.perf_counter()
+            images, depths = render_orbit(m, FRAMES, **orbit)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        expected = {k.name: 0 for k in KERNELS}
+        expected.update(sample_merge=chunks, ray_march_quadrature=chunks)
+        expected[mlp] = chunks
+        sigma_only = sum(calls.mlp_modes)
+        log(f"occupancy main path ({label}): {len(FRAMES)} frames {IMG}^2 "
+            f"in {wall:.3f} s ({1e3 * wall / len(FRAMES):.1f} ms/frame wall, "
+            f"host clock) {card_tag}; launches {launches}; sigma-only MLP "
+            f"launches {sigma_only}; plain calls {calls.plain_calls}")
+        if launches != expected:
+            fail(f"occupancy orbit ({label}): launch counts {launches} != "
+                 f"expected {expected}")
+        if sigma_only or calls.plain_calls:
+            fail(f"occupancy orbit ({label}): {sigma_only} sigma-only MLP "
+                 f"launches, {calls.plain_calls} plain calls")
+        if images.shape != (len(FRAMES), IMG, IMG, 3) or not (
+                np.isfinite(images).all() and images.min() >= 0.0
+                and images.max() <= 1.0 and np.isfinite(depths).all()):
+            fail(f"occupancy frames ({label}) malformed, not finite or "
+                 f"outside [0, 1]")
+        log(f"occupancy frames ({label}): image mean {images.mean():.4f} std "
+            f"{images.std():.4f}, depth mean {depths.mean():.4f}")
+        runs[label] = (launches, 1e3 * wall / len(FRAMES))
+
+    # End to end: a 16^2 frame on the card and on the CPU, the card's grid
+    # passed to both (two bakes may flip voxels at the threshold).
+    rays = generate_ray_batch(
+        pose_spherical(30.0, ORBIT["phi"], ORBIT["z_translate"])[None], gen,
+        image_height=E2E_IMG, image_width=E2E_IMG,
+        focal=get_focal_from_fov(ORBIT["fov"], E2E_IMG), near=ORBIT["near"],
+        far=ORBIT["far"], n_samples=N_COARSE)
+    n_chunks = E2E_IMG * E2E_IMG // E2E_CHUNK
+    draws = [sorted_uniforms(gen, (E2E_CHUNK,), OCC_SAMPLES)
+             for _ in range(n_chunks)]
+    kw = dict(near=ORBIT["near"], far=ORBIT["far"], n_samples=OCC_SAMPLES,
+              n_probe=OCC_PROBE, ray_chunks=E2E_CHUNK)
+    cpu = torch.device("cpu")
+    card = occ_mod.render_image_batch_occ(onerf.fine_params, rays, grid,
+                                          draws, cfg, **kw)
+    host = occ_mod.render_image_batch_occ(
+        _to(onerf.fine_params, cpu), tuple(x.to(cpu) for x in rays),
+        grid.to(cpu), [x.to(cpu) for x in draws], cfg, **kw)
+    diff = {k: (card[k].cpu() - host[k]).abs() for k in ("image", "depth")}
+    err = {k: float(v.max()) for k, v in diff.items()}
+    log(f"occupancy end to end {E2E_IMG}^2, card kernels vs CPU plain "
+        f"versions (the card's grid): " + ", ".join(
+            f"{k} max_abs_err {err[k]:.3e} mean {float(v.mean()):.3e} "
+            f"(tolerance {E2E_TOL[k]:.0e})" for k, v in diff.items()))
+    if any(err[k] > E2E_TOL[k] for k in err):
+        fail("the card's occupancy render disagrees with the plain versions")
+
+    return {"nerf": onerf, "packed": packed, "grid": grid, "mids": mids,
+            "occ": occ, "u": u, "tc": tc, "enc": enc, **chunk_in,
+            "density": density, "threshold": threshold,
+            "bake_launches": bake_launches, "launches": runs["bf16"][0],
+            "q_launches": runs["int8"][0]}
+
+
+def _occupancy_chunk_checks(packed, packed_q, cfg, o, d, mids, occ, u,
+                            errors) -> dict:
+    """The occupancy render's other kernels against their plain versions at
+    its chunk, [4096 x 64], on the plain no-merge depths over the grid:
+    ``ray_march_mlp`` and ``ray_march_mlp_int8`` (the fine int8 weights) in
+    full mode, and ``ray_march_quadrature`` without weights on the plain
+    bf16 MLP's output (``TOL``). Returns the timing phase's inputs."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+
+    base, slope, masks = trm.ray_encoding_coeffs(o, d, cfg.pos_emb_xyz,
+                                                 cfg.pos_emb_dir)
+    t = trm.sample_merge.plain(mids, occ, u, None)
+    rgbs = trm.ray_march_mlp.plain(packed, base, slope, t, masks)
+    quad_in = rgbs.reshape(CHUNK, OCC_SAMPLES, 4)
+    shape = f"[{CHUNK} x {OCC_SAMPLES}]"
+    held = (
+        ("ray_march_mlp", f"full {shape}",
+         [trm.ray_march_mlp(packed, base, slope, t, masks)], [rgbs]),
+        ("ray_march_mlp_int8", f"full (fine) {shape}",
+         [trm.ray_march_mlp_int8(packed_q, base, slope, t, masks)],
+         [trm.ray_march_mlp_int8.plain(packed_q, base, slope, t, masks)]),
+        ("ray_march_quadrature", f"full, no weights {shape}",
+         trm.ray_march_quadrature(quad_in, t, True, False, False),
+         trm.ray_march_quadrature.plain(quad_in, t, True, False, False)))
+    torch.cuda.synchronize()
+    ok = True
+    for name, label, got, want in held:
+        pairs = [(g, w) for g, w in zip(got, want) if g is not None]
+        err = max(float((g - w).abs().max()) for g, w in pairs)
+        good = (all(bool(torch.isfinite(g).all()) for g, _ in pairs)
+                and err <= TOL[name])
+        errors[name] = max(errors.get(name, 0.0), err)
+        ok = ok and good
+        log(f"check {name} occupancy {label}: max_abs_err {err:.3e} "
+            f"(tolerance {TOL[name]:.0e}) {'ok' if good else 'FAIL'}")
+    if not ok:
+        fail("an occupancy kernel disagrees with its plain version")
+    return {"base": base, "slope": slope, "masks": masks, "t": t,
+            "rgbs": quad_in}
+
+
+def _occupancy_modes(oi: dict, cfg) -> list:
+    """The occupancy render's timing modes at its 4096-ray chunks, each
+    launched 4 times per frame: ``sample_merge`` without merge, the full MLP
+    and the quadrature without weights over 64 samples; the bake's
+    ``apply_mlp`` (8 launches per bake); ``sample_merge``'s partner mode
+    once (on no path yet). Bounds as for the render modes."""
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models.engine import tree_leaves
+
+    per_frame = IMG * IMG // CHUNK
+    s = OCC_SAMPLES
+    packed = oi["packed"]
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       tree_leaves(packed))
+    base, slope, masks, t, rgbs = (oi[k] for k in
+                                   ("base", "slope", "masks", "t", "rgbs"))
+    pts = CHUNK * s
+    bake_pts = oi["enc"].shape[0]
+    fwd = trm.fwd_flop_per_point(cfg.mlp)
+    return [
+        (trm.sample_merge, "occupancy",
+         f"no merge [{CHUNK}, {OCC_PROBE} bins -> {s}]",
+         lambda f: f(oi["mids"], oi["occ"], oi["u"], None), per_frame,
+         _merge_bound(CHUNK, OCC_PROBE, s, 0)),
+        (trm.ray_march_mlp, "occupancy", f"full [{CHUNK} x {s}]",
+         lambda f: f(packed, base, slope, t, masks), per_frame,
+         _bound(2 * CHUNK * 128 * F32B + weight_bytes + pts * F32B * 5,
+                pts * fwd, PEAK_BF16_FLOPS)),
+        (trm.ray_march_quadrature, "occupancy",
+         f"full, no weights [{CHUNK} x {s}]",
+         lambda f: f(rgbs, t, True, False, False), per_frame,
+         _bound(CHUNK * (5 * s + 4) * F32B, CHUNK * s * 16, PEAK_F32_FLOPS)),
+        (trm.apply_mlp, "bake", f"the bake's chunk [{bake_pts}]",
+         lambda f: f(packed, oi["enc"]), OCC_GRID ** 3 // bake_pts,
+         _bound(weight_bytes + bake_pts * (2 * 128 + 4 * F32B),
+                bake_pts * fwd, PEAK_BF16_FLOPS)),
+        (trm.sample_merge, "merge_partner",
+         f"partner [{CHUNK}, {OCC_PROBE} bins, {N_COARSE} + {s}]",
+         lambda f: f(oi["mids"], oi["occ"], oi["u"], oi["tc"]), 1,
+         _merge_bound(CHUNK, OCC_PROBE, s, N_COARSE)),
+    ]
+
+
+def _bake_times(oi: dict, cfg, card_tag):
+    """The whole bake (``bake_occupancy_grid``: coordinates, the encoding,
+    8 ``apply_mlp`` launches, threshold, dilation) by CUDA events, beside
+    its bound: 2,097,152 voxels x the unpadded forward to sigma alone (the
+    bake keeps no colour) at 989 TFLOP/s."""
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+
+    def bake():
+        return occ_mod.bake_occupancy_grid(
+            oi["density"], OCC_GRID, sigma_threshold=oi["threshold"],
+            device="cuda")
+
+    kms = _time_ms(bake, 3)
+    bound = 1e3 * OCC_GRID ** 3 * trm.fwd_flop_per_point(
+        cfg.mlp, sigma_only=True) / PEAK_BF16_FLOPS
+    log(f"time occupancy bake {OCC_GRID}^3 (bake_occupancy_grid, CUDA "
+        f"events): {kms:.3f} ms, bound {bound:.3f} ms (operations), "
+        f"{kms / bound:.1f}x {card_tag}")
+    log(json.dumps({"occupancy_bake": {"grid": OCC_GRID, "ms": kms,
+                                       "bound_ms": bound,
+                                       "bound_by": "operations",
+                                       "card": card_tag.strip("[]")}}))
 
 
 if __name__ == "__main__":

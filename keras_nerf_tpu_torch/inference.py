@@ -8,7 +8,9 @@ Loads a checkpoint written by ``keras_nerf_tpu`` (``--model_dirs``), builds
 renders each frame's fine image and depth through the kernel path and
 writes ``{name}.gif`` and ``{name}_depth.gif`` at 20 fps. Runs on ``cuda``
 unless ``--device cpu`` is given; ``--quantized_render`` renders through the
-int8 tier.
+int8 tier; ``--occupancy_grid G`` bakes a G^3 occupancy grid once and renders
+every frame with the fine model alone, ``--occupancy_samples`` points per
+ray inside occupied space (the two compose).
 """
 
 from __future__ import annotations
@@ -27,12 +29,15 @@ ORBIT = dict(fov=0.6911112070083618, phi=-30.0, z_translate=4.0, near=2.0,
 
 def render_orbit(nerf, thetas, *, img_wh: int, fov: float, phi: float,
                  z_translate: float, near: float, far: float,
-                 frame_batch: int = 1, seed: int = 42):
+                 frame_batch: int = 1, seed: int = 42,
+                 occupancy_samples: int = 0):
     """Render orbit frames with a compiled :class:`NeRF`: one
     ``predict_and_render_images(with_weights=False, coarse_image=False)``
     call per group of ``frame_batch`` poses (the last group padded by
-    repeating its pose). Returns float32 numpy ``(images [N, H, W, 3],
-    depths [N, H, W])``, one per theta."""
+    repeating its pose), or with ``occupancy_samples > 0`` one
+    ``render_occupancy(n_samples=occupancy_samples)`` call over the grid
+    :meth:`NeRF.bake_occupancy` baked. Returns float32 numpy ``(images
+    [N, H, W, 3], depths [N, H, W])``, one per theta."""
     from keras_nerf_tpu_torch.data import (
         generate_ray_batch,
         get_focal_from_fov,
@@ -53,8 +58,12 @@ def render_orbit(nerf, thetas, *, img_wh: int, fov: float, phi: float,
             c2w, generator, image_height=img_wh, image_width=img_wh,
             focal=focal, near=near, far=far,
             n_samples=nerf.config.n_coarse)
-        _, fine = nerf.predict_and_render_images(
-            rays, with_weights=False, coarse_image=False)
+        if occupancy_samples > 0:
+            fine = nerf.render_occupancy(rays, near=near, far=far,
+                                         n_samples=occupancy_samples)
+        else:
+            _, fine = nerf.predict_and_render_images(
+                rays, with_weights=False, coarse_image=False)
         images.append(fine["image"][:len(group)].cpu().numpy())
         depths.append(fine["depth"][:len(group)].cpu().numpy())
     return np.concatenate(images), np.concatenate(depths)
@@ -71,14 +80,18 @@ def gif_frames(images: np.ndarray, depths: np.ndarray):
 
 
 def write_gifs(frames, depth_frames, output_dir: str, name: str) -> str:
-    """``{name}.gif`` and ``{name}_depth.gif`` at 20 fps (50 ms/frame)."""
-    import imageio.v2 as imageio
+    """``{name}.gif`` and ``{name}_depth.gif`` at 20 fps (50 ms a frame),
+    looping, written with PIL (as ``imageio``'s GIF writer does)."""
+    from PIL import Image
 
     os.makedirs(output_dir, exist_ok=True)
     gif_path = os.path.join(output_dir, f"{name}.gif")
-    imageio.mimwrite(gif_path, frames, duration=50, loop=0)
-    imageio.mimwrite(os.path.join(output_dir, f"{name}_depth.gif"),
-                     depth_frames, duration=50, loop=0)
+    for path, seq in ((gif_path, frames),
+                      (os.path.join(output_dir, f"{name}_depth.gif"),
+                       depth_frames)):
+        images = [Image.fromarray(np.asarray(f)) for f in seq]
+        images[0].save(path, save_all=True, append_images=images[1:],
+                       duration=50, loop=0)
     return gif_path
 
 
@@ -106,6 +119,32 @@ def main(argv=None):
                              "static scales calibrated once on the first "
                              "frame's rays; sampling and quadrature are "
                              "unchanged")
+    parser.add_argument("--occupancy_grid", type=int, default=0,
+                        help="opt-in: bake a G^3 occupancy grid from the "
+                             "model's density once, then render every "
+                             "frame with the fine model alone at "
+                             "--occupancy_samples points per ray inside "
+                             "occupied space (0 = off). It changes the math: "
+                             "its PSNR cost depends on the scene and on "
+                             "--occupancy_dilate (measured in "
+                             "docs/QUALITY.md); check it on a held-out split "
+                             "before trusting it. Composes with "
+                             "--quantized_render")
+    parser.add_argument("--occupancy_samples", type=int, default=64)
+    parser.add_argument("--occupancy_aabb", type=float, nargs=6,
+                        default=None,
+                        metavar=("X0", "Y0", "Z0", "X1", "Y1", "Z1"),
+                        help="bounds of the occupancy grid (xyz min, then "
+                             "xyz max); default [-2, 2]^3, Blender scale. "
+                             "Geometry outside the box renders as "
+                             "background")
+    parser.add_argument("--sigma_threshold", type=float, default=1.0,
+                        help="density above which a voxel counts as "
+                             "occupied when the grid is baked")
+    parser.add_argument("--occupancy_dilate", type=int, default=1,
+                        help="binary dilation steps of the baked grid "
+                             "(6-neighbourhood); raise to 2-3 for thin, "
+                             "sub-voxel geometry")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument("--verbose", action="store_true")
@@ -131,10 +170,25 @@ def main(argv=None):
                  image_width=args.img_wh, ray_chunks=args.ray_chunks,
                  white_background=args.white_bg, is_training=False,
                  device=args.device, quantized_render=args.quantized_render)
+    if args.occupancy_grid > 0:
+        aabb = None
+        if args.occupancy_aabb is not None:
+            aabb = (tuple(args.occupancy_aabb[:3]),
+                    tuple(args.occupancy_aabb[3:]))
+        else:
+            logging.info("occupancy grid uses the default [-2, 2]^3 box; "
+                         "pass --occupancy_aabb for scenes outside Blender "
+                         "scale (geometry outside the box renders as "
+                         "background)")
+        nerf.bake_occupancy(args.occupancy_grid,
+                            sigma_threshold=args.sigma_threshold,
+                            dilate=args.occupancy_dilate, aabb=aabb)
     images, depths = render_orbit(
         nerf, range(0, 360, args.output_freq), img_wh=args.img_wh,
         fov=args.fov, phi=args.phi, z_translate=args.z_translate,
-        near=args.near, far=args.far, frame_batch=frame_batch)
+        near=args.near, far=args.far, frame_batch=frame_batch,
+        occupancy_samples=(args.occupancy_samples if args.occupancy_grid > 0
+                           else 0))
     frames, depth_frames = gif_frames(images, depths)
     gif_path = write_gifs(frames, depth_frames, args.output_dir, args.name)
     logging.info("Wrote %s (%d frames)", gif_path, len(frames))

@@ -134,7 +134,7 @@ def last_build() -> BuildResult | None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.knt_sample_merge.argtypes = [p, p, p, p, i, i, i, p]
+    lib.knt_sample_merge.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.knt_ray_march_mlp.argtypes = [p, p, p, p, p, p, i, i, i, p, p]
     lib.knt_ray_march_quadrature.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.knt_ray_march_quadrature_grad.argtypes = [p] * 8 + [i, i, i, f, p]

@@ -1,24 +1,32 @@
-// sample_merge: hierarchical sampling of the fine pass.
+// sample_merge: inverse-CDF sampling along each ray, with an optional
+// rank merge.
 //
 // Replaces: keras_nerf_tpu/kernels/ray_march.py:_sample_merge_prologue
-// (:987-1099) in its self-merge mode (s_m = -1), the prologue of
-// fused_train_chunk's fine pass. Per ray it inverts the CDF of the coarse
-// weights (+1e-5) at the sorted draws u, then rank-merges the drawn depths
-// with the coarse depths, a coarse depth placed before an equal fine one.
+// (:987-1099), the prologue of fused_train_chunk, in its three modes. Per
+// ray it inverts the CDF of the bin weights (+1e-5) over the midpoints of
+// the CDF source cp at the sorted draws u, then
+//   s_m = 0: writes the drawn depths as they are (the occupancy render);
+//   s_m > 0: rank-merges them with a sorted partner mp [rays, s_m], a
+//            partner depth before an equal drawn one. The TPU's s_m = -1
+//            (merge with cp itself, the fine pass) is this mode with
+//            mp = cp: the same ranks, the same bits.
 //
-// Bound on the H100: bytes. Per ray it reads s_c depths, s_c weights and n
-// draws and writes s_c + n depths (1.8 KB at 64 + 128); the arithmetic is a
-// few thousand compares per ray. 4096 rays move 7.3 MB, about 2.2 us at
-// 3.35 TB/s.
+// Bound on the H100: bytes. Per ray it reads 2 s_c floats of bins and
+// weights, n draws and s_m partner depths, and writes n or s_m + n depths;
+// the arithmetic is a few thousand compares per ray. At 4096 rays the fine
+// pass (64 + 128) moves 8.4 MB, about 2.5 us at 3.35 TB/s; the occupancy
+// render (64 probe bins, 64 draws, no merge) 4.2 MB, about 1.3 us.
 //
-// Design: one block of 128 threads per ray. The ray's depths, CDF and
-// midpoints sit in shared memory. One thread forms the CDF with sequential
-// float32 sums, the order the plain PyTorch version uses, so both give
-// identical bits. Then each thread brackets its draws by masked max/min
-// over all bins (the reference's reductions, exact for any input order) and
-// each element finds its output slot by counting the other array. No sort,
-// no binary search, no atomics. The sequential CDF and the per-ray block
-// leave the kernel far above its byte bound; it is small beside the MLP.
+// Design: one block of 128 threads per ray. The ray's bins, CDF, midpoints,
+// draws and partner sit in shared memory. One thread forms the CDF with
+// sequential float32 sums, the order the plain PyTorch version uses, so
+// both give identical bits. Then each thread brackets its draws by masked
+// max/min over all bins (the reference's reductions, exact for any input
+// order) and each element finds its output slot by counting the other
+// array. No sort, no binary search, no atomics, and no limit on the bins,
+// draws or partner beyond shared memory. The sequential CDF and the
+// per-ray block leave the kernel far above its byte bound; it is small
+// beside the MLP.
 #include "common.cuh"
 
 namespace {
@@ -26,23 +34,29 @@ namespace {
 __global__ void sample_merge_kernel(const float* __restrict__ cp,
                                     const float* __restrict__ w,
                                     const float* __restrict__ u,
-                                    float* __restrict__ out, int s_c, int n) {
+                                    const float* __restrict__ mp,
+                                    float* __restrict__ out, int s_c, int n,
+                                    int s_m) {
   extern __shared__ float smem[];
-  float* s_cp = smem;           // [s_c] coarse depths
+  float* s_cp = smem;           // [s_c] CDF source depths
   float* s_cdf = s_cp + s_c;    // [s_c] weights, then the exclusive CDF
   float* s_mid = s_cdf + s_c;   // [s_c] edge-padded midpoints
   float* s_fine = s_mid + s_c;  // [n] drawn depths
+  float* s_mp = s_fine + n;     // [s_m] partner depths (s_m > 0)
   __shared__ float s_total;
 
   const int r = blockIdx.x;
   const float* cp_r = cp + (size_t)r * s_c;
   const float* w_r = w + (size_t)r * s_c;
   const float* u_r = u + (size_t)r * n;
-  float* out_r = out + (size_t)r * (s_c + n);
+  float* out_r = out + (size_t)r * (s_m + n);
 
   for (int i = threadIdx.x; i < s_c; i += blockDim.x) {
     s_cp[i] = cp_r[i];
     s_cdf[i] = __fadd_rn(w_r[i], knt::kWeightEps);
+  }
+  for (int i = threadIdx.x; i < s_m; i += blockDim.x) {
+    s_mp[i] = mp[(size_t)r * s_m + i];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < s_c - 1; i += blockDim.x) {
@@ -88,13 +102,20 @@ __global__ void sample_merge_kernel(const float* __restrict__ cp,
     float denom = __fsub_rn(cdf_above, cdf_below);
     if (denom < knt::kDenomMin) denom = 1.f;
     const float t = __fdiv_rn(__fsub_rn(uj, cdf_below), denom);
-    s_fine[j] = __fadd_rn(bin_below,
-                          __fmul_rn(t, __fsub_rn(bin_above, bin_below)));
+    const float f = __fadd_rn(bin_below,
+                              __fmul_rn(t, __fsub_rn(bin_above, bin_below)));
+    // No merge: the draws are sorted, so the depths are too.
+    if (s_m == 0) {
+      out_r[j] = f;
+    } else {
+      s_fine[j] = f;
+    }
   }
+  if (s_m == 0) return;   // the same for every thread of the block
   __syncthreads();
 
-  for (int i = threadIdx.x; i < s_c; i += blockDim.x) {
-    const float c = s_cp[i];
+  for (int i = threadIdx.x; i < s_m; i += blockDim.x) {
+    const float c = s_mp[i];
     int ahead = 0;
     for (int j = 0; j < n; ++j) ahead += (s_fine[j] < c);
     out_r[i + ahead] = c;
@@ -102,20 +123,29 @@ __global__ void sample_merge_kernel(const float* __restrict__ cp,
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const float f = s_fine[j];
     int ahead = 0;
-    for (int i = 0; i < s_c; ++i) ahead += (s_cp[i] <= f);
+    for (int i = 0; i < s_m; ++i) ahead += (s_mp[i] <= f);
     out_r[j + ahead] = f;
   }
 }
 
 }  // namespace
 
-// cp, w: [rays, s_c]; u: [rays, n] sorted draws; out: [rays, s_c + n].
+// cp, w: [rays, s_c]; u: [rays, n] sorted draws; s_m: 0 (no merge) or the
+// width of the sorted partner mp [rays, s_m] (ignored unless s_m > 0);
+// out: [rays, s_m + n].
 KNT_EXPORT int knt_sample_merge(const float* cp, const float* w,
-                                const float* u, float* out, int rays, int s_c,
-                                int n, void* stream) {
+                                const float* u, const float* mp, float* out,
+                                int rays, int s_c, int n, int s_m,
+                                void* stream) {
   if (rays <= 0) return 0;
-  const size_t smem = (size_t)(3 * s_c + n) * sizeof(float);
-  sample_merge_kernel<<<rays, 128, smem, (cudaStream_t)stream>>>(cp, w, u,
-                                                                 out, s_c, n);
+  const size_t smem = (size_t)(3 * s_c + n + s_m) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sample_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  sample_merge_kernel<<<rays, 128, smem, (cudaStream_t)stream>>>(
+      cp, w, u, mp, out, s_c, n, s_m);
   return (int)cudaGetLastError();
 }

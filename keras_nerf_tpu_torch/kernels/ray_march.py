@@ -8,8 +8,11 @@ kernel per ray tile, with every activation in VMEM (a fine tile holds
 H100 SM has 227 KB of shared memory and runs its blocks in no order, so the
 port splits the pass into CUDA kernels (``csrc/``), one library:
 
-* :data:`sample_merge` — inverse CDF of the coarse weights and the rank
-  merge with the coarse depths (the fine pass's prologue, ``s_m = -1``);
+* :data:`sample_merge` — the fine pass's prologue in its three modes: the
+  inverse CDF of bin weights over the CDF source's midpoints, then no merge
+  (``s_m = 0``, the occupancy render's probe bins) or the rank merge with a
+  sorted partner: the source itself (``s_m = -1``, the coarse depths) or
+  another (``s_m > 0``, the occupancy-train tier);
 * :data:`ray_march_mlp` — positional encoding and the MLP per point, bf16
   tensor-core products with float32 accumulation, ``(r, g, b, sigma)`` or
   sigma alone out; in its train mode it also keeps every bf16 activation;
@@ -614,16 +617,23 @@ def mlp_weight_grad_plain(stash: dict, cots: dict, grads: dict) -> dict:
     return grads
 
 
-def sample_merge_plain(cp: torch.Tensor, w: torch.Tensor,
-                       u: torch.Tensor) -> torch.Tensor:
+def sample_merge_plain(cp: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                       mp: torch.Tensor | None) -> torch.Tensor:
     """Plain version of the ``sample_merge`` kernel
-    (`_sample_merge_prologue`, ``s_m = -1``): ``cp``, ``w [R, s_c]``, sorted
-    ``u [R, n]`` -> merged sorted depths ``[R, s_c + n]``.
+    (`_sample_merge_prologue`, `ray_march.py:987-1099`): the CDF source
+    ``cp`` and bin weights ``w [R, s_c]``, sorted draws ``u [R, n]`` ->
+    sorted depths. The draws invert the CDF of ``w + 1e-5`` over the
+    edge-padded midpoints of ``cp``; then, by the merge partner ``mp``:
+
+    * ``None`` (``s_m = 0``): the drawn depths alone, ``[R, n]``;
+    * a sorted ``[R, s_m]`` tensor (``s_m > 0``): merged with it,
+      ``[R, s_m + n]``. The fine pass passes ``cp`` itself (the TPU
+      kernel's ``s_m = -1``, which the same ranks give).
 
     The CDF is built with sequential float32 sums over the bins, the order
     the kernel's single thread uses, so the two agree to the bit; the
     brackets are masked max/min over all bins and the merge counts ranks,
-    as in the TPU kernel."""
+    a partner depth before an equal drawn one, as in the TPU kernel."""
     s_c = cp.shape[1]
     big = _BIG
     wp = w + _WEIGHT_EPS
@@ -653,15 +663,17 @@ def sample_merge_plain(cp: torch.Tensor, w: torch.Tensor,
     denom = torch.where(denom < _WEIGHT_EPS, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
     fine = bin_below + t * (bin_above - bin_below)
+    if mp is None:
+        return fine
 
-    n = u.shape[1]
+    n, s_p = u.shape[1], mp.shape[1]
     dev = cp.device
-    rank_c = (torch.arange(s_c, device=dev)
-              + (fine[:, None, :] < cp[:, :, None]).sum(dim=2))
+    rank_c = (torch.arange(s_p, device=dev)
+              + (fine[:, None, :] < mp[:, :, None]).sum(dim=2))
     rank_f = (torch.arange(n, device=dev)
-              + (cp[:, None, :] <= fine[:, :, None]).sum(dim=2))
-    out = torch.zeros((cp.shape[0], s_c + n), dtype=cp.dtype, device=dev)
-    out.scatter_(1, rank_c, cp)
+              + (mp[:, None, :] <= fine[:, :, None]).sum(dim=2))
+    out = torch.zeros((cp.shape[0], s_p + n), dtype=cp.dtype, device=dev)
+    out.scatter_(1, rank_c, mp)
     out.scatter_(1, rank_f, fine)
     return out
 
@@ -721,22 +733,24 @@ def _raise_on(err: int, name: str) -> None:
                            f"cudaError {err}")
 
 
-def _sample_merge_cuda(cp, w, u):
+def _sample_merge_cuda(cp, w, u, mp):
     from keras_nerf_tpu_torch.kernels._build import load
 
     lib = load()
     dev = cp.device
     r, s_c = cp.shape
     n = u.shape[1]
+    s_m = 0 if mp is None else mp.shape[1]
     if s_c < 2:
-        raise ValueError("sample_merge needs at least 2 coarse samples")
-    out = torch.empty((r, s_c + n), dtype=torch.float32, device=dev)
+        raise ValueError("sample_merge needs at least 2 bins")
     f32 = torch.float32
+    mp_ptr = (_check(mp, "mp", f32, dev, (r, s_m)) if s_m > 0 else None)
+    out = torch.empty((r, n + s_m), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         _raise_on(lib.knt_sample_merge(
             _check(cp, "cp", f32, dev), _check(w, "w", f32, dev, (r, s_c)),
-            _check(u, "u", f32, dev, (r, n)), out.data_ptr(), r, s_c, n,
-            _stream(dev)), "sample_merge")
+            _check(u, "u", f32, dev, (r, n)), mp_ptr, out.data_ptr(), r, s_c,
+            n, s_m, _stream(dev)), "sample_merge")
     return out
 
 
@@ -1223,9 +1237,14 @@ def fused_render_chunk(packed: dict, origin: torch.Tensor,
       points: ``[R, S]`` sorted depths, or None with ``sample_inputs``.
       sigma_only: density pass only (requires ``emit_weights``): the image
         comes back zero and the colour heads are skipped.
-      sample_inputs: ``(cp [R, s_c], w [R, s_c], u [R, n])`` — sample the
-        fine depths from the coarse weights in :data:`sample_merge` and
-        merge them with ``cp`` (``s_m = -1``).
+      sample_inputs: sample the depths in :data:`sample_merge` instead:
+        ``(cp [R, s_c], w [R, s_c], u [R, n])`` draws from the coarse
+        weights and merges with the coarse depths ``cp`` (``s_m = -1``);
+        the TPU kernel's 4-tuple ``(cp, w, u, mp)`` names the merge partner
+        apart from the CDF source (`ray_march.py:1439-1466`): ``None``
+        merges nothing (``s_m = 0``, the occupancy render over probe bins),
+        a sorted ``[R, s_m]`` tensor is merged in (``s_m > 0``). The
+        3-tuple is the 4-tuple with ``mp = cp``.
 
     Returns ``(image [R, 3], depth [R], weights [R, S] or None)``.
     """
@@ -1268,8 +1287,14 @@ def _pass_points(points, sample_inputs):
     if sample_inputs is not None:
         if points is not None:
             raise ValueError("pass points or sample_inputs, not both")
-        cp, wc, u = (x.to(torch.float32).contiguous() for x in sample_inputs)
-        points = sample_merge(cp, wc, u)
+        if len(sample_inputs) not in (3, 4):
+            raise ValueError("sample_inputs is (cp, w, u) or (cp, w, u, mp)")
+        cp, wc, u = (x.to(torch.float32).contiguous()
+                     for x in sample_inputs[:3])
+        mp = sample_inputs[3] if len(sample_inputs) == 4 else cp
+        if mp is not None:
+            mp = mp.to(torch.float32).contiguous()
+        points = sample_merge(cp, wc, u, mp)
     return points.to(torch.float32).contiguous()
 
 
@@ -1315,8 +1340,8 @@ def fused_train_chunk(packed: dict, origin: torch.Tensor,
     kept), :data:`ray_march_quadrature` with the target (image, depth,
     weights and the head cotangents of the loss), :data:`mlp_backward` (the
     dX chain) and :data:`mlp_weight_grad` (dW and db, added into
-    ``grads``). The fine pass's :data:`sample_merge` runs once over the
-    chunk first.
+    ``grads``). With ``sample_inputs``, :data:`sample_merge` runs once over
+    the chunk first, in any of its three modes.
 
     Args:
       packed: :func:`pack_mlp_params` output.

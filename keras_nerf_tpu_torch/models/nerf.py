@@ -1,8 +1,9 @@
 """The user-facing NeRF model (port of ``keras_nerf_tpu/models/nerf.py``):
 construct from hyperparameters, a :class:`NeRFConfig` or a checkpoint
 directory, ``compile`` for a device, image shape and optimizer, then
-``fit``/``evaluate`` or ``predict_and_render_images``; ``save_model`` writes
-the JAX package's checkpoint format. The state is an explicit
+``fit``/``evaluate`` or ``predict_and_render_images`` (or, opt-in,
+``bake_occupancy`` then ``render_occupancy``); ``save_model`` writes the JAX
+package's checkpoint format. The state is an explicit
 :class:`~keras_nerf_tpu_torch.models.engine.TrainState`."""
 
 from __future__ import annotations
@@ -60,6 +61,8 @@ class NeRF:
         self.state: engine.TrainState | None = None
         self.device = None
         self._train_config = None
+        self.occ_grid: torch.Tensor | None = None
+        self._occ_aabb = None
 
     @property
     def coarse_params(self):
@@ -349,3 +352,58 @@ class NeRF:
             self.config)
         self._packed_q_state = self.state
         logging.info("quantized_render: int8 weights calibrated")
+
+    # ------------------------------------------------ occupancy-grid rendering
+
+    def bake_occupancy(self, grid_size: int = 64, sigma_threshold: float = 1.0,
+                       dilate: int = 1, aabb=None) -> torch.Tensor:
+        """Bake a binary ``[G, G, G]`` occupancy grid from the FINE model's
+        density over ``aabb`` (``ops/occupancy.py``; `nerf.py:558-582`):
+        one ``apply_mlp`` launch per 262,144 voxels on the kernel path.
+        Logs the occupied share; :meth:`render_occupancy` renders with it."""
+        self._require_compiled()
+        from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+
+        if aabb is None:
+            aabb = occ_mod.DEFAULT_AABB
+        aabb = tuple(tuple(float(v) for v in row) for row in aabb)
+        density = occ_mod.model_density_fn(self.fine_params, self.config)
+        self.occ_grid = occ_mod.bake_occupancy_grid(
+            density, grid_size, aabb, sigma_threshold, dilate,
+            device=self.device)
+        self._occ_aabb = aabb
+        logging.info("Baked %d^3 occupancy grid: %.1f%% occupied",
+                     grid_size, 100.0 * float(self.occ_grid.mean()))
+        return self.occ_grid
+
+    def render_occupancy(
+            self, rays,
+            fine_draws: torch.Generator | Sequence[torch.Tensor] | None = None,
+            near: float = 2.0, far: float = 6.0, n_samples: int = 64,
+            n_probe: int = 64) -> dict:
+        """Occupancy-accelerated render of ``rays = (origin, direction,
+        points)`` with the FINE model alone, ``n_samples`` MLP points per
+        ray inside occupied space: ``{"image", "depth"}`` (`nerf.py:
+        584-626`, without its mesh branch). Needs :meth:`bake_occupancy`
+        first. Compiled with ``quantized_render=True``, the fine MLP runs
+        the int8 kernel (calibrated once per state on these rays, as
+        :meth:`predict_and_render_images` does): the two tiers compose."""
+        self._require_compiled()
+        if self.occ_grid is None:
+            raise RuntimeError("call bake_occupancy() before "
+                               "render_occupancy()")
+        from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+
+        rays = tuple(torch.as_tensor(x, dtype=torch.float32,
+                                     device=self.device) for x in rays)
+        packed_q = None
+        if self.quantized_render:
+            self._ensure_packed_q(rays, torch.Generator(
+                device=self.device).manual_seed(self._seed + 4))
+            packed_q = self._packed_q[1]
+        return occ_mod.render_image_batch_occ(
+            self.fine_params, rays, self.occ_grid,
+            self._generator if fine_draws is None else fine_draws,
+            self.config, near=near, far=far, n_samples=n_samples,
+            n_probe=n_probe, ray_chunks=self.ray_chunks,
+            aabb=self._occ_aabb, packed_q=packed_q)

@@ -41,7 +41,13 @@ def invert_cdf(u: torch.Tensor, mid_points: torch.Tensor,
     """
     weights = weights + 1e-5
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
+    return invert_cdf_of(u, mid_points, torch.cumsum(pdf, dim=-1))
+
+
+def invert_cdf_of(u: torch.Tensor, mid_points: torch.Tensor,
+                  cdf: torch.Tensor) -> torch.Tensor:
+    """:func:`invert_cdf` from the inclusive CDF ``[..., S]`` of the
+    weights (+1e-5) on: the draws ``u [..., N]`` -> depths."""
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
 
     inf = torch.tensor(float("inf"), dtype=cdf.dtype, device=cdf.device)

@@ -113,8 +113,8 @@ def test_sample_merge_matches_plain(cuda_device, s_c, n_fine):
     _, _, _, t, u = _chunk(cuda_device, s_c=s_c, n_fine=n_fine)
     g = torch.Generator(device=cuda_device).manual_seed(2)
     w = torch.rand(t.shape, generator=g, device=cuda_device) ** 3
-    got = trm.sample_merge(t, w, u)
-    want = trm.sample_merge_plain(t, w, u)
+    got = trm.sample_merge(t, w, u, t)
+    want = trm.sample_merge_plain(t, w, u, t)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-6
     assert bool((got[:, 1:] >= got[:, :-1]).all())
@@ -123,9 +123,9 @@ def test_sample_merge_matches_plain(cuda_device, s_c, n_fine):
 def test_wrappers_raise_on_bad_inputs(cuda_device):
     packed, o, d, t, u = _chunk(cuda_device, r=64)
     with pytest.raises(TypeError):
-        trm.sample_merge(t.double(), t.double(), u.double())
+        trm.sample_merge(t.double(), t.double(), u.double(), t.double())
     with pytest.raises(ValueError):
-        trm.sample_merge(t[:, ::2], t[:, ::2], u)   # not contiguous
+        trm.sample_merge(t[:, ::2], t[:, ::2], u, t)   # not contiguous
 
 
 def test_render_path_launches_every_kernel(cuda_device):
@@ -462,3 +462,67 @@ def test_quantized_render_runs_the_int8_kernel_and_never_the_bf16_one(
         "ray_march_mlp_int8": 2 * chunks, "mma_ceiling": 0}
     assert images.shape == (2, 64, 64, 3)
     assert (images >= 0).all() and (images <= 1).all()
+
+
+@pytest.mark.parametrize("s_c,n,s_m", [
+    (64, 128, -1), (64, 64, 0), (64, 64, 64), (24, 16, 40),
+    (300, 200, 0), (4096, 64, 64)])     # the last needs > 48 KB of smem
+def test_sample_merge_three_modes_match_plain_bit_for_bit(cuda_device, s_c,
+                                                          n, s_m):
+    """The merge with the CDF source (the TPU's s_m = -1, mp = cp), no
+    merge (0) and another partner (> 0): the kernel's depths are its plain
+    version's, bit for bit, sorted; empty rays among them."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    r = 512
+    cp = torch.sort(torch.rand(r, s_c, generator=g, device=cuda_device) * 4
+                    + 2, dim=-1).values
+    w = (torch.rand(r, s_c, generator=g, device=cuda_device) > 0.6).float()
+    w[::5] = 0.0
+    u = sorted_uniforms(g, (r,), n)
+    mp = (cp if s_m < 0 else None if s_m == 0 else
+          torch.sort(torch.rand(r, s_m, generator=g, device=cuda_device) * 4
+                     + 2, dim=-1).values)
+    before = trm.sample_merge.launches
+    got = trm.sample_merge(cp, w, u, mp)
+    want = trm.sample_merge_plain(cp, w, u, mp)
+    torch.cuda.synchronize()
+    assert trm.sample_merge.launches == before + 1
+    assert got.shape == (r, n + (s_c if s_m < 0 else s_m))
+    assert torch.equal(got, want)
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
+
+
+def test_train_then_occupancy_render_cli_on_the_card(cuda_device, tmp_path):
+    """A16: train_single for one epoch at 16^2 writes its checkpoints (the
+    port's own msgpack codec), then the orbit CLI loads the final one and
+    writes both GIFs through --occupancy_grid 32 --quantized_render."""
+    import os
+    import subprocess
+    import sys
+
+    from keras_nerf_tpu_torch.data.synthetic import write_synthetic_scene
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": repo}
+    scene = write_synthetic_scene(str(tmp_path / "scene"), image_wh=16,
+                                  n_train=2, n_val=1, n_test=1)
+    train = subprocess.run(
+        [sys.executable, "-m", "keras_nerf_tpu_torch.train_single",
+         "--data_dir", scene, "--img_wh", "16", "--num_coarse_samples",
+         "16", "--num_fine_samples", "16", "--white_bg", "--num_epochs",
+         "1", "--ray_chunks", "256", "--name", "toy", "--log_dir",
+         str(tmp_path / "logs"), "--model_dirs", str(tmp_path / "model")],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    assert train.returncode == 0, train.stderr[-3000:]
+    out = tmp_path / "out"
+    render = subprocess.run(
+        [sys.executable, "-m", "keras_nerf_tpu_torch.inference",
+         "--model_dirs", str(tmp_path / "model" / "toy"), "--img_wh", "16",
+         "--output_freq", "180", "--ray_chunks", "256", "--white_bg",
+         "--occupancy_grid", "32", "--quantized_render", "--output_dir",
+         str(out), "--name", "orbit"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    assert render.returncode == 0, render.stderr[-3000:]
+    assert "Baked 32^3 occupancy grid" in render.stderr
+    for name in ("orbit.gif", "orbit_depth.gif"):
+        assert (out / name).stat().st_size > 0, name

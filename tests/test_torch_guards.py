@@ -165,7 +165,7 @@ def test_callable_loss_takes_the_kernel_branch_and_mse_the_fused_path():
 def test_wrappers_refuse_other_devices():
     x = torch.empty(2, 8, device="meta")
     with pytest.raises(ValueError):
-        trm.sample_merge(x, x, x)
+        trm.sample_merge(x, x, x, x)
 
 
 def _int8_inputs(device="cpu"):
@@ -258,3 +258,63 @@ def test_build_key_follows_the_sources(monkeypatch, tmp_path):
     (tmp_path / "sample_merge.cu").write_text(
         (tmp_path / "sample_merge.cu").read_text() + "\n// edit\n")
     assert _build.source_hash() != key
+
+
+NO_IMAGEIO = """
+import importlib, pkgutil, sys, tempfile
+sys.modules["imageio"] = None      # any import of it now raises
+import numpy as np, torch
+import keras_nerf_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from keras_nerf_tpu_torch.inference import gif_frames, write_gifs
+from keras_nerf_tpu_torch.models import NeRFConfig, engine
+from keras_nerf_tpu_torch.utils import checkpoint
+cfg = NeRFConfig(n_layers=2)
+opt = engine.make_optimizer("adam")
+state = engine.init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                                device="cpu")
+d = tempfile.mkdtemp()
+checkpoint.save_model(d, state, cfg)
+back = checkpoint.load_train_state(d, state, "cpu")
+assert torch.equal(back.fine_params["sigma"]["kernel"],
+                   state.fine_params["sigma"]["kernel"])
+frames, depths = gif_frames(np.zeros((2, 4, 4, 3), np.float32),
+                            np.ones((2, 4, 4), np.float32))
+write_gifs(frames, depths, d, "orbit")
+assert "keras_nerf_tpu_torch.ops.occupancy" in sys.modules
+bad = sorted(n for n in sys.modules
+             if n in ("jax", "keras_nerf_tpu")
+             or n.startswith(("jax.", "jaxlib", "flax", "optax",
+                              "keras_nerf_tpu.", "imageio.")))
+print("BAD", bad)
+"""
+
+
+def test_port_needs_no_imageio():
+    """With ``imageio`` unimportable, every module of the port (the
+    occupancy ops among them) imports, a checkpoint round-trips and both
+    GIFs are written; nothing of JAX is imported."""
+    proc = subprocess.run([sys.executable, "-c", NO_IMAGEIO],
+                          cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_sample_merge_modes_use_the_plain_version_on_the_cpu():
+    """Each mode of sample_merge on CPU tensors is its plain version, bit
+    for bit, and counts no launch; a sample_inputs tuple of another length
+    raises."""
+    trm.reset_launch_counts()
+    g = torch.Generator().manual_seed(4)
+    cp = torch.sort(torch.rand(6, 16, generator=g) * 4 + 2, -1).values
+    w = (torch.rand(6, 16, generator=g) > 0.5).float()
+    u = torch.sort(torch.rand(6, 8, generator=g), -1).values
+    for mp in (cp, None, cp[:, ::2].contiguous()):
+        torch.testing.assert_close(trm.sample_merge(cp, w, u, mp),
+                                   trm.sample_merge_plain(cp, w, u, mp),
+                                   rtol=0, atol=0)
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
+    with pytest.raises(ValueError, match="sample_inputs"):
+        trm._pass_points(None, (cp, w))

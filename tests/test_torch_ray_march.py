@@ -109,7 +109,7 @@ def test_sample_merge_plain_matches_jax_sampling_chain(s_c, n_fine):
         jnp.asarray(cp),
         jsamp.invert_cdf(jnp.asarray(u), jsamp.midpoints(jnp.asarray(cp)),
                          jnp.asarray(wc))))
-    got = trm.sample_merge(*_t(cp, wc, u)).numpy()
+    got = trm.sample_merge(*_t(cp, wc, u, cp)).numpy()
     np.testing.assert_allclose(got, want, atol=SAMPLING_ATOL)
     assert np.all(np.diff(got, axis=-1) >= 0)
 

@@ -43,7 +43,10 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   holds a 16^2 occupancy frame against the CPU's on the card's grid.
 
 Each path's launch counts are read just after it runs. Then every kernel
-and its plain version is timed with CUDA events, and the five model paths
+and its plain version is timed with CUDA events (``mlp_weight_grad`` also
+beside its cuBLAS yardstick, one product per weight array; the card's SM
+clock, power and temperature sampled before and after), and the five model
+paths
 (the occupancy render among them) are profiled with ``torch.profiler``:
 device time by kernel and the device's busy share.
 
@@ -531,18 +534,25 @@ def main() -> int:
     modes += _occupancy_modes(occ_in, cfg)
     totals = {"render": {}, "train": {}, "custom": {}, "quantized": {},
               "probe": {}, "occupancy": {}, "bake": {}, "merge_partner": {}}
+    library = {path: {} for path in totals}   # ms per unit, where timed
     timed = []   # (kernel, path, mode, launches per unit, ms, plain, bound)
+    clocks = [_gpu_clocks("before the kernel timings")]
     for k, path, mode, call, count, (bms, by), *design in modes:
         kms = _time_ms(lambda: call(k), 20)
         paced = _time_ms(lambda: call(k), 20, spin=False)
         pms = _time_ms(lambda: call(k.plain), 3)
         dms = 1e3 * design[0] / PEAK_BYTES if design else 0.0
+        lms = _time_ms(design[1], 20) if len(design) > 1 else None
         log(f"time {k.name} {mode}: {kms:.4f} ms/launch kernel "
             f"({paced:.4f} paced by the host's launches), {pms:.3f} "
             f"ms/launch plain, bound {bms:.4f} ms/launch ({by}), "
             f"{kms / bms:.1f}x bound"
             + (f", the design's bytes {dms:.4f} ms/launch" if design else "")
+            + (f", library (cuBLAS) {lms:.4f} ms/launch" if lms else "")
             + f", {count} launches per {_UNIT[path]} {card_tag}")
+        if lms is not None:
+            library[path][k.name] = (library[path].get(k.name, 0.0)
+                                     + count * lms)
         timed.append((k, path, mode, count, kms, pms, bms))
         tot = totals[path].setdefault(k.name, [0.0, 0.0, 0.0, {}, None])
         tot[0] += count * kms
@@ -551,6 +561,8 @@ def main() -> int:
         tot[3][by] = tot[3].get(by, 0.0) + count * bms
         if design:
             tot[4] = (tot[4] or 0.0) + count * dms
+    clocks.append(_gpu_clocks("after the kernel timings"))
+    log(json.dumps({"clocks": clocks, "card": card}))
     _t3_bound(cfg, totals["train"], card_tag)
     _t5_t6_times(train_in, cfg, timed, card_tag)
     _bake_times(occ_in, cfg, card_tag)
@@ -596,9 +608,11 @@ def main() -> int:
                 continue
             kms, pms, bms, by, dms = totals[path][k.name]
             unit = f"ms/{_UNIT[path]}"
+            lms = library[path].get(k.name)
             log(f"time {k.name}: {kms:.4f} {unit} kernel, {pms:.3f} {unit} "
                 f"plain, bound {bms:.4f} {unit} ({_by(by)})"
                 + (f", the design's bytes {dms:.4f} {unit}" if dms else "")
+                + (f", library (cuBLAS) {lms:.4f} {unit}" if lms else "")
                 + f" {card_tag}")
         # The numbers of the MSE step where the kernel runs there, else of
         # the first other path it runs on.
@@ -615,7 +629,8 @@ def main() -> int:
             "tolerance": {"render": TOL.get(k.name),
                           "train": TRAIN_TOL.get(k.name)},
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": _by(by),
-            "library_ms": None, "design_bytes_ms": dms,
+            "library_ms": library[path].get(k.name),
+            "design_bytes_ms": dms,
             "per": per[path]
                    + f"; launches over {n_steps} steps of each train path, "
                      f"{len(FRAMES)} frames of each render path, one bake "
@@ -625,6 +640,7 @@ def main() -> int:
             entry["custom_step"] = {
                 "launches": custom_launches[k.name], "ms": kms,
                 "plain_ms": pms, "bound_ms": bms, "bound_by": _by(by),
+                "library_ms": library["custom"].get(k.name),
                 "design_bytes_ms": dms,
                 "per": f"{step_per}, loss l1 (custom)"}
         if k.name in totals["render"]:
@@ -729,6 +745,51 @@ def _time_ms(fn, iters, spin=True):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def _gpu_clocks(when: str) -> dict:
+    """The card's SM clock, power draw, power limit and temperature, as
+    ``nvidia-smi`` reads them now."""
+    q = "clocks.sm,power.draw,power.limit,temperature.gpu"
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={q}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    row = dict(zip(q.split(","), (x.strip() for x in
+                                  out.splitlines()[0].split(","))))
+    log(f"nvidia-smi {when}: " + ", ".join(f"{k} {v}"
+                                           for k, v in row.items()))
+    return {"when": when, **row}
+
+
+def _weight_grad_library(stash, cots, acc):
+    """The cuBLAS yardstick of ``mlp_weight_grad``: for every weight array
+    one product ``A^T G`` and, where it has a bias, ``sum_p G`` in float32
+    (PyTorch calls timed beside the kernel, never called by the port)."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+
+    pairs = [(a, g, bias is not None)
+             for a, g, _, bias in trm.weight_grad_tasks(stash, cots, acc)]
+
+    def run():
+        for a, g, bias in pairs:
+            a.T @ g
+            if bias:
+                g.sum(0, dtype=torch.float32)
+    return run
+
+
+def _weight_grad_partial_bytes(stash, cots, acc) -> int:
+    """Bytes of ``mlp_weight_grad``'s float32 partial sums, written once
+    and read once by its reduction: its plan's ``partial_floats``."""
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+
+    tasks = trm.weight_grad_tasks(stash, cots, acc)
+    plan = trm.weight_grad_plan(
+        [(a.shape[1], g.shape[1], b is not None) for a, g, _, b in tasks],
+        stash["enc"].shape[0])
+    return 2 * F32B * plan["partial_floats"]
 
 
 def _profile(run, units: int, unit: str) -> dict:
@@ -1299,7 +1360,10 @@ def _train_modes(ti: dict, cfg) -> list:
     depth, coarse weights, the head cotangents of three colours and sigma)
     against their float32 operations. The bytes that the split itself moves
     (the kept activations and cotangents, the 16-column padded colour
-    cotangent) come apart as the 7th item: the design's own cost."""
+    cotangent) come apart as the 7th item: the design's own cost;
+    ``mlp_weight_grad``'s also counts its float32 partial sums (written and
+    read once), and its 8th item is its cuBLAS yardstick
+    (:func:`_weight_grad_library`)."""
     from keras_nerf_tpu_torch.kernels import ray_march as trm
     from keras_nerf_tpu_torch.models.engine import tree_leaves
 
@@ -1351,7 +1415,9 @@ def _train_modes(ti: dict, cfg) -> list:
             (trm.mlp_weight_grad, "train", f"{name} {shape}",
              lambda f, p=p, acc=acc: f(p["stash"], p["cots"], acc),
              per_step, _bound(grad_bytes, pts * fwd, PEAK_BF16_FLOPS),
-             grad_bytes + pts * (stash_b + cots_b + 2 * trm.D_HEAD)),
+             grad_bytes + pts * (stash_b + cots_b + 2 * trm.D_HEAD)
+             + _weight_grad_partial_bytes(p["stash"], p["cots"], acc),
+             _weight_grad_library(p["stash"], p["cots"], acc)),
         ]
     return modes
 
@@ -1363,8 +1429,10 @@ def _custom_modes(ti: dict, cfg) -> list:
     Bounds as for T3: T5's forward, and T6's least work split as the
     forward (the recompute), dX (``mlp_backward``) and dW
     (``mlp_weight_grad``), at the bf16 peak, against each function's own
-    inputs and outputs; the stash and cotangents the split moves come apart
-    as the design's bytes."""
+    inputs and outputs; the stash and cotangents the split moves (and
+    ``mlp_weight_grad``'s partial sums) come apart as the design's bytes,
+    and ``mlp_weight_grad`` has its cuBLAS yardstick as in
+    :func:`_train_modes`."""
     from keras_nerf_tpu_torch.kernels import ray_march as trm
     from keras_nerf_tpu_torch.models.engine import tree_leaves
 
@@ -1407,7 +1475,9 @@ def _custom_modes(ti: dict, cfg) -> list:
              lambda f, p=p, acc=acc: f(p["t6_stash"], p["t6_cots"], acc),
              per_step, _bound(grad_bytes, pts * fwd, PEAK_BF16_FLOPS),
              grad_bytes + pts * (2 * 128 + kept_b + cots_b
-                                 + 2 * trm.D_HEAD)),
+                                 + 2 * trm.D_HEAD)
+             + _weight_grad_partial_bytes(p["t6_stash"], p["t6_cots"], acc),
+             _weight_grad_library(p["t6_stash"], p["t6_cots"], acc)),
         ]
     return modes
 

@@ -141,7 +141,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.knt_apply_mlp.argtypes = [p, p, p, i, p, p]
     lib.knt_mlp_backward.argtypes = [p, p, p, p, p, i, p]
     lib.knt_mlp_backward_from_output.argtypes = [p] * 6 + [i, p]
-    lib.knt_mlp_weight_grad.argtypes = [p, i, i, i, p, p]
+    lib.knt_mlp_weight_grad.argtypes = [p, i, p, i, i, i, i, p, p]
     lib.knt_ray_march_mlp_int8.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.knt_mma_ceiling.argtypes = [p, p, p, i, i, i, i, i, p]
     for fn in (lib.knt_sample_merge, lib.knt_ray_march_mlp,

@@ -2,7 +2,7 @@
 // summed over a chunk's points.
 //
 // Replaces: the dW / rowsum half of _backward_core
-// (keras_nerf_tpu/kernels/ray_march.py:822-872) and _acc_out (:500), which
+// (keras_nerf_tpu/kernels/ray_march.py:804-872) and _acc_out (:500), which
 // the TPU kernel sums over a grid that runs in order. For each task
 // (A [P, K], G [P, N], out [K, ldo], bias_out [ldo] or null):
 //   out[:K, :N] += A^T G        bias_out[:N] += sum_p G[p, :]
@@ -12,35 +12,65 @@
 // (A = h_{L-1} or the encoding, G = d_sf), the rgb-feature layer (A =
 // features or the encoding, G = d_rf) and the rgb head (A = rf, G = d_rgb).
 //
-// Bound on the H100: bytes, as this kernel's inputs stand. Per point at
-// 8 x 256 it reads 10 KB of bf16 operands (3.0 ns at 3.35 TB/s) against
-// 1,186,816 FLOP (1.2 ns at 989 TFLOP/s); the sums are written once per
-// chunk. The whole of T3 is bound by operations (see mlp_backward.cu).
+// Bound on the H100: bytes. Per point at 8 x 256 the operands are about
+// 10 KB of bf16 (the stash and the cotangents, read once: 3.0 ns at
+// 3.35 TB/s) against 1.19 MFLOP of products (1.2 ns at 989 TFLOP/s). Above
+// the operands come the float32 partial sums of the point slices, written
+// once and read once by the reduction.
 //
-// Design: on the H100 blocks run in parallel with no order, so the sum over
-// points is a reduction across blocks. Each block owns a 64 x 64 output
-// tile of one task and one of `slices` fixed ranges of the point axis; four
-// warps run wmma 16x16x16 bf16 products (A^T as column-major fragments of
-// the A tile) over 32-point steps staged in shared memory, and the warps of
-// the first tile row also multiply a fragment of ones by G for the bias
-// sums. Each block stores its float32 partial; a second kernel adds the
-// slices in a fixed order into the accumulators. No atomics: two runs give
-// the same bits. The blocks of one slice and task are adjacent, so the
-// tiles that read the same rows of A and G run together and share them in
-// L2.
+// Design: every operand is read from device memory once and the products
+// run on wgmma, fed by a ring of TMA loads.
+// * A block owns 128 rows of one task's K (two consumer warpgroups of 64
+//   rows, wgmma m64nNk16, N = 256, 128 or 64, float32 accumulators in
+//   registers) and one N tile, over one slice of the points. N splits into
+//   256-wide tiles, then one tile of 128 or 64; a 16-wide tail (d_sf's
+//   column u and padding, d_rgb) takes a 64 tile whose columns past N are
+//   TMA's zeros, which costs products but no bytes. The plan of tiles and
+//   slices is made in Python (kernels/ray_march.py: weight_grad_plan).
+// * Neither operand is transposed in memory. A stage is [64 points x 128
+//   features] of A and [64 points x N] of G, both row-major slices of the
+//   [P, width] arrays as they lie: A^T and G with their M / N dimension
+//   contiguous, the MN-major operands that wgmma reads with its transpose
+//   flags. TMA loads them in 64 x 64 boxes with the 128-byte swizzle, the
+//   layout wgmma's descriptors name (gmma.cuh).
+// * One producer thread keeps a ring of 4 stages (48 KB each, dynamic
+//   shared memory) loading: full and empty mbarriers pace it. The consumers
+//   wait on "full", start four k16 products per stage, commit, and release
+//   the stage before once its group has retired, so one group of products
+//   and up to three stages of loads are in flight behind the one in use.
+// * Bias sums: in blocks whose rows start at 0, the first consumer
+//   warpgroup adds G's columns in float32 from the stage in shared memory,
+//   in point order, while its products run; G is read from device memory
+//   once for both.
+// * The sum over points is a reduction across blocks: each block stores
+//   its slice's float32 partial, and a second kernel adds the slices in
+//   slice order into the accumulators. No atomics: two runs give the same
+//   bits. Slices start at multiples of 64 points and only the last ends at
+//   P, whose ragged stage TMA fills with zeros.
+// * Blocks of one slice are adjacent in launch order, the two row tiles of
+//   one N tile side by side, so blocks that read the same rows of an
+//   operand run together and share them in L2.
+#include <cuda.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include "common.cuh"
+#include "gmma.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
 constexpr int kMaxTasks = 40;
-constexpr int kBM = 64, kBN = 64, kBP = 32;  // output tile, point step
-constexpr int kLd = kBM + 8;                 // shared tile row stride
+constexpr int kMaxMaps = 2 * kMaxTasks;  // one tensor map per operand array
+constexpr int kMaxTiles = 256;
+constexpr int kStep = 64;                 // points per stage
+constexpr int kTileK = 128;               // output rows per block
+constexpr int kStages = 4;
+constexpr int kBox = 64 * 64 * 2;         // one TMA box: 64 points x 64 cols
+constexpr int kStageBytes = 2 * kBox + 4 * kBox;  // A 16 KB + G <= 32 KB
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + alignment
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 128 + 32 * kConsumerWarps;
 
 }  // namespace
 
@@ -55,116 +85,161 @@ struct WgTask {
   int k, n, ldo, poff, bpoff;
 };
 
-namespace {
-
-struct WgTable {
-  WgTask t[kMaxTasks];
-  int block0[kMaxTasks + 1];  // first block of each task
-  int n_tasks, P, chunk;
+// One block's output, per slice: rows m0 .. m0 + 127 and columns n0 ..
+// n0 + nt - 1 (those below N) of task `task`; mirrored in
+// kernels/ray_march.py (_WgTile).
+struct WgTile {
+  int task, m0, n0, nt;
 };
 
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using ATFrag = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using OnesFrag = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using GFrag = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+namespace {
 
-__global__ void __launch_bounds__(128)
-wg_gemm_kernel(const WgTable tab, float* __restrict__ partial) {
-  __shared__ __align__(128) bf16 As[kBP * kLd];
-  __shared__ __align__(128) bf16 Gs[kBP * kLd];
-  __shared__ __align__(128) float scratch[4][256];
+struct WgParams {
+  CUtensorMap map[kMaxMaps];
+  int a_map[kMaxTasks], g_map[kMaxTasks];
+  int k[kMaxTasks], n[kMaxTasks], poff[kMaxTasks], bpoff[kMaxTasks];
+  int bias[kMaxTasks];
+  WgTile tile[kMaxTiles];
+  int n_tiles, P, chunk;
+};
 
-  const int b = blockIdx.x;
-  int ti = 0;
-  while (ti + 1 < tab.n_tasks && b >= tab.block0[ti + 1]) ++ti;
-  const WgTask t = tab.t[ti];
-  const int tiles_n = (t.n + kBN - 1) / kBN;
-  const int tiles = ((t.k + kBM - 1) / kBM) * tiles_n;
-  const int local = b - tab.block0[ti];
-  const int slice = local / tiles, tile = local % tiles;
-  const int m0 = (tile / tiles_n) * kBM, n0 = (tile % tiles_n) * kBN;
-  const int p_begin = slice * tab.chunk;
-  const int p_end = min(tab.P, p_begin + tab.chunk);
+struct WgReduceTable {
+  WgTask t[kMaxTasks];
+};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const bool bias = t.bias_out != nullptr && m0 == 0 && wm == 0;
-  bool live_m[2], live_n[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    live_m[i] = m0 + wm + i * 16 < t.k;
-    live_n[i] = n0 + wn + i * 16 < t.n;
-  }
+// The consumers of one block: warpgroup c (0 or 1) accumulates rows
+// m0 + 64 c .. + 63 over the block's stages, then stores its partial.
+template <int NT>
+__device__ __forceinline__ void consume(const WgParams& prm, const WgTile& tl,
+                                        uint8_t* smem, uint64_t* full,
+                                        uint64_t* empty, int steps, int slice,
+                                        float* __restrict__ partial) {
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int ti = tl.task;
+  const int n = prm.n[ti];
 
-  AccFrag acc[2][2], acc_b[2];
+  float acc[NT / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    wmma::fill_fragment(acc_b[i], 0.f);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
-  OnesFrag ones;
-  wmma::fill_fragment(ones, __float2bfloat16_rn(1.f));
-  ATFrag a[2];
-  GFrag g[2];
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
 
-  for (int p0 = p_begin; p0 < p_end; p0 += kBP) {
-    // Stage the step's [32, 64] tiles of A and G (zero past the edges).
-    for (int v = threadIdx.x; v < kBP * kBM / 8; v += blockDim.x) {
-      const int r = v / (kBM / 8), c = (v % (kBM / 8)) * 8, p = p0 + r;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u), vg = va;
-      if (p < p_end) {
-        if (m0 + c < t.k)
-          va = *reinterpret_cast<const uint4*>(t.a + (size_t)p * t.k + m0 + c);
-        if (n0 + c < t.n)
-          vg = *reinterpret_cast<const uint4*>(t.g + (size_t)p * t.n + n0 + c);
-      }
-      *reinterpret_cast<uint4*>(As + r * kLd + c) = va;
-      *reinterpret_cast<uint4*>(Gs + r * kLd + c) = vg;
-    }
-    __syncthreads();
+  // Bias columns 2t, 2t + 1 of the tile: 16-byte chunk `chunk` of a box
+  // row, swizzled by the row.
+  const bool bias = prm.bias[ti] && tl.m0 == 0 && c == 0 && 2 * t < NT;
+  const int bcol = 2 * t;
+  const int bbox = bcol / 64;
+  const int bchunk = (bcol % 64) / 8, bin = (bcol % 8) * 2;
+  float b0 = 0.f, b1 = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % kStages;
+    gmma::mbar_wait(&full[s], (i / kStages) & 1);
+    uint8_t* st = smem + s * kStageBytes;
+    const uint64_t da = gmma::desc_sw128(st + c * kBox, kBox, 1024);
+    const uint64_t db = gmma::desc_sw128(st + 2 * kBox, kBox, 1024);
+    gmma::fence_operands(acc);
+    gmma::fence();
 #pragma unroll
-    for (int kk = 0; kk < kBP; kk += 16) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (live_m[i]) wmma::load_matrix_sync(a[i], As + kk * kLd + wm + i * 16, kLd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (!live_n[j]) continue;
-        wmma::load_matrix_sync(g[j], Gs + kk * kLd + wn + j * 16, kLd);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if (live_m[i]) wmma::mma_sync(acc[i][j], a[i], g[j], acc[i][j]);
-        if (bias) wmma::mma_sync(acc_b[j], ones, g[j], acc_b[j]);
+    for (int k = 0; k < kStep / 16; ++k)
+      gmma::mma_m64k16<NT, 1, 1>(acc, da + (k * 2048 >> 4),
+                                 db + (k * 2048 >> 4));
+    gmma::commit();
+    gmma::fence_operands(acc);
+    if (bias) {
+      const uint8_t* box = st + (2 + bbox) * kBox;
+#pragma unroll 8
+      for (int r = 0; r < kStep; ++r) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+            box + r * 128 + ((bchunk ^ (r & 7)) << 4) + bin);
+        b0 += __low2float(v);
+        b1 += __high2float(v);
       }
     }
-    __syncthreads();
+    __syncwarp();
+    gmma::wait<1>();
+    gmma::fence_operands(acc);
+    if (i > 0 && lane == 0) gmma::mbar_arrive(&empty[(i - 1) % kStages]);
   }
+  gmma::wait<0>();
+  gmma::fence_operands(acc);
 
-  float* dst = partial + t.poff + (size_t)slice * t.k * t.n;
+  float* dst = partial + prm.poff[ti] + (size_t)slice * prm.k[ti] * n;
+  const int row = tl.m0 + 64 * c + 16 * warp + lane / 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      if (live_m[i] && live_n[j])
-        wmma::store_matrix_sync(dst + (size_t)(m0 + wm + i * 16) * t.n + n0 + wn + j * 16,
-                                acc[i][j], t.n, wmma::mem_row_major);
-  if (bias) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (!live_n[j]) continue;
-      // Every row of ones @ G is the column sum; keep row 0.
-      wmma::store_matrix_sync(scratch[warp], acc_b[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      if (lane < 16)
-        partial[t.bpoff + (size_t)slice * t.n + n0 + wn + j * 16 + lane] = scratch[warp][lane];
-      __syncwarp();
+  for (int j = 0; j < NT / 8; ++j) {
+    const int col = tl.n0 + 8 * j + 2 * (lane % 4);
+    if (col < n) {
+      *reinterpret_cast<float2*>(dst + (size_t)row * n + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(dst + (size_t)(row + 8) * n + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
+  if (bias && tl.n0 + bcol < n)
+    *reinterpret_cast<float2*>(partial + prm.bpoff[ti] + (size_t)slice * n +
+                               tl.n0 + bcol) = make_float2(b0, b1);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+wg_gemm_kernel(const __grid_constant__ WgParams prm,
+               float* __restrict__ partial) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  // The 128-byte swizzle repeats every 1024 bytes: align the ring to it.
+  uint8_t* smem =
+      smem_raw + ((1024 - (gmma::smem_addr(smem_raw) & 1023)) & 1023);
+
+  const int tile_i = blockIdx.x % prm.n_tiles;
+  const int slice = blockIdx.x / prm.n_tiles;
+  const WgTile tl = prm.tile[tile_i];
+  const int p_begin = slice * prm.chunk;
+  const int p_end = min(prm.P, p_begin + prm.chunk);
+  const int steps = (p_end - p_begin + kStep - 1) / kStep;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      gmma::mbar_init(&full[s], 1);
+      gmma::mbar_init(&empty[s], kConsumerWarps);
+    }
+    gmma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: one thread keeps the ring loading.
+    if (threadIdx.x != 0) return;
+    const CUtensorMap* ma = &prm.map[prm.a_map[tl.task]];
+    const CUtensorMap* mg = &prm.map[prm.g_map[tl.task]];
+    gmma::prefetch_tensormap(ma);
+    gmma::prefetch_tensormap(mg);
+    const int g_boxes = tl.nt / 64;
+    const uint32_t tx = (2 + g_boxes) * kBox;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % kStages;
+      gmma::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+      gmma::mbar_arrive_expect_tx(&full[s], tx);
+      uint8_t* st = smem + s * kStageBytes;
+      const int p = p_begin + i * kStep;
+      gmma::tma_load_2d(st, ma, &full[s], tl.m0, p);
+      gmma::tma_load_2d(st + kBox, ma, &full[s], tl.m0 + 64, p);
+      for (int b = 0; b < g_boxes; ++b)
+        gmma::tma_load_2d(st + (2 + b) * kBox, mg, &full[s], tl.n0 + 64 * b,
+                          p);
+    }
+    return;
+  }
+  if (tl.nt == 256)
+    consume<256>(prm, tl, smem, full, empty, steps, slice, partial);
+  else if (tl.nt == 128)
+    consume<128>(prm, tl, smem, full, empty, steps, slice, partial);
+  else
+    consume<64>(prm, tl, smem, full, empty, steps, slice, partial);
 }
 
 // Adds the slices' partial sums, in slice order, into the accumulators.
-__global__ void wg_reduce_kernel(const WgTable tab, const float* __restrict__ partial,
+__global__ void wg_reduce_kernel(const WgReduceTable tab,
+                                 const float* __restrict__ partial,
                                  int slices) {
   const WgTask t = tab.t[blockIdx.y];
   const int kn = t.k * t.n;
@@ -183,32 +258,126 @@ __global__ void wg_reduce_kernel(const WgTable tab, const float* __restrict__ pa
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a row-major bf16 [rows, cols] array in 64 x 64 boxes with the
+// 128-byte swizzle; reads past either edge return zeros.
+int encode_map(EncodeTiled fn, CUtensorMap* map, const bf16* base, int cols,
+               int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                 const_cast<bf16*>(base), dims, strides, box, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The operand arrays seen so far, one tensor map each.
+struct MapSet {
+  const bf16* base[kMaxMaps];
+  int cols[kMaxMaps];
+  int n = 0, err = 0;
+
+  // The index of the map of (base, cols), encoded on first sight; -1 when
+  // the set is full.
+  int of(EncodeTiled fn, WgParams& prm, const bf16* b, int c, int rows) {
+    for (int i = 0; i < n; ++i)
+      if (base[i] == b && cols[i] == c) return i;
+    if (n == kMaxMaps) return -1;
+    base[n] = b;
+    cols[n] = c;
+    const int e = encode_map(fn, &prm.map[n], b, c, rows);
+    if (e != 0) err = e;
+    return n++;
+  }
+};
+
 }  // namespace
 
-// tasks: n_tasks weight arrays (K, N multiples of 16, A [P, K] and G [P, N]
-// row-major bf16); partial: the float32 buffer the offsets index.
-KNT_EXPORT int knt_mlp_weight_grad(const WgTask* tasks, int n_tasks, int P,
-                                   int slices, float* partial, void* stream) {
+// tasks: n_tasks weight arrays (A [P, K] and G [P, N] row-major bf16, K a
+// multiple of 128, N of 16); tiles: the blocks of one slice
+// (weight_grad_plan); slices of `chunk` points (a multiple of 64) from 0;
+// partial: the float32 buffer the task offsets index. Returns 0, a
+// cudaError_t, or -CUresult when a tensor map cannot be encoded.
+KNT_EXPORT int knt_mlp_weight_grad(const WgTask* tasks, int n_tasks,
+                                   const WgTile* tiles, int n_tiles, int P,
+                                   int slices, int chunk, float* partial,
+                                   void* stream) {
   if (P <= 0 || n_tasks <= 0) return 0;
-  if (n_tasks > kMaxTasks || slices < 1) return (int)cudaErrorInvalidValue;
-  WgTable tab = {};
-  tab.n_tasks = n_tasks;
-  tab.P = P;
-  const int per_slice = (P + slices - 1) / slices;
-  tab.chunk = (per_slice + kBP - 1) / kBP * kBP;
-  int blocks = 0;
+  if (n_tasks > kMaxTasks || n_tiles < 1 || n_tiles > kMaxTiles ||
+      slices < 1 || chunk % kStep || (long long)chunk * slices < P ||
+      (long long)chunk * (slices - 1) >= P)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+
+  WgParams prm;  // copied into the launch's parameters
+  WgReduceTable red = {};
+  MapSet maps;
   for (int i = 0; i < n_tasks; ++i) {
     const WgTask& t = tasks[i];
-    if (t.k % 16 || t.n % 16 || t.n > t.ldo) return (int)cudaErrorInvalidValue;
-    tab.t[i] = t;
-    tab.block0[i] = blocks;
-    blocks += ((t.k + kBM - 1) / kBM) * ((t.n + kBN - 1) / kBN) * slices;
+    if (t.k % kTileK || t.n % 16 || t.n > t.ldo)
+      return (int)cudaErrorInvalidValue;
+    red.t[i] = t;
+    prm.k[i] = t.k;
+    prm.n[i] = t.n;
+    prm.poff[i] = t.poff;
+    prm.bpoff[i] = t.bpoff;
+    prm.bias[i] = t.bias_out != nullptr;
+    const int am = maps.of(fn, prm, t.a, t.k, P);
+    const int gm = maps.of(fn, prm, t.g, t.n, P);
+    if (am < 0 || gm < 0) return (int)cudaErrorInvalidValue;
+    prm.a_map[i] = am;
+    prm.g_map[i] = gm;
   }
-  tab.block0[n_tasks] = blocks;
+  if (maps.err != 0) return -maps.err;
+  for (int i = 0; i < n_tiles; ++i) {
+    const WgTile& tl = tiles[i];
+    if (tl.task < 0 || tl.task >= n_tasks || tl.m0 % kTileK ||
+        tl.m0 + kTileK > tasks[tl.task].k || tl.n0 % 64 || tl.n0 < 0 ||
+        tl.n0 >= tasks[tl.task].n ||
+        (tl.nt != 64 && tl.nt != 128 && tl.nt != 256))
+      return (int)cudaErrorInvalidValue;
+    prm.tile[i] = tl;
+  }
+  prm.n_tiles = n_tiles;
+  prm.P = P;
+  prm.chunk = chunk;
+
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wg_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
   const cudaStream_t st = (cudaStream_t)stream;
-  wg_gemm_kernel<<<blocks, 128, 0, st>>>(tab, partial);
+  wg_gemm_kernel<<<n_tiles * slices, kThreads, kSmemBytes, st>>>(prm, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  wg_reduce_kernel<<<dim3(64, n_tasks), 256, 0, st>>>(tab, partial, slices);
+  wg_reduce_kernel<<<dim3(64, n_tasks), 256, 0, st>>>(red, partial, slices);
   return (int)cudaGetLastError();
 }

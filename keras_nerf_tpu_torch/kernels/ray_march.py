@@ -825,7 +825,19 @@ class _WgTask(ctypes.Structure):
     ]
 
 
-MAX_WG_TASKS = 40  # csrc/mlp_weight_grad.cu: kMaxTasks
+class _WgTile(ctypes.Structure):
+    """Mirror of ``struct WgTile`` in csrc/mlp_weight_grad.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("task", "m0", "n0", "nt")]
+
+
+MAX_WG_TASKS = 40    # csrc/mlp_weight_grad.cu: kMaxTasks
+MAX_WG_TILES = 256   # csrc/mlp_weight_grad.cu: kMaxTiles
+WG_STEP = 64         # points per ring stage; slices start at its multiples
+WG_TILE_K = 128      # output rows per block (two warpgroups of 64)
+WG_SMS = 132         # the H100's SMs, a constant: the plan is one of shapes
+WG_WAVES = 2         # blocks per SM the slices aim at
+WG_MIN_STEPS = 16    # stages a slice holds at least
 
 
 def _stash_struct(stash: dict, points: int, units: int, n_layers: int,
@@ -1084,11 +1096,59 @@ def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None,
     return cots
 
 
-def weight_grad_slices(points: int) -> int:
-    """Slices of the point axis that ``mlp_weight_grad`` sums separately
-    (then adds in order): a function of the point count alone, so one
-    input always gives one result, bit for bit."""
-    return max(1, min(32, points // 8192))
+def _wg_n_tiles(n: int) -> list:
+    """``(n0, nt)`` of the N tiles of a task: 256-wide, then one of 128 or
+    64 for the rest (a 16-wide tail takes a 64 tile whose columns past
+    ``n`` are zeros)."""
+    tiles, n0 = [], 0
+    while n - n0 >= 256:
+        tiles.append((n0, 256))
+        n0 += 256
+    rest = n - n0
+    if rest > 128:
+        tiles.append((n0, 256))
+    elif rest > 64:
+        tiles.append((n0, 128))
+    elif rest > 0:
+        tiles.append((n0, 64))
+    return tiles
+
+
+def weight_grad_plan(shapes, points: int) -> dict:
+    """The blocks of the ``mlp_weight_grad`` kernel, a function of the
+    shapes alone (so one input always gives one result, bit for bit).
+
+    ``shapes``: ``(K, N, has_bias)`` per task, ``K`` a multiple of 128.
+    Returns ``tiles`` (``(task, m0, n0, nt)``: rows ``m0 .. m0 + 127`` and
+    columns ``n0 .. n0 + nt - 1`` below ``N``, the blocks of one slice, the
+    two row tiles of one N tile side by side), the point slices (``slices``
+    of ``chunk`` points, a multiple of :data:`WG_STEP`, from 0; ``bounds``
+    their ``[begin, end)``, only the last ending at ``points``), each
+    task's offsets into the float32 partial buffer (``poff``: ``slices x
+    [K, N]``; ``bpoff``: then ``slices x [N]`` where it has a bias) and the
+    buffer's size ``partial_floats``."""
+    tiles = []
+    for j, (k, n, _) in enumerate(shapes):
+        if k % WG_TILE_K or n % 16 or k <= 0 or n <= 0:
+            raise ValueError(f"mlp_weight_grad task {j}: K = {k} must be a "
+                             f"multiple of {WG_TILE_K} and N = {n} of 16")
+        for n0, nt in _wg_n_tiles(n):
+            tiles += [(j, m0, n0, nt) for m0 in range(0, k, WG_TILE_K)]
+    steps = max(1, -(-points // WG_STEP))
+    want = -(-WG_WAVES * WG_SMS // len(tiles))
+    slices = max(1, min(want, steps // WG_MIN_STEPS))
+    per = -(-steps // slices)
+    slices = -(-steps // per)
+    chunk = per * WG_STEP
+    poff, bpoff, off = [], [], 0
+    for k, n, bias in shapes:
+        poff.append(off)
+        bpoff.append(off + slices * k * n)
+        off += slices * (k * n + (n if bias else 0))
+    return {"tiles": tiles, "slices": slices, "chunk": chunk,
+            "bounds": [(s * chunk, min(points, (s + 1) * chunk))
+                       for s in range(slices)],
+            "poff": poff, "bpoff": bpoff, "partial_floats": off}
 
 
 def _mlp_weight_grad_cuda(stash, cots, grads):
@@ -1101,16 +1161,22 @@ def _mlp_weight_grad_cuda(stash, cots, grads):
                          f"weight arrays (got {len(tasks)})")
     dev = stash["enc"].device
     p = stash["enc"].shape[0]
-    slices = weight_grad_slices(p)
     bf16, f32 = torch.bfloat16, torch.float32
+    for j, (a, g, out, _) in enumerate(tasks):
+        if out.shape[0] != a.shape[1] or out.shape[1] < g.shape[1]:
+            raise ValueError(f"mlp_weight_grad task {j}: A [P, {a.shape[1]}]"
+                             f", G [P, {g.shape[1]}] and out "
+                             f"{tuple(out.shape)} do not fit [K, >= N]")
+    plan = weight_grad_plan([(a.shape[1], g.shape[1], bias is not None)
+                             for a, g, _, bias in tasks], p)
+    if len(plan["tiles"]) > MAX_WG_TILES:
+        raise ValueError(f"mlp_weight_grad takes at most {MAX_WG_TILES} "
+                         f"tiles (got {len(plan['tiles'])})")
+    if plan["partial_floats"] >= 2 ** 31:
+        raise ValueError("mlp_weight_grad: partial sums exceed 2^31 floats")
     table = (_WgTask * len(tasks))()
-    off = 0
     for j, (a, g, out, bias) in enumerate(tasks):
         k, n = a.shape[1], g.shape[1]
-        if k % 16 or n % 16 or out.shape[0] != k or out.shape[1] < n:
-            raise ValueError(f"mlp_weight_grad task {j}: A [P, {k}], G "
-                             f"[P, {n}] and out {tuple(out.shape)} do not "
-                             f"fit [K, >= N] with K, N multiples of 16")
         t = table[j]
         t.a = _check(a, f"A[{j}]", bf16, dev, (p, k))
         t.g = _check(g, f"G[{j}]", bf16, dev, (p, n))
@@ -1119,15 +1185,18 @@ def _mlp_weight_grad_cuda(stash, cots, grads):
                       _check(bias, f"bias_out[{j}]", f32, dev,
                              (1, out.shape[1])))
         t.k, t.n, t.ldo = k, n, out.shape[1]
-        t.poff, t.bpoff = off, off + slices * k * n
-        off += slices * (k * n + (n if bias is not None else 0))
-    if off >= 2 ** 31:
-        raise ValueError("mlp_weight_grad: partial sums exceed 2^31 floats")
-    partial = torch.empty((off,), dtype=f32, device=dev)
+        t.poff, t.bpoff = plan["poff"][j], plan["bpoff"][j]
+    tiles = (_WgTile * len(plan["tiles"]))(*plan["tiles"])
+    partial = torch.empty((plan["partial_floats"],), dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        _raise_on(lib.knt_mlp_weight_grad(
-            ctypes.addressof(table), len(tasks), p, slices,
-            partial.data_ptr(), _stream(dev)), "mlp_weight_grad")
+        err = lib.knt_mlp_weight_grad(
+            ctypes.addressof(table), len(tasks), ctypes.addressof(tiles),
+            len(tiles), p, plan["slices"], plan["chunk"], partial.data_ptr(),
+            _stream(dev))
+    if err < 0:
+        raise RuntimeError(f"mlp_weight_grad: cuTensorMapEncodeTiled "
+                           f"failed (CUresult {-err})")
+    _raise_on(err, "mlp_weight_grad")
     return grads
 
 

@@ -246,6 +246,10 @@ def test_mlp_weight_grad_matches_plain_and_repeats_bit_for_bit(
         cuda_device, n_layers=n_layers, skip=skip)
     stash, _, _, cots = _plain_chain(cfg, packed, base, slope, t, masks,
                                      target)
+    _assert_weight_grad_matches_plain_twice(packed, stash, cots)
+
+
+def _assert_weight_grad_matches_plain_twice(packed, stash, cots):
     want = trm.mlp_weight_grad_plain(stash, cots, trm.zero_grads(packed))
     runs = [trm.mlp_weight_grad(stash, cots, trm.zero_grads(packed))
             for _ in range(2)]
@@ -256,6 +260,56 @@ def test_mlp_weight_grad_matches_plain_and_repeats_bit_for_bit(
         diff = got - ref
         assert float(diff.norm() / ref.norm().clamp_min(1e-30)) <= 1e-3
         assert _rel_max(got, ref) <= 1e-2
+
+
+def _wg_edge_points(units):
+    """A point count that splits into more than one slice and ends 17
+    points past a stage boundary, inside the last slice."""
+    points = 64 * 400 + 17
+    plan = trm.weight_grad_plan(_wg_shapes(units), points)
+    assert plan["slices"] > 1 and plan["bounds"][-1][1] == points
+    return points
+
+
+def _wg_inputs(device, points, units, seed=0):
+    """Random bf16 stash and cotangents, zero where the training kernels
+    write zeros (d_sf past column u, d_rgb past column 2)."""
+    cfg = NeRFConfig(dense_units=units)
+    g = torch.Generator(device=device).manual_seed(seed)
+    packed = trm.pack_mlp_params(init_mlp(g, cfg.mlp, cfg.in_xyz,
+                                          cfg.in_dir), cfg.mlp, 10, 4)
+    stash = trm.alloc_stash(points, units, cfg.n_layers, device)
+    cots = trm.alloc_cotangents(points, units, cfg.n_layers, device)
+    for v in [stash["enc"], *stash["h"], stash["features"], stash["rf"],
+              cots["d_rf"], cots["d_sf"], *cots["d_pre"]]:
+        v.copy_(torch.randn(v.shape, generator=g, device=device))
+    cots["d_sf"][:, units + 1:] = 0
+    cots["d_rgb"] = torch.zeros((points, trm.D_HEAD), dtype=torch.bfloat16,
+                                device=device)
+    cots["d_rgb"][:, :3] = torch.randn((points, 3), generator=g,
+                                       device=device)
+    return packed, stash, cots
+
+
+def _wg_shapes(units):
+    packed, stash, cots = _wg_inputs(torch.device("cpu"), 1, units)
+    return [(a.shape[1], g.shape[1], b is not None) for a, g, _, b in
+            trm.weight_grad_tasks(stash, cots, trm.zero_grads(packed))]
+
+
+@pytest.mark.parametrize("case", ["empty", "ragged_below_one_stage",
+                                  "slices_plus_17", "units_512"])
+def test_mlp_weight_grad_matches_plain_at_edge_shapes(cuda_device, case):
+    """No points; fewer points than one 64-point stage (not a multiple of
+    64); more than one slice, ending 17 points past a stage; and u =
+    512, where d_sf is 528 wide (two 256 tiles and a 16-wide tail). Each
+    is held as above and run twice with identical bits."""
+    units = 512 if case == "units_512" else 256
+    points = {"empty": 0, "ragged_below_one_stage": 50,
+              "slices_plus_17": _wg_edge_points(256),
+              "units_512": 4096 + 1}[case]
+    _assert_weight_grad_matches_plain_twice(
+        *_wg_inputs(cuda_device, points, units))
 
 
 def test_default_train_step_runs_through_the_kernels(cuda_device):

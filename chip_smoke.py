@@ -20,9 +20,10 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   (T5, with and without its stash), the output-head mode of
   ``mlp_backward`` and ``fused_mlp_backward`` (T6) against their plain
   versions at the same chunks, trains 20 steps through ``NeRF.fit``, takes
-  one step at 16384-ray chunks, holds a step with the MSE as a callable
-  (T5/T6) against the fused MSE step (T3), and the card's L1 step against
-  the CPU's;
+  one step at 16384-ray chunks, holds the MSE as a callable (T5/T6)
+  against the fused MSE (T3) on the same points, pass by pass over a 16^2
+  step's chunks with the fine depths drawn once, and the card's L1 step
+  against the CPU's;
 * the int8 render tier (``compile(quantized_render=True)``): calibrates the
   fog weights through ``quantize_render_params``, holds
   ``ray_march_mlp_int8`` (T4) against its plain version in both modes at
@@ -44,10 +45,11 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
 
 Each path's launch counts are read just after it runs. Then every kernel
 and its plain version is timed with CUDA events (``mlp_weight_grad`` also
-beside its cuBLAS yardstick, one product per weight array; the card's SM
-clock, power and temperature sampled before and after), and the five model
-paths
-(the occupancy render among them) are profiled with ``torch.profiler``:
+beside its cuBLAS yardstick, one product per weight array, and
+``mlp_backward`` beside the PyTorch chain, one bf16 matmul per layer; the
+card's SM clock, power and temperature sampled before and after), and the
+five model paths (the occupancy render among them) are profiled with
+``torch.profiler``:
 device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
@@ -474,7 +476,8 @@ def main() -> int:
     _big_chunk_step(tnerf, dataset, card_tag, l1_loss)
 
     # 16^2 steps from the trained weights: the card against the CPU on
-    # both paths, and T5/T6 against T3 on the same MSE.
+    # both paths, and T5/T6 against T3 on the same MSE and the same fine
+    # depths.
     small = _small_step_inputs(gen)
     _compare_steps(f"train step {E2E_IMG}^2, card kernels vs CPU plain "
                    f"versions", tnerf.state, small, cfg,
@@ -482,12 +485,6 @@ def main() -> int:
     _compare_steps(f"l1 train step {E2E_IMG}^2, card kernels vs CPU plain "
                    f"versions", tnerf.state, small, cfg,
                    ("cuda", l1_loss), ("cpu", l1_loss))
-    # The two paths sample their fine depths from their own coarse
-    # weights, which differ by the kernels' rounding; each pass on the
-    # same points follows.
-    _compare_steps(f"mse step {E2E_IMG}^2 on the card, as a callable "
-                   f"(T5/T6) vs mse_loss (T3)", tnerf.state, small, cfg,
-                   ("cuda", mse_callable), ("cuda", None))
     _compare_passes(tnerf.state, small, cfg)
 
     # ---- 7. times ---------------------------------------------------------
@@ -535,6 +532,7 @@ def main() -> int:
     totals = {"render": {}, "train": {}, "custom": {}, "quantized": {},
               "probe": {}, "occupancy": {}, "bake": {}, "merge_partner": {}}
     library = {path: {} for path in totals}   # ms per unit, where timed
+    chain = {path: {} for path in totals}     # the PyTorch chain, likewise
     timed = []   # (kernel, path, mode, launches per unit, ms, plain, bound)
     clocks = [_gpu_clocks("before the kernel timings")]
     for k, path, mode, call, count, (bms, by), *design in modes:
@@ -542,17 +540,22 @@ def main() -> int:
         paced = _time_ms(lambda: call(k), 20, spin=False)
         pms = _time_ms(lambda: call(k.plain), 3)
         dms = 1e3 * design[0] / PEAK_BYTES if design else 0.0
-        lms = _time_ms(design[1], 20) if len(design) > 1 else None
+        lms = (_time_ms(design[1], 20) if len(design) > 1 and design[1]
+               else None)
+        cms = _time_ms(design[2], 20) if len(design) > 2 else None
         log(f"time {k.name} {mode}: {kms:.4f} ms/launch kernel "
             f"({paced:.4f} paced by the host's launches), {pms:.3f} "
             f"ms/launch plain, bound {bms:.4f} ms/launch ({by}), "
             f"{kms / bms:.1f}x bound"
             + (f", the design's bytes {dms:.4f} ms/launch" if design else "")
             + (f", library (cuBLAS) {lms:.4f} ms/launch" if lms else "")
+            + (f", PyTorch chain {cms:.4f} ms/launch" if cms else "")
             + f", {count} launches per {_UNIT[path]} {card_tag}")
         if lms is not None:
             library[path][k.name] = (library[path].get(k.name, 0.0)
                                      + count * lms)
+        if cms is not None:
+            chain[path][k.name] = chain[path].get(k.name, 0.0) + count * cms
         timed.append((k, path, mode, count, kms, pms, bms))
         tot = totals[path].setdefault(k.name, [0.0, 0.0, 0.0, {}, None])
         tot[0] += count * kms
@@ -609,10 +612,12 @@ def main() -> int:
             kms, pms, bms, by, dms = totals[path][k.name]
             unit = f"ms/{_UNIT[path]}"
             lms = library[path].get(k.name)
+            cms = chain[path].get(k.name)
             log(f"time {k.name}: {kms:.4f} {unit} kernel, {pms:.3f} {unit} "
                 f"plain, bound {bms:.4f} {unit} ({_by(by)})"
                 + (f", the design's bytes {dms:.4f} {unit}" if dms else "")
                 + (f", library (cuBLAS) {lms:.4f} {unit}" if lms else "")
+                + (f", PyTorch chain {cms:.4f} {unit}" if cms else "")
                 + f" {card_tag}")
         # The numbers of the MSE step where the kernel runs there, else of
         # the first other path it runs on.
@@ -630,6 +635,7 @@ def main() -> int:
                           "train": TRAIN_TOL.get(k.name)},
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": _by(by),
             "library_ms": library[path].get(k.name),
+            "pytorch_chain_ms": chain[path].get(k.name),
             "design_bytes_ms": dms,
             "per": per[path]
                    + f"; launches over {n_steps} steps of each train path, "
@@ -641,6 +647,7 @@ def main() -> int:
                 "launches": custom_launches[k.name], "ms": kms,
                 "plain_ms": pms, "bound_ms": bms, "bound_by": _by(by),
                 "library_ms": library["custom"].get(k.name),
+                "pytorch_chain_ms": chain["custom"].get(k.name),
                 "design_bytes_ms": dms,
                 "per": f"{step_per}, loss l1 (custom)"}
         if k.name in totals["render"]:
@@ -1298,53 +1305,70 @@ def _within_step_tol(worst) -> bool:
 
 
 def _compare_passes(state, small, cfg):
-    """Each pass of the first 16^2 chunk on the same points through both
-    training paths on the card: ``fused_train_chunk`` (T3) against
+    """The 16^2 MSE step's passes on the same points through both training
+    paths on the card, chunk by chunk: ``fused_train_chunk`` (T3) against
     autograd of the MSE through ``render_chunk``'s kernel branch (T5/T6)
     and ``render_rays``; the coarse pass on its stratified depths, the fine
-    pass on the depths that ``sample_merge`` draws from T3's coarse
-    weights. Loss and every gradient leaf held at ``STEP_TOL`` (the
-    budgets of test_pallas_kernel.py:308-349, which compares T3 with
-    autodiff on shared points)."""
-    import torch
-
+    pass of both paths on the depths that ``sample_merge`` draws from T3's
+    coarse weights. Per model, the loss (the mean of the chunk losses, as
+    ``train_step`` takes it) and every gradient leaf summed over the chunks
+    held at ``STEP_TOL`` (the budgets of test_pallas_kernel.py:308-349,
+    which compares T3 with autodiff on shared points). A step in which each
+    path draws its fine depths from its own coarse weights compares two
+    draws, and its reading moves with the trained state (ROADMAP C8)."""
     from keras_nerf_tpu_torch.kernels import ray_march as trm
     from keras_nerf_tpu_torch.models import engine
 
     (images, (origin, direction, points)), draws = small
     n = E2E_CHUNK
-    o = origin.reshape(-1, 3)[:n].contiguous()
-    d = direction.reshape(-1, 3)[:n].contiguous()
-    tc = points.reshape(-1, N_COARSE)[:n].contiguous()
-    target = images[..., :3].reshape(-1, 3)[:n].contiguous()
     enc = (cfg.pos_emb_xyz, cfg.pos_emb_dir)
     kw = dict(pos_emb_xyz=cfg.pos_emb_xyz, pos_emb_dir=cfg.pos_emb_dir,
               white_background=cfg.white_background)
-    packed_c = trm.pack_mlp_params(state.coarse_params, cfg.mlp, *enc)
-    weights_c = trm.fused_render_chunk(packed_c, o, d, tc, **kw)[2]
-    tf = trm.sample_merge(tc, weights_c, draws[0], tc)
-    for name, params, t in (("coarse", state.coarse_params, tc),
-                            ("fine", state.fine_params, tf)):
-        packed = trm.pack_mlp_params(params, cfg.mlp, *enc)
-        image3, _, _, g3 = trm.fused_train_chunk(packed, o, d, t, target,
-                                                 **kw)
-        g3 = trm.unpack_grads(g3, cfg.mlp, *enc)
-        leaves = engine.tree_map(
-            lambda x: x.detach().clone().requires_grad_(True), params)
-        out, _ = engine.render_chunk(leaves, o, d, t, cfg)
-        loss = mse_callable(target, out.image)
-        loss.backward()
-        loss3 = float(engine.mse_loss(target, image3))
-        loss_err = abs(float(loss.detach()) - loss3) / loss3
-        worst = _worst_leaf(zip(
-            engine.tree_leaves(engine.tree_map(lambda x: x.grad, leaves)),
-            engine.tree_leaves(engine.tree_map(lambda g, x: g, g3, leaves))))
-        log(f"{name} pass [{n} x {t.shape[1]}] on the same points, MSE "
-            f"through T5/T6 vs T3 on the card: loss relative err "
-            f"{loss_err:.3e} (tolerance {STEP_TOL['loss_rtol']}), worst "
-            f"leaf gradient relative norm {worst[0]:.3e} / max "
-            f"{worst[1]:.3e} (tolerance {STEP_TOL['grad_rel_norm']} / "
-            f"{STEP_TOL['grad_rel_max']})")
+    models = {"coarse": state.coarse_params, "fine": state.fine_params}
+    packed = {m: trm.pack_mlp_params(p, cfg.mlp, *enc)
+              for m, p in models.items()}
+    # Per model: losses and summed gradient leaves of (T5/T6, T3).
+    sums = {m: [0.0, 0.0, None, None] for m in models}
+    for c, draw in enumerate(draws):
+        rows = slice(c * n, (c + 1) * n)
+        o = origin.reshape(-1, 3)[rows].contiguous()
+        d = direction.reshape(-1, 3)[rows].contiguous()
+        tc = points.reshape(-1, N_COARSE)[rows].contiguous()
+        target = images[..., :3].reshape(-1, 3)[rows].contiguous()
+        weights_c = trm.fused_render_chunk(packed["coarse"], o, d, tc, **kw)[2]
+        tf = trm.sample_merge(tc, weights_c, draw, tc)
+        for name, t in (("coarse", tc), ("fine", tf)):
+            image3, _, _, g3 = trm.fused_train_chunk(packed[name], o, d, t,
+                                                     target, **kw)
+            g3 = trm.unpack_grads(g3, cfg.mlp, *enc)
+            leaves = engine.tree_map(
+                lambda x: x.detach().clone().requires_grad_(True),
+                models[name])
+            out, _ = engine.render_chunk(leaves, o, d, t, cfg)
+            loss = mse_callable(target, out.image)
+            loss.backward()
+            got = [x.grad.double() for x in engine.tree_leaves(leaves)]
+            ref = [x.double() for x in engine.tree_leaves(
+                engine.tree_map(lambda g, x: g, g3, leaves))]
+            acc = sums[name]
+            acc[0] += float(loss.detach()) / len(draws)
+            acc[1] += float(engine.mse_loss(target, image3)) / len(draws)
+            acc[2] = got if acc[2] is None else [
+                a + b for a, b in zip(acc[2], got)]
+            acc[3] = ref if acc[3] is None else [
+                a + b for a, b in zip(acc[3], ref)]
+    for name, (loss_t, loss3, got, ref) in sums.items():
+        loss_err = abs(loss_t - loss3) / loss3
+        worst = _worst_leaf(zip(got, ref))
+        log(f"{name} pass, {len(draws)} chunks of {n} rays x "
+            f"{N_COARSE if name == 'coarse' else N_COARSE + N_FINE} on the "
+            f"same points, MSE through T5/T6 vs T3 on the card: loss "
+            f"relative err {loss_err:.3e} (tolerance "
+            f"{STEP_TOL['loss_rtol']}), worst leaf gradient (summed over the "
+            f"chunks) relative norm {worst[0]:.3e} / max {worst[1]:.3e} "
+            f"(tolerance {STEP_TOL['grad_rel_norm']} / "
+            f"{STEP_TOL['grad_rel_max']}); losses {loss_t:.5f} vs "
+            f"{loss3:.5f}")
         if not (loss_err <= STEP_TOL["loss_rtol"] and _within_step_tol(worst)):
             fail(f"the {name} pass through T5/T6 disagrees with T3")
 
@@ -1363,8 +1387,12 @@ def _train_modes(ti: dict, cfg) -> list:
     cotangent) come apart as the 7th item: the design's own cost;
     ``mlp_weight_grad``'s also counts its float32 partial sums (written and
     read once), and its 8th item is its cuBLAS yardstick
-    (:func:`_weight_grad_library`)."""
+    (:func:`_weight_grad_library`). ``mlp_backward`` has no one-call
+    library equivalent; its 9th item is the PyTorch chain of its function
+    (``time_mlp_backward.pytorch_chain``: one bf16 matmul per layer,
+    ``torch.where`` masks), reported apart from library times."""
     from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.time_mlp_backward import pytorch_chain
     from keras_nerf_tpu_torch.models.engine import tree_leaves
 
     packed = ti["packed"]
@@ -1411,7 +1439,8 @@ def _train_modes(ti: dict, cfg) -> list:
                                          p["stash"], cots),
              per_step, _bound(weight_bytes + pts * head_b, pts * dx,
                               PEAK_BF16_FLOPS),
-             weight_bytes + pts * (head_pad_b + 2 * n * u + cots_b)),
+             weight_bytes + pts * (head_pad_b + 2 * n * u + cots_b), None,
+             pytorch_chain(p["quad"][3], p["quad"][4], packed, p["stash"])),
             (trm.mlp_weight_grad, "train", f"{name} {shape}",
              lambda f, p=p, acc=acc: f(p["stash"], p["cots"], acc),
              per_step, _bound(grad_bytes, pts * fwd, PEAK_BF16_FLOPS),
@@ -1431,9 +1460,10 @@ def _custom_modes(ti: dict, cfg) -> list:
     (``mlp_weight_grad``), at the bf16 peak, against each function's own
     inputs and outputs; the stash and cotangents the split moves (and
     ``mlp_weight_grad``'s partial sums) come apart as the design's bytes,
-    and ``mlp_weight_grad`` has its cuBLAS yardstick as in
-    :func:`_train_modes`."""
+    and ``mlp_weight_grad`` has its cuBLAS yardstick and ``mlp_backward``
+    its PyTorch chain as in :func:`_train_modes`."""
     from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.time_mlp_backward import pytorch_chain
     from keras_nerf_tpu_torch.models.engine import tree_leaves
 
     packed = ti["packed"]
@@ -1470,7 +1500,9 @@ def _custom_modes(ti: dict, cfg) -> list:
              per_step, _bound(weight_bytes + pts * head_b, pts * dx,
                               PEAK_BF16_FLOPS),
              weight_bytes + pts * (head_b + 2 * n * u + cots_b
-                                   + 2 * trm.D_HEAD)),
+                                   + 2 * trm.D_HEAD), None,
+             pytorch_chain(p["g"], p["y"], packed, p["t6_stash"],
+                           from_output=True)),
             (trm.mlp_weight_grad, "custom", f"{name} {shape}",
              lambda f, p=p, acc=acc: f(p["t6_stash"], p["t6_cots"], acc),
              per_step, _bound(grad_bytes, pts * fwd, PEAK_BF16_FLOPS),

@@ -4,9 +4,12 @@
 // * mbarrier: init, arrive, arrive with an expected transaction count, and
 //   a parity wait;
 // * TMA: a 2-D tile load that completes on an mbarrier;
-// * wgmma: fence, commit, wait, the shared-memory matrix descriptor of the
-//   128-byte swizzle, and m64nNk16 bf16 x bf16 -> f32 products (N = 64,
-//   128, 256) with both operands in shared memory.
+// * wgmma: fence, commit, wait, the shared-memory matrix descriptors of the
+//   128-byte swizzle (MN-major and K-major), and m64nNk16 bf16 x bf16 -> f32
+//   products (N = 64, 128, 256) with both operands in shared memory;
+// * the proxy fence and the named barrier that hand a tile written by
+//   threads to wgmma, and setmaxnreg;
+// * on the host, the tensor map of a row-major bf16 array in swizzled boxes.
 //
 // Layouts. A TMA box whose inner extent is 128 bytes (64 bf16), loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte aligned buffer, is the
@@ -16,10 +19,17 @@
 // N) and its rows are the reduction dimension K: a 64 x 8 atom is 1024
 // bytes, the stride between groups of 8 K rows (SBO) is 1024 bytes, the
 // stride between 64-wide atoms along M or N (LBO) is whatever separates two
-// boxes, and one k16 step advances the start address by 2048 bytes.
+// boxes, and one k16 step advances the start address by 2048 bytes. Read
+// as a K-major operand (transpose flag 0), the box's inner dimension is K
+// and its rows are M (or N): an 8-row atom is 1024 bytes, SBO is 1024 bytes
+// between groups of 8 rows, LBO is not used (the 128-byte row holds four
+// k16 steps), and one k16 step advances the start address by 32 bytes
+// inside the row; the hardware applies the swizzle to the address, so the
+// box itself must start on a 1024-byte boundary.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <cstdint>
 
 namespace gmma {
@@ -132,6 +142,25 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          (1ull << 62);
 }
 
+// Descriptor of a K-major operand whose 64-wide K box starts at p (1024-byte
+// aligned): rows 128 bytes apart, SBO 1024 bytes, LBO 16 bytes (unused), as
+// CUTLASS sets it. Adding k * 32 >> 4 = 2 k moves the start by k16 steps.
+__device__ __forceinline__ uint64_t desc_sw128_kmajor(const void* p) {
+  return desc_sw128(p, 16, 1024);
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma, TMA) once the threads that read them have met.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // D[64 x N] += A[64 x 16] B[16 x N], bf16 operands from shared memory, f32
 // accumulators in registers. TransA / TransB: 0 K-major, 1 MN-major.
 // Thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8 for
@@ -220,6 +249,61 @@ __device__ __forceinline__ void mma_m64k16(float (&d)[N / 2], uint64_t desc_a,
   } else {
     mma_m64n256k16<TransA, TransB>(d, desc_a, desc_b);
   }
+}
+
+// ---- registers ---------------------------------------------------------------
+
+// Moves registers between warpgroups of a warp-specialised kernel: every
+// thread of the warpgroup executes it, in a branch the compiler can see
+// is taken by whole warpgroups; N is a multiple of 8 in [24, 256].
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda); null
+// when the driver has none.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a row-major bf16 [rows, cols] array in boxes of 64 columns
+// (128 bytes) x box_rows rows with the 128-byte swizzle; reads past either
+// edge return zeros. Returns the CUresult.
+inline int encode_map(EncodeTiled fn, CUtensorMap* map, const void* base,
+                      int cols, int rows, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                 const_cast<void*>(base), dims, strides, box, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace gmma

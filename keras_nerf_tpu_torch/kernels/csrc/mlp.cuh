@@ -1,6 +1,8 @@
-// The MLP's packed weights, its kept activations, and the tensor-core
-// helpers that ray_march_mlp.cu (forward) and mlp_backward.cu (dX chain)
-// share. Products are nvcuda::wmma 16x16x16 bf16 -> float32 fragments.
+// The MLP's packed weights and its kept activations, which the forward
+// (ray_march_mlp.cu) and the dX chain (mlp_backward.cu) share, and the
+// tensor-core helpers of the forward and the ceiling probe (mma_ceiling.cu):
+// nvcuda::wmma 16x16x16 bf16 -> float32 fragments. mlp_backward.cu runs on
+// wgmma (gmma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,8 +52,6 @@ using AFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
                                      nvcuda::wmma::row_major>;
 using BFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
                                      nvcuda::wmma::row_major>;
-using BFragT = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                      nvcuda::wmma::col_major>;
 
 // acc[m][f] += A[m*16.., 0..K) @ W[0..K, n0 + f*16..]; A in shared memory
 // (all 64 rows of a point tile), W row-major [K, ldw] in global memory.
@@ -68,28 +68,6 @@ __device__ __forceinline__ void mma_rows(AccFrag (&acc)[4][NF], const bf16* A,
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
       nvcuda::wmma::load_matrix_sync(b, W + (size_t)k0 * ldw + n0 + f * 16, ldw);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) nvcuda::wmma::mma_sync(acc[m][f], a[m], b, acc[m][f]);
-    }
-  }
-}
-
-// acc[m][f] += A[m*16.., 0..K) @ W^T[0..K, n0 + f*16..] with W row-major
-// [N, ldw] in global memory: the dX products of the backward, which
-// contract a cotangent with the forward weight's fan_out axis.
-template <int NF>
-__device__ __forceinline__ void mma_rows_t(AccFrag (&acc)[4][NF], const bf16* A,
-                                           int lda, const bf16* W, int ldw,
-                                           int K, int n0) {
-  AFrag a[4];
-  BFragT b;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      nvcuda::wmma::load_matrix_sync(a[m], A + m * 16 * lda + k0, lda);
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      nvcuda::wmma::load_matrix_sync(b, W + (size_t)(n0 + f * 16) * ldw + k0, ldw);
 #pragma unroll
       for (int m = 0; m < 4; ++m) nvcuda::wmma::mma_sync(acc[m][f], a[m], b, acc[m][f]);
     }

@@ -6,7 +6,7 @@
 // ray_march_quadrature's with_grad mode writes (d_rgb_pre in columns 0..2
 // of a [P, 16] bf16 array, d_sigma_pre [P] bf16) it walks the heads and
 // then the trunk in reverse:
-//   d_rf       = bf16(d_rgb_pre @ w_rgb^T)
+//   d_rf       = bf16(d_rgb_pre @ w_rgb[:, :16]^T)
 //   d_features = bf16(d_rf @ w_rf_top^T)
 //   d_h        = [d_features | d_sigma_pre] @ w_sf[:, :u + 16]^T   (float32)
 //   for each trunk layer i, last first:
@@ -27,23 +27,59 @@
 // in the prologue, writes d_rgb_pre as [P, 16] for mlp_weight_grad and runs
 // the same chain. 34 B more per point than the quadrature mode reads.
 //
-// Bound on the H100: bytes, as this kernel's inputs and outputs stand. Per
-// point at 8 x 256 it reads 34 B of head cotangents and 4 KB of kept trunk
-// activations and writes 4.9 KB of cotangents (2.7 ns at 3.35 TB/s) against
-// 1,115,392 FLOP (1.1 ns at 989 TFLOP/s). The whole of T3 is bound by
-// operations (3.49 MFLOP per point); the stash and the cotangents in device
-// memory are the price of splitting it over kernels (PERF.md).
+// Bound on the H100: bytes. Per point at 8 x 256 it reads 34 B of head
+// cotangents and 4 KB of kept trunk activations and writes 4.9 KB of
+// cotangents (2.7 ns at 3.35 TB/s) against 1,115,392 FLOP (1.1 ns at 989
+// TFLOP/s). The whole of T3 is bound by operations (3.49 MFLOP per point);
+// the stash and the cotangents in device memory are the price of splitting
+// it over kernels (PERF.md).
 //
-// Design (a first, plain tensor-core version, the forward kernel's): one
-// block of 8 warps per 64 points. The cotangent tiles live in shared
-// memory (d_sf, then two ping-pong d_pre tiles, one of them in d_sf's
-// place once the heads are done: 96 KB, 2 blocks per SM); the weights stay
-// in global memory and are read as column-major wmma B fragments, so W^T is
-// never formed. Each warp owns 64 x 32 output blocks; each finished tile
-// is copied to device memory 16 bytes per thread.
+// Design: every product is A[points, K] . W^T, with the cotangent tile A
+// and the weight W ([N = fan_in, K = fan_out] row-major, as packed) both
+// K-major: the plain "TN" case of wgmma (transpose flags 0), with nothing
+// transposed anywhere.
+// * A block owns a tile of points: 128 at u = 256, where each of the two
+//   consumer warpgroups takes 64 rows and every column; 64 at u = 512,
+//   where both take the 64 rows and each half of the columns. Either way a
+//   warpgroup holds at most 64 x 256 float32 accumulators (m64n256k16, 128
+//   registers a thread, of the 232 that setmaxnreg gives the consumers from
+//   the producer warpgroup; the d_rf layer m64n128k16). The plan of tiles
+//   and shared memory is mirrored in Python (kernels/ray_march.py:
+//   mlp_backward_plan), which refuses other widths before any launch.
+// * The chain stays on chip. The A tile (tile x u bf16, 64 KB) holds the
+//   current cotangent in the 128-byte swizzled K-major layout: 64-column
+//   boxes of [tile x 128 B]. Once a layer's products have retired (wgmma
+//   wait 0, then a barrier over both consumer warpgroups), its bf16 output
+//   is written over the tile in the same layout and becomes the next
+//   layer's A. The first A is the [tile x 16] head cotangent in box 0,
+//   written by the consumers in the prologue.
+// * Weights stream through a ring of 3 stages of 32 KB: one TMA box of
+//   [64 K x up to 256 rows of W] each, full/empty mbarriers, one producer
+//   thread, in the order the layers use them (k-slab, then the 256-row
+//   part of W at u = 512, which only the warpgroup owning those columns
+//   multiplies; the other releases the stage at once). Consumers release a
+//   stage once the product group after it has been issued, so one group of
+//   products and the loads of up to two stages are in flight behind it.
+//   The weights are the same for every block and stay resident in L2.
+// * The sigma column of w_sf (K = u + 16, of which one column is not
+//   zero) is not a product: d_sigma_pre[p] w_sf[c, u] is added in float32
+//   in the d_h epilogue, before the mask. K stays a multiple of 64.
+// * Masks from shared memory: the producer TMA-loads the block's h_{i-1}
+//   tile (64 KB, the same swizzled layout, zeros past P) while layer i's
+//   products run, once the previous epilogue has released the buffer; the
+//   epilogue reads each accumulator's (row, column) pair from it. Nothing in
+//   an epilogue reads device memory.
+// * Shared memory: A 64 KB + mask 64 KB + ring 96 KB + d_sigma and the
+//   sigma column of w_sf + 1 KB of alignment = 226.1 / 226.3 KB (u = 256 /
+//   512), one block per SM; the 256-thread copy-out of each finished tile
+//   is 16-byte stores from the swizzled tile, no row past P.
+// * No atomics and a fixed k order: two runs give identical bits. A ring
+//   fault traps (gmma::mbar_wait) instead of holding the card.
+#include <cuda.h>
+
+#include "gmma.cuh"
 #include "mlp.cuh"
 
-using namespace nvcuda;
 using namespace knt;
 
 // Device pointers of the cotangent arrays; mirrored in kernels/ray_march.py.
@@ -55,167 +91,369 @@ struct MlpCotangents {
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kWarps = 8;
-constexpr int kHead = 16;  // head cotangent columns
+constexpr int kHead = 16;                 // head cotangent columns
+constexpr int kStages = 3;
+constexpr int kBoxRows = 256;             // most rows of W in one stage
+constexpr int kStageBytes = 128 * kBoxRows;
+constexpr int kTileElems = 128 * 256;     // points x u of the A and mask tiles
+constexpr int kConsumers = 256;           // two warpgroups
+constexpr int kThreads = 128 + kConsumers;
+constexpr int kFullBar = 1;               // named barrier of the consumers
 
-// out[:, n0..) = bf16(acc), or bf16(acc [h > 0]) with the relu mask read
-// from the kept activation h (row-major [P, u]), through the warp's scratch.
-template <int NF>
-__device__ __forceinline__ void store_cot(AccFrag (&acc)[4][NF], float* scratch,
-                                          const bf16* __restrict__ h, int p0,
-                                          int P, int u, bf16* out, int ldo,
-                                          int n0, int lane) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      wmma::store_matrix_sync(scratch, acc[m][f], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int rr = e >> 4, cc = e & 15, row = m * 16 + rr, col = n0 + f * 16 + cc;
-        float v = scratch[e];
-        if (h != nullptr) {
-          const int p = p0 + row;
-          const bool live = p < P && __bfloat162float(h[(size_t)p * u + col]) > 0.f;
-          v = live ? v : 0.f;
+struct BwdParams {
+  CUtensorMap w_rgb, w_rf_top, w_sf;
+  CUtensorMap trunk[kMaxLayers];  // trunk_w[i] for i >= 1
+  CUtensorMap h[kMaxLayers];      // the stash's h[i], [P, u]
+  const bf16* w_sf_ptr;
+  const bf16* d_rgb;              // quadrature mode
+  const bf16* d_sigma;
+  const bf16* g;                  // output-head mode
+  const float* y;
+  bf16* d_rgb_out;
+  MlpCotangents ct;
+  int P, u, n;
+};
+
+// Layer L of the chain: 0 the rgb head (K 16), 1 the rgb-feature layer
+// (K u/2), 2 the sigma/feature head (K u), 3 + j the trunk layer n-1-j.
+struct Layer {
+  const CUtensorMap* map;
+  int k, n, slabs, parts;
+};
+
+__device__ __forceinline__ Layer layer_of(const BwdParams& prm, int L) {
+  const int u = prm.u;
+  Layer l;
+  l.map = L == 0 ? &prm.w_rgb : L == 1 ? &prm.w_rf_top : L == 2 ? &prm.w_sf
+                                                               : &prm.trunk[prm.n + 2 - L];
+  l.k = L == 0 ? kHead : L == 1 ? u / 2 : u;
+  l.n = L == 0 ? u / 2 : u;
+  l.slabs = (l.k + 63) / 64;
+  l.parts = (l.n + kBoxRows - 1) / kBoxRows;
+  return l;
+}
+
+// Byte offset of element (r, c) of a [tile x u] bf16 tile in 64-column
+// boxes with the 128-byte swizzle.
+template <int kTile>
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * (kTile * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+         (c & 7) * 2;
+}
+
+struct Smem {
+  uint8_t* a;      // the cotangent tile
+  uint8_t* mask;   // h_{i-1} of the tile
+  uint8_t* ring;
+  float* sig;      // d_sigma_pre of the tile's points
+  bf16* wsig;      // w_sf[:, u]
+  uint64_t* full;  // kStages
+  uint64_t* empty; // kStages
+  uint64_t* mask_full;
+  uint64_t* mask_empty;
+};
+
+// The producer thread: every stage of every layer in order, and each masked
+// layer's h tile once its ring has started, after the epilogue before it
+// released the buffer.
+template <int kTile>
+__device__ void produce(const BwdParams& prm, const Smem& sm, int p0, int layers) {
+  int g = 0;
+  for (int L = 0; L < layers; ++L) {
+    const Layer l = layer_of(prm, L);
+    gmma::prefetch_tensormap(l.map);
+    const int box_rows = l.n < kBoxRows ? l.n : kBoxRows;
+    const int total = l.slabs * l.parts;
+    const int mask_after = (total < kStages ? total : kStages) - 1;
+    int i = 0;
+    for (int ks = 0; ks < l.slabs; ++ks) {
+      for (int part = 0; part < l.parts; ++part, ++i, ++g) {
+        const int s = g % kStages;
+        gmma::mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
+        gmma::mbar_arrive_expect_tx(&sm.full[s], 128 * box_rows);
+        gmma::tma_load_2d(sm.ring + s * kStageBytes, l.map, &sm.full[s], 64 * ks,
+                          kBoxRows * part);
+        if (L >= 2 && i == mask_after) {
+          const int e = L - 2;
+          const CUtensorMap* hm = &prm.h[prm.n - 1 - e];
+          gmma::mbar_wait(sm.mask_empty, (e & 1) ^ 1);
+          gmma::mbar_arrive_expect_tx(sm.mask_full, 2 * kTileElems);
+          for (int b = 0; b < prm.u / 64; ++b)
+            gmma::tma_load_2d(sm.mask + b * kTile * 128, hm, sm.mask_full, 64 * b, p0);
         }
-        out[row * ldo + col] = __float2bfloat16_rn(v);
       }
-      __syncwarp();
     }
   }
 }
 
-// out = A @ W^T over the tile (K = depth of A), columns split over warps.
-__device__ void dx_layer(const bf16* A, int lda, int K, const bf16* W, int ldw,
-                         int N, const bf16* h, int p0, int P, int u, bf16* out,
-                         int ldo, float* scratch, int warp, int lane) {
-  for (int n0 = warp * 32; n0 < N; n0 += kWarps * 32) {
-    AccFrag acc[4][2];
-    zero(acc);
-    mma_rows_t(acc, A, lda, W, ldw, K, n0);
-    store_cot(acc, scratch, h, p0, P, u, out, ldo, n0, lane);
+// Rows [0, rows) x columns [0, cols) of the swizzled A tile to global rows
+// p0.. of a row-major [P, ld] array, 16 bytes per thread and step.
+template <int kTile>
+__device__ __forceinline__ void store_tile(bf16* __restrict__ dst, int ld, int p0,
+                                           int rows, int cols, const uint8_t* a,
+                                           int ct) {
+  const int vec = cols / 8;
+  for (int v = ct; v < rows * vec; v += kConsumers) {
+    const int r = v / vec, c = (v % vec) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)(p0 + r) * ld + c) =
+        *reinterpret_cast<const uint4*>(a + swz<kTile>(r, c));
   }
 }
 
-// The head cotangents come from d_rgb [P, 16] and d_sigma [P] (quadrature
-// mode), or, where g is not null, from g and y (output-head mode), which
-// also writes d_rgb_out [P, 16].
-__global__ void __launch_bounds__(kWarps * 32)
-mlp_backward_kernel(const MlpWeights w, const bf16* __restrict__ d_rgb,
-                    const bf16* __restrict__ d_sigma, const bf16* __restrict__ g,
-                    const float* __restrict__ y, bf16* __restrict__ d_rgb_out,
-                    const MlpStash st, const MlpCotangents ct, int P) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int u = w.units, half = u / 2, n = w.n_layers;
-  const int ld_sf = u + kHead + 8, ld_a = u + 8, ld_rf = half + 8, ld_rgb = kHead + 8;
-  bf16* sf = reinterpret_cast<bf16*>(smem);  // d_sf tile, later d_pre buffer 1
-  bf16* buf0 = sf + kTile * ld_sf;
-  bf16* rf = buf0 + kTile * ld_a;
-  bf16* rgb = rf + kTile * ld_rf;
-  float* scratch_all = reinterpret_cast<float*>(rgb + kTile * ld_rgb);
+// One layer of the chain for consumer warpgroup wg: the products of every
+// stage it owns into float32 accumulators, then, once both warpgroups'
+// products have retired, the epilogue into the A tile and the copy-out.
+template <int kTile, int NW>
+__device__ __forceinline__ void run_layer(const BwdParams& prm, const Smem& sm, int L,
+                                          int& g, int p0, int rows) {
+  constexpr bool kSplitCols = kTile == 64;
+  const int ct = threadIdx.x - 128;
+  const int wg = ct / 128, t = ct % 128, warp = t / 32, lane = t % 32;
+  const Layer l = layer_of(prm, L);
+  const int ksteps = l.k < 64 ? l.k / 16 : 4;
+  const int a_row = kSplitCols ? 0 : 64 * wg;
+  const int col0 = kSplitCols ? wg * NW : 0;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* scratch = scratch_all + warp * 256;
-  const int p0 = blockIdx.x * kTile;
-  const int rows = min(kTile, P - p0);
+  float acc[NW / 2];
+#pragma unroll
+  for (int j = 0; j < NW / 2; ++j) acc[j] = 0.f;
 
-  // The head cotangents of the tile (zero past the last point).
-  const bool from_output = g != nullptr;
-  if (from_output) {
-    for (int v = threadIdx.x; v < kTile * kHead; v += blockDim.x) {
-      const int r = v / kHead, c = v % kHead;
-      float val = 0.f;
-      if (r < rows && c < 3) {
-        const size_t i = (size_t)(p0 + r) * 4 + c;
-        const float yv = y[i];
-        val = __fmul_rn(__fmul_rn(__bfloat162float(g[i]), yv), __fsub_rn(1.f, yv));
+  int pending = -1;  // the stage of the last committed group
+  for (int ks = 0; ks < l.slabs; ++ks) {
+    for (int part = 0; part < l.parts; ++part, ++g) {
+      const int s = g % kStages;
+      gmma::mbar_wait(&sm.full[s], (g / kStages) & 1);
+      const bool own = l.parts == 1 || part == wg;
+      if (!own) {
+        if (lane == 0) gmma::mbar_arrive(&sm.empty[s]);
+        continue;
       }
-      rgb[r * ld_rgb + c] = __float2bfloat16_rn(val);
+      const int b_row = kSplitCols && l.parts == 1 ? wg * NW : 0;
+      const uint64_t da = gmma::desc_sw128_kmajor(sm.a + ks * kTile * 128 + a_row * 128);
+      const uint64_t db =
+          gmma::desc_sw128_kmajor(sm.ring + s * kStageBytes + b_row * 128);
+      gmma::fence_operands(acc);
+      gmma::fence();
+      for (int k = 0; k < ksteps; ++k)
+        gmma::mma_m64k16<NW, 0, 0>(acc, da + 2 * k, db + 2 * k);
+      gmma::commit();
+      gmma::fence_operands(acc);
+      gmma::wait<1>();
+      gmma::fence_operands(acc);
+      if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+      pending = s;
+    }
+  }
+  gmma::wait<0>();
+  gmma::fence_operands(acc);
+  if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+
+  // Both warpgroups' products have read A: overwrite it.
+  gmma::bar_sync(kFullBar, kConsumers);
+  const bool masked = L >= 2;
+  if (masked) gmma::mbar_wait(sm.mask_full, (L - 2) & 1);
+  const int r0 = a_row + 16 * warp + lane / 4;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int c = col0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (L == 2) {
+        const float sg = sm.sig[r];
+        v0 = __fmaf_rn(sg, __bfloat162float(sm.wsig[c]), v0);
+        v1 = __fmaf_rn(sg, __bfloat162float(sm.wsig[c + 1]), v1);
+      }
+      const int off = swz<kTile>(r, c);
+      if (masked) {
+        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(sm.mask + off);
+        if (!(__low2float(hv) > 0.f)) v0 = 0.f;
+        if (!(__high2float(hv) > 0.f)) v1 = 0.f;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(sm.a + off) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+  if (masked) {
+    __syncwarp();
+    if (lane == 0) gmma::mbar_arrive(sm.mask_empty);
+  }
+  gmma::fence_proxy_async();
+  gmma::bar_sync(kFullBar, kConsumers);
+
+  // The finished tile to device memory.
+  const int u = prm.u;
+  if (L == 0) {
+    store_tile<kTile>(prm.ct.d_rf, u / 2, p0, rows, u / 2, sm.a, ct);
+  } else if (L == 1) {
+    store_tile<kTile>(prm.ct.d_sf, u + kHead, p0, rows, u, sm.a, ct);
+    for (int r = ct; r < rows; r += kConsumers) {
+      uint4* dst = reinterpret_cast<uint4*>(prm.ct.d_sf + (size_t)(p0 + r) * (u + kHead) + u);
+      const __nv_bfloat162 s0 = __floats2bfloat162_rn(sm.sig[r], 0.f);
+      dst[0] = make_uint4(*reinterpret_cast<const uint32_t*>(&s0), 0u, 0u, 0u);
+      dst[1] = make_uint4(0u, 0u, 0u, 0u);
     }
   } else {
-    for (int v = threadIdx.x; v < kTile * 2; v += blockDim.x) {
-      const int r = v >> 1, c = (v & 1) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows) val = *reinterpret_cast<const uint4*>(d_rgb + (size_t)(p0 + r) * kHead + c);
-      *reinterpret_cast<uint4*>(rgb + r * ld_rgb + c) = val;
-    }
-  }
-  __syncthreads();
-  if (from_output) copy_tile_out(d_rgb_out, p0, rows, kHead, rgb, ld_rgb);
-
-  // d_rf = bf16(d_rgb_pre @ w_rgb^T): w_rgb is [u/2, 128], columns 16.. are
-  // padding and never read.
-  dx_layer(rgb, ld_rgb, kHead, w.w_rgb, 128, half, nullptr, p0, P, u, rf, ld_rf,
-           scratch, warp, lane);
-  __syncthreads();
-  copy_tile_out(ct.d_rf, p0, rows, half, rf, ld_rf);
-
-  // d_features = bf16(d_rf @ w_rf_top^T) into columns :u of the d_sf tile;
-  // d_sigma_pre in column u, zeros after it.
-  dx_layer(rf, ld_rf, half, w.w_rf_top, half, u, nullptr, p0, P, u, sf, ld_sf,
-           scratch, warp, lane);
-  for (int v = threadIdx.x; v < kTile * kHead; v += blockDim.x) {
-    const int r = v / kHead, c = v % kHead;
-    bf16 val = __float2bfloat16_rn(0.f);
-    if (c == 0 && r < rows) {
-      const size_t p = (size_t)(p0 + r);
-      if (!from_output) val = d_sigma[p];
-      else if (y[p * 4 + 3] > 0.f) val = g[p * 4 + 3];
-    }
-    sf[r * ld_sf + u + c] = val;
-  }
-  __syncthreads();
-  copy_tile_out(ct.d_sf, p0, rows, u + kHead, sf, ld_sf);
-
-  // d_h = d_sf @ w_sf[:, :u + 16]^T, masked by the last trunk activation.
-  dx_layer(sf, ld_sf, u + kHead, w.w_sf, u + 128, u, st.h[n - 1], p0, P, u, buf0,
-           ld_a, scratch, warp, lane);
-  __syncthreads();
-  copy_tile_out(ct.d_pre[n - 1], p0, rows, u, buf0, ld_a);
-
-  // The trunk, last layer first: d_pre_{i-1} = bf16((d_pre_i @ W_i^T) [h_{i-1} > 0]).
-  bf16* cur = buf0;
-  bf16* nxt = sf;  // the d_sf tile is free once d_h was formed
-  for (int i = n - 1; i >= 1; --i) {
-    dx_layer(cur, ld_a, u, w.trunk_w[i], u, u, st.h[i - 1], p0, P, u, nxt, ld_a,
-             scratch, warp, lane);
-    __syncthreads();
-    copy_tile_out(ct.d_pre[i - 1], p0, rows, u, nxt, ld_a);
-    bf16* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    store_tile<kTile>(prm.ct.d_pre[prm.n + 1 - L], u, p0, rows, u, sm.a, ct);
   }
 }
 
-size_t smem_bytes(int units) {
-  return sizeof(bf16) * (size_t)kTile *
-             ((units + kHead + 8) + (units + 8) + (units / 2 + 8) + (kHead + 8)) +
-         sizeof(float) * kWarps * 256;
+// The head cotangents of the tile into A's first box (columns 0..15; zero
+// past the last point), d_sigma_pre into sig, w_sf[:, u] into wsig; in the
+// output-head mode also d_rgb_out. From g and y where g is not null.
+template <int kTile>
+__device__ __forceinline__ void prologue(const BwdParams& prm, const Smem& sm, int p0,
+                                         int rows) {
+  const int ct = threadIdx.x - 128;
+  const int u = prm.u;
+  for (int r = ct; r < kTile; r += kConsumers) {
+    uint4 q[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+    float sig = 0.f;
+    if (r < rows) {
+      const size_t p = (size_t)(p0 + r);
+      if (prm.g == nullptr) {
+        const uint4* src = reinterpret_cast<const uint4*>(prm.d_rgb + p * kHead);
+        q[0] = src[0];
+        q[1] = src[1];
+        sig = __bfloat162float(prm.d_sigma[p]);
+      } else {
+        float e[3];
+        for (int c = 0; c < 3; ++c) {
+          const float yv = prm.y[p * 4 + c];
+          e[c] = __fmul_rn(__fmul_rn(__bfloat162float(prm.g[p * 4 + c]), yv),
+                           __fsub_rn(1.f, yv));
+        }
+        const __nv_bfloat162 e01 = __floats2bfloat162_rn(e[0], e[1]);
+        const __nv_bfloat162 e2 = __floats2bfloat162_rn(e[2], 0.f);
+        q[0].x = *reinterpret_cast<const uint32_t*>(&e01);
+        q[0].y = *reinterpret_cast<const uint32_t*>(&e2);
+        if (prm.y[p * 4 + 3] > 0.f) sig = __bfloat162float(prm.g[p * 4 + 3]);
+        uint4* out = reinterpret_cast<uint4*>(prm.d_rgb_out + p * kHead);
+        out[0] = q[0];
+        out[1] = q[1];
+      }
+    }
+    *reinterpret_cast<uint4*>(sm.a + swz<kTile>(r, 0)) = q[0];
+    *reinterpret_cast<uint4*>(sm.a + swz<kTile>(r, 8)) = q[1];
+    sm.sig[r] = sig;
+  }
+  for (int c = ct; c < u; c += kConsumers)
+    sm.wsig[c] = prm.w_sf_ptr[(size_t)c * (u + 128) + u];
+  gmma::fence_proxy_async();
+  gmma::bar_sync(kFullBar, kConsumers);
+}
+
+template <int kTile>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_backward_kernel(const __grid_constant__ BwdParams prm) {
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  uint8_t* base = smem_raw + ((1024 - (gmma::smem_addr(smem_raw) & 1023)) & 1023);
+  Smem sm;
+  sm.a = base;
+  sm.mask = sm.a + 2 * kTileElems;
+  sm.ring = sm.mask + 2 * kTileElems;
+  sm.sig = reinterpret_cast<float*>(sm.ring + kStages * kStageBytes);
+  sm.wsig = reinterpret_cast<bf16*>(sm.sig + kTile);
+  sm.full = reinterpret_cast<uint64_t*>(sm.wsig + 32768 / kTile);
+  sm.empty = sm.full + kStages;
+  sm.mask_full = sm.empty + kStages;
+  sm.mask_empty = sm.mask_full + 1;
+
+  const int p0 = blockIdx.x * kTile;
+  const int rows = min(kTile, prm.P - p0);
+  const int layers = prm.n + 2;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      gmma::mbar_init(&sm.full[s], 1);
+      gmma::mbar_init(&sm.empty[s], kConsumers / 32);
+    }
+    gmma::mbar_init(sm.mask_full, 1);
+    gmma::mbar_init(sm.mask_empty, kConsumers / 32);
+    gmma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The producer warpgroup gives its registers to the consumers: 128 x 40 +
+  // 256 x 232 = 384 x 168, the budget of one block of 384 threads.
+  if (threadIdx.x < 128) {
+    gmma::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) produce<kTile>(prm, sm, p0, layers);
+    return;
+  }
+  gmma::setmaxnreg_inc<232>();
+  prologue<kTile>(prm, sm, p0, rows);
+  int g = 0;
+  run_layer<kTile, 128>(prm, sm, 0, g, p0, rows);
+  for (int L = 1; L < layers; ++L) run_layer<kTile, 256>(prm, sm, L, g, p0, rows);
+}
+
+// Dynamic shared memory of the kernel at tile kTile (mirrored by
+// mlp_backward_plan): A, mask, ring, sig [tile] float32, wsig [u] bf16,
+// 2 kStages + 2 mbarriers, and the 1024-byte alignment.
+constexpr int smem_bytes(int tile) {
+  return 1024 + 2 * 2 * kTileElems + kStages * kStageBytes + 4 * tile +
+         2 * (kTileElems / tile) + 8 * (2 * kStages + 2);
+}
+static_assert(smem_bytes(128) <= 232448 && smem_bytes(64) <= 232448,
+              "mlp_backward exceeds the H100's 227 KB of shared memory");
+
+template <int kTile>
+int launch_tile(BwdParams& prm, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mlp_backward_kernel<kTile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes(kTile));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int blocks = (prm.P + kTile - 1) / kTile;
+  mlp_backward_kernel<kTile><<<blocks, kThreads, smem_bytes(kTile), stream>>>(prm);
+  return (int)cudaGetLastError();
 }
 
 int launch(const MlpWeights* w, const bf16* d_rgb, const bf16* d_sigma, const bf16* g,
            const float* y, bf16* d_rgb_out, const MlpStash* st, const MlpCotangents* ct,
            int P, void* stream) {
   if (P <= 0) return 0;
-  if (w->n_layers < 1 || w->n_layers > kMaxLayers || w->units % 256 != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(w->units);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (P + kTile - 1) / kTile;
-  mlp_backward_kernel<<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      *w, d_rgb, d_sigma, g, y, d_rgb_out, *st, *ct, P);
-  return (int)cudaGetLastError();
+  const int u = w->units, n = w->n_layers;
+  if (n < 1 || n > kMaxLayers || (u != 256 && u != 512)) return (int)cudaErrorInvalidValue;
+  const gmma::EncodeTiled fn = gmma::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int tile = kTileElems / u;
+  const int rows = u < kBoxRows ? u : kBoxRows;
+
+  BwdParams prm;  // copied into the launch's parameters
+  int err = gmma::encode_map(fn, &prm.w_rgb, w->w_rgb, 128, u / 2, u / 2);
+  if (!err) err = gmma::encode_map(fn, &prm.w_rf_top, w->w_rf_top, u / 2, u, rows);
+  if (!err) err = gmma::encode_map(fn, &prm.w_sf, w->w_sf, u + 128, u, rows);
+  for (int i = 1; i < n && !err; ++i)
+    err = gmma::encode_map(fn, &prm.trunk[i], w->trunk_w[i], u, u, rows);
+  for (int i = 0; i < n && !err; ++i)
+    err = gmma::encode_map(fn, &prm.h[i], st->h[i], u, P, tile);
+  if (err) return -err;
+  prm.w_sf_ptr = w->w_sf;
+  prm.d_rgb = d_rgb;
+  prm.d_sigma = d_sigma;
+  prm.g = g;
+  prm.y = y;
+  prm.d_rgb_out = d_rgb_out;
+  prm.ct = *ct;
+  prm.P = P;
+  prm.u = u;
+  prm.n = n;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return u == 256 ? launch_tile<128>(prm, s) : launch_tile<64>(prm, s);
 }
 
 }  // namespace
 
-// w: the packed weights; d_rgb [P, 16], d_sigma [P] bf16 from
-// knt_ray_march_quadrature_grad; st: the train mode's kept activations;
-// ct: the cotangent arrays to write.
+// w: the packed weights (u = 256 or 512); d_rgb [P, 16], d_sigma [P] bf16
+// from knt_ray_march_quadrature_grad; st: the train mode's kept
+// activations; ct: the cotangent arrays to write. Returns 0, a cudaError_t,
+// or -CUresult when a tensor map cannot be encoded.
 KNT_EXPORT int knt_mlp_backward(const MlpWeights* w, const bf16* d_rgb,
                                 const bf16* d_sigma, const MlpStash* st,
                                 const MlpCotangents* ct, int P, void* stream) {

@@ -258,42 +258,6 @@ __global__ void wg_reduce_kernel(const WgReduceTable tab,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a row-major bf16 [rows, cols] array in 64 x 64 boxes with the
-// 128-byte swizzle; reads past either edge return zeros.
-int encode_map(EncodeTiled fn, CUtensorMap* map, const bf16* base, int cols,
-               int rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, 64};
-  const cuuint32_t elem[2] = {1, 1};
-  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                 const_cast<bf16*>(base), dims, strides, box, elem,
-                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 // The operand arrays seen so far, one tensor map each.
 struct MapSet {
   const bf16* base[kMaxMaps];
@@ -302,13 +266,14 @@ struct MapSet {
 
   // The index of the map of (base, cols), encoded on first sight; -1 when
   // the set is full.
-  int of(EncodeTiled fn, WgParams& prm, const bf16* b, int c, int rows) {
+  int of(gmma::EncodeTiled fn, WgParams& prm, const bf16* b, int c,
+         int rows) {
     for (int i = 0; i < n; ++i)
       if (base[i] == b && cols[i] == c) return i;
     if (n == kMaxMaps) return -1;
     base[n] = b;
     cols[n] = c;
-    const int e = encode_map(fn, &prm.map[n], b, c, rows);
+    const int e = gmma::encode_map(fn, &prm.map[n], b, c, rows, 64);
     if (e != 0) err = e;
     return n++;
   }
@@ -330,7 +295,7 @@ KNT_EXPORT int knt_mlp_weight_grad(const WgTask* tasks, int n_tasks,
       slices < 1 || chunk % kStep || (long long)chunk * slices < P ||
       (long long)chunk * (slices - 1) >= P)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled fn = encode_tiled();
+  const gmma::EncodeTiled fn = gmma::encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
 
   WgParams prm;  // copied into the launch's parameters

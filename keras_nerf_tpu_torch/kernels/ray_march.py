@@ -1056,15 +1056,46 @@ def _ray_march_quadrature_cuda(rgbs, t, white_background=False,
     return image, depth, weights, d_rgb, d_sigma
 
 
+BWD_TILE_ELEMS = 128 * 256   # csrc/mlp_backward.cu: points x u of a tile
+BWD_STAGES = 3               # kStages: ring stages of weight slabs
+BWD_STAGE_BYTES = 128 * 256  # one TMA box of [64 K x 256 rows] bf16
+SMEM_PER_BLOCK = 232448      # the H100's 227 KB of shared memory a block
+
+
+def mlp_backward_plan(units: int) -> dict:
+    """The tile and shared memory of the ``mlp_backward`` kernel at width
+    ``units`` (mirrors csrc/mlp_backward.cu). ``tile``: points per block,
+    128 at u = 256 (the two consumer warpgroups take 64 rows each) and 64
+    at u = 512 (each takes half the columns), so that the cotangent tile
+    and the mask tile are 64 KB each; ``smem_bytes``: those two, the ring
+    of weight slabs, the tile's ``d_sigma_pre`` (float32), the sigma column
+    of ``w_sf`` (bf16), the mbarriers and 1 KB of alignment. Raises on a
+    width the kernel does not take."""
+    if units not in (256, 512):
+        raise ValueError(f"mlp_backward takes dense_units 256 or 512 (got "
+                         f"{units}): its cotangent and mask tiles of "
+                         f"{BWD_TILE_ELEMS} elements each hold 128 or 64 "
+                         f"points")
+    tile = BWD_TILE_ELEMS // units
+    smem = (1024 + 2 * 2 * BWD_TILE_ELEMS + BWD_STAGES * BWD_STAGE_BYTES
+            + 4 * tile + 2 * units + 8 * (2 * BWD_STAGES + 2))
+    return {"tile": tile, "split": "rows" if units == 256 else "columns",
+            "stages": BWD_STAGES, "smem_bytes": smem}
+
+
 def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None,
-                       from_output=False):
+                       from_output=False, lib=None):
+    """The ``mlp_backward`` launch; ``lib`` another build of its C entry
+    points (``time_mlp_backward`` times a parent's kernel through it),
+    else this package's library."""
     from keras_nerf_tpu_torch.kernels._build import load
 
-    lib = load()
     dev = d_rgb.device
     p = d_rgb.shape[0]
     weights = _mlp_struct(packed, dev)
     u, n = weights.units, weights.n_layers
+    mlp_backward_plan(u)
+    lib = load() if lib is None else lib
     stash_s = _stash_struct(stash, p, u, n, dev)
     if cots is None:
         cots = alloc_cotangents(p, u, n, dev)
@@ -1079,19 +1110,23 @@ def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None,
         g, y = d_rgb, d_sigma
         d_rgb = torch.empty((p, D_HEAD), dtype=bf16, device=dev)
         with torch.cuda.device(dev):
-            _raise_on(lib.knt_mlp_backward_from_output(
+            err = lib.knt_mlp_backward_from_output(
                 ctypes.addressof(weights), _check(g, "g", bf16, dev, (p, 4)),
                 _check(y, "y", torch.float32, dev, (p, 4)), d_rgb.data_ptr(),
                 ctypes.addressof(stash_s), ctypes.addressof(ct), p,
-                _stream(dev)), "mlp_backward")
+                _stream(dev))
     else:
         with torch.cuda.device(dev):
-            _raise_on(lib.knt_mlp_backward(
+            err = lib.knt_mlp_backward(
                 ctypes.addressof(weights),
                 _check(d_rgb, "d_rgb", bf16, dev, (p, D_HEAD)),
                 _check(d_sigma, "d_sigma", bf16, dev, (p,)),
                 ctypes.addressof(stash_s), ctypes.addressof(ct), p,
-                _stream(dev)), "mlp_backward")
+                _stream(dev))
+    if err < 0:
+        raise RuntimeError(f"mlp_backward: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {-err})")
+    _raise_on(err, "mlp_backward")
     cots["d_rgb"] = d_rgb
     return cots
 

@@ -1,0 +1,78 @@
+"""The tile and shared-memory plan of the ``mlp_backward`` kernel, on the CPU.
+
+The kernel runs only on the card (``tests/test_torch_cuda.py``). What it
+takes is decided in Python by :func:`mlp_backward_plan`, which mirrors
+``csrc/mlp_backward.cu``: a block of 128 points at u = 256 and 64 at
+u = 512, whose cotangent and mask tiles are 64 KB each, beside a ring of
+three 32 KB weight slabs, within the H100's 227 KB of shared memory a
+block. Every other width raises, naming the width, before anything is
+built or launched.
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from keras_nerf_tpu_torch.kernels import ray_march as trm
+from keras_nerf_tpu_torch.models import NeRFConfig, init_mlp
+
+SOURCE = (Path(trm.__file__).resolve().parent / "csrc" /
+          "mlp_backward.cu").read_text()
+
+
+def _constant(name: str) -> str:
+    m = re.search(rf"constexpr int {name} = ([^;]+);", SOURCE)
+    assert m is not None, name
+    return m.group(1).split("//")[0].strip()
+
+
+@pytest.mark.parametrize("units,tile,split", [(256, 128, "rows"),
+                                              (512, 64, "columns")])
+def test_plan_fits_the_tiles_in_227_kb(units, tile, split):
+    plan = trm.mlp_backward_plan(units)
+    assert plan["tile"] == tile and plan["split"] == split
+    assert plan["stages"] == 3
+    # The cotangent tile and the mask tile: 64 KB of bf16 each.
+    assert 2 * plan["tile"] * units == 64 * 1024
+    ring = plan["stages"] * trm.BWD_STAGE_BYTES
+    assert plan["smem_bytes"] >= 2 * 64 * 1024 + ring + 1024
+    assert plan["smem_bytes"] <= trm.SMEM_PER_BLOCK == 227 * 1024
+
+
+@pytest.mark.parametrize("units", [0, 128, 384, 640, 768, 1024])
+def test_plan_refuses_other_widths_by_name(units):
+    with pytest.raises(ValueError, match=rf"dense_units 256 or 512 \(got "
+                                         rf"{units}\)"):
+        trm.mlp_backward_plan(units)
+
+
+@pytest.mark.parametrize("name,mirror", [
+    ("kStages", "BWD_STAGES"), ("kTileElems", "BWD_TILE_ELEMS"),
+    ("kStageBytes", "BWD_STAGE_BYTES")])
+def test_plan_mirrors_the_kernel_source(name, mirror):
+    env = {"kBoxRows": int(_constant("kBoxRows"))}
+    assert eval(_constant(name), {}, env) == getattr(trm, mirror)
+
+
+def test_kernel_source_checks_the_same_limit():
+    assert "232448" in SOURCE
+    assert trm.SMEM_PER_BLOCK == 232448
+
+
+def test_wrapper_refuses_a_width_before_building_or_launching():
+    """On CUDA tensors the wrapper checks the plan before it loads the
+    library; its launch function raises here too, on the CPU, where no
+    compiler exists, so the check comes first."""
+    cfg = NeRFConfig(n_layers=2, dense_units=768, skip_layer=1)
+    params = init_mlp(torch.Generator().manual_seed(0), cfg.mlp, cfg.in_xyz,
+                      cfg.in_dir)
+    packed = trm.pack_mlp_params(params, cfg.mlp, 10, 4)
+    stash = trm.alloc_stash(8, 768, 2, torch.device("cpu"))
+    d_rgb = torch.zeros((8, trm.D_HEAD), dtype=torch.bfloat16)
+    d_sigma = torch.zeros(8, dtype=torch.bfloat16)
+    before = trm.mlp_backward.launches
+    with pytest.raises(ValueError, match="768"):
+        trm._mlp_backward_cuda(d_rgb, d_sigma, packed, stash)
+    assert trm.mlp_backward.launches == before

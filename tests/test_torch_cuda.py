@@ -239,6 +239,88 @@ def test_mlp_backward_matches_plain(cuda_device, n_layers, skip):
         _assert_bf16_close(got["d_pre"][i], want["d_pre"][i], 3e-2, i)
 
 
+def _bwd_inputs(device, points, units, seed=0):
+    """Seeded weights, a random stash (about half of each h_i above zero,
+    so every relu mask is mixed) and the head inputs of both modes: the
+    quadrature's ``d_rgb [P, 16]`` (columns 0..2) and ``d_sigma [P]``, and
+    T6's ``g [P, 4]`` bf16 with ``y [P, 4]`` (sigmoid-like rgb, relu
+    sigma with zeros)."""
+    cfg = NeRFConfig(dense_units=units)
+    g = torch.Generator(device=device).manual_seed(seed)
+    packed = trm.pack_mlp_params(init_mlp(g, cfg.mlp, cfg.in_xyz,
+                                          cfg.in_dir), cfg.mlp, 10, 4)
+    stash = trm.alloc_stash(points, units, cfg.n_layers, device)
+    for v in [stash["enc"], *stash["h"], stash["features"], stash["rf"]]:
+        v.copy_(torch.randn(v.shape, generator=g, device=device))
+    d_rgb = torch.zeros((points, trm.D_HEAD), dtype=torch.bfloat16,
+                        device=device)
+    d_rgb[:, :3] = torch.randn((points, 3), generator=g, device=device)
+    d_sigma = torch.randn(points, generator=g, device=device).to(
+        torch.bfloat16)
+    out_g = torch.randn((points, 4), generator=g, device=device).to(
+        torch.bfloat16)
+    y = torch.rand((points, 4), generator=g, device=device)
+    y[:, 3] = torch.relu(torch.randn(points, generator=g, device=device))
+    return packed, stash, (d_rgb, d_sigma), (out_g, y)
+
+
+def _assert_backward_close(got, want, n_layers, label):
+    for name in ("d_rgb", "d_rf", "d_sf"):
+        assert got[name].shape == want[name].shape, (label, name)
+        _assert_bf16_close(got[name], want[name], 1e-2, (label, name))
+    for i in range(n_layers):
+        _assert_bf16_close(got["d_pre"][i], want["d_pre"][i], 3e-2,
+                           (label, i))
+
+
+# (units, points): u = 512 (64-point tiles, each warpgroup half the
+# columns), a point count 17 past a tile and one below a single tile (TMA's
+# zero rows, no store past P), and the training chunk's fine launch.
+_BWD_EDGES = {"units_512": (512, 4096 + 1), "ragged_8192_plus_17": (256, 8209),
+              "ragged_50": (256, 50), "fine_chunk_2048x192": (256, 2048 * 192)}
+
+
+@pytest.mark.parametrize("from_output", [False, True],
+                         ids=["quadrature", "output_head"])
+@pytest.mark.parametrize("case", sorted(_BWD_EDGES))
+def test_mlp_backward_matches_plain_at_edge_shapes(cuda_device, case,
+                                                   from_output):
+    """Both modes against the plain version, each run twice with identical
+    bits; budgets as the chain's tests above."""
+    units, points = _BWD_EDGES[case]
+    packed, stash, quad_in, out_in = _bwd_inputs(cuda_device, points, units)
+    a, b = out_in if from_output else quad_in
+    want = trm.mlp_backward_plain(a, b, packed, stash,
+                                  from_output=from_output)
+    runs = [trm.mlp_backward(a, b, packed, stash, from_output=from_output)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(*(engine.tree_leaves(r) for r in runs)):
+        assert torch.equal(x, y), case
+    _assert_backward_close(runs[0], want, 8, case)
+
+
+def test_mlp_backward_repeats_bit_for_bit(cuda_device):
+    """The quadrature mode on the real chain's cotangents, twice: no
+    atomics and a fixed k order give identical bits."""
+    cfg, packed, base, slope, t, masks, target = _train_inputs(cuda_device)
+    stash, _, quad, _ = _plain_chain(cfg, packed, base, slope, t, masks,
+                                     target)
+    runs = [trm.mlp_backward(quad[3], quad[4], packed, stash)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(*(engine.tree_leaves(r) for r in runs)):
+        assert torch.equal(x, y)
+
+
+def test_mlp_backward_refuses_other_widths_before_launching(cuda_device):
+    packed, stash, (d_rgb, d_sigma), _ = _bwd_inputs(cuda_device, 64, 768)
+    before = trm.mlp_backward.launches
+    with pytest.raises(ValueError, match="768"):
+        trm.mlp_backward(d_rgb, d_sigma, packed, stash)
+    assert trm.mlp_backward.launches == before
+
+
 @pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1)])
 def test_mlp_weight_grad_matches_plain_and_repeats_bit_for_bit(
         cuda_device, n_layers, skip):

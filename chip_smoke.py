@@ -31,7 +31,8 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   holds a 16^2 int8 frame against the same int8 weights on the CPU;
 * the tensor-core ceiling probe (T7): holds ``mma_ceiling`` against its
   plain version and runs ``profile_mma_ceiling.measure`` (TFLOP/s of the
-  MLP kernels' product loop alone);
+  ``wmma`` product loop alone, the loop the MLP kernels ran before they
+  moved to ``wgmma``);
 * the occupancy render (``inference --occupancy_grid 128``): bakes the fog
   weights' 128^3 grid through ``NeRF.bake_occupancy`` (8 ``apply_mlp``
   launches, one chunk held against its plain version), holds
@@ -46,7 +47,8 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
 Each path's launch counts are read just after it runs. Then every kernel
 and its plain version is timed with CUDA events (``mlp_weight_grad`` also
 beside its cuBLAS yardstick, one product per weight array, and
-``mlp_backward`` beside the PyTorch chain, one bf16 matmul per layer; the
+``mlp_backward``, ``ray_march_mlp`` and ``apply_mlp`` beside their PyTorch
+chains, one bf16 matmul per layer; the
 card's SM clock, power and temperature sampled before and after), and the
 five model paths (the occupancy render among them) are profiled with
 ``torch.profiler``:
@@ -175,6 +177,31 @@ def l1_loss(y_true, y_pred):
     return (y_pred - y_true).abs().mean()
 
 
+class SignedL1:
+    """The L1 loss with its subgradient fixed per pixel-channel: call k
+    returns ``mean(s_k (pred - true))``, which is ``mean(|pred - true|)``
+    where ``s_k = sign(pred - true)``. Without ``signs`` every call takes
+    its own signs; with the signs that a reference step recorded, the first
+    ``len(signs)`` calls (a step's gradient calls, per chunk the coarse then
+    the fine image) take those, and later calls (the step's reported
+    losses) their own. Every call records its own signs and residuals."""
+
+    def __init__(self, signs=None):
+        self.signs = signs
+        self.own, self.residual = [], []
+
+    def __call__(self, y_true, y_pred):
+        import torch
+
+        r = y_pred - y_true
+        k = len(self.own)
+        self.own.append(torch.sign(r).detach().cpu())
+        self.residual.append(r.detach().abs().cpu())
+        use = (self.own[-1] if self.signs is None or k >= len(self.signs)
+               else self.signs[k])
+        return (use.to(r.device) * r).mean()
+
+
 def mse_callable(y_true, y_pred):
     """The MSE as a callable of its own: not ``engine.mse_loss``, so it
     trains through T5/T6, not T3."""
@@ -224,7 +251,10 @@ def main() -> int:
         sample_merge,
     )
     from keras_nerf_tpu_torch.kernels import _build
-    from keras_nerf_tpu_torch.kernels.ray_march import fwd_flop_per_point
+    from keras_nerf_tpu_torch.kernels.ray_march import (
+        encode_points,
+        fwd_flop_per_point,
+    )
     from keras_nerf_tpu_torch.models import NeRF, NeRFConfig, init_mlp
     from keras_nerf_tpu_torch.models.engine import (
         quantize_render_params,
@@ -232,6 +262,9 @@ def main() -> int:
         tree_leaves,
     )
     from keras_nerf_tpu_torch.ops import sorted_uniforms
+    from keras_nerf_tpu_torch.time_ray_march_mlp import (
+        pytorch_chain as forward_chain,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -482,9 +515,9 @@ def main() -> int:
     _compare_steps(f"train step {E2E_IMG}^2, card kernels vs CPU plain "
                    f"versions", tnerf.state, small, cfg,
                    ("cuda", None), ("cpu", None))
-    _compare_steps(f"l1 train step {E2E_IMG}^2, card kernels vs CPU plain "
-                   f"versions", tnerf.state, small, cfg,
-                   ("cuda", l1_loss), ("cpu", l1_loss))
+    _compare_l1_steps(f"l1 train step {E2E_IMG}^2, card kernels vs CPU "
+                      f"plain versions, at the CPU's subgradient",
+                      tnerf.state, small, cfg)
     _compare_passes(tnerf.state, small, cfg)
 
     # ---- 7. times ---------------------------------------------------------
@@ -504,6 +537,11 @@ def main() -> int:
         nbytes = enc_bytes + points * F32B * (2 if sigma_only else 5)
         return _bound(nbytes, flop, PEAK_BF16_FLOPS)
 
+    def mlp_chain(t, sigma_only):
+        """The forward's PyTorch chain over this chunk's encoding."""
+        enc = encode_points(base, slope, t, masks).reshape(-1, 128)
+        return forward_chain(packed, enc, sigma_only=sigma_only)
+
     # Quadrature per sample: delta, sigma delta, scan, two exp, weight
     # (9 with the depth sum); + the weight sum and rgb sums (16).
     modes = [  # kernel, path, mode, call, launches per unit, bound
@@ -511,10 +549,12 @@ def main() -> int:
          lambda f: f(tc, wc, u, tc), per_frame, _merge_bound(CHUNK)),
         (ray_march_mlp, "render", f"sigma-only [{CHUNK} x {N_COARSE}]",
          lambda f: f(packed, base, slope, tc, masks, sigma_only=True),
-         per_frame, mlp_bound(CHUNK * N_COARSE, True)),
+         per_frame, mlp_bound(CHUNK * N_COARSE, True), None, None,
+         mlp_chain(tc, True)),
         (ray_march_mlp, "render", f"full [{CHUNK} x {s_f}]",
          lambda f: f(packed, base, slope, tf_plain, masks), per_frame,
-         mlp_bound(CHUNK * s_f, False)),
+         mlp_bound(CHUNK * s_f, False), None, None,
+         mlp_chain(tf_plain, False)),
         (ray_march_quadrature, "render", f"sigma-only [{CHUNK} x {N_COARSE}]",
          lambda f: f(coarse_sig, tc, True, True, True), per_frame,
          _bound(CHUNK * (3 * N_COARSE + 1) * F32B, CHUNK * N_COARSE * 9,
@@ -539,7 +579,7 @@ def main() -> int:
         kms = _time_ms(lambda: call(k), 20)
         paced = _time_ms(lambda: call(k), 20, spin=False)
         pms = _time_ms(lambda: call(k.plain), 3)
-        dms = 1e3 * design[0] / PEAK_BYTES if design else 0.0
+        dms = 1e3 * design[0] / PEAK_BYTES if design and design[0] else 0.0
         lms = (_time_ms(design[1], 20) if len(design) > 1 and design[1]
                else None)
         cms = _time_ms(design[2], 20) if len(design) > 2 else None
@@ -547,7 +587,7 @@ def main() -> int:
             f"({paced:.4f} paced by the host's launches), {pms:.3f} "
             f"ms/launch plain, bound {bms:.4f} ms/launch ({by}), "
             f"{kms / bms:.1f}x bound"
-            + (f", the design's bytes {dms:.4f} ms/launch" if design else "")
+            + (f", the design's bytes {dms:.4f} ms/launch" if dms else "")
             + (f", library (cuBLAS) {lms:.4f} ms/launch" if lms else "")
             + (f", PyTorch chain {cms:.4f} ms/launch" if cms else "")
             + f", {count} launches per {_UNIT[path]} {card_tag}")
@@ -562,7 +602,7 @@ def main() -> int:
         tot[1] += count * pms
         tot[2] += count * bms
         tot[3][by] = tot[3].get(by, 0.0) + count * bms
-        if design:
+        if design and design[0]:
             tot[4] = (tot[4] or 0.0) + count * dms
     clocks.append(_gpu_clocks("after the kernel timings"))
     log(json.dumps({"clocks": clocks, "card": card}))
@@ -652,12 +692,15 @@ def main() -> int:
                 "per": f"{step_per}, loss l1 (custom)"}
         if k.name in totals["render"]:
             kms, pms, bms, by, _ = totals["render"][k.name]
+            cms = chain["render"].get(k.name)
             log(f"time {k.name}: {kms:.4f} ms/frame kernel, {pms:.3f} "
-                f"ms/frame plain, bound {bms:.4f} ms/frame ({_by(by)}) "
-                f"{card_tag}")
+                f"ms/frame plain, bound {bms:.4f} ms/frame ({_by(by)})"
+                + (f", PyTorch chain {cms:.4f} ms/frame" if cms else "")
+                + f" {card_tag}")
             entry["render_frame"] = {
                 "launches": render_launches[k.name], "ms": kms,
                 "plain_ms": pms, "bound_ms": bms, "bound_by": _by(by),
+                "pytorch_chain_ms": cms,
                 "per": f"{IMG}^2 frame, {per_frame} chunks of {CHUNK} rays; "
                        f"launches over {len(FRAMES)} frames"}
         occ_per = {
@@ -1239,34 +1282,71 @@ def _small_step_inputs(gen):
     return batch, draws
 
 
-def _compare_steps(label, state, small, cfg, run_a, run_b):
-    """One SGD (lr 1) step from ``state``'s weights on the same batch and
-    draws for each run ``(device, loss_fn)``, held at ``STEP_TOL``: losses
-    relative, per-leaf gradients (the parameter change) of both models by
-    relative norm and relative max, ``run_b`` the reference."""
-    import numpy as np
+def _one_step(state, small, cfg, device, loss_fn):
+    """One SGD (lr 1) step from ``state``'s weights on ``small``'s batch and
+    draws on ``device``: its metrics and the gradients (the parameter
+    change) of both models, leaf by leaf."""
     import torch
 
     from keras_nerf_tpu_torch.models import engine
     from keras_nerf_tpu_torch.models.engine import tree_leaves
 
     batch, draws = small
-    opt = engine.make_optimizer("sgd", 1.0)
-    results = []
-    for device, loss_fn in (run_a, run_b):
-        device = torch.device(device)
-        p0 = [_to(p, device) for p in (state.coarse_params,
-                                       state.fine_params)]
-        s0 = engine.TrainState(p0[0], p0[1], {}, {}, 0)
-        moved = (batch[0].to(device), tuple(x.to(device) for x in batch[1]))
-        s1, metrics = engine.train_step(s0, moved,
-                                        [x.to(device) for x in draws], opt,
-                                        cfg, E2E_CHUNK, loss_fn=loss_fn)
-        grads = [[(a - b).double().cpu() for a, b in
-                  zip(tree_leaves(p), tree_leaves(q))]
-                 for p, q in zip(p0, (s1.coarse_params, s1.fine_params))]
-        results.append(({k: float(v) for k, v in metrics.items()}, grads))
-    (m_a, g_a), (m_b, g_b) = results
+    device = torch.device(device)
+    p0 = [_to(p, device) for p in (state.coarse_params, state.fine_params)]
+    s0 = engine.TrainState(p0[0], p0[1], {}, {}, 0)
+    moved = (batch[0].to(device), tuple(x.to(device) for x in batch[1]))
+    s1, metrics = engine.train_step(s0, moved, [x.to(device) for x in draws],
+                                    engine.make_optimizer("sgd", 1.0), cfg,
+                                    E2E_CHUNK, loss_fn=loss_fn)
+    grads = [[(a - b).double().cpu() for a, b in
+              zip(tree_leaves(p), tree_leaves(q))]
+             for p, q in zip(p0, (s1.coarse_params, s1.fine_params))]
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def _compare_l1_steps(label, state, small, cfg):
+    """The card's L1 step against the CPU's at the same subgradient
+    (ROADMAP C9). L1's gradient jumps by 2 / N at a pixel-channel whose
+    prediction crosses its target, and the card's renders may differ from
+    the CPU's by up to ``E2E_TOL["image"]``: where a prediction lies that
+    close to its target (a white background pixel rendered at 1.0), the two
+    devices' signs are a draw of float32 rounding, and one flip moves a
+    16^2 step's fine gradient by about 1 / sqrt(768) of its norm. So a CPU
+    step records the reference's signs, both steps are taken with them
+    (:class:`SignedL1`: L1's value, the reference's subgradient) and held
+    at ``STEP_TOL`` by :func:`_compare_steps`, and the card's own signs may
+    differ from the reference's only where the reference's residual lies
+    within ``E2E_TOL["image"]``."""
+    ref = SignedL1()
+    _one_step(state, small, cfg, "cpu", ref)
+    n = 2 * len(small[1])   # the gradient calls: coarse, fine per chunk
+    signs = ref.own[:n]
+    card = SignedL1(signs)
+    _compare_steps(label, state, small, cfg, ("cuda", card),
+                   ("cpu", SignedL1(signs)))
+    flips = [card.own[k] != signs[k] for k in range(n)]
+    count = sum(int(f.sum()) for f in flips)
+    widest = max((float(ref.residual[k][f].max())
+                  for k, f in enumerate(flips) if f.any()), default=0.0)
+    log(f"{label}: the card's own sign differs from the reference's at "
+        f"{count} of {sum(x.numel() for x in signs)} pixel-channels, where "
+        f"the reference's residual is at most {widest:.3e} (must lie within "
+        f"the render budget {E2E_TOL['image']:.0e})")
+    if widest > E2E_TOL["image"]:
+        fail(f"{label}: the card's L1 signs differ from the CPU's beyond "
+             f"the render budget")
+
+
+def _compare_steps(label, state, small, cfg, run_a, run_b):
+    """One SGD (lr 1) step from ``state``'s weights on the same batch and
+    draws for each run ``(device, loss_fn)``, held at ``STEP_TOL``: losses
+    relative, per-leaf gradients (the parameter change) of both models by
+    relative norm and relative max, ``run_b`` the reference."""
+    import numpy as np
+
+    (m_a, g_a), (m_b, g_b) = (_one_step(state, small, cfg, *run)
+                              for run in (run_a, run_b))
     loss_err = max(abs(m_a[k] - m_b[k]) / abs(m_b[k])
                    for k in ("coarse_loss", "fine_loss"))
     worst = {}
@@ -1390,9 +1470,14 @@ def _train_modes(ti: dict, cfg) -> list:
     (:func:`_weight_grad_library`). ``mlp_backward`` has no one-call
     library equivalent; its 9th item is the PyTorch chain of its function
     (``time_mlp_backward.pytorch_chain``: one bf16 matmul per layer,
-    ``torch.where`` masks), reported apart from library times."""
+    ``torch.where`` masks), reported apart from library times;
+    ``ray_march_mlp``'s is the forward's PyTorch chain
+    (``time_ray_march_mlp.pytorch_chain``) over the pass's encoding."""
     from keras_nerf_tpu_torch.kernels import ray_march as trm
     from keras_nerf_tpu_torch.time_mlp_backward import pytorch_chain
+    from keras_nerf_tpu_torch.time_ray_march_mlp import (
+        pytorch_chain as forward_chain,
+    )
     from keras_nerf_tpu_torch.models.engine import tree_leaves
 
     packed = ti["packed"]
@@ -1426,7 +1511,9 @@ def _train_modes(ti: dict, cfg) -> list:
              lambda f, t=t, stash=stash: f(packed, ti["base"], ti["slope"],
                                            t, ti["masks"], stash=stash),
              per_step, _bound(mlp_io, pts * fwd, PEAK_BF16_FLOPS),
-             mlp_io + pts * stash_b),
+             mlp_io + pts * stash_b, None, forward_chain(
+                 packed, trm.encode_points(ti["base"], ti["slope"], t,
+                                           ti["masks"]).reshape(-1, 128))),
             (trm.ray_march_quadrature, "train",
              f"with_grad {name} {shape}",
              lambda f, p=p, t=t: f(p["rgbs"], t, True, False, p["weights"],
@@ -1460,10 +1547,13 @@ def _custom_modes(ti: dict, cfg) -> list:
     (``mlp_weight_grad``), at the bf16 peak, against each function's own
     inputs and outputs; the stash and cotangents the split moves (and
     ``mlp_weight_grad``'s partial sums) come apart as the design's bytes,
-    and ``mlp_weight_grad`` has its cuBLAS yardstick and ``mlp_backward``
-    its PyTorch chain as in :func:`_train_modes`."""
+    and ``mlp_weight_grad`` has its cuBLAS yardstick, ``mlp_backward`` and
+    ``apply_mlp`` their PyTorch chains as in :func:`_train_modes`."""
     from keras_nerf_tpu_torch.kernels import ray_march as trm
     from keras_nerf_tpu_torch.time_mlp_backward import pytorch_chain
+    from keras_nerf_tpu_torch.time_ray_march_mlp import (
+        pytorch_chain as forward_chain,
+    )
     from keras_nerf_tpu_torch.models.engine import tree_leaves
 
     packed = ti["packed"]
@@ -1487,12 +1577,15 @@ def _custom_modes(ti: dict, cfg) -> list:
         acc = trm.zero_grads(packed)
         fwd_bound = _bound(weight_bytes + pts * io_b, pts * fwd,
                            PEAK_BF16_FLOPS)
+        chain = forward_chain(packed, p["enc"])
         modes += [
             (trm.apply_mlp, "custom", f"forward {name} {shape}",
-             lambda f, p=p: f(packed, p["enc"]), per_step, fwd_bound),
+             lambda f, p=p: f(packed, p["enc"]), per_step, fwd_bound, None,
+             None, chain),
             (trm.apply_mlp, "custom", f"recompute (stash) {name} {shape}",
              lambda f, p=p, stash=stash: f(packed, p["enc"], stash=stash),
-             per_step, fwd_bound, weight_bytes + pts * (io_b + kept_b)),
+             per_step, fwd_bound, weight_bytes + pts * (io_b + kept_b), None,
+             chain),
             (trm.mlp_backward, "custom", f"output head {name} {shape}",
              lambda f, p=p, cots=cots: f(p["g"], p["y"], packed,
                                          p["t6_stash"], cots,

@@ -132,21 +132,38 @@ def last_build() -> BuildResult | None:
     return _RESULT
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.knt_sample_merge.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.knt_ray_march_mlp.argtypes = [p, p, p, p, p, p, i, i, i, p, p]
-    lib.knt_ray_march_quadrature.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.knt_ray_march_quadrature_grad.argtypes = [p] * 8 + [i, i, i, f, p]
-    lib.knt_apply_mlp.argtypes = [p, p, p, i, p, p]
-    lib.knt_mlp_backward.argtypes = [p, p, p, p, p, i, p]
-    lib.knt_mlp_backward_from_output.argtypes = [p] * 6 + [i, p]
-    lib.knt_mlp_weight_grad.argtypes = [p, i, p, i, i, i, i, p, p]
-    lib.knt_ray_march_mlp_int8.argtypes = [p, p, p, p, p, p, i, i, i, p]
-    lib.knt_mma_ceiling.argtypes = [p, p, p, i, i, i, i, i, p]
-    for fn in (lib.knt_sample_merge, lib.knt_ray_march_mlp,
-               lib.knt_apply_mlp, lib.knt_ray_march_quadrature,
-               lib.knt_ray_march_quadrature_grad, lib.knt_mlp_backward,
-               lib.knt_mlp_backward_from_output, lib.knt_mlp_weight_grad,
-               lib.knt_ray_march_mlp_int8, lib.knt_mma_ceiling):
-        fn.restype = i
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The argument types of every C entry point; each returns an int.
+ENTRY_POINTS = {
+    "knt_sample_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "knt_ray_march_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "knt_ray_march_quadrature": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "knt_ray_march_quadrature_grad": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "knt_apply_mlp": [_P, _P, _P, _I, _P, _P],
+    "knt_mlp_backward": [_P, _P, _P, _P, _P, _I, _P],
+    "knt_mlp_backward_from_output": [_P] * 6 + [_I, _P],
+    "knt_mlp_weight_grad": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    "knt_ray_march_mlp_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "knt_mma_ceiling": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+def _declare(lib: ctypes.CDLL, names=ENTRY_POINTS) -> None:
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = ENTRY_POINTS[name]
+        fn.restype = _I
+
+
+def build_single(source: Path, out_dir: Path, names) -> ctypes.CDLL:
+    """One ``.cu`` file (of this or another checkout) compiled alone with
+    this package's flags into a library of its own, its C entry points
+    ``names`` declared as :func:`load` declares them: the timing tools
+    launch another build of a kernel through this package's wrappers."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / f"lib{source.stem}.so"
+    _run([find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib_path),
+          str(source)])
+    lib = ctypes.CDLL(str(lib_path))
+    _declare(lib, names)
+    return lib

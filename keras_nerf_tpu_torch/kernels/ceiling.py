@@ -7,8 +7,9 @@ resident weights, ``rep`` passes, its input made from an iota and only an
 :func:`mma_ceiling_plain` is the plain version of the ``mma_ceiling``
 kernel (``csrc/mma_ceiling.cu``), which ``kernels/ray_march.py`` wraps;
 ``python -m keras_nerf_tpu_torch.profile_mma_ceiling`` times it. The probe
-lies on no path of the package: it measures the ceiling of the MLP kernels'
-own product loop on the card.
+lies on no path of the package: it measures the ceiling of the ``wmma``
+product loop (``csrc/mlp.cuh``) that the MLP kernels ran before they moved
+to ``wgmma``.
 """
 
 from __future__ import annotations

@@ -162,12 +162,15 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 }
 
 // D[64 x N] += A[64 x 16] B[16 x N], bf16 operands from shared memory, f32
-// accumulators in registers. TransA / TransB: 0 K-major, 1 MN-major.
+// accumulators in registers; with scale_d 0, D = A B (a product's first
+// step, so that no instruction but wgmma writes the accumulators: ptxas
+// serializes the products otherwise, C7515). TransA / TransB: 0 K-major,
+// 1 MN-major.
 // Thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8 for
 // d[4j + 2], d[4j + 3]) and columns 8 j + 2 (t % 4) (+ 1 for odd d).
 template <int TransA, int TransB>
 __device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t desc_a,
-                                            uint64_t desc_b) {
+                                            uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -178,12 +181,12 @@ __device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t desc_a,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TransA), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
 }
 
 template <int TransA, int TransB>
 __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                            uint64_t desc_b) {
+                                            uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -200,12 +203,12 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TransA), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
 }
 
 template <int TransA, int TransB>
 __device__ __forceinline__ void mma_m64n256k16(float (&d)[128], uint64_t desc_a,
-                                            uint64_t desc_b) {
+                                            uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -234,20 +237,20 @@ __device__ __forceinline__ void mma_m64n256k16(float (&d)[128], uint64_t desc_a,
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TransA), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
 }
 
 // The product above for a width known at compile time.
 template <int N, int TransA, int TransB>
 __device__ __forceinline__ void mma_m64k16(float (&d)[N / 2], uint64_t desc_a,
-                                           uint64_t desc_b) {
+                                           uint64_t desc_b, int scale_d = 1) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma width");
   if constexpr (N == 64) {
-    mma_m64n64k16<TransA, TransB>(d, desc_a, desc_b);
+    mma_m64n64k16<TransA, TransB>(d, desc_a, desc_b, scale_d);
   } else if constexpr (N == 128) {
-    mma_m64n128k16<TransA, TransB>(d, desc_a, desc_b);
+    mma_m64n128k16<TransA, TransB>(d, desc_a, desc_b, scale_d);
   } else {
-    mma_m64n256k16<TransA, TransB>(d, desc_a, desc_b);
+    mma_m64n256k16<TransA, TransB>(d, desc_a, desc_b, scale_d);
   }
 }
 

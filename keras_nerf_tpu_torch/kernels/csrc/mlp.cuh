@@ -1,8 +1,8 @@
 // The MLP's packed weights and its kept activations, which the forward
 // (ray_march_mlp.cu) and the dX chain (mlp_backward.cu) share, and the
-// tensor-core helpers of the forward and the ceiling probe (mma_ceiling.cu):
-// nvcuda::wmma 16x16x16 bf16 -> float32 fragments. mlp_backward.cu runs on
-// wgmma (gmma.cuh).
+// nvcuda::wmma 16x16x16 bf16 -> float32 helpers of the tensor-core ceiling
+// probe (mma_ceiling.cu), the product loop the MLP kernels ran before they
+// moved to wgmma (gmma.cuh); no MLP kernel uses them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,20 +80,6 @@ __device__ __forceinline__ void zero(AccFrag (&acc)[4][NF]) {
   for (int m = 0; m < 4; ++m)
 #pragma unroll
     for (int f = 0; f < NF; ++f) nvcuda::wmma::fill_fragment(acc[m][f], 0.f);
-}
-
-// Rows [0, rows) x columns [0, cols) of a bf16 shared-memory tile (row
-// stride lds) to global rows p0.. of a row-major [P, cols] array, 16 bytes
-// per thread and step. cols, lds and the row strides are multiples of 8.
-__device__ __forceinline__ void copy_tile_out(bf16* __restrict__ dst, int p0,
-                                              int rows, int cols, const bf16* src,
-                                              int lds) {
-  const int vec_per_row = cols / 8;
-  for (int v = threadIdx.x; v < rows * vec_per_row; v += blockDim.x) {
-    const int r = v / vec_per_row, c = (v % vec_per_row) * 8;
-    *reinterpret_cast<uint4*>(dst + (size_t)(p0 + r) * cols + c) =
-        *reinterpret_cast<const uint4*>(src + r * lds + c);
-  }
 }
 
 }  // namespace knt

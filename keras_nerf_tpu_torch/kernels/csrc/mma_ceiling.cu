@@ -1,5 +1,6 @@
 // mma_ceiling: a compute-only chain of [T, u] @ [u, u] bf16 products, the
-// tensor-core ceiling of the port's own MLP product loop.
+// tensor-core ceiling of the wmma product loop (mlp.cuh) that the port's MLP
+// kernels ran before they moved to wgmma.
 //
 // Replaces: the MXU-ceiling probe scripts/profile_mxu_ceiling.py:87 (kernel
 // body :51-66), a measurement that lies on no path of the package. Each grid
@@ -12,7 +13,7 @@
 // Bound on the H100: operations, 2 T u^2 L rep FLOP per step against a few
 // KB moved; 3.3 TFLOP at the probe's defaults, 3.3 ms at 989 TFLOP/s.
 //
-// Design: ray_march_mlp.cu's product loop as it is. Each block holds one
+// Design: that loop as the first forward kernel ran it. Each block holds one
 // 64-row tile of a step in shared memory (two bf16 tiles, ping-pong), reads
 // the weights (1 MB at u = 256) through L2/L1 as wmma fragments (mlp.cuh's
 // mma_rows), each of its 8 warps owning a 64 x 32 output block per layer,

@@ -857,15 +857,63 @@ def _stash_struct(stash: dict, points: int, units: int, n_layers: int,
     return s
 
 
+FWD_TILE_ELEMS = 128 * 256   # csrc/ray_march_mlp.cu: points x u of a tile
+FWD_STAGES = 3               # kStages: ring stages of weight slabs
+FWD_STAGE_BYTES = 4 * 64 * 128  # [64 K x 256 N] bf16 as four 64 x 64 boxes
+FWD_FLOATS = 128 * 4 + 512 + LANE + 256 * 3  # kFloats: the heads' float32 area
+
+
+def ray_march_mlp_plan(units: int) -> dict:
+    """The tile and shared memory of the ``ray_march_mlp`` kernel (and of
+    ``apply_mlp``, its input mode) at width ``units`` (mirrors
+    csrc/ray_march_mlp.cu). ``tile``: points per block, 128 at u = 256 (the
+    two consumer warpgroups take 64 rows each) and 64 at u = 512 (each
+    takes half the columns), so that the activation tile is 64 KB;
+    ``smem_bytes``: that tile, the encoding tile (``tile`` x 128 bf16), the
+    ring of weight stages, the heads' float32 columns and partial sums, the
+    mbarriers and 1 KB of alignment. Raises on a width the kernel does not
+    take."""
+    if units not in (256, 512):
+        raise ValueError(f"ray_march_mlp takes dense_units 256 or 512 (got "
+                         f"{units}): its activation tile of {FWD_TILE_ELEMS} "
+                         f"elements holds 128 or 64 points")
+    tile = FWD_TILE_ELEMS // units
+    smem = (1024 + 2 * FWD_TILE_ELEMS + tile * 2 * LANE
+            + FWD_STAGES * FWD_STAGE_BYTES + 4 * FWD_FLOATS
+            + 8 * (2 * FWD_STAGES + 1))
+    return {"tile": tile, "split": "rows" if units == 256 else "columns",
+            "stages": FWD_STAGES, "smem_bytes": smem}
+
+
+def swizzled_offset(r: int, c: int, tile: int) -> int:
+    """Byte offset of element ``(r, c)`` of a ``[tile x cols]`` bf16 tile of
+    ``ray_march_mlp``'s shared memory (csrc/ray_march_mlp.cu: ``swz``):
+    64-column boxes of ``tile`` rows of 128 bytes, the 16-byte chunk
+    ``c // 8`` of row ``r`` stored at chunk ``(c // 8) ^ (r % 8)``."""
+    return ((c >> 6) * tile * 128 + r * 128
+            + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2)
+
+
+def _raise_on_mapped(err: int, name: str) -> None:
+    if err < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {-err})")
+    _raise_on(err, name)
+
+
 def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
-                        sigma_only=False, stash=None):
+                        sigma_only=False, stash=None, lib=None):
+    """The ``ray_march_mlp`` launch; ``lib`` another build of its C entry
+    point (``time_ray_march_mlp`` times a parent's kernel through it),
+    else this package's library."""
     from keras_nerf_tpu_torch.kernels._build import load
 
-    lib = load()
     dev = base.device
     r, s = depths.shape
     f32 = torch.float32
     weights = _mlp_struct(packed, dev)
+    ray_march_mlp_plan(weights.units)
+    lib = load() if lib is None else lib
     stash_s = None
     if stash is not None:
         if sigma_only:
@@ -875,7 +923,7 @@ def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
     shape = (r * s,) if sigma_only else (r * s, 4)
     out = torch.empty(shape, dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        _raise_on(lib.knt_ray_march_mlp(
+        _raise_on_mapped(lib.knt_ray_march_mlp(
             ctypes.addressof(weights),
             _check(base, "base", f32, dev, (r, LANE)),
             _check(slope, "slope", f32, dev, (r, LANE)),
@@ -887,17 +935,19 @@ def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
     return out
 
 
-def _apply_mlp_cuda(packed, enc, stash=None):
+def _apply_mlp_cuda(packed, enc, stash=None, lib=None):
+    """The ``apply_mlp`` launch; ``lib`` as for :func:`_ray_march_mlp_cuda`."""
     from keras_nerf_tpu_torch.kernels._build import load
 
-    lib = load()
     dev = enc.device
     p = enc.shape[0]
     weights = _mlp_struct(packed, dev)
+    ray_march_mlp_plan(weights.units)
+    lib = load() if lib is None else lib
     _check(enc, "enc", torch.bfloat16, dev, (p, LANE))
     if enc.data_ptr() % 16:
-        raise ValueError("apply_mlp reads enc 16 bytes at a time: its data "
-                         "must be 16-byte aligned")
+        raise ValueError("apply_mlp reads enc by TMA: its data must be "
+                         "16-byte aligned")
     stash_s = None
     if stash is not None:
         _check_stash_enc(enc, stash)
@@ -905,7 +955,7 @@ def _apply_mlp_cuda(packed, enc, stash=None):
                                 dev)
     out = torch.empty((p, 4), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _raise_on(lib.knt_apply_mlp(
+        _raise_on_mapped(lib.knt_apply_mlp(
             ctypes.addressof(weights), enc.data_ptr(), out.data_ptr(), p,
             None if stash_s is None else ctypes.addressof(stash_s),
             _stream(dev)), "apply_mlp")
@@ -1123,10 +1173,7 @@ def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None,
                 _check(d_sigma, "d_sigma", bf16, dev, (p,)),
                 ctypes.addressof(stash_s), ctypes.addressof(ct), p,
                 _stream(dev))
-    if err < 0:
-        raise RuntimeError(f"mlp_backward: cuTensorMapEncodeTiled failed "
-                           f"(CUresult {-err})")
-    _raise_on(err, "mlp_backward")
+    _raise_on_mapped(err, "mlp_backward")
     cots["d_rgb"] = d_rgb
     return cots
 
@@ -1228,10 +1275,7 @@ def _mlp_weight_grad_cuda(stash, cots, grads):
             ctypes.addressof(table), len(tasks), ctypes.addressof(tiles),
             len(tiles), p, plan["slices"], plan["chunk"], partial.data_ptr(),
             _stream(dev))
-    if err < 0:
-        raise RuntimeError(f"mlp_weight_grad: cuTensorMapEncodeTiled "
-                           f"failed (CUresult {-err})")
-    _raise_on(err, "mlp_weight_grad")
+    _raise_on_mapped(err, "mlp_weight_grad")
     return grads
 
 

@@ -1,5 +1,5 @@
-"""Measure the tensor-core ceiling of the MLP kernels' product loop on the
-card (port of the root ``scripts/profile_mxu_ceiling.py``).
+"""Measure the tensor-core ceiling of the ``wmma`` product loop on the card
+(port of the root ``scripts/profile_mxu_ceiling.py``).
 
     python -m keras_nerf_tpu_torch.profile_mma_ceiling [--t 1536] [--u 256] \\
         [--rep 16] [--grid 128] [--iters 10]
@@ -8,10 +8,11 @@ The ``mma_ceiling`` kernel (``kernels/csrc/mma_ceiling.cu``) runs nothing
 but the trunk's product chain: ``[T, u] @ [u, u]`` bf16 products with
 float32 accumulation over 8 resident weights, ``rep`` passes, on ``grid``
 tiles of ``T`` rows made from an iota, with the convert-only (``bare``) or
-the bias + relu + convert (``epi``) epilogue. It uses ``ray_march_mlp.cu``'s
-design (64-row tiles in shared memory, weights as ``wmma`` fragments from
-L2), so its rate is the ceiling of that design's product loop, without the
-encoding, the heads or the quadrature. Prints per mode the device ms per
+the bias + relu + convert (``epi``) epilogue. It uses the design that the
+MLP kernels ran before they moved to ``wgmma`` (64-row tiles in shared
+memory, weights as ``wmma`` fragments from L2, ``csrc/mlp.cuh``), so its
+rate is the ceiling of that design's product loop, without the encoding,
+the heads or the quadrature. Prints per mode the device ms per
 call (CUDA events) and TFLOP/s against the 989 TFLOP/s dense bf16 peak,
 with the card's name and power limit. Needs a card.
 """

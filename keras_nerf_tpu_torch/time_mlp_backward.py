@@ -30,7 +30,6 @@ one library call, and never called by the port.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import time
@@ -73,22 +72,6 @@ def pytorch_chain(a, b, packed: dict, stash: dict, from_output=False):
                 d_h = torch.matmul(d_pre[-1], packed["trunk_w"][i].T)
         return d_rf, d_sf, d_pre
     return run
-
-
-def build_parent(csrc: Path, out_dir: Path) -> ctypes.CDLL:
-    """``csrc/mlp_backward.cu`` of another checkout as a library of its own,
-    its two entry points declared as this package declares them."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / "libparent_mlp_backward.so"
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    str(lib_path), str(csrc / "mlp_backward.cu")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.knt_mlp_backward.argtypes = [p, p, p, p, p, i, p]
-    lib.knt_mlp_backward_from_output.argtypes = [p] * 6 + [i, p]
-    lib.knt_mlp_backward.restype = lib.knt_mlp_backward_from_output.restype = i
-    return lib
 
 
 def make_inputs(points: int, device, seed: int = 0):
@@ -151,8 +134,10 @@ def measure(parent: Path | None = None, iters: int = 20) -> dict:
         raise RuntimeError("time_mlp_backward needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    lib = None if parent is None else build_parent(
-        parent, _build.BUILD_ROOT.parent / "parent_mlp_backward")
+    lib = None if parent is None else _build.build_single(
+        parent / "mlp_backward.cu",
+        _build.BUILD_ROOT.parent / "parent_mlp_backward",
+        ("knt_mlp_backward", "knt_mlp_backward_from_output"))
     q = "clocks.sm,power.draw,power.limit,temperature.gpu"
     out = {"card": _smi("name,power.limit"), "clocks": [
         {"when": "before the turns", q: _smi(q)}], "turns": {}, "errors": {}}

@@ -89,6 +89,98 @@ def test_ray_march_mlp_matches_plain(cuda_device, n_layers, skip,
     assert float((got - want).abs().max()) <= 3e-2
 
 
+def _fwd_inputs(device, units, rays, samples, seed=7):
+    """Seeded weights of an 8-layer MLP of width ``units`` (a fog: sigma
+    bias +1, so every head and every layer carries a value), random rays'
+    encoding coefficients and depths, and the same points encoded outside
+    the kernel for the input mode."""
+    cfg = NeRFConfig(dense_units=units)
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = init_mlp(g, cfg.mlp, cfg.in_xyz, cfg.in_dir)
+    params["sigma"]["bias"] += 1.0
+    packed = trm.pack_mlp_params(params, cfg.mlp, 10, 4)
+    o = torch.zeros(rays, 3, device=device)
+    o[:, 2] = 4.0
+    d = torch.nn.functional.normalize(
+        torch.randn(rays, 3, generator=g, device=device), dim=-1)
+    t = torch.sort(torch.rand(rays, samples, generator=g, device=device) * 4
+                   + 2, dim=-1).values
+    base, slope, masks = trm.ray_encoding_coeffs(o, d, 10, 4)
+    enc = trm.encode_block128(*trm.ray_points(o, d, t))
+    return cfg, packed, (base, slope, t, masks), enc
+
+
+def _forward(mode, cfg, packed, rm_args, enc, plain=False):
+    """One call of ray_march_mlp.cu's ``mode`` (or its plain version):
+    ``(outputs, stash or None)``."""
+    p, u, n = enc.shape[0], cfg.dense_units, cfg.n_layers
+    if mode in ("sigma_only", "full", "train"):
+        f = trm.ray_march_mlp_plain if plain else trm.ray_march_mlp
+        stash = (trm.alloc_stash(p, u, n, enc.device) if mode == "train"
+                 else None)
+        return f(packed, *rm_args, sigma_only=mode == "sigma_only",
+                 stash=stash), stash
+    f = trm.apply_mlp_plain if plain else trm.apply_mlp
+    stash = (trm.alloc_stash(p, u, n, enc.device, enc=enc)
+             if mode == "input_stash" else None)
+    return f(packed, enc, stash=stash), stash
+
+
+# (units, rays, samples): no point; one block's 50 rows (a ragged tile that
+# TMA and the prologue fill with zeros, no store past P); 17 past a whole
+# number of tiles; u = 512 (64-point tiles, each warpgroup half the
+# columns); and the training chunk's fine launch.
+_FWD_EDGES = {"empty": (256, 0, 64), "ragged_50": (256, 5, 10),
+              "ragged_8192_plus_17": (256, 8209, 1),
+              "units_512": (512, 17, 241),
+              "fine_chunk_2048x192": (256, 2048, 192)}
+_FWD_MODES = ("sigma_only", "full", "train", "input", "input_stash")
+
+
+@pytest.mark.parametrize("mode", _FWD_MODES)
+@pytest.mark.parametrize("case", sorted(_FWD_EDGES))
+def test_forward_matches_plain_at_edge_shapes(cuda_device, case, mode):
+    """Every mode of ray_march_mlp.cu (sigma-only, full, train; apply_mlp
+    without and with its stash) against its plain version, each run twice
+    with identical bits; budgets as above: outputs 3e-2, kept activations
+    relative max 3e-2 and relative norm 1e-2."""
+    units, rays, samples = _FWD_EDGES[case]
+    cfg, packed, rm_args, enc = _fwd_inputs(cuda_device, units, rays,
+                                            samples)
+    kernel = trm.apply_mlp if mode.startswith("input") else trm.ray_march_mlp
+    before = kernel.launches
+    runs = [_forward(mode, cfg, packed, rm_args, enc) for _ in range(2)]
+    want, want_s = _forward(mode, cfg, packed, rm_args, enc, plain=True)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    (got, got_s), (again, again_s) = runs
+    assert got.shape == want.shape == (
+        (rays * samples,) if mode == "sigma_only" else (rays * samples, 4))
+    assert torch.equal(got, again), case
+    if got.numel():
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 3e-2, case
+    if want_s is None:
+        return
+    names = ["features", "rf"] + (["enc"] if mode == "train" else [])
+    pairs = [(got_s[k], again_s[k], want_s[k]) for k in names]
+    pairs += list(zip(got_s["h"], again_s["h"], want_s["h"]))
+    for x, y, z in pairs:
+        assert torch.equal(x, y), case
+        if x.numel():
+            _assert_bf16_close(x, z, 3e-2, case)
+
+
+def test_forward_refuses_other_widths_before_launching(cuda_device):
+    cfg, packed, rm_args, enc = _fwd_inputs(cuda_device, 768, 4, 16)
+    before = (trm.ray_march_mlp.launches, trm.apply_mlp.launches)
+    with pytest.raises(ValueError, match="768"):
+        trm.ray_march_mlp(packed, *rm_args)
+    with pytest.raises(ValueError, match="768"):
+        trm.apply_mlp(packed, enc)
+    assert (trm.ray_march_mlp.launches, trm.apply_mlp.launches) == before
+
+
 @pytest.mark.parametrize("sigma_only,white_bg", [(True, False),
                                                  (False, True),
                                                  (False, False)])

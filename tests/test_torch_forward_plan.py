@@ -1,0 +1,164 @@
+"""The tile and shared-memory plan of the ``ray_march_mlp`` kernel (and of
+``apply_mlp``, its input mode), on the CPU.
+
+The kernel runs only on the card (``tests/test_torch_cuda.py``). What it
+takes is decided in Python by :func:`ray_march_mlp_plan`, which mirrors
+``csrc/ray_march_mlp.cu``: a block of 128 points at u = 256 and 64 at
+u = 512, whose activation tile is 64 KB, beside the encoding tile and a
+ring of three 32 KB weight stages, within the H100's 227 KB of shared
+memory a block. Every other width raises, naming the width, before anything
+is built or launched. The tiles' 128-byte swizzled layout is mirrored by
+:func:`swizzled_offset`, held here against the layout ``wgmma`` reads.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from keras_nerf_tpu_torch.kernels import _build
+from keras_nerf_tpu_torch.kernels import ray_march as trm
+from keras_nerf_tpu_torch.models import NeRFConfig, init_mlp
+
+SOURCE = (Path(trm.__file__).resolve().parent / "csrc" /
+          "ray_march_mlp.cu").read_text()
+
+
+def _constant(name: str) -> str:
+    m = re.search(rf"constexpr int {name} = ([^;]+);", SOURCE)
+    assert m is not None, name
+    return m.group(1).split("//")[0].strip()
+
+
+def _constants() -> dict:
+    env = {"kEncLanes": trm.LANE}
+    for name in ("kBox", "kMaxUnits", "kStages", "kStageBytes",
+                 "kTileElems", "kFloats"):
+        env[name] = eval(_constant(name), {}, env)
+    return env
+
+
+@pytest.mark.parametrize("units,tile,split", [(256, 128, "rows"),
+                                              (512, 64, "columns")])
+def test_plan_fits_the_tiles_in_227_kb(units, tile, split):
+    plan = trm.ray_march_mlp_plan(units)
+    assert plan["tile"] == tile and plan["split"] == split
+    assert plan["stages"] == 3
+    # The activation tile: 64 KB of bf16; the encoding tile beside it.
+    assert plan["tile"] * units * 2 == 64 * 1024
+    enc = plan["tile"] * trm.LANE * 2
+    ring = plan["stages"] * trm.FWD_STAGE_BYTES
+    assert plan["smem_bytes"] >= 64 * 1024 + enc + ring + 1024
+    assert plan["smem_bytes"] <= trm.SMEM_PER_BLOCK == 227 * 1024
+
+
+@pytest.mark.parametrize("units", [0, 128, 384, 640, 768, 1024])
+def test_plan_refuses_other_widths_by_name(units):
+    with pytest.raises(ValueError, match=rf"dense_units 256 or 512 \(got "
+                                         rf"{units}\)"):
+        trm.ray_march_mlp_plan(units)
+
+
+@pytest.mark.parametrize("name,mirror", [
+    ("kStages", "FWD_STAGES"), ("kTileElems", "FWD_TILE_ELEMS"),
+    ("kStageBytes", "FWD_STAGE_BYTES"), ("kFloats", "FWD_FLOATS")])
+def test_plan_mirrors_the_kernel_source(name, mirror):
+    assert _constants()[name] == getattr(trm, mirror)
+
+
+@pytest.mark.parametrize("units", [256, 512])
+def test_plan_bytes_are_the_kernel_sources_formula(units):
+    m = re.search(r"constexpr int smem_bytes\(int tile\) \{\s*return "
+                  r"([^;]+);", SOURCE)
+    assert m is not None
+    plan = trm.ray_march_mlp_plan(units)
+    env = {**_constants(), "tile": plan["tile"]}
+    assert eval(" ".join(m.group(1).split()), {}, env) == plan["smem_bytes"]
+
+
+def test_kernel_source_checks_the_same_limit():
+    assert "232448" in SOURCE
+    assert trm.SMEM_PER_BLOCK == 232448
+
+
+def _wide_inputs(units=768, points=8):
+    cfg = NeRFConfig(n_layers=2, dense_units=units, skip_layer=1)
+    g = torch.Generator().manual_seed(0)
+    packed = trm.pack_mlp_params(init_mlp(g, cfg.mlp, cfg.in_xyz,
+                                          cfg.in_dir), cfg.mlp, 10, 4)
+    o = torch.zeros(points, 3)
+    d = torch.nn.functional.normalize(torch.randn(points, 3, generator=g),
+                                      dim=-1)
+    t = torch.sort(torch.rand(points, 4, generator=g) * 4 + 2, -1).values
+    base, slope, masks = trm.ray_encoding_coeffs(o, d, 10, 4)
+    enc = trm.encode_block128(*trm.ray_points(o, d, t))
+    return packed, base, slope, t, masks, enc
+
+
+@pytest.mark.parametrize("entry", ["ray_march_mlp", "apply_mlp"])
+def test_wrapper_refuses_a_width_before_building_or_launching(monkeypatch,
+                                                              entry):
+    """The launch functions check the plan before they load the library:
+    called here on the CPU, where no compiler exists, they raise on the
+    width and never reach the build."""
+    def no_build():
+        raise AssertionError("the library was loaded before the width check")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    packed, base, slope, t, masks, enc = _wide_inputs()
+    before = (trm.ray_march_mlp.launches, trm.apply_mlp.launches)
+    with pytest.raises(ValueError, match="768"):
+        if entry == "ray_march_mlp":
+            trm._ray_march_mlp_cuda(packed, base, slope, t, masks)
+        else:
+            trm._apply_mlp_cuda(packed, enc)
+    assert (trm.ray_march_mlp.launches, trm.apply_mlp.launches) == before
+
+
+def _swz_source_expr() -> str:
+    m = re.search(r"__device__ __forceinline__ int swz\(int r, int c\) \{\s*"
+                  r"return ([^;]+);", SOURCE)
+    assert m is not None
+    return " ".join(m.group(1).split())
+
+
+def test_swizzled_offset_mirrors_the_kernel_source():
+    expr = _swz_source_expr()
+    for tile in (128, 64):
+        for r in range(tile):
+            for c in range(0, 512, 2):
+                assert eval(expr, {}, {"kTile": tile, "r": r, "c": c}) == \
+                    trm.swizzled_offset(r, c, tile), (tile, r, c)
+
+
+@pytest.mark.parametrize("tile,cols", [(128, 128), (64, 128), (128, 256),
+                                       (64, 512)])
+def test_prologue_stores_land_where_the_kmajor_sw128_layout_reads(tile,
+                                                                   cols):
+    """The prologue's stores, emulated thread by thread: consumer thread
+    ``ct`` of 256 takes steps ``v = ct, ct + 256, ...`` and stores the 16
+    bytes of lanes ``c .. c + 7`` of row ``r`` (``r, c = v // (cols / 8),
+    8 (v % (cols / 8))``) at ``swizzled_offset(r, c, tile)``. The K-major
+    128-byte swizzled layout that ``wgmma`` reads (``csrc/gmma.cuh``) keeps
+    64-column boxes of ``tile`` rows of 128 bytes, each box 1024-byte
+    aligned, and XORs the 16-byte chunk bits (4-6) of an address with its
+    row bits (7-9). Every lane of every row must land at the byte that
+    layout reads it from, and the stores must cover the tile once."""
+    owner = np.full(tile * cols * 2, -1, dtype=np.int64)
+    chunks = cols // 8
+    for ct in range(256):
+        for v in range(ct, tile * chunks, 256):
+            r, c = v // chunks, (v % chunks) * 8
+            off = trm.swizzled_offset(r, c, tile)
+            assert off % 16 == 0
+            for e in range(8):
+                lane = c + e
+                linear = r * 128 + (lane % 64) * 2
+                want = ((lane // 64) * tile * 128
+                        + (linear ^ (((linear >> 7) & 7) << 4)))
+                assert off + 2 * e == want, (r, lane)
+                assert (owner[want:want + 2] == -1).all(), (r, lane)
+                owner[want:want + 2] = r * cols + lane
+    assert (owner >= 0).all()

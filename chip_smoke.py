@@ -30,9 +30,11 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   4096-ray chunks, renders 4 orbit frames through ``render_orbit`` and
   holds a 16^2 int8 frame against the same int8 weights on the CPU;
 * the tensor-core ceiling probe (T7): holds ``mma_ceiling`` against its
-  plain version and runs ``profile_mma_ceiling.measure`` (TFLOP/s of the
-  ``wmma`` product loop alone, the loop the MLP kernels ran before they
-  moved to ``wgmma``);
+  plain version at 2 passes, reads it at the full 16 against the plain
+  version with float64 sums (its drift at most ``CEILING_DRIFT_RATIO``
+  times the plain version's), and runs ``profile_mma_ceiling.measure``
+  (TFLOP/s of the ``wmma`` product loop alone, the loop the MLP kernels
+  ran before they moved to ``wgmma``);
 * the occupancy render (``inference --occupancy_grid 128``): bakes the fog
   weights' 128^3 grid through ``NeRF.bake_occupancy`` (8 ``apply_mlp``
   launches, one chunk held against its plain version), holds
@@ -42,7 +44,12 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   grid's probe bins, renders 4 orbit frames
   through ``render_orbit(occupancy_samples=64)`` in bf16 and int8 (4
   ``sample_merge``, 4 full MLP and 4 quadrature launches per frame) and
-  holds a 16^2 occupancy frame against the CPU's on the card's grid.
+  holds a 16^2 occupancy frame against the CPU's on the card's grid;
+* u = 768 (3 layers) on every path: each bf16 kernel mode held against its
+  plain version (twice, identical bits), the 16^2 render, an MSE and an L1
+  step, a 32^3 bake, the int8 calibration and an int8 render, each against
+  the CPU, and ``ray_march_mlp_int8`` at u = 512 and 768 against its plain
+  version; each such kernel mode timed at [4096 x 64].
 
 Each path's launch counts are read just after it runs. Then every kernel
 and its plain version is timed with CUDA events (``mlp_weight_grad`` also
@@ -122,6 +129,25 @@ TOL = {
 # apart on an H100.
 CEILING_RUN = dict(t=1536, u=256, rep=16, grid=128)
 CEILING_CHECK = dict(CEILING_RUN, rep=2)
+# At the probe's full depth the kernel's drift from the plain version with
+# float64 sums may be at most this multiple of the drift of the plain
+# version with float32 sums from it, the measure of how far bf16 roundings
+# of sums taken in another order compound over 128 layers (ROADMAP C7).
+# The plain version's float32 products run in full IEEE float32 (TF32 off);
+# the kernel's accumulate on the tensor cores, whose float32 sums align
+# the products with fewer guard bits: at equal depth they drift further,
+# 1.8x in the first reading (bare mode, H100), hence 2.
+CEILING_DRIFT_RATIO = 2.0
+# ROADMAP C10: the bf16 kernels at u = 768, the JAX envelope's width after
+# 512, at a cut depth of 3 layers with skip 1 (a trunk skip layer and a
+# last skip layer); T4 also at u = 512. Kernel checks on a 16^2 frame's
+# rays [256 x 64]; timings at the render chunk's coarse shape.
+WIDE = dict(n_layers=3, dense_units=768, skip_layer=1)
+INT8_WIDTHS = (512, 768)
+# The calibration on the card against the CPU's: activation ranges read
+# from bf16 activations that can round the other way, one bf16 step
+# (tests/test_torch_quantize.py), and codes within one step.
+CALIB_RTOL = 8e-3
 # Training kernels vs plain versions on the same inputs. bf16 arrays are
 # held relative to their largest magnitude ("rel") and, so that garbled
 # small entries cannot hide under the largest, by the norm of the
@@ -465,6 +491,9 @@ def main() -> int:
     occ_in = _occupancy_phases(nerf, cfg, gen, (o, d, tc), errors,
                                rel_errors, card_tag)
 
+    # ---- 4e. u = 768 on every path (C10), T4 at 512 and 768 --------------
+    wide = _wide_phases(gen, errors, rel_errors, card_tag)
+
     # ---- 5. training kernels against their plain versions ----------------
     train_in = _train_inputs(cfg, gen)
     for name, err, rel, rel_norm, ok, label in _train_kernel_checks(
@@ -645,7 +674,9 @@ def main() -> int:
                    "occupancy_bake": occ_in["bake_launches"][k.name],
                    "render_occupancy": occ_in["launches"][k.name],
                    "render_occupancy_quantized":
-                       occ_in["q_launches"][k.name]}
+                       occ_in["q_launches"][k.name],
+                   **{f"{path}_u{WIDE['dense_units']}": launches[k.name]
+                      for path, launches in wide["launches"].items()}}
         for path in ("train", "custom", "quantized", "probe"):
             if k.name not in totals[path]:
                 continue
@@ -726,6 +757,8 @@ def main() -> int:
             entry[key] = {"launches": launches[k.name], "ms": kms,
                           "plain_ms": pms, "bound_ms": bms,
                           "bound_by": _by(by), "per": what}
+        if k.name in wide["times"]:
+            entry["wide"] = wide["times"][k.name]
         entries.append(entry)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
@@ -1867,6 +1900,36 @@ def _ceiling_probe(errors, card_tag):
             f"(tolerance {TOL['mma_ceiling']:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail("mma_ceiling disagrees with its plain version")
+    # ROADMAP C7: at the probe's full depth (16 passes, 128 layers) bf16
+    # roundings of sums taken in another order compound past TOL. Read the
+    # kernel and the plain version (float32 sums) each against the plain
+    # version with float64 sums, two valid orders, and hold the kernel's
+    # drift to CEILING_DRIFT_RATIO times the plain version's.
+    c = CEILING_RUN
+    ws, bs, seed = make_inputs(c["grid"], c["u"], "cuda", seed=1,
+                               bias_scale=0.05)
+    seed += torch.arange(c["grid"], device="cuda").repeat_interleave(8)[
+        :, None] * 1e-2
+    for mode in MODES:
+        got = mma_ceiling(ws, bs, seed, c["t"], c["rep"], mode)
+        plain = mma_ceiling.plain(ws, bs, seed, c["t"], c["rep"], mode)
+        wide = mma_ceiling.plain(ws, bs, seed, c["t"], c["rep"], mode,
+                                 sums=torch.float64)
+        torch.cuda.synchronize()
+        drift, plain_drift = _rel_max(got, wide), _rel_max(plain, wide)
+        ok = (bool(torch.isfinite(got).all())
+              and drift <= CEILING_DRIFT_RATIO * plain_drift)
+        log(f"check mma_ceiling {mode} at full depth [{c['grid']} x "
+            f"{c['t']}, u {c['u']}, rep {c['rep']}]: relative max err "
+            f"against the plain version {_rel_max(got, plain):.3e}; against "
+            f"the plain version with float64 sums, kernel {drift:.3e}, plain "
+            f"version (float32 sums) {plain_drift:.3e} (kernel at most "
+            f"{CEILING_DRIFT_RATIO:g}x the plain version's) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("mma_ceiling at full depth drifts further than the plain "
+                 "version does")
+        del got, plain, wide
     reset_launch_counts()
     rows = measure(iters=3, **CEILING_RUN)
     torch.cuda.synchronize()
@@ -1930,6 +1993,377 @@ def _ceiling_modes(inputs: tuple) -> list:
              lambda f, mode=mode: f(ws, bs, seed, c["t"], c["rep"], mode), 1,
              _bound(nbytes, flop, PEAK_BF16_FLOPS)) for mode in MODES]
 
+
+# ---------------------------------------------------------------------------
+# The width C10 opened (u = 768) and T4's other widths.
+
+
+def _ran(launches: dict, names, label: str) -> None:
+    """Fails unless each kernel of ``names`` launched in the run read."""
+    idle = [n for n in names if not launches.get(n)]
+    if idle:
+        fail(f"{label}: {', '.join(idle)} never launched ({launches})")
+
+
+def _counts() -> dict:
+    from keras_nerf_tpu_torch.kernels import KERNELS
+
+    return {k.name: k.launches for k in KERNELS}
+
+
+def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
+    """ROADMAP C10 at ``WIDE`` (u = 768, 3 layers, skip 1), fog weights.
+
+    * Each kernel and mode against its plain version on the same inputs,
+      each run twice with identical bits, on a 16^2 frame's rays [256 x
+      64]: ``ray_march_mlp`` sigma-only, full and train (``TRAIN_TOL``,
+      outputs and stash), ``apply_mlp`` with and without its stash,
+      ``mlp_backward`` in both modes on the plain chain's cotangents.
+    * Every path through the kernels, its launch counts read just after it
+      runs: the 16^2 render (``render_image_batch``) against the CPU's
+      (``E2E_TOL``); an MSE step (T3) and an L1 step (T5/T6) against the
+      CPU's, losses at ``STEP_TOL``'s rtol and the whole gradient at its
+      relative norm (each leaf's worst printed); a 32^3 bake through
+      ``model_density_fn`` (one chunk held against ``apply_mlp``'s plain
+      version); the int8 calibration (``quantize_render_params``, whose
+      ranges come from ``apply_mlp``'s stash) against the CPU's (scales at
+      ``CALIB_RTOL``, codes within one step) and a 16^2 int8 render on the
+      card's int8 weights against the CPU's (``E2E_TOL``).
+    * T4 at each of ``INT8_WIDTHS`` against its plain version in both
+      modes, twice with identical bits (``TOL``).
+
+    Each 768 kernel mode and T4 at 512 and 768 are then timed at [4096 x
+    64] beside its plain version and bound. Returns ``{"launches": by
+    path, "times": kernel -> [timing rows]}``."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import quantize as tq
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.kernels import reset_launch_counts
+    from keras_nerf_tpu_torch.models import NeRFConfig, engine, init_mlp
+    from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+    from keras_nerf_tpu_torch.ops import sorted_uniforms
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = NeRFConfig(n_coarse=N_COARSE, n_fine=N_FINE,
+                     white_background=True, **WIDE)
+    width, n = cfg.dense_units, cfg.n_layers
+    params = [_fog(init_mlp(gen, cfg.mlp, cfg.in_xyz, cfg.in_dir))
+              for _ in range(2)]
+    packed = trm.pack_mlp_params(params[0], cfg.mlp, cfg.pos_emb_xyz,
+                                 cfg.pos_emb_dir)
+    small = _small_step_inputs(gen)
+    (images, rays), draws = small
+    o, d, t = (x.reshape(-1, x.shape[-1]) for x in rays)
+    p = t.numel()
+    base, slope, masks = trm.ray_encoding_coeffs(o, d, cfg.pos_emb_xyz,
+                                                 cfg.pos_emb_dir)
+    enc = trm.encode_block128(*trm.ray_points(o, d, t), cfg.pos_emb_xyz,
+                              cfg.pos_emb_dir)
+    tag = f"u {width}, {n} layers [{o.shape[0]} x {N_COARSE}]"
+
+    def report(held):
+        name, err, rel, rel_norm, ok, label = held
+        errors[name] = max(errors.get(name, 0.0), err)
+        old = rel_errors.get(name, (0.0, 0.0))
+        rel_errors[name] = (max(old[0], rel), max(old[1], rel_norm))
+        log(f"check {label}: max_abs_err {err:.3e}, relative max {rel:.3e}, "
+            f"relative norm {rel_norm:.3e} (tolerance {TRAIN_TOL[name]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{label} disagrees with its plain version")
+
+    def stash_blocks(st):
+        return [st["features"], st["rf"], *st["h"]]
+
+    # ---- each kernel and mode against its plain version -----------------
+    for mode in ("sigma-only", "full", "train", "input", "input + stash"):
+        kernel = trm.apply_mlp if mode.startswith("input") else \
+            trm.ray_march_mlp
+        runs = []
+        for f in (kernel, kernel, kernel.plain):
+            if kernel is trm.ray_march_mlp:
+                st = trm.alloc_stash(p, width, n, dev) if mode == "train" \
+                    else None
+                out = f(packed, base, slope, t, masks,
+                        sigma_only=mode == "sigma-only", stash=st)
+            else:
+                st = (trm.alloc_stash(p, width, n, dev, enc=enc)
+                      if mode == "input + stash" else None)
+                out = f(packed, enc, stash=st)
+            runs.append([out] + ([] if st is None else stash_blocks(st)))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])):
+            fail(f"{kernel.name} {mode} at {tag}: two runs differ")
+        report(_held(kernel.name, list(zip(runs[0], runs[2])),
+                     f"{kernel.name} {mode} at {tag}, identical bits twice"))
+    stash = trm.alloc_stash(p, width, n, dev)
+    rgbs = trm.ray_march_mlp.plain(packed, base, slope, t, masks, stash=stash)
+    r = o.shape[0]
+    target = images.reshape(r, 4)[:, :3].contiguous()
+    quad = trm.ray_march_quadrature.plain(
+        rgbs.reshape(r, N_COARSE, 4), t, True, False, True, target=target,
+        loss_scale=2.0 / (3 * r))
+    g_out = torch.randn(p, 4, generator=gen, device=dev).to(torch.bfloat16)
+    for label, args, kw in (
+            ("quadrature mode", (quad[3], quad[4]), {}),
+            ("output-head mode", (g_out, rgbs), {"from_output": True})):
+        runs = [f(*args, packed, stash, **kw) for f in (
+            trm.mlp_backward, trm.mlp_backward, trm.mlp_backward.plain)]
+        torch.cuda.synchronize()
+        leaves = [engine.tree_leaves({k: x[k] for k in (
+            "d_rgb", "d_rf", "d_sf", "d_pre")}) for x in runs]
+        if not all(torch.equal(a, b) for a, b in zip(leaves[0], leaves[1])):
+            fail(f"mlp_backward {label} at {tag}: two runs differ")
+        report(_held("mlp_backward", list(zip(leaves[0], leaves[2])),
+                     f"mlp_backward {label} at {tag}, identical bits twice"))
+
+    launches = {}
+    # ---- the render ---------------------------------------------------------
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    _, card = engine.render_image_batch(params[0], params[1], rays, draws,
+                                        cfg, E2E_CHUNK)
+    torch.cuda.synchronize()
+    launches["render"] = _counts()
+    _ran(launches["render"], ("sample_merge", "ray_march_mlp",
+                              "ray_march_quadrature"), f"render at u {width}")
+    _, host = engine.render_image_batch(
+        *(_to(x, cpu) for x in params), tuple(x.to(cpu) for x in rays),
+        [x.to(cpu) for x in draws], cfg, E2E_CHUNK)
+    err = {k: float((card[k].cpu() - host[k]).abs().max())
+           for k in ("image", "depth")}
+    ok = all(err[k] <= E2E_TOL[k] for k in err)
+    log(f"render {E2E_IMG}^2 at u {width}, card kernels vs CPU plain "
+        f"versions: " + ", ".join(f"{k} max_abs_err {v:.3e} (tolerance "
+                                  f"{E2E_TOL[k]:.0e})" for k, v in err.items())
+        + f"; launches {launches['render']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the card's render at u {width} disagrees with the CPU's")
+
+    # ---- an MSE step (T3) and an L1 step (T5/T6) ---------------------------
+    state = engine.TrainState(params[0], params[1], {}, {}, 0)
+    for key, loss, names in (
+            ("train", None, ("sample_merge", "ray_march_mlp",
+                             "ray_march_quadrature", "mlp_backward",
+                             "mlp_weight_grad")),
+            ("train_custom", l1_loss, ("apply_mlp", "mlp_backward",
+                                       "mlp_weight_grad"))):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        m_card, g_card = _one_step(state, small, cfg, "cuda", loss)
+        launches[key] = _counts()
+        _ran(launches[key], names, f"{key} step at u {width}")
+        m_host, g_host = _one_step(state, small, cfg, "cpu", loss)
+        flat = [torch.cat([x.flatten() for x in leaves])
+                for leaves in (sum(g_card, []), sum(g_host, []))]
+        grad = _rel_norm(flat[0], flat[1])
+        loss_err = max(abs(m_card[k] - m_host[k]) / abs(m_host[k])
+                       for k in ("coarse_loss", "fine_loss"))
+        worst = max(_rel_norm(a, b) for a, b in zip(sum(g_card, []),
+                                                     sum(g_host, [])))
+        ok = (grad <= STEP_TOL["grad_rel_norm"]
+              and loss_err <= STEP_TOL["loss_rtol"])
+        log(f"{key} step {E2E_IMG}^2 at u {width}, card kernels vs CPU plain "
+            f"versions: losses rtol {loss_err:.3e} (tolerance "
+            f"{STEP_TOL['loss_rtol']}), whole gradient relative norm "
+            f"{grad:.3e} (tolerance {STEP_TOL['grad_rel_norm']}), worst leaf "
+            f"{worst:.3e}; launches {launches[key]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the card's {key} step at u {width} disagrees with the "
+                 f"CPU's")
+
+    # ---- the bake -------------------------------------------------------------
+    coords = occ_mod.grid_coordinates(32, device=dev).reshape(-1, 3)
+    chunk = coords[:4096]
+    enc_b = trm.encode_block128(chunk, torch.tensor(
+        [0.0, 0.0, -1.0], device=dev).expand(chunk.shape), cfg.pos_emb_xyz,
+        cfg.pos_emb_dir)
+    packed_f = trm.pack_mlp_params(params[1], cfg.mlp, cfg.pos_emb_xyz,
+                                   cfg.pos_emb_dir)
+    report(_held("apply_mlp", [(trm.apply_mlp(packed_f, enc_b)[:, 3],
+                                trm.apply_mlp.plain(packed_f, enc_b)[:, 3])],
+                 f"apply_mlp, the bake's sigma at u {width} [4096]"))
+    density = occ_mod.model_density_fn(params[1], cfg)
+    threshold = float(torch.quantile(density(coords[::8]), OCC_QUANTILE))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    grid = occ_mod.bake_occupancy_grid(density, 32,
+                                       sigma_threshold=threshold, device=dev)
+    torch.cuda.synchronize()
+    launches["occupancy_bake"] = _counts()
+    _ran(launches["occupancy_bake"], ("apply_mlp",), f"bake at u {width}")
+    share = float(grid.mean())
+    log(f"bake 32^3 at u {width}: occupied share {share:.4f} (must lie in "
+        f"{OCC_SHARE}); launches {launches['occupancy_bake']}")
+    if not OCC_SHARE[0] <= share <= OCC_SHARE[1]:
+        fail(f"the bake at u {width} is empty or full")
+
+    # ---- the int8 tier: calibration, render, T4 ----------------------------
+    calib = sorted_uniforms(gen, (o.shape[0],), N_FINE)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    q = engine.quantize_render_params(params[0], params[1], rays, calib, cfg)
+    torch.cuda.synchronize()
+    launches["int8_calibration"] = _counts()
+    _ran(launches["int8_calibration"], ("apply_mlp",),
+         f"int8 calibration at u {width}")
+    q_host = engine.quantize_render_params(
+        *(_to(x, cpu) for x in params), tuple(x.to(cpu) for x in rays),
+        calib.to(cpu), cfg)
+    scale_err, moved = 0.0, 0
+    for a, b in zip(engine.tree_leaves([{k: v for k, v in x.items()
+                                         if k != "transposed"} for x in q]),
+                    engine.tree_leaves(list(q_host))):
+        a = a.cpu()
+        if a.dtype == torch.int8:
+            moved = max(moved, int((a.int() - b.int()).abs().max()))
+        else:
+            scale_err = max(scale_err, float(((a - b).abs() / b.abs()
+                                              .clamp_min(1e-30)).max()))
+    ok = scale_err <= CALIB_RTOL and moved <= 1
+    log(f"int8 calibration at u {width}, card (apply_mlp's stash) vs CPU: "
+        f"scales worst relative error {scale_err:.3e} (tolerance "
+        f"{CALIB_RTOL:.0e}), codes moved at most {moved} step(s) "
+        f"(tolerance 1); launches {launches['int8_calibration']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the int8 calibration at u {width} disagrees with the CPU's")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    _, card = engine.render_image_batch(params[0], params[1], rays, draws,
+                                        cfg, E2E_CHUNK, packed_q=q)
+    torch.cuda.synchronize()
+    launches["render_quantized"] = _counts()
+    _ran(launches["render_quantized"], ("sample_merge",
+                                        "ray_march_mlp_int8",
+                                        "ray_march_quadrature"),
+         f"int8 render at u {width}")
+    _, host = engine.render_image_batch(
+        *(_to(x, cpu) for x in params), tuple(x.to(cpu) for x in rays),
+        [x.to(cpu) for x in draws], cfg, E2E_CHUNK,
+        packed_q=tuple(_to({k: v for k, v in x.items() if k != "transposed"},
+                           cpu) for x in q))
+    err = {k: float((card[k].cpu() - host[k]).abs().max())
+           for k in ("image", "depth")}
+    ok = all(err[k] <= E2E_TOL[k] for k in err) and \
+        not launches["render_quantized"]["ray_march_mlp"]
+    log(f"int8 render {E2E_IMG}^2 at u {width}, card kernels vs CPU plain "
+        f"versions on the card's int8 weights: " + ", ".join(
+            f"{k} max_abs_err {v:.3e} (tolerance {E2E_TOL[k]:.0e})"
+            for k, v in err.items())
+        + f"; launches {launches['render_quantized']} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the card's int8 render at u {width} disagrees with the CPU's")
+
+    states = {width: (q[0], cfg)}
+    for u_q in INT8_WIDTHS:
+        if u_q in states:
+            continue
+        c_q = NeRFConfig(n_coarse=N_COARSE, n_fine=N_FINE,
+                         white_background=True,
+                         **dict(WIDE, dense_units=u_q))
+        pk = trm.pack_mlp_params(_fog(init_mlp(gen, c_q.mlp, c_q.in_xyz,
+                                               c_q.in_dir)), c_q.mlp,
+                                 c_q.pos_emb_xyz, c_q.pos_emb_dir)
+        states[u_q] = (tq.quantize_packed(pk, tq.collect_act_amax(
+            pk, enc, c_q.mlp), c_q.mlp), c_q)
+    for u_q in INT8_WIDTHS:
+        q_u = states[u_q][0]
+        for sigma_only in (True, False):
+            runs = [f(q_u, base, slope, t, masks, sigma_only=sigma_only)
+                    for f in (trm.ray_march_mlp_int8, trm.ray_march_mlp_int8,
+                              trm.ray_march_mlp_int8.plain)]
+            torch.cuda.synchronize()
+            diff = float((runs[0] - runs[2]).abs().max())
+            errors["ray_march_mlp_int8"] = max(
+                errors.get("ray_march_mlp_int8", 0.0), diff)
+            ok = (torch.equal(runs[0], runs[1]) and diff <= TOL[
+                "ray_march_mlp_int8"] and bool(torch.isfinite(runs[0]).all()))
+            kind = "sigma-only" if sigma_only else "full"
+            log(f"check ray_march_mlp_int8 {kind} at u {u_q}, {n} layers "
+                f"[{o.shape[0]} x "
+                f"{N_COARSE}]: max_abs_err {diff:.3e} (tolerance "
+                f"{TOL['ray_march_mlp_int8']:.0e}), identical bits twice "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"ray_march_mlp_int8 at u {u_q} disagrees with its "
+                     f"plain version or with itself")
+
+    # ---- times at [4096 x 64] -------------------------------------------------
+    rays4 = CHUNK
+    o4 = o.repeat(rays4 // o.shape[0], 1)
+    d4 = d.repeat(rays4 // d.shape[0], 1)
+    t4 = t.repeat(rays4 // t.shape[0], 1)
+    b4, s4, m4 = trm.ray_encoding_coeffs(o4, d4, cfg.pos_emb_xyz,
+                                         cfg.pos_emb_dir)
+    e4 = trm.encode_block128(*trm.ray_points(o4, d4, t4), cfg.pos_emb_xyz,
+                             cfg.pos_emb_dir)
+    p4 = t4.numel()
+    st4 = trm.alloc_stash(p4, width, n, dev)
+    ste4 = trm.alloc_stash(p4, width, n, dev, enc=e4)
+    rgb4 = trm.ray_march_mlp.plain(packed, b4, s4, t4, m4, stash=st4)
+    q4 = trm.ray_march_quadrature.plain(
+        rgb4.reshape(rays4, N_COARSE, 4), t4, True, False, True,
+        target=target.repeat(rays4 // r, 1), loss_scale=2.0 / (3 * rays4))
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in engine.tree_leaves(packed))
+    fwd = p4 * trm.fwd_flop_per_point(cfg.mlp)
+    fwd_sigma = p4 * trm.fwd_flop_per_point(cfg.mlp, sigma_only=True)
+    dx = p4 * trm.bwd_dx_flop_per_point(cfg.mlp)
+    act = p4 * 2 * (width * (n + 1) + width // 2)   # a stash's bf16 blocks
+    enc_in = 2 * rays4 * 128 * F32B + p4 * F32B
+    rows = [  # kernel, mode, call, bound
+        (trm.ray_march_mlp, "sigma-only", lambda f: f(
+            packed, b4, s4, t4, m4, sigma_only=True),
+         _bound(weight_bytes + enc_in + p4 * F32B, fwd_sigma,
+                PEAK_BF16_FLOPS)),
+        (trm.ray_march_mlp, "full", lambda f: f(packed, b4, s4, t4, m4),
+         _bound(weight_bytes + enc_in + 4 * p4 * F32B, fwd,
+                PEAK_BF16_FLOPS)),
+        (trm.ray_march_mlp, "train", lambda f: f(
+            packed, b4, s4, t4, m4, stash=st4),
+         _bound(weight_bytes + enc_in + 4 * p4 * F32B + act + 256 * p4,
+                fwd, PEAK_BF16_FLOPS)),
+        (trm.apply_mlp, "input", lambda f: f(packed, e4),
+         _bound(weight_bytes + 256 * p4 + 4 * p4 * F32B, fwd,
+                PEAK_BF16_FLOPS)),
+        (trm.apply_mlp, "input + stash", lambda f: f(packed, e4, stash=ste4),
+         _bound(weight_bytes + 256 * p4 + 4 * p4 * F32B + act, fwd,
+                PEAK_BF16_FLOPS)),
+        (trm.mlp_backward, "quadrature mode", lambda f: f(
+            q4[3], q4[4], packed, st4),
+         _bound(weight_bytes + 34 * p4 + 2 * act, dx, PEAK_BF16_FLOPS)),
+    ]
+    for u_q in INT8_WIDTHS:
+        q_u, c_q = states[u_q]
+        q_bytes = sum(x.numel() * x.element_size() for x in
+                      engine.tree_leaves([q_u["trunk_w"], q_u["w_feat"]]))
+        for sigma_only in (True, False):
+            rows.append((
+                trm.ray_march_mlp_int8,
+                f"{'sigma-only' if sigma_only else 'full'} at u {u_q}",
+                lambda f, q_u=q_u, so=sigma_only: f(q_u, b4, s4, t4, m4,
+                                                    sigma_only=so),
+                _bound(q_bytes + enc_in + p4 * F32B * (1 if sigma_only
+                                                       else 4),
+                       p4 * trm.fwd_flop_per_point(c_q.mlp,
+                                                   sigma_only=sigma_only),
+                       PEAK_INT8_OPS)))
+    times = {}
+    for k, mode, call, (bms, by) in rows:
+        kms = _time_ms(lambda: call(k), 20)
+        pms = _time_ms(lambda: call(k.plain), 3)
+        if "u 5" not in mode and "u 7" not in mode:
+            mode = f"{mode} at u {width}"
+        log(f"time {k.name} {mode}, {n} layers [{rays4} x {N_COARSE}]: "
+            f"{kms:.4f} ms/launch kernel, {pms:.3f} ms/launch plain, bound "
+            f"{bms:.4f} ms/launch ({by}), {kms / bms:.1f}x bound {card_tag}")
+        times.setdefault(k.name, []).append({
+            "mode": f"{mode}, {n} layers [{rays4} x {N_COARSE}]",
+            "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by})
+    return {"launches": launches, "times": times}
 
 # ---------------------------------------------------------------------------
 # The occupancy render.

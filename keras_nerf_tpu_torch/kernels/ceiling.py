@@ -47,13 +47,16 @@ def _check_args(ws, bs, seed, t: int, rep: int, mode: str) -> int:
 
 
 def mma_ceiling_plain(ws: list, bs: list, seed: torch.Tensor, t: int,
-                      rep: int, mode: str = "bare") -> torch.Tensor:
+                      rep: int, mode: str = "bare",
+                      sums: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of the ``mma_ceiling`` kernel: per grid step ``g``
     (``seed [steps * 8, 128]``), ``h = bf16(iota(T) * 1e-4 + seed[8 g, 0])``
     broadcast over ``u`` columns, ``rep`` passes over the weights ``ws``
     (``[u, u]`` bf16) with float32 products, ``bf16(acc)`` ("bare") or
     ``bf16(relu(acc + b))`` ("epi"); returns ``h[:, :8, :128]`` as float32
-    ``[steps * 8, 128]``."""
+    ``[steps * 8, 128]``. ``sums=torch.float64`` takes the products and
+    the bias in float64 before each bf16 rounding: another valid order of
+    the same sums, the reference of how far two orders drift at depth."""
     u = _check_args(ws, bs, seed, t, rep, mode)
     steps = seed.shape[0] // 8
     io = torch.arange(t, dtype=torch.float32, device=seed.device) * _IOTA_SCALE
@@ -61,9 +64,9 @@ def mma_ceiling_plain(ws: list, bs: list, seed: torch.Tensor, t: int,
     h = h.to(torch.bfloat16)
     for _ in range(rep):
         for w, b in zip(ws, bs):
-            acc = h.float() @ w.float()
+            acc = h.to(sums) @ w.to(sums)
             if mode == "epi":
-                acc = torch.relu(acc + b)
+                acc = torch.relu(acc + b.to(sums))
             h = acc.to(torch.bfloat16)
     return h[:, :8, :128].float().reshape(steps * 8, 128)
 

@@ -47,4 +47,24 @@ __device__ __forceinline__ float encode_lane(const float* __restrict__ base,
   return 0.f;
 }
 
+// The same encoding for a thread that keeps one lane: what lane l holds (0
+// nothing, 1 rep itself, 2 its sine, 3 its cosine), read once, then the
+// value at depth t from its ray's base and slope, the sine computed for
+// every kind and selected, so that a warp whose lanes hold every kind (a
+// thread a lane, as in ray_march_mlp_int8.cu) takes one path. The same
+// operations as encode_lane, so the same bits.
+__device__ __forceinline__ int lane_kind(const float* __restrict__ masks, int l) {
+  if (masks[l] != 0.f) return 1;
+  if (masks[2 * kEncLanes + l] != 0.f) return 3;
+  return masks[kEncLanes + l] != 0.f ? 2 : 0;
+}
+
+__device__ __forceinline__ float encode_value(float t, float slope, float base, int kind) {
+  const float rep = __fmaf_rn(t, slope, base);
+  const float shifted = kind == 3 ? __fadd_rn(rep, kHalfPi) : rep;
+  const float turns = rintf(__fmul_rn(shifted, kInvTwoPi));
+  const float s = sin_poly(__fmaf_rn(-kTwoPi, turns, shifted));
+  return kind == 1 ? rep : kind == 0 ? 0.f : s;
+}
+
 }  // namespace knt

@@ -5,11 +5,13 @@
 //   a parity wait;
 // * TMA: a 2-D tile load that completes on an mbarrier;
 // * wgmma: fence, commit, wait, the shared-memory matrix descriptors of the
-//   128-byte swizzle (MN-major and K-major), and m64nNk16 bf16 x bf16 -> f32
-//   products (N = 64, 128, 256) with both operands in shared memory;
+//   128-byte swizzle (MN-major and K-major), m64nNk16 bf16 x bf16 -> f32
+//   products (N = 64, 128, 256) and m64nNk32 s8 x s8 -> s32 products (N =
+//   64, 128) with both operands in shared memory;
 // * the proxy fence and the named barrier that hand a tile written by
 //   threads to wgmma, and setmaxnreg;
-// * on the host, the tensor map of a row-major bf16 array in swizzled boxes.
+// * on the host, the tensor map of a row-major bf16 or int8 array in
+//   swizzled boxes.
 //
 // Layouts. A TMA box whose inner extent is 128 bytes (64 bf16), loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte aligned buffer, is the
@@ -127,6 +129,12 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // Descriptor of an operand in the 128-byte swizzled layout: start address,
@@ -254,6 +262,58 @@ __device__ __forceinline__ void mma_m64k16(float (&d)[N / 2], uint64_t desc_a,
   }
 }
 
+// D[64 x N] (+)= A[64 x 32] B[32 x N], int8 codes (s8) from shared memory,
+// exact int32 sums in registers; both operands K-major, the only layout
+// wgmma takes for 8-bit types. One k32 step is 32 bytes of a 128-byte
+// swizzled row, as a bf16 k16 step: desc_sw128_kmajor + 2 k. scale_d 0 as
+// above. The accumulators sit where the bf16 products' do.
+__device__ __forceinline__ void mma_s8_m64n64k32(int (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_s8_m64n128k32(int (&d)[64], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_s8_m64k32(int (&d)[N / 2], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d = 1) {
+  static_assert(N == 64 || N == 128, "int8 wgmma width");
+  if constexpr (N == 64) {
+    mma_s8_m64n64k32(d, desc_a, desc_b, scale_d);
+  } else {
+    mma_s8_m64n128k32(d, desc_a, desc_b, scale_d);
+  }
+}
+
 // ---- registers ---------------------------------------------------------------
 
 // Moves registers between warpgroups of a warp-specialised kernel: every
@@ -306,6 +366,22 @@ inline int encode_map(EncodeTiled fn, CUtensorMap* map, const void* base,
                  const_cast<void*>(base), dims, strides, box, elem,
                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The map of a row-major [rows, cols] array of bytes (int8 codes) in boxes
+// of 128 columns (128 bytes) x box_rows rows with the 128-byte swizzle: the
+// K-major operand of the int8 products, K the inner dimension. Returns the
+// CUresult.
+inline int encode_map_u8(EncodeTiled fn, CUtensorMap* map, const void* base,
+                         int cols, int rows, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

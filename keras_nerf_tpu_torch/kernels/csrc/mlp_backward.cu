@@ -39,13 +39,16 @@
 // K-major: the plain "TN" case of wgmma (transpose flags 0), with nothing
 // transposed anywhere.
 // * A block owns a tile of points: 128 at u = 256, where each of the two
-//   consumer warpgroups takes 64 rows and every column; 64 at u = 512,
-//   where both take the 64 rows and each half of the columns. Either way a
-//   warpgroup holds at most 64 x 256 float32 accumulators (m64n256k16, 128
-//   registers a thread, of the 232 that setmaxnreg gives the consumers from
-//   the producer warpgroup; the d_rf layer m64n128k16). The plan of tiles
-//   and shared memory is mirrored in Python (kernels/ray_march.py:
-//   mlp_backward_plan), which refuses other widths before any launch.
+//   consumer warpgroups takes 64 rows and every column; 64 at u = 512 and
+//   768, where both take the 64 rows and each half of the columns. Either
+//   way a warpgroup holds at most 64 x 256 float32 accumulators
+//   (m64n256k16, 128 registers a thread, of the 232 that setmaxnreg gives
+//   the consumers from the producer warpgroup; the d_rf layer m64n128k16).
+//   At u = 768 a half is 384 columns: it is taken in passes of 128
+//   (wide_pass), each finished pass held as packed bf16 in registers until
+//   the last one writes the tile. The plan of tiles and shared memory is
+//   mirrored in Python (kernels/ray_march.py: mlp_backward_plan), which
+//   refuses other widths before any launch.
 // * The chain stays on chip. The A tile (tile x u bf16, 64 KB) holds the
 //   current cotangent in the 128-byte swizzled K-major layout: 64-column
 //   boxes of [tile x 128 B]. Once a layer's products have retired (wgmma
@@ -72,7 +75,11 @@
 // * Shared memory: A 64 KB + mask 64 KB + ring 96 KB + d_sigma and the
 //   sigma column of w_sf + 1 KB of alignment = 226.1 / 226.3 KB (u = 256 /
 //   512), one block per SM; the 256-thread copy-out of each finished tile
-//   is 16-byte stores from the swizzled tile, no row past P.
+//   is 16-byte stores from the swizzled tile, no row past P. At u = 768 A
+//   and the mask take 96 KB each, and the ring two stages of [64 K x 128
+//   rows of W] (16 KB): 232,240 of the 232,448 bytes. The masks stay bf16
+//   tiles loaded by TMA, as at the other widths, rather than bits that a
+//   kernel would have to make from the stash first.
 // * No atomics and a fixed k order: two runs give identical bits. A ring
 //   fault traps (gmma::mbar_wait) instead of holding the card.
 #include <cuda.h>
@@ -95,7 +102,12 @@ constexpr int kHead = 16;                 // head cotangent columns
 constexpr int kStages = 3;
 constexpr int kBoxRows = 256;             // most rows of W in one stage
 constexpr int kStageBytes = 128 * kBoxRows;
-constexpr int kTileElems = 128 * 256;     // points x u of the A and mask tiles
+constexpr int kTileElems = 128 * 256;     // points x u of the A and mask tiles at u = 256, 512
+// u = 768: the A and mask tiles of 64 x 768 (96 KB each) leave room for a
+// ring of two stages of 128 rows of W.
+constexpr int kWideStages = 2;
+constexpr int kWideBoxRows = 128;
+constexpr int kWideStageBytes = 128 * kWideBoxRows;
 constexpr int kConsumers = 256;           // two warpgroups
 constexpr int kThreads = 128 + kConsumers;
 constexpr int kFullBar = 1;               // named barrier of the consumers
@@ -113,6 +125,12 @@ struct BwdParams {
   MlpCotangents ct;
   int P, u, n;
 };
+
+// The plan at width u (mirrored by mlp_backward_plan): points per block,
+// ring stages and rows of W per stage.
+__host__ __device__ constexpr int tile_of(int u) { return u == 768 ? 64 : kTileElems / u; }
+__host__ __device__ constexpr int stages_of(int u) { return u == 768 ? kWideStages : kStages; }
+__host__ __device__ constexpr int box_rows_of(int u) { return u == 768 ? kWideBoxRows : kBoxRows; }
 
 // Layer L of the chain: 0 the rgb head (K 16), 1 the rgb-feature layer
 // (K u/2), 2 the sigma/feature head (K u), 3 + j the trunk layer n-1-j.
@@ -156,30 +174,38 @@ struct Smem {
 // The producer thread: every stage of every layer in order, and each masked
 // layer's h tile once its ring has started, after the epilogue before it
 // released the buffer.
-template <int kTile>
+template <int kUnits>
 __device__ void produce(const BwdParams& prm, const Smem& sm, int p0, int layers) {
+  constexpr int kTile = tile_of(kUnits), kS = stages_of(kUnits), kRows = box_rows_of(kUnits);
+  constexpr bool kWide = kUnits == 768;
   int g = 0;
   for (int L = 0; L < layers; ++L) {
     const Layer l = layer_of(prm, L);
     gmma::prefetch_tensormap(l.map);
-    const int box_rows = l.n < kBoxRows ? l.n : kBoxRows;
-    const int total = l.slabs * l.parts;
-    const int mask_after = (total < kStages ? total : kStages) - 1;
+    const int box_rows = l.n < kRows ? l.n : kRows;
+    // At u = 768 each warpgroup takes its half of the columns in passes of
+    // 128 (the last of d_rf's 64): per K slab a stage for each.
+    const int half = l.n / 2, passes = kWide ? (half + 127) / 128 : 1;
+    const int units = kWide ? 2 : l.parts;
+    const int total = passes * l.slabs * units;
+    const int mask_after = (total < kS ? total : kS) - 1;
     int i = 0;
-    for (int ks = 0; ks < l.slabs; ++ks) {
-      for (int part = 0; part < l.parts; ++part, ++i, ++g) {
-        const int s = g % kStages;
-        gmma::mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
-        gmma::mbar_arrive_expect_tx(&sm.full[s], 128 * box_rows);
-        gmma::tma_load_2d(sm.ring + s * kStageBytes, l.map, &sm.full[s], 64 * ks,
-                          kBoxRows * part);
-        if (L >= 2 && i == mask_after) {
-          const int e = L - 2;
-          const CUtensorMap* hm = &prm.h[prm.n - 1 - e];
-          gmma::mbar_wait(sm.mask_empty, (e & 1) ^ 1);
-          gmma::mbar_arrive_expect_tx(sm.mask_full, 2 * kTileElems);
-          for (int b = 0; b < prm.u / 64; ++b)
-            gmma::tma_load_2d(sm.mask + b * kTile * 128, hm, sm.mask_full, 64 * b, p0);
+    for (int pass = 0; pass < passes; ++pass) {
+      for (int ks = 0; ks < l.slabs; ++ks) {
+        for (int part = 0; part < units; ++part, ++i, ++g) {
+          const int s = g % kS;
+          gmma::mbar_wait(&sm.empty[s], ((g / kS) & 1) ^ 1);
+          gmma::mbar_arrive_expect_tx(&sm.full[s], 128 * box_rows);
+          gmma::tma_load_2d(sm.ring + s * 128 * kRows, l.map, &sm.full[s], 64 * ks,
+                            kWide ? part * half + 128 * pass : kRows * part);
+          if (L >= 2 && i == mask_after) {
+            const int e = L - 2;
+            const CUtensorMap* hm = &prm.h[prm.n - 1 - e];
+            gmma::mbar_wait(sm.mask_empty, (e & 1) ^ 1);
+            gmma::mbar_arrive_expect_tx(sm.mask_full, 2 * kTile * kUnits);
+            for (int b = 0; b < kUnits / 64; ++b)
+              gmma::tma_load_2d(sm.mask + b * kTile * 128, hm, sm.mask_full, 64 * b, p0);
+          }
         }
       }
     }
@@ -197,6 +223,26 @@ __device__ __forceinline__ void store_tile(bf16* __restrict__ dst, int ld, int p
     const int r = v / vec, c = (v % vec) * 8;
     *reinterpret_cast<uint4*>(dst + (size_t)(p0 + r) * ld + c) =
         *reinterpret_cast<const uint4*>(a + swz<kTile>(r, c));
+  }
+}
+
+// The finished tile of layer L to device memory.
+template <int kTile>
+__device__ __forceinline__ void store_layer(const BwdParams& prm, const Smem& sm, int L, int p0,
+                                            int rows, int ct) {
+  const int u = prm.u;
+  if (L == 0) {
+    store_tile<kTile>(prm.ct.d_rf, u / 2, p0, rows, u / 2, sm.a, ct);
+  } else if (L == 1) {
+    store_tile<kTile>(prm.ct.d_sf, u + kHead, p0, rows, u, sm.a, ct);
+    for (int r = ct; r < rows; r += kConsumers) {
+      uint4* dst = reinterpret_cast<uint4*>(prm.ct.d_sf + (size_t)(p0 + r) * (u + kHead) + u);
+      const __nv_bfloat162 s0 = __floats2bfloat162_rn(sm.sig[r], 0.f);
+      dst[0] = make_uint4(*reinterpret_cast<const uint32_t*>(&s0), 0u, 0u, 0u);
+      dst[1] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    store_tile<kTile>(prm.ct.d_pre[prm.n + 1 - L], u, p0, rows, u, sm.a, ct);
   }
 }
 
@@ -280,21 +326,119 @@ __device__ __forceinline__ void run_layer(const BwdParams& prm, const Smem& sm, 
   }
   gmma::fence_proxy_async();
   gmma::bar_sync(kFullBar, kConsumers);
+  store_layer<kTile>(prm, sm, L, p0, rows, ct);
+}
 
-  // The finished tile to device memory.
-  const int u = prm.u;
-  if (L == 0) {
-    store_tile<kTile>(prm.ct.d_rf, u / 2, p0, rows, u / 2, sm.a, ct);
-  } else if (L == 1) {
-    store_tile<kTile>(prm.ct.d_sf, u + kHead, p0, rows, u, sm.a, ct);
-    for (int r = ct; r < rows; r += kConsumers) {
-      uint4* dst = reinterpret_cast<uint4*>(prm.ct.d_sf + (size_t)(p0 + r) * (u + kHead) + u);
-      const __nv_bfloat162 s0 = __floats2bfloat162_rn(sm.sig[r], 0.f);
-      dst[0] = make_uint4(*reinterpret_cast<const uint32_t*>(&s0), 0u, 0u, 0u);
-      dst[1] = make_uint4(0u, 0u, 0u, 0u);
+// u = 768: a warpgroup's half of a layer's columns (384; d_rf's 192) in
+// passes of NW = 128 columns (the last of d_rf's 64), each into NW / 2
+// float32 accumulators, so that a warpgroup never holds more than 128 (as
+// at u = 512; the whole half would take 192). Pass kPass of warpgroup wg
+// takes columns wg * half + 128 kPass, from the first NW rows of its
+// 128-row stages. A pass before the last keeps its bf16 results packed in
+// registers (hold), since the later passes' products still read the A
+// tile; the last pass writes every pass's columns once both warpgroups'
+// products have retired, then releases the mask.
+template <int NW, int kPass, bool kLast>
+__device__ __forceinline__ void wide_pass(const BwdParams& prm, const Smem& sm, int L,
+                                          const Layer& l, int& g, uint32_t (&hold)[2][32],
+                                          int p0, int rows) {
+  constexpr int kTile = 64;
+  const int ct = threadIdx.x - 128;
+  const int wg = ct / 128, t = ct % 128, warp = t / 32, lane = t % 32;
+  const int half = l.n / 2;
+  const int ksteps = l.k < 64 ? l.k / 16 : 4;
+
+  // With two stages a warpgroup owns every other one, always the same:
+  // it releases its stage as soon as the product retires, for the stage
+  // its next product needs is that one.
+  float acc[NW / 2];
+  int scale = 0;  // the pass's first product overwrites the accumulators
+  for (int ks = 0; ks < l.slabs; ++ks) {
+    for (int part = 0; part < 2; ++part, ++g) {
+      const int s = g % kWideStages;
+      gmma::mbar_wait(&sm.full[s], (g / kWideStages) & 1);
+      if (part == wg) {
+        const uint64_t da = gmma::desc_sw128_kmajor(sm.a + ks * kTile * 128);
+        const uint64_t db = gmma::desc_sw128_kmajor(sm.ring + s * kWideStageBytes);
+        gmma::fence_operands(acc);
+        gmma::fence();
+        for (int k = 0; k < ksteps; ++k) {
+          gmma::mma_m64k16<NW, 0, 0>(acc, da + 2 * k, db + 2 * k, scale);
+          scale = 1;
+        }
+        gmma::commit();
+        gmma::fence_operands(acc);
+        gmma::wait<0>();
+        gmma::fence_operands(acc);
+      }
+      if (lane == 0) gmma::mbar_arrive(&sm.empty[s]);
     }
+  }
+
+  const bool masked = L >= 2;
+  if (kPass == 0 && masked) gmma::mbar_wait(sm.mask_full, (L - 2) & 1);
+  const int r0 = 16 * warp + lane / 4;
+  if constexpr (kLast) {
+    // Both warpgroups' products have read A: overwrite it, the earlier
+    // passes' columns first.
+    gmma::bar_sync(kFullBar, kConsumers);
+#pragma unroll
+    for (int q = 0; q < kPass; ++q)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(
+              sm.a + swz<kTile>(r0 + 8 * h, wg * half + 128 * q + 8 * j + 2 * (lane % 4))) =
+              hold[q][2 * j + h];
+  }
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int c = wg * half + 128 * kPass + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (L == 2) {
+        const float sg = sm.sig[r];
+        v0 = __fmaf_rn(sg, __bfloat162float(sm.wsig[c]), v0);
+        v1 = __fmaf_rn(sg, __bfloat162float(sm.wsig[c + 1]), v1);
+      }
+      const int off = swz<kTile>(r, c);
+      if (masked) {
+        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(sm.mask + off);
+        if (!(__low2float(hv) > 0.f)) v0 = 0.f;
+        if (!(__high2float(hv) > 0.f)) v1 = 0.f;
+      }
+      const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+      if constexpr (kLast)
+        *reinterpret_cast<__nv_bfloat162*>(sm.a + off) = o;
+      else
+        hold[kPass][2 * j + h] = *reinterpret_cast<const uint32_t*>(&o);
+    }
+  }
+  if constexpr (!kLast) return;
+  if (masked) {
+    __syncwarp();
+    if (lane == 0) gmma::mbar_arrive(sm.mask_empty);
+  }
+  gmma::fence_proxy_async();
+  gmma::bar_sync(kFullBar, kConsumers);
+  store_layer<kTile>(prm, sm, L, p0, rows, ct);
+}
+
+// One layer of the chain at u = 768: every pass of each warpgroup's half.
+__device__ __forceinline__ void run_layer_wide(const BwdParams& prm, const Smem& sm, int L,
+                                               int& g, int p0, int rows) {
+  const Layer l = layer_of(prm, L);
+  uint32_t hold[2][32];
+  if (L == 0) {
+    wide_pass<128, 0, false>(prm, sm, L, l, g, hold, p0, rows);
+    wide_pass<64, 1, true>(prm, sm, L, l, g, hold, p0, rows);
   } else {
-    store_tile<kTile>(prm.ct.d_pre[prm.n + 1 - L], u, p0, rows, u, sm.a, ct);
+    wide_pass<128, 0, false>(prm, sm, L, l, g, hold, p0, rows);
+    wide_pass<128, 1, false>(prm, sm, L, l, g, hold, p0, rows);
+    wide_pass<128, 2, true>(prm, sm, L, l, g, hold, p0, rows);
   }
 }
 
@@ -343,21 +487,22 @@ __device__ __forceinline__ void prologue(const BwdParams& prm, const Smem& sm, i
   gmma::bar_sync(kFullBar, kConsumers);
 }
 
-template <int kTile>
+template <int kUnits>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_backward_kernel(const __grid_constant__ BwdParams prm) {
+  constexpr int kTile = tile_of(kUnits), kS = stages_of(kUnits);
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
   uint8_t* base = smem_raw + ((1024 - (gmma::smem_addr(smem_raw) & 1023)) & 1023);
   Smem sm;
   sm.a = base;
-  sm.mask = sm.a + 2 * kTileElems;
-  sm.ring = sm.mask + 2 * kTileElems;
-  sm.sig = reinterpret_cast<float*>(sm.ring + kStages * kStageBytes);
+  sm.mask = sm.a + 2 * kTile * kUnits;
+  sm.ring = sm.mask + 2 * kTile * kUnits;
+  sm.sig = reinterpret_cast<float*>(sm.ring + kS * 128 * box_rows_of(kUnits));
   sm.wsig = reinterpret_cast<bf16*>(sm.sig + kTile);
-  sm.full = reinterpret_cast<uint64_t*>(sm.wsig + 32768 / kTile);
-  sm.empty = sm.full + kStages;
-  sm.mask_full = sm.empty + kStages;
+  sm.full = reinterpret_cast<uint64_t*>(sm.wsig + kUnits);
+  sm.empty = sm.full + kS;
+  sm.mask_full = sm.empty + kS;
   sm.mask_empty = sm.mask_full + 1;
 
   const int p0 = blockIdx.x * kTile;
@@ -365,7 +510,7 @@ mlp_backward_kernel(const __grid_constant__ BwdParams prm) {
   const int layers = prm.n + 2;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kS; ++s) {
       gmma::mbar_init(&sm.full[s], 1);
       gmma::mbar_init(&sm.empty[s], kConsumers / 32);
     }
@@ -379,38 +524,44 @@ mlp_backward_kernel(const __grid_constant__ BwdParams prm) {
   // 256 x 232 = 384 x 168, the budget of one block of 384 threads.
   if (threadIdx.x < 128) {
     gmma::setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) produce<kTile>(prm, sm, p0, layers);
+    if (threadIdx.x == 0) produce<kUnits>(prm, sm, p0, layers);
     return;
   }
   gmma::setmaxnreg_inc<232>();
   prologue<kTile>(prm, sm, p0, rows);
   int g = 0;
-  run_layer<kTile, 128>(prm, sm, 0, g, p0, rows);
-  for (int L = 1; L < layers; ++L) run_layer<kTile, 256>(prm, sm, L, g, p0, rows);
+  if constexpr (kUnits == 768) {
+    for (int L = 0; L < layers; ++L) run_layer_wide(prm, sm, L, g, p0, rows);
+  } else {
+    run_layer<kTile, 128>(prm, sm, 0, g, p0, rows);
+    for (int L = 1; L < layers; ++L) run_layer<kTile, 256>(prm, sm, L, g, p0, rows);
+  }
 }
 
-// Dynamic shared memory of the kernel at tile kTile (mirrored by
-// mlp_backward_plan): A, mask, ring, sig [tile] float32, wsig [u] bf16,
-// 2 kStages + 2 mbarriers, and the 1024-byte alignment.
-constexpr int smem_bytes(int tile) {
-  return 1024 + 2 * 2 * kTileElems + kStages * kStageBytes + 4 * tile +
-         2 * (kTileElems / tile) + 8 * (2 * kStages + 2);
+// Dynamic shared memory of the kernel (mirrored by mlp_backward_plan): A
+// and mask (tile x units bf16 each), the ring, sig [tile] float32, wsig
+// [units] bf16, 2 stages + 2 mbarriers, and the 1024-byte alignment.
+constexpr int smem_bytes(int tile, int units, int stages, int stage_bytes) {
+  return 1024 + 2 * 2 * tile * units + stages * stage_bytes + 4 * tile + 2 * units +
+         8 * (2 * stages + 2);
 }
-static_assert(smem_bytes(128) <= 232448 && smem_bytes(64) <= 232448,
+constexpr int smem_of(int u) { return smem_bytes(tile_of(u), u, stages_of(u), 128 * box_rows_of(u)); }
+static_assert(smem_of(256) <= 232448 && smem_of(512) <= 232448 && smem_of(768) <= 232448,
               "mlp_backward exceeds the H100's 227 KB of shared memory");
 
-template <int kTile>
+template <int kUnits>
 int launch_tile(BwdParams& prm, cudaStream_t stream) {
+  constexpr int kTile = tile_of(kUnits);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mlp_backward_kernel<kTile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes(kTile));
+        mlp_backward_kernel<kUnits>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_of(kUnits));
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const int blocks = (prm.P + kTile - 1) / kTile;
-  mlp_backward_kernel<kTile><<<blocks, kThreads, smem_bytes(kTile), stream>>>(prm);
+  mlp_backward_kernel<kUnits><<<blocks, kThreads, smem_of(kUnits), stream>>>(prm);
   return (int)cudaGetLastError();
 }
 
@@ -419,14 +570,15 @@ int launch(const MlpWeights* w, const bf16* d_rgb, const bf16* d_sigma, const bf
            int P, void* stream) {
   if (P <= 0) return 0;
   const int u = w->units, n = w->n_layers;
-  if (n < 1 || n > kMaxLayers || (u != 256 && u != 512)) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxLayers || (u != 256 && u != 512 && u != 768))
+    return (int)cudaErrorInvalidValue;
   const gmma::EncodeTiled fn = gmma::encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const int tile = kTileElems / u;
-  const int rows = u < kBoxRows ? u : kBoxRows;
+  const int tile = tile_of(u);
+  const int rows = u < box_rows_of(u) ? u : box_rows_of(u);
 
   BwdParams prm;  // copied into the launch's parameters
-  int err = gmma::encode_map(fn, &prm.w_rgb, w->w_rgb, 128, u / 2, u / 2);
+  int err = gmma::encode_map(fn, &prm.w_rgb, w->w_rgb, 128, u / 2, u / 2 < rows ? u / 2 : rows);
   if (!err) err = gmma::encode_map(fn, &prm.w_rf_top, w->w_rf_top, u / 2, u, rows);
   if (!err) err = gmma::encode_map(fn, &prm.w_sf, w->w_sf, u + 128, u, rows);
   for (int i = 1; i < n && !err; ++i)
@@ -445,12 +597,13 @@ int launch(const MlpWeights* w, const bf16* d_rgb, const bf16* d_sigma, const bf
   prm.u = u;
   prm.n = n;
   const cudaStream_t s = (cudaStream_t)stream;
-  return u == 256 ? launch_tile<128>(prm, s) : launch_tile<64>(prm, s);
+  if (u == 256) return launch_tile<256>(prm, s);
+  return u == 512 ? launch_tile<512>(prm, s) : launch_tile<768>(prm, s);
 }
 
 }  // namespace
 
-// w: the packed weights (u = 256 or 512); d_rgb [P, 16], d_sigma [P] bf16
+// w: the packed weights (u = 256, 512 or 768); d_rgb [P, 16], d_sigma [P] bf16
 // from knt_ray_march_quadrature_grad; st: the train mode's kept
 // activations; ct: the cotangent arrays to write. Returns 0, a cudaError_t,
 // or -CUresult when a tensor map cannot be encoded.

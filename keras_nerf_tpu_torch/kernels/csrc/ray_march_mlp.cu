@@ -36,21 +36,25 @@
 // fan_out], as an MN-major B (transpose flag 1, the descriptor of
 // mlp_weight_grad.cu). Nothing is transposed in memory.
 // * A block owns a tile of points: 128 at u = 256, where each of the two
-//   consumer warpgroups takes 64 rows and every column; 64 at u = 512,
-//   where both take the 64 rows and each half of the columns. A warpgroup
-//   holds at most 64 x 256 float32 accumulators (m64n256k16, 128 registers
-//   a thread, of the 232 that setmaxnreg gives the consumers from the
-//   producer warpgroup; the rf layer m64n128k16). The plan of tiles and
-//   shared memory is mirrored in Python (kernels/ray_march.py:
-//   ray_march_mlp_plan), which refuses other widths before any launch.
+//   consumer warpgroups takes 64 rows and every column; 64 at u = 512 and
+//   768, where both take the 64 rows and each half of the columns. A
+//   warpgroup holds at most 64 x 256 float32 accumulators (m64n256k16, 128
+//   registers a thread, of the 232 that setmaxnreg gives the consumers from
+//   the producer warpgroup; the rf layer m64n128k16). At u = 768 a half is
+//   384 columns, 192 registers: it is taken in passes of 128 columns
+//   (wide_pass), each finished pass held as packed bf16 in registers until
+//   the last one writes the tile, so a warpgroup holds at most 64 + 64. The
+//   plan of tiles and shared memory is mirrored in Python
+//   (kernels/ray_march.py: ray_march_mlp_plan), which refuses other widths
+//   before any launch.
 // * The encoding tile (tile x 128 bf16, two 64-column boxes in the
 //   128-byte swizzled K-major layout) is built once per block, by the
 //   consumers from encode_lane (each 16-byte chunk of 8 lanes stored at
 //   its swizzled place) or by one TMA load in the input mode, and kept: the
 //   first layer, every skip layer, w_sf_enc's features and w_rf_enc read
 //   it as a second K run into the same accumulators.
-// * The activation tile (tile x u bf16, 64 KB, the same layout) holds the
-//   current layer's input. Once every product that reads a row has
+// * The activation tile (tile x u bf16, 64 KB; 96 KB at u = 768; the same
+//   layout) holds the current layer's input. Once every product that reads a row has
 //   retired (wgmma wait 0, then a named barrier: of the warpgroup alone at
 //   u = 256, where it owns its rows, of both at u = 512), the epilogue adds
 //   the float32 bias, applies relu and rounds to bf16 in registers and
@@ -61,7 +65,8 @@
 //   64 x 64 TMA boxes each, full/empty mbarriers, one producer thread, in
 //   the order the layers use them (K run, K slab, then the 256-column part
 //   at u = 512, which only the warpgroup owning those columns multiplies;
-//   the other releases the stage at once). Consumers release a stage once
+//   the other releases the stage at once; at u = 768 a stage of 128 (or 64)
+//   columns per pass, K slab and warpgroup). Consumers release a stage once
 //   the product group after it has been issued. The weights are the same
 //   for every block and stay resident in L2.
 // * The heads that are not wide products are float32 dots in the
@@ -71,9 +76,10 @@
 //   the quad's partial sums meet by warp shuffles and, at u = 512, the two
 //   warpgroups' halves in a fixed order. Sigma-only mode stops after the
 //   trunk.
-// * Shared memory: activation 64 KB + encoding 32 / 16 KB + ring 96 KB +
-//   the heads' float32 columns and partial sums 7.5 KB + 1 KB of alignment
-//   = 200.6 / 184.6 KB (u = 256 / 512), one block per SM.
+// * Shared memory: activation 64 / 64 / 96 KB + encoding 32 / 16 / 16 KB +
+//   ring 96 KB + the heads' float32 columns and partial sums 10 KB + 1 KB
+//   of alignment = 203.1 / 187.1 / 219.1 KB (u = 256 / 512 / 768), one
+//   block per SM.
 // * No atomics and a fixed k order: two runs give identical bits. A ring
 //   fault traps (gmma::mbar_wait) instead of holding the card.
 #include <cuda.h>
@@ -89,8 +95,8 @@ namespace {
 constexpr int kStages = 3;
 constexpr int kBox = 64 * 128;            // one TMA box: 64 K rows x 64 N columns, bf16
 constexpr int kStageBytes = 4 * kBox;     // [64 K x 256 N]
-constexpr int kTileElems = 128 * 256;     // points x u of the activation tile
-constexpr int kMaxUnits = 512;
+constexpr int kTileElems = 128 * 256;     // points x u of the activation tile at u = 256, 512
+constexpr int kMaxUnits = 768;
 // float32 area: partial head sums [128][4], w_sf[:, u] [u], w_sf_enc[:, u]
 // [128], w_rgb[:, 0..2] [u / 2][3].
 constexpr int kFloats = 128 * 4 + kMaxUnits + kEncLanes + kMaxUnits / 2 * 3;
@@ -99,6 +105,9 @@ constexpr int kThreads = 128 + kConsumers;
 constexpr int kFullBar = 1;               // named barrier of the consumers
 
 enum Head { kNoHead, kSigmaHead, kRgbHead };
+
+// Points per block: 128 at u = 256, 64 at u = 512 and 768.
+__host__ __device__ constexpr int tile_of(int units) { return units == 768 ? 64 : kTileElems / units; }
 
 struct FwdParams {
   CUtensorMap trunk[kMaxLayers];      // trunk_w[i]
@@ -176,8 +185,9 @@ struct Smem {
 
 // The producer thread: the input tile (input mode), then every stage of
 // every product in the order the consumers use them.
-template <int kTile, bool kEncIn>
+template <int kUnits, bool kEncIn>
 __device__ void produce(const FwdParams& prm, const Smem& sm, int p0) {
+  constexpr int kTile = tile_of(kUnits);
   if (kEncIn) {
     gmma::prefetch_tensormap(&prm.enc_in);
     gmma::mbar_arrive_expect_tx(sm.enc_full, kTile * 2 * kEncLanes);
@@ -187,16 +197,25 @@ __device__ void produce(const FwdParams& prm, const Smem& sm, int p0) {
   int g = 0;
   for (int L = 0; L < prm.products; ++L) {
     const Layer l = layer_of(prm, L);
-    const int boxes = (l.n < 256 ? l.n : 256) / 64;
-    for (int run = 0; run < 2; ++run) {
-      for (int ks = 0; ks < l.slabs[run]; ++ks) {
-        for (int part = 0; part < l.parts; ++part, ++g) {
-          const int s = g % kStages;
-          gmma::mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
-          gmma::mbar_arrive_expect_tx(&sm.full[s], boxes * kBox);
-          for (int b = 0; b < boxes; ++b)
-            gmma::tma_load_2d(sm.ring + s * kStageBytes + b * kBox, l.map[run], &sm.full[s],
-                              256 * part + 64 * b, 64 * ks);
+    // At u = 768 each warpgroup takes its half of the columns in passes of
+    // 128 (the last of rgb_features' 64): per K slab a stage for each.
+    const int half = l.n / 2, passes = kUnits == 768 ? (half + 127) / 128 : 1;
+    for (int pass = 0; pass < passes; ++pass) {
+      for (int run = 0; run < 2; ++run) {
+        for (int ks = 0; ks < l.slabs[run]; ++ks) {
+          for (int part = 0; part < (kUnits == 768 ? 2 : l.parts); ++part, ++g) {
+            int n0 = 256 * part, boxes = (l.n < 256 ? l.n : 256) / 64;
+            if (kUnits == 768) {
+              n0 = part * half + 128 * pass;
+              boxes = min(128, half - 128 * pass) / 64;
+            }
+            const int s = g % kStages;
+            gmma::mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
+            gmma::mbar_arrive_expect_tx(&sm.full[s], boxes * kBox);
+            for (int b = 0; b < boxes; ++b)
+              gmma::tma_load_2d(sm.ring + s * kStageBytes + b * kBox, l.map[run], &sm.full[s],
+                                n0 + 64 * b, 64 * ks);
+          }
         }
       }
     }
@@ -340,6 +359,144 @@ __device__ __forceinline__ void run_layer(const FwdParams& prm, const Smem& sm, 
   }
 }
 
+// u = 768: a warpgroup's half of a product's columns (384; rgb_features'
+// 192) in passes of NW = 128 columns (the last of rgb_features' 64), each
+// into NW / 2 float32 accumulators: a warpgroup never holds more than 128,
+// as at u = 512 (the whole half at once would take 192, more than
+// setmaxnreg's 232 leave room for). Pass kPass of warpgroup wg takes
+// columns wg * half + 128 kPass. A pass before the last keeps its bf16
+// results packed in registers (hold), since the later passes' products
+// still read the activation tile; the last pass writes every pass's
+// columns once both warpgroups' products have retired.
+template <int NW, int kHead, int kPass, bool kLast>
+__device__ __forceinline__ void wide_pass(const FwdParams& prm, const Smem& sm, int L,
+                                          const Layer& l, int& g, uint32_t (&hold)[2][32],
+                                          float (&dot)[2][3], int p0, int rows) {
+  constexpr int kTile = 64;
+  const int ct = threadIdx.x - 128;
+  const int wg = ct / 128, t = ct % 128, warp = t / 32, lane = t % 32;
+  const int half = l.n / 2;
+
+  float acc[NW / 2];
+  int scale = 0;     // the pass's first product overwrites the accumulators
+  int pending = -1;  // the stage of the last committed group
+  for (int run = 0; run < 2; ++run) {
+    const uint8_t* a = run == 1 || l.enc0 ? sm.enc : sm.act;
+    for (int ks = 0; ks < l.slabs[run]; ++ks) {
+      for (int part = 0; part < 2; ++part, ++g) {
+        const int s = g % kStages;
+        gmma::mbar_wait(&sm.full[s], (g / kStages) & 1);
+        if (part != wg) {
+          if (lane == 0) gmma::mbar_arrive(&sm.empty[s]);
+          continue;
+        }
+        const uint64_t da = gmma::desc_sw128_kmajor(a + ks * kTile * 128);
+        const uint64_t db = gmma::desc_sw128(sm.ring + s * kStageBytes, kBox, 1024);
+        gmma::fence_operands(acc);
+        gmma::fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          gmma::mma_m64k16<NW, 0, 1>(acc, da + 2 * k, db + (k * 2048 >> 4), scale);
+          scale = 1;
+        }
+        gmma::commit();
+        gmma::fence_operands(acc);
+        gmma::wait<1>();
+        gmma::fence_operands(acc);
+        if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+        pending = s;
+      }
+    }
+  }
+  gmma::wait<0>();
+  gmma::fence_operands(acc);
+  if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+
+  const int r0 = 16 * warp + lane / 4;
+  if constexpr (kLast) {
+    // Every product that reads the activation tile has retired: overwrite
+    // it, the earlier passes' columns first.
+    gmma::bar_sync(kFullBar, kConsumers);
+#pragma unroll
+    for (int q = 0; q < kPass; ++q)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(
+              sm.act + swz<kTile>(r0 + 8 * h, wg * half + 128 * q + 8 * j + 2 * (lane % 4))) =
+              hold[q][2 * j + h];
+  }
+  const bool relu = L < prm.n;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int c = wg * half + 128 * kPass + 8 * j + 2 * (lane % 4);
+    const float b0 = l.bias[c], b1 = l.bias[c + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = __fadd_rn(acc[4 * j + 2 * h], b0);
+      float v1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
+      if (relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+      if constexpr (kLast)
+        *reinterpret_cast<__nv_bfloat162*>(sm.act + swz<kTile>(r0 + 8 * h, c)) = o;
+      else
+        hold[kPass][2 * j + h] = *reinterpret_cast<const uint32_t*>(&o);
+      const float x0 = __low2float(o), x1 = __high2float(o);
+      if (kHead == kSigmaHead) {
+        dot[h][0] = __fmaf_rn(x0, sm.wsig[c], dot[h][0]);
+        dot[h][0] = __fmaf_rn(x1, sm.wsig[c + 1], dot[h][0]);
+      } else if (kHead == kRgbHead) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          dot[h][q] = __fmaf_rn(x0, sm.wrgb[3 * c + q], dot[h][q]);
+          dot[h][q] = __fmaf_rn(x1, sm.wrgb[3 * c + 3 + q], dot[h][q]);
+        }
+      }
+    }
+  }
+  if constexpr (!kLast) return;
+  if (kHead != kNoHead) {
+    constexpr int kQ = kHead == kSigmaHead ? 1 : 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        float x = dot[h][q];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        if (lane % 4 == 0) sm.red[4 * (64 * wg + r0 + 8 * h) + (kHead == kSigmaHead ? 3 : q)] = x;
+      }
+    }
+  }
+  gmma::fence_proxy_async();
+  gmma::bar_sync(kFullBar, kConsumers);
+  if (prm.train) {
+    bf16* dst = L < prm.n ? prm.stash.h[L] : L == prm.n ? prm.stash.features : prm.stash.rf;
+    store_tile<kTile>(dst, p0, 0, rows, l.n, sm.act, ct, kConsumers);
+  }
+}
+
+// One product at u = 768: every pass of each warpgroup's half.
+template <int kHead>
+__device__ __forceinline__ void run_layer_wide(const FwdParams& prm, const Smem& sm, int L,
+                                               int& g, int p0, int rows) {
+  const Layer l = layer_of(prm, L);
+  uint32_t hold[2][32];
+  float dot[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  if constexpr (kHead == kRgbHead) {
+    wide_pass<128, kHead, 0, false>(prm, sm, L, l, g, hold, dot, p0, rows);
+    wide_pass<64, kHead, 1, true>(prm, sm, L, l, g, hold, dot, p0, rows);
+  } else {
+    wide_pass<128, kHead, 0, false>(prm, sm, L, l, g, hold, dot, p0, rows);
+    wide_pass<128, kHead, 1, false>(prm, sm, L, l, g, hold, dot, p0, rows);
+    wide_pass<128, kHead, 2, true>(prm, sm, L, l, g, hold, dot, p0, rows);
+  }
+}
+
 // The consumers' prologue: the heads' columns into shared memory as float32,
 // and in the ray-march modes the encoding tile (zero past the last point)
 // and, in the train mode, its copy to the stash.
@@ -426,15 +583,16 @@ __device__ __forceinline__ void write_out(const FwdParams& prm, const Smem& sm, 
   }
 }
 
-template <int kTile, bool kEncIn>
+template <int kUnits, bool kEncIn>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_forward_kernel(const __grid_constant__ FwdParams prm) {
+  constexpr int kTile = tile_of(kUnits);
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
   uint8_t* base = smem_raw + ((1024 - (gmma::smem_addr(smem_raw) & 1023)) & 1023);
   Smem sm;
   sm.act = base;
-  sm.enc = sm.act + 2 * kTileElems;
+  sm.enc = sm.act + 2 * kTile * kUnits;
   sm.ring = sm.enc + kTile * 2 * kEncLanes;
   sm.red = reinterpret_cast<float*>(sm.ring + kStages * kStageBytes);
   sm.wsig = sm.red + 128 * 4;
@@ -461,44 +619,61 @@ mlp_forward_kernel(const __grid_constant__ FwdParams prm) {
   // 256 x 232 = 384 x 168, the budget of one block of 384 threads.
   if (threadIdx.x < 128) {
     gmma::setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) produce<kTile, kEncIn>(prm, sm, p0);
+    if (threadIdx.x == 0) produce<kUnits, kEncIn>(prm, sm, p0);
     return;
   }
   gmma::setmaxnreg_inc<232>();
   prologue<kTile, kEncIn>(prm, sm, p0, rows);
   int g = 0;
-  for (int L = 0; L < prm.n - 1; ++L) run_layer<kTile, 256, kNoHead>(prm, sm, L, g, p0, rows);
-  run_layer<kTile, 256, kSigmaHead>(prm, sm, prm.n - 1, g, p0, rows);
-  if (prm.products > prm.n) {
-    run_layer<kTile, 256, kNoHead>(prm, sm, prm.n, g, p0, rows);
-    run_layer<kTile, 128, kRgbHead>(prm, sm, prm.n + 1, g, p0, rows);
+  if constexpr (kUnits == 768) {
+    for (int L = 0; L < prm.n - 1; ++L) run_layer_wide<kNoHead>(prm, sm, L, g, p0, rows);
+    run_layer_wide<kSigmaHead>(prm, sm, prm.n - 1, g, p0, rows);
+    if (prm.products > prm.n) {
+      run_layer_wide<kNoHead>(prm, sm, prm.n, g, p0, rows);
+      run_layer_wide<kRgbHead>(prm, sm, prm.n + 1, g, p0, rows);
+    }
+  } else {
+    for (int L = 0; L < prm.n - 1; ++L) run_layer<kTile, 256, kNoHead>(prm, sm, L, g, p0, rows);
+    run_layer<kTile, 256, kSigmaHead>(prm, sm, prm.n - 1, g, p0, rows);
+    if (prm.products > prm.n) {
+      run_layer<kTile, 256, kNoHead>(prm, sm, prm.n, g, p0, rows);
+      run_layer<kTile, 128, kRgbHead>(prm, sm, prm.n + 1, g, p0, rows);
+    }
   }
   write_out<kTile>(prm, sm, p0, rows);
 }
 
-// Dynamic shared memory of the kernel at tile kTile (mirrored by
-// ray_march_mlp_plan): activation tile, encoding tile, ring, the float32
-// area, 2 kStages + 1 mbarriers and the 1024-byte alignment.
-constexpr int smem_bytes(int tile) {
-  return 1024 + 2 * kTileElems + tile * 2 * kEncLanes + kStages * kStageBytes + 4 * kFloats +
+// Dynamic shared memory of the kernel at tile `tile` and width `units`
+// (mirrored by ray_march_mlp_plan): activation tile, encoding tile, ring,
+// the float32 area, 2 kStages + 1 mbarriers and the 1024-byte alignment.
+constexpr int smem_bytes(int tile, int units) {
+  return 1024 + 2 * tile * units + tile * 2 * kEncLanes + kStages * kStageBytes + 4 * kFloats +
          8 * (2 * kStages + 1);
 }
-static_assert(smem_bytes(128) <= 232448 && smem_bytes(64) <= 232448,
+static_assert(smem_bytes(128, 256) <= 232448 && smem_bytes(64, 512) <= 232448 &&
+                  smem_bytes(64, 768) <= 232448,
               "ray_march_mlp exceeds the H100's 227 KB of shared memory");
 
-template <int kTile, bool kEncIn>
+template <int kUnits, bool kEncIn>
 int launch_tile(const FwdParams& prm, cudaStream_t stream) {
+  constexpr int kTile = tile_of(kUnits), kSmem = smem_bytes(kTile, kUnits);
   static bool attr_set = false;
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(mlp_forward_kernel<kTile, kEncIn>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem_bytes(kTile));
+    const cudaError_t e = cudaFuncSetAttribute(mlp_forward_kernel<kUnits, kEncIn>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const int blocks = (prm.P + kTile - 1) / kTile;
-  mlp_forward_kernel<kTile, kEncIn><<<blocks, kThreads, smem_bytes(kTile), stream>>>(prm);
+  mlp_forward_kernel<kUnits, kEncIn><<<blocks, kThreads, kSmem, stream>>>(prm);
   return (int)cudaGetLastError();
+}
+
+template <bool kEncIn>
+int launch_width(const FwdParams& prm, cudaStream_t stream) {
+  if (prm.u == 256) return launch_tile<256, kEncIn>(prm, stream);
+  if (prm.u == 512) return launch_tile<512, kEncIn>(prm, stream);
+  return launch_tile<768, kEncIn>(prm, stream);
 }
 
 // Returns 0, a cudaError_t, or -CUresult when a tensor map cannot be encoded.
@@ -506,10 +681,11 @@ int launch(const MlpWeights* w, const float* base, const float* slope, const flo
            const float* masks, const bf16* enc_in, float* out, int P, int S, bool sigma_only,
            const MlpStash* stash, void* stream) {
   const int u = w->units, n = w->n_layers;
-  if (n < 1 || n > kMaxLayers || (u != 256 && u != 512)) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxLayers || (u != 256 && u != 512 && u != 768))
+    return (int)cudaErrorInvalidValue;
   const gmma::EncodeTiled fn = gmma::encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const int tile = kTileElems / u;
+  const int tile = tile_of(u);
 
   FwdParams prm{};  // copied into the launch's parameters
   int err = 0;
@@ -543,13 +719,12 @@ int launch(const MlpWeights* w, const float* base, const float* slope, const flo
   prm.sf_enc_on = w->w_sf_enc != nullptr;
   prm.train = stash != nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (enc_in != nullptr) return u == 256 ? launch_tile<128, true>(prm, s) : launch_tile<64, true>(prm, s);
-  return u == 256 ? launch_tile<128, false>(prm, s) : launch_tile<64, false>(prm, s);
+  return enc_in != nullptr ? launch_width<true>(prm, s) : launch_width<false>(prm, s);
 }
 
 }  // namespace
 
-// w: the packed weights (u = 256 or 512); base, slope: [rays, 128]; depths:
+// w: the packed weights (u = 256, 512 or 768); base, slope: [rays, 128]; depths:
 // [rays, S]; masks: [3, 128] raw/sin/cos lane selectors; out: [rays * S, 4]
 // (r, g, b, sigma) or [rays * S] sigma; stash: null, or (full mode only) the
 // arrays of the train mode. Returns 0, a cudaError_t, or -CUresult when a

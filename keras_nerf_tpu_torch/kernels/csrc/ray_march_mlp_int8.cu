@@ -4,68 +4,83 @@
 // Replaces: keras_nerf_tpu/kernels/quantize.py:248 forward_core_int8 (with
 // _quant_act :238 and _doti8 :243), the trunk of _train_chunk_kernel in its
 // quantized mode (keras_nerf_tpu/kernels/ray_march.py:1285-1290), full and
-// sigma_only. The encoding is encode.cuh's, as in ray_march_mlp.cu, but the
-// tile stays float32: each quantization site reads it and quantizes it with
-// its own static scale (enc_r[0] for layer 0, enc_r[i] for a skip layer,
-// enc_r_sf for the last skip, enc_r_rf for rgb_features). Every product is
-// int8 x int8 with int32 accumulation, exact. The epilogue of each layer runs
-// in forward_core_int8's order, each step rounded once (__fmul_rn /
-// __fadd_rn, never contracted into an FMA, so the codes round where the plain
-// version rounds them): float(acc) * u, + float(acc_enc) * u_enc, + b, relu
-// (the trunk only; features and rgb_features are linear), then the next
-// site's code rint(h * r) clipped to +-127. Sigma is relu'd and rgb
-// sigmoid'ed as in ray_march_mlp.cu.
+// sigma_only. It computes what forward_core_int8 computes, bit for bit: the
+// float32 encoding of encode.cuh (as ray_march_mlp.cu), its int8 code at
+// each quantization site (enc_r[0] for layer 0, enc_r[i] for a skip layer,
+// enc_r_sf after a last skip, enc_r_rf for rgb_features), int8 x int8
+// products with exact int32 sums, and each layer's float32 epilogue in
+// forward_core_int8's order, each step rounded once (__fmul_rn / __fadd_rn,
+// never contracted into an FMA): fl(fl(float(acc) u) + fl(float(acc_enc)
+// u_enc)) + b, relu on the trunk only (features and rgb_features are
+// linear), then the next product's code rint(h r) clipped to +-127. Sigma
+// is relu'd and rgb sigmoid'ed as in ray_march_mlp.cu.
 //
 // Bound on the H100: operations. 8 x 256 with the 63 + 27 wide encodings is
 // 1.19 MOP per point (0.98 in sigma-only mode) against 16 B written; at the
 // dense int8 rate of 1,979 TOP/s a 4096 x 192 fine chunk is 0.47 ms.
 //
-// Design (a first, plain tensor-core version, as ray_march_mlp.cu): one
-// block of 8 warps per tile of 64 points. The float32 encoding tile (32 KB),
-// one int8 tile of quantized encoding and two int8 activation tiles
-// (ping-pong) live in shared memory; the int8 weights (0.66 MB at 8 x 256)
-// stay in global memory, transposed ([fan_out, fan_in]: column-major B
-// fragments, faster than row-major ones on an H100), and are read through
-// L2/L1 as wmma fragments. Each warp owns 64 x 16 output
-// blocks, two blocks run on each SM. Products run on the tensor cores with
-// nvcuda::wmma 16x16x16 s8 -> s32; the accumulators (and those of the
-// encoding's skip product) go through a per-warp int32 scratch for the
-// epilogue. Not yet used: wgmma, TMA, weights staged in shared memory.
-#include <mma.h>
+// Design: every product is A[points, K] . W[K, N] on wgmma m64nNk32
+// .s32.s8.s8 with both operands K-major in shared memory (wgmma takes no
+// transpose flag for 8-bit types): the activation codes as A, and as B the
+// [fan_out, fan_in] copy of W that kernels/quantize.py:
+// transposed_int8_weights makes once per quantized state, streamed by TMA.
+// * A block owns a tile of 64 points and has two warpgroups: a producer
+//   (one thread issues the TMA loads) and one consumer warpgroup that runs
+//   every product and epilogue. At u = 256 two blocks share an SM, so one
+//   block's encoding and epilogues run under the other's products.
+// * Activations are int8 codes, half the bytes of bf16: two ping-pong tiles
+//   of [64 x u] in the 128-byte swizzled K-major layout (128-column boxes of
+//   64 rows of 128 bytes). A layer reads one and writes the other, so its
+//   output columns are taken in parts of 128 (64 at u = 1280), 64 (32)
+//   int32 accumulators a thread, and no width depends on registers.
+// * A layer that reads the encoding too (a skip layer, the features after a
+//   last skip, rgb_features) has a second set of accumulators for that
+//   product: its epilogue adds two dequantized sums, which one int32 sum
+//   cannot give.
+// * The float32 encoding tile (32 KB) is made once per block, by all 256
+//   threads (a thread a lane, the lane's kind read once, the rows' depths
+//   read at once), and kept; each quantization site codes it into one int8
+//   tile (8 KB) before the first product that reads that site, once the
+//   products that read the previous site have retired.
+// * The epilogue is the kernel's largest cost, so it is lean: each part's
+//   (u, b, r, u_enc) are read into shared memory while its products run
+//   (from L2 in the epilogue they would stall it: beside two blocks' shared
+//   memory the L1 is too small to keep them); the code is rounded by a
+//   float32 add of 1.5 x 2^23 and read from the sum's low byte, with no
+//   conversion instruction; a code pair's swizzled address is one XOR and
+//   one add.
+// * Weights stream through a ring of stages of [128 N rows x 128 K bytes]
+//   (16 KB; [64 x 128] at u = 1280): full/empty mbarriers, one stage per
+//   (part, K slab) in the order the consumers use them. The ring holds 2
+//   stages at u = 256 (two blocks per SM), else as many as fit, at most 4.
+//   The plan is mirrored in Python (kernels/ray_march.py:
+//   ray_march_mlp_int8_plan), which refuses a width that does not fit
+//   (above 1280) before any launch.
+// * Heads: sigma (column 0 of w_sig) and rgb (columns 0..2 of w_rgb) are
+//   int32 dots of the codes in the epilogue that makes them, exact in any
+//   order, summed over the quad by shuffles; rgb_features' codes are never
+//   stored. Sigma-only mode stops after the trunk.
+// * No atomics and a fixed order: two runs give identical bits. A ring
+//   fault traps (gmma::mbar_wait) instead of holding the card.
+#include <cuda.h>
 
 #include "encode.cuh"
+#include "gmma.cuh"
 
-using namespace nvcuda;
 using namespace knt;
 
 namespace {
 
 constexpr int kMaxLayers = 16;
-constexpr int kTile = 64;                // points per block
-constexpr int kWarps = 8;
-constexpr int kEncLd = kEncLanes + 4;    // float32 encoding row stride
-constexpr int kQEncLd = kEncLanes + 16;  // int8 row strides: multiples of 16 B
-constexpr int kScratch = 512;            // int32 per warp: two 16 x 16 blocks
-// One 16-column fragment per warp and pass, and two blocks per SM: with two
-// fragments the accumulators of a skip layer's two products take 128
-// registers, the kernel 255 (and spills) and one block per SM; this way 128
-// registers and two blocks, faster on an H100 at the orbit's chunks.
-constexpr int kNF = 1;
-constexpr int kMinBlocks = 2;
-
 using i8 = signed char;
-using IAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-using IA = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
-using IB = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major>;
 
 }  // namespace
 
 // Device pointers of the quantize_packed arrays: int8 weights transposed,
-// row-major [fan_out, fan_in] (quantize_packed's [fan_in, fan_out] arrays,
-// which the wrapper transposes), float32 per-column vectors (u:
-// dequantization of the product, b: bias, r: requantization of the
-// activation a layer makes; enc_r*: requantization of the encoding at each
-// site). Mirrored by a ctypes Structure in kernels/ray_march.py
+// row-major [fan_out, fan_in] (transposed_int8_weights), float32 per-column
+// vectors (u: dequantization of the product, b: bias, r: requantization of
+// the activation a layer makes; enc_r*: requantization of the encoding at
+// each site). Mirrored by a ctypes Structure in kernels/ray_march.py
 // (_MlpInt8Weights).
 struct MlpInt8Weights {
   const i8* trunk_w[kMaxLayers];      // [u, 128 or u]
@@ -103,252 +118,519 @@ struct MlpInt8Weights {
 
 namespace {
 
-// _quant_act: rint (ties to even, as jnp.round) of x * r, clipped to +-127.
-__device__ __forceinline__ i8 quant(float x, float r) {
-  const float q = fminf(fmaxf(rintf(__fmul_rn(x, r)), -127.f), 127.f);
-  return static_cast<i8>(__float2int_rn(q));
-}
+constexpr int kTile = 64;                         // points per block
+constexpr int kKBox = 128;                        // K bytes of a swizzled row, one TMA box
+constexpr int kSlabBytes = kTile * kKBox;         // a 128-K slab of a [64 x K] code tile
+constexpr int kEncBytes = kTile * kEncLanes * 4;  // the float32 encoding tile
+constexpr int kMaxStages = 4;
+constexpr int kThreads = 256;                     // producer + consumer warpgroups
+constexpr int kSmemPerBlock = 232448;             // the H100's 227 KB a block
+constexpr int kSmemPerSm = 233472;                // 228 KB an SM, 1 KB of it per block
+constexpr int kBar = 1;                           // named barrier of the consumers
 
-template <int NF>
-__device__ __forceinline__ void zero_i(IAcc (&acc)[4][NF]) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[m][f], 0);
+// The plan of shared memory, mirrored by ray_march_mlp_int8_plan. Output
+// columns per part: 128 up to u = 1024, 64 above, where no 16 KB stage fits
+// beside the tiles.
+constexpr int part_of(int u) { return u <= 1024 ? 128 : 64; }
+// Besides the ring: 1 KB of alignment, the two code tiles, the encoding's
+// code tile and its float32 tile, and two parts' epilogue vectors.
+constexpr int fixed_bytes(int u) {
+  return 1024 + 2 * kTile * u + kSlabBytes + kEncBytes + 2 * part_of(u) * 16;
 }
+// A ring stage and its two mbarriers.
+constexpr int stage_bytes(int u) { return part_of(u) * kKBox + 16; }
+constexpr int smem_bytes(int u, int stages) { return fixed_bytes(u) + stages * stage_bytes(u); }
+constexpr int most_stages(int u) { return (kSmemPerBlock - fixed_bytes(u)) / stage_bytes(u); }
+// 2 stages where two blocks then share an SM, else as many as fit, at most
+// kMaxStages; a width with fewer than 2 is refused.
+constexpr int stages_of(int u) {
+  return 2 * (smem_bytes(u, 2) + 1024) <= kSmemPerSm ? 2
+         : most_stages(u) < kMaxStages               ? most_stages(u)
+                                                     : kMaxStages;
+}
+static_assert(stages_of(256) == 2 && stages_of(1280) >= 2 && smem_bytes(1280, stages_of(1280)) <= kSmemPerBlock,
+              "ray_march_mlp_int8 exceeds the H100's 227 KB of shared memory");
 
-// acc[m][f] += A[m*16.., 0..K) @ Wt[n0 + f*16.., 0..K)^T; A int8 in shared
-// memory (all 64 rows of a point tile), Wt the int8 weight transposed,
-// row-major [N, K] in global memory: B column-major, the only integer
-// layout of mma.sync (a row-major B is gathered byte by byte).
-template <int NF>
-__device__ __forceinline__ void mma_i8(IAcc (&acc)[4][NF], const i8* A, int lda,
-                                       const i8* Wt, int K, int n0) {
-  IA a[4];
-  IB b;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) wmma::load_matrix_sync(a[m], A + m * 16 * lda + k0, lda);
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      wmma::load_matrix_sync(b, Wt + (size_t)(n0 + f * 16) * K + k0, K);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) wmma::mma_sync(acc[m][f], a[m], b, acc[m][f]);
-    }
+struct I8Params {
+  CUtensorMap trunk[kMaxLayers];      // trunk_w[i]^T
+  CUtensorMap trunk_enc[kMaxLayers];  // trunk_enc_w[i]^T, where bit i of skips is set
+  CUtensorMap feat, feat_enc, rf_top, rf_enc;
+  MlpInt8Weights w;
+  const float* base;
+  const float* slope;
+  const float* depths;
+  const float* masks;
+  float* out;
+  int P, S, u, n, products, stages, skips, last_enc;
+};
+
+// Product L: trunk layer L (L < n), the features (n), rgb_features (n + 1).
+// Its K runs: W over the code tile (the encoding's codes for layer 0), then
+// W over the encoding's codes, where the product has one.
+struct Layer {
+  const CUtensorMap* map[2];
+  int slabs[2];  // 128-K slabs of each run (0: no run)
+  bool enc0;     // the first run reads the encoding's codes
+  bool relu;
+  int n;         // output columns
+  const float* u;
+  const float* u_enc;
+  const float* b;
+  const float* r;
+};
+
+__device__ __forceinline__ Layer layer_of(const I8Params& prm, int L) {
+  const MlpInt8Weights& w = prm.w;
+  Layer l;
+  l.enc0 = L == 0;
+  l.relu = L < prm.n;
+  l.slabs[0] = L == 0 ? 1 : prm.u / kKBox;
+  l.n = prm.u;
+  if (L < prm.n) {
+    l.map[0] = &prm.trunk[L];
+    l.map[1] = (prm.skips >> L) & 1 ? &prm.trunk_enc[L] : nullptr;
+    l.u = w.trunk_u[L];
+    l.u_enc = w.trunk_enc_u[L];
+    l.b = w.trunk_b[L];
+    l.r = w.trunk_r[L];
+  } else if (L == prm.n) {
+    l.map[0] = &prm.feat;
+    l.map[1] = prm.last_enc ? &prm.feat_enc : nullptr;
+    l.u = w.u_feat;
+    l.u_enc = w.u_feat_enc;
+    l.b = w.b_feat;
+    l.r = w.r_feat;
+  } else {
+    l.map[0] = &prm.rf_top;
+    l.map[1] = &prm.rf_enc;
+    l.u = w.u_rf_top;
+    l.u_enc = w.u_rf_enc;
+    l.b = w.b_rf;
+    l.r = w.r_rf;
+    l.n = prm.u / 2;
   }
+  l.slabs[1] = l.map[1] != nullptr ? 1 : 0;
+  return l;
 }
 
-// Dense int8 layer over the tile, output columns split over the warps in
-// blocks of 16 kNF: out = quant(act(float(A @ W) u (+ float(E @ W_enc) u_enc)
-// + b), r). W and W_enc come transposed, [N, K] and [N, 128]; E is the
-// quantized encoding.
-__device__ void dense_i8(const i8* A, int lda, int K, const i8* W, const float* u,
-                         const i8* E, const i8* W_enc, const float* u_enc,
-                         const float* b, const float* r, bool relu, int N, i8* out,
-                         int ldo, int* scratch, int warp, int lane) {
-  const bool enc = W_enc != nullptr;
-  for (int n0 = warp * 16 * kNF; n0 < N; n0 += kWarps * 16 * kNF) {
-    IAcc acc[4][kNF], acc_e[4][kNF];
-    zero_i(acc);
-    mma_i8(acc, A, lda, W, K, n0);
-    if (enc) {
-      zero_i(acc_e);
-      mma_i8(acc_e, E, kQEncLd, W_enc, kEncLanes, n0);
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-#pragma unroll
-      for (int f = 0; f < kNF; ++f) {
-        wmma::store_matrix_sync(scratch, acc[m][f], 16, wmma::mem_row_major);
-        if (enc) wmma::store_matrix_sync(scratch + 256, acc_e[m][f], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int rr = e >> 4, col = n0 + f * 16 + (e & 15);
-          float v = __fmul_rn(static_cast<float>(scratch[e]), u[col]);
-          if (enc) v = __fadd_rn(v, __fmul_rn(static_cast<float>(scratch[256 + e]), u_enc[col]));
-          v = __fadd_rn(v, b[col]);
-          if (relu) v = fmaxf(v, 0.f);
-          out[(m * 16 + rr) * ldo + col] = quant(v, r[col]);
+// Byte offset of code (r, k) of a [64 x K] tile in 128-column boxes with
+// the 128-byte swizzle: the 16-byte chunk k / 16 of row r sits at chunk
+// (k / 16) ^ (r % 8) of the row (mirrored by kernels/ray_march.py:
+// swizzled_offset with elem_bytes 1).
+__device__ __forceinline__ int swz(int r, int k) {
+  return (k >> 7) * kSlabBytes + r * 128 + ((((k >> 4) & 7) ^ (r & 7)) << 4) + (k & 15);
+}
+
+// _quant_act: rint (ties to even, as jnp.round) of x * r, clipped to
+// [lo, 127] (lo -127; 0 folds a relu before it in, as r >= 0). Clipping
+// before the rounding gives the same codes. The rounding is a float32 add
+// of 1.5 * 2^23, where the spacing of floats is 1 (ties to even, as rint):
+// the code is then the low bits of the sum, and no conversion instruction
+// (a quarter of the float32 rate) is needed.
+__device__ __forceinline__ uint32_t quant_bits(float x, float r, float lo = -127.f) {
+  const float y = fminf(fmaxf(__fmul_rn(x, r), lo), 127.f);
+  return __float_as_uint(__fadd_rn(y, 12582912.f));
+}
+
+__device__ __forceinline__ int quant(float x, float r) {
+  return static_cast<int>(quant_bits(x, r) - 0x4B400000u);
+}
+
+// The sum over the four threads of a quad, which hold one row's columns.
+__device__ __forceinline__ int quad_sum(int x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+struct Smem {
+  uint8_t* act[2];  // the ping-pong code tiles, [64 x u]
+  uint8_t* qenc;    // the encoding's codes at the current site, [64 x 128]
+  uint8_t* ring;
+  float* encf;      // the float32 encoding, [64][128]
+  float4* vec;      // [2][part]: a part's (u, b, r, u_enc) per column
+  uint64_t* full;   // stages
+  uint64_t* empty;  // stages
+};
+
+// The producer thread: every stage of every product in the order the
+// consumers use them.
+template <int kPart>
+__device__ void produce(const I8Params& prm, const Smem& sm) {
+  int g = 0;
+  for (int L = 0; L < prm.products; ++L) {
+    const Layer l = layer_of(prm, L);
+    for (int run = 0; run < 2; ++run)
+      if (l.slabs[run] > 0) gmma::prefetch_tensormap(l.map[run]);
+    for (int part = 0; part < l.n / kPart; ++part) {
+      for (int run = 0; run < 2; ++run) {
+        for (int ks = 0; ks < l.slabs[run]; ++ks, ++g) {
+          const int s = g % prm.stages;
+          gmma::mbar_wait(&sm.empty[s], ((g / prm.stages) & 1) ^ 1);
+          gmma::mbar_arrive_expect_tx(&sm.full[s], kPart * kKBox);
+          gmma::tma_load_2d(sm.ring + s * kPart * kKBox, l.map[run], &sm.full[s], kKBox * ks,
+                            kPart * part);
         }
-        __syncwarp();
       }
     }
   }
 }
 
-// Head columns 0..ncols-1 (of the first 16-column block) over the tile:
-// dst[p * 4 + c] = float(A @ W)[p, c] u[c] (+ float(E @ W_enc)[p, c]
-// u_enc[c]) + b[c] for p in 0..63; W and W_enc come transposed, [128, K].
-__device__ void head(const i8* A, int lda, int K, const i8* W, const i8* E,
-                     const i8* W_enc, int ncols, const float* u, const float* u_enc,
-                     const float* b, int* scratch, float* dst, int lane) {
-  const bool enc = W_enc != nullptr;
-  IAcc acc[4][1], acc_e[4][1];
-  zero_i(acc);
-  mma_i8(acc, A, lda, W, K, 0);
-  if (enc) {
-    zero_i(acc_e);
-    mma_i8(acc_e, E, kQEncLd, W_enc, kEncLanes, 0);
-  }
+// One K run of a part's product: the slabs of code tile `a` times the
+// stages the producer delivers, into d. The run's first product overwrites
+// d (scale-d 0). A stage is released once the group after it has been
+// issued, and the last one once its group has retired.
+template <int kPart>
+__device__ __forceinline__ void run_products(const I8Params& prm, const Smem& sm, const uint8_t* a,
+                                             int slabs, int (&d)[kPart / 2], int& g, int lane) {
+  int pending = -1;
+  for (int ks = 0; ks < slabs; ++ks, ++g) {
+    const int s = g % prm.stages;
+    gmma::mbar_wait(&sm.full[s], (g / prm.stages) & 1);
+    const uint64_t da = gmma::desc_sw128_kmajor(a + ks * kSlabBytes);
+    const uint64_t db = gmma::desc_sw128_kmajor(sm.ring + s * kPart * kKBox);
+    gmma::fence_operands(d);
+    gmma::fence();
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    wmma::store_matrix_sync(scratch, acc[m][0], 16, wmma::mem_row_major);
-    if (enc) wmma::store_matrix_sync(scratch + 256, acc_e[m][0], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 16 * ncols; e += 32) {
-      const int rr = e / ncols, c = e % ncols;
-      float v = __fmul_rn(static_cast<float>(scratch[rr * 16 + c]), u[c]);
-      if (enc) v = __fadd_rn(v, __fmul_rn(static_cast<float>(scratch[256 + rr * 16 + c]), u_enc[c]));
-      dst[(m * 16 + rr) * 4 + c] = __fadd_rn(v, b[c]);
+    for (int k = 0; k < kKBox / 32; ++k)
+      gmma::mma_s8_m64k32<kPart>(d, da + 2 * k, db + 2 * k, ks > 0 || k > 0);
+    gmma::commit();
+    gmma::fence_operands(d);
+    gmma::wait<1>();
+    gmma::fence_operands(d);
+    if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+    pending = s;
+  }
+  gmma::wait<0>();
+  gmma::fence_operands(d);
+  if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+}
+
+enum Head { kNoHead, kSigmaHead, kRgbHead };
+
+// The epilogue of the part whose columns start at c0: each code at its place
+// in the next layer's code tile `out` (not rgb_features', which only the
+// rgb dots read), and into the head's int32 dots, dot[row half][column].
+template <int kPart, int kHead>
+__device__ __forceinline__ void part_epilogue(const I8Params& prm, const Layer& l, int c0,
+                                              const float4* vec, const int (&acc)[kPart / 2],
+                                              const int (&acc_e)[kPart / 2], uint8_t* out,
+                                              int (&dot)[2][3], int r0, int lane) {
+  const bool enc = l.slabs[1] > 0;
+  const float lo = l.relu ? 0.f : -127.f;
+  const int half = prm.u / 2;
+  // This thread's columns c = c0 + 8 j + q2 of rows r0 and r0 + 8: c0 is a
+  // multiple of kPart, so swz(r0 + 8 h, c) is the box c0 / 128, chunk
+  // (c0 % 128) / 16 + j / 2 XOR-ed with r0 % 8, byte 8 (j % 2) + q2, and
+  // 1024 bytes more for h = 1: one XOR and one add a column pair.
+  const int q2 = 2 * (lane % 4), chunk0 = (c0 & 127) >> 4, x = r0 & 7;
+  uint8_t* row = out + (c0 >> 7) * kSlabBytes + r0 * 128 + q2;
+  vec += q2;
+#pragma unroll
+  for (int j = 0; j < kPart / 8; ++j) {
+    const int c = c0 + 8 * j + q2;
+    const float4 v0 = vec[8 * j], v1 = vec[8 * j + 1];
+    const float2 uu = make_float2(v0.x, v1.x), bb = make_float2(v0.y, v1.y);
+    const float2 rr = make_float2(v0.z, v1.z), ue = make_float2(v0.w, v1.w);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t bits[2];
+      int q[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        float v = __fmul_rn(__int2float_rn(acc[i]), e ? uu.y : uu.x);
+        if (enc) v = __fadd_rn(v, __fmul_rn(__int2float_rn(acc_e[i]), e ? ue.y : ue.x));
+        bits[e] = quant_bits(__fadd_rn(v, e ? bb.y : bb.x), e ? rr.y : rr.x, lo);
+        q[e] = static_cast<int>(bits[e] - 0x4B400000u);
+      }
+      // The two codes' low bytes side by side, at swz(r0 + 8 h, c).
+      if (kHead != kRgbHead)
+        *reinterpret_cast<uint16_t*>(row + 1024 * h + ((((chunk0 + (j >> 1)) ^ x) << 4) |
+                                                       (8 * (j & 1)))) =
+            static_cast<uint16_t>(__byte_perm(bits[0], bits[1], 0x0040));
+      if (kHead == kSigmaHead) {
+        const char2 ws = __ldg(reinterpret_cast<const char2*>(prm.w.w_sig + c));
+        dot[h][0] += q[0] * ws.x + q[1] * ws.y;
+      } else if (kHead == kRgbHead) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const char2 wc = __ldg(reinterpret_cast<const char2*>(prm.w.w_rgb + k * half + c));
+          dot[h][k] += q[0] * wc.x + q[1] * wc.y;
+        }
+      }
     }
-    __syncwarp();
   }
 }
 
-// The float32 encoding tile quantized with one site's scale into qenc.
-__device__ void quant_enc(const float* encf, const float* r, i8* qenc) {
-  for (int idx = threadIdx.x; idx < kTile * kEncLanes; idx += blockDim.x) {
-    const int pl = idx / kEncLanes, l = idx % kEncLanes;
-    qenc[pl * kQEncLd + l] = quant(encf[pl * kEncLd + l], r[l]);
+// Every part of product L: the code tile `in` (or the encoding's codes) in,
+// `out` written, then the consumers meet so that the next product reads it.
+template <int kPart, int kHead>
+__device__ __forceinline__ void run_layer(const I8Params& prm, const Smem& sm, int L,
+                                          const uint8_t* in, uint8_t* out, int& g,
+                                          int (&dot)[2][3], int r0, int lane) {
+  const Layer l = layer_of(prm, L);
+  const int t = threadIdx.x - 128;
+  int acc[kPart / 2], acc_e[kPart / 2];
+  for (int part = 0; part < l.n / kPart; ++part) {
+    // The part's epilogue vectors, one column a thread, read from device
+    // memory while the products run and kept in shared memory (two buffers:
+    // the last epilogue may still read the other). Read in the epilogue
+    // itself they come from L2 (the L1 beside two blocks' shared memory is
+    // too small to keep them), a round trip per column.
+    const int c0 = part * kPart;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < kPart) {
+      v.x = __ldg(l.u + c0 + t);
+      v.y = __ldg(l.b + c0 + t);
+      v.z = __ldg(l.r + c0 + t);
+      if (l.slabs[1] > 0) v.w = __ldg(l.u_enc + c0 + t);
+    }
+    run_products<kPart>(prm, sm, l.enc0 ? sm.qenc : in, l.slabs[0], acc, g, lane);
+    if (l.slabs[1] > 0) run_products<kPart>(prm, sm, sm.qenc, 1, acc_e, g, lane);
+    float4* vec = sm.vec + (part & 1) * kPart;
+    if (t < kPart) vec[t] = v;
+    gmma::bar_sync(kBar, 128);
+    part_epilogue<kPart, kHead>(prm, l, c0, vec, acc, acc_e, out, dot, r0, lane);
   }
+  gmma::fence_proxy_async();
+  gmma::bar_sync(kBar, 128);
 }
 
-template <bool kSigmaOnly>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-mlp_int8_kernel(const MlpInt8Weights w, const float* __restrict__ base,
-                const float* __restrict__ slope, const float* __restrict__ depths,
-                const float* __restrict__ masks, float* __restrict__ out, int P,
-                int S) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int u = w.units, half = u / 2, act_ld = u + 16;
-  int* scratch_all = reinterpret_cast<int*>(smem);
-  float* encf = reinterpret_cast<float*>(scratch_all + kWarps * kScratch);
-  i8* qenc = reinterpret_cast<i8*>(encf + kTile * kEncLd);
-  i8* act0 = qenc + kTile * kQEncLd;
-  i8* act1 = act0 + kTile * act_ld;
-  float* pre = reinterpret_cast<float*>(act1 + kTile * act_ld);  // [64, 4]
+// The encoding's codes at one site, once every product that read the last
+// site has retired (the consumers met since): consumer thread t takes lane t
+// of every row.
+__device__ __forceinline__ void quant_site(const Smem& sm, const float* r, int t) {
+  const float rl = __ldg(r + t);
+#pragma unroll 8
+  for (int row = 0; row < kTile; ++row)
+    sm.qenc[swz(row, t)] = static_cast<uint8_t>(quant(sm.encf[row * kEncLanes + t], rl));
+  gmma::fence_proxy_async();
+  gmma::bar_sync(kBar, 128);
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* scratch = scratch_all + warp * kScratch;
-  const int p0 = blockIdx.x * kTile;
-
-  // Positional encoding of the tile's points, kept in float32.
-  for (int idx = threadIdx.x; idx < kTile * kEncLanes; idx += blockDim.x) {
-    const int pl = idx / kEncLanes, l = idx % kEncLanes, p = p0 + pl;
-    encf[pl * kEncLd + l] = p < P ? encode_lane(base, slope, depths, masks, p, l, S) : 0.f;
+// The consumer warpgroup: the trunk, sigma, and in full mode the features,
+// rgb_features and rgb. Thread t holds rows r0 and r0 + 8 of each product.
+template <int kPart>
+__device__ void consume(const I8Params& prm, const Smem& sm, int p0, int rows) {
+  const int t = threadIdx.x - 128, lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;
+  const MlpInt8Weights& w = prm.w;
+  int g = 0, cur = 0;
+  int dot[2][3] = {{0, 0, 0}, {0, 0, 0}};
+  // The tile a product reads and the one it writes (selected, not indexed,
+  // so that Smem stays in registers).
+  const auto in = [&] { return cur ? sm.act[1] : sm.act[0]; };
+  const auto out = [&] { return cur ? sm.act[0] : sm.act[1]; };
+  for (int L = 0; L < prm.n; ++L, cur ^= 1) {
+    if (L > 0 && ((prm.skips >> L) & 1)) quant_site(sm, w.enc_r[L], t);
+    if (L == prm.n - 1)
+      run_layer<kPart, kSigmaHead>(prm, sm, L, in(), out(), g, dot, r0, lane);
+    else
+      run_layer<kPart, kNoHead>(prm, sm, L, in(), out(), g, dot, r0, lane);
   }
-  __syncthreads();
-  quant_enc(encf, w.enc_r[0], qenc);
-  __syncthreads();
 
-  // Trunk (forward_core_int8 :260-270).
-  const i8* h = qenc;
-  int h_ld = kQEncLd, h_k = kEncLanes;
-  i8* bufs[2] = {act0, act1};
-  for (int i = 0; i < w.n_layers; ++i) {
-    const bool skip = i > 0 && w.trunk_enc_w[i] != nullptr;
-    if (skip) {  // every read of qenc ended at the last layer's barrier
-      quant_enc(encf, w.enc_r[i], qenc);
-      __syncthreads();
+  // sigma = relu(fl(fl(S u_sig) + fl(S_enc u_sig_enc)) + b_sig), S the int32
+  // dot of the last trunk codes with w_sig's column 0 and S_enc that of the
+  // encoding's codes at enc_r_sf (after a last skip) with w_sig_enc's.
+  int s_enc[2] = {0, 0};
+  if (prm.last_enc) {
+    quant_site(sm, w.enc_r_sf, t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      for (int e = 0; e < 32; ++e) {
+        const int k = 32 * (lane % 4) + e;
+        s_enc[h] += static_cast<i8>(sm.qenc[swz(r0 + 8 * h, k)]) * __ldg(w.w_sig_enc + k);
+      }
+      s_enc[h] = quad_sum(s_enc[h]);
     }
-    i8* dst = bufs[i & 1];
-    dense_i8(h, h_ld, h_k, w.trunk_w[i], w.trunk_u[i], qenc,
-             skip ? w.trunk_enc_w[i] : nullptr, w.trunk_enc_u[i], w.trunk_b[i],
-             w.trunk_r[i], true, u, dst, act_ld, scratch, warp, lane);
-    __syncthreads();
-    h = dst;
-    h_ld = act_ld;
-    h_k = u;
   }
-  i8* spare = (h == act0) ? act1 : act0;
-
-  // Sigma, and the features' encoding product after a last skip (:276-285).
-  const bool last_enc = w.w_sig_enc != nullptr;
-  if (last_enc) {
-    quant_enc(encf, w.enc_r_sf, qenc);
-    __syncthreads();
+  float sigma[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v = __fmul_rn(__int2float_rn(quad_sum(dot[h][0])), __ldg(w.u_sig));
+    if (prm.last_enc) v = __fadd_rn(v, __fmul_rn(__int2float_rn(s_enc[h]), __ldg(w.u_sig_enc)));
+    sigma[h] = fmaxf(__fadd_rn(v, __ldg(w.b_sig)), 0.f);
+    dot[h][0] = 0;
   }
-  if (warp == kWarps - 1) {
-    head(h, h_ld, u, w.w_sig, qenc, w.w_sig_enc, 1, w.u_sig, w.u_sig_enc, w.b_sig, scratch,
-         pre + 3, lane);
-    __syncwarp();
-    for (int pl = lane; pl < kTile; pl += 32) pre[pl * 4 + 3] = fmaxf(pre[pl * 4 + 3], 0.f);
-  }
-  if (kSigmaOnly) {
-    __syncthreads();
-    for (int pl = threadIdx.x; pl < kTile; pl += blockDim.x)
-      if (p0 + pl < P) out[p0 + pl] = pre[pl * 4 + 3];
+  if (prm.products == prm.n) {
+    if (lane % 4 == 0)
+      for (int h = 0; h < 2; ++h)
+        if (r0 + 8 * h < rows) prm.out[p0 + r0 + 8 * h] = sigma[h];
     return;
   }
 
-  // features (linear), coded with r_feat (:289-297).
-  dense_i8(h, h_ld, u, w.w_feat, w.u_feat, qenc, w.w_feat_enc, w.u_feat_enc,
-           w.b_feat, w.r_feat, false, u, spare, act_ld, scratch, warp, lane);
-  __syncthreads();
-  // rgb_features (linear) from the features' codes and the encoding coded
-  // with enc_r_rf, coded with r_rf (:298-305), into the trunk's last buffer.
-  quant_enc(encf, w.enc_r_rf, qenc);
-  __syncthreads();
-  i8* rf = const_cast<i8*>(h);
-  dense_i8(spare, act_ld, u, w.w_rf_top, w.u_rf_top, qenc, w.w_rf_enc, w.u_rf_enc,
-           w.b_rf, w.r_rf, false, half, rf, act_ld, scratch, warp, lane);
-  __syncthreads();
-  // rgb = sigmoid(float(rf @ w_rgb) u_rgb + b_rgb), columns 0..2 (:306-307).
-  if (warp == 0) {
-    head(rf, act_ld, half, w.w_rgb, nullptr, nullptr, 3, w.u_rgb, nullptr, w.b_rgb, scratch,
-         pre, lane);
-    __syncwarp();
-    for (int pl = lane; pl < kTile; pl += 32) {
-      const int p = p0 + pl;
-      if (p >= P) continue;
-      float4 o;
-      o.x = 1.f / (1.f + expf(-pre[pl * 4 + 0]));
-      o.y = 1.f / (1.f + expf(-pre[pl * 4 + 1]));
-      o.z = 1.f / (1.f + expf(-pre[pl * 4 + 2]));
-      o.w = pre[pl * 4 + 3];
-      reinterpret_cast<float4*>(out)[p] = o;
+  // The features (their codes over the trunk's last tile), then
+  // rgb_features from them and the encoding's codes at enc_r_rf, and rgb =
+  // sigmoid(fl(R u_rgb) + b_rgb).
+  run_layer<kPart, kNoHead>(prm, sm, prm.n, in(), out(), g, dot, r0, lane);
+  cur ^= 1;
+  quant_site(sm, w.enc_r_rf, t);
+  run_layer<kPart, kRgbHead>(prm, sm, prm.n + 1, in(), nullptr, g, dot, r0, lane);
+  float4 o[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float x = __fadd_rn(__fmul_rn(__int2float_rn(quad_sum(dot[h][k])), __ldg(w.u_rgb + k)),
+                                __ldg(w.b_rgb + k));
+      v[k] = 1.f / (1.f + expf(-x));
+    }
+    o[h] = make_float4(v[0], v[1], v[2], sigma[h]);
+  }
+  if (lane % 4 == 0)
+    for (int h = 0; h < 2; ++h)
+      if (r0 + 8 * h < rows) reinterpret_cast<float4*>(prm.out)[p0 + r0 + 8 * h] = o[h];
+}
+
+template <int kPart>
+__global__ void __launch_bounds__(kThreads, 2)
+mlp_int8_kernel(const __grid_constant__ I8Params prm) {
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  uint8_t* base = smem_raw + ((1024 - (gmma::smem_addr(smem_raw) & 1023)) & 1023);
+  Smem sm;
+  sm.act[0] = base;
+  sm.act[1] = base + kTile * prm.u;
+  sm.qenc = sm.act[1] + kTile * prm.u;
+  sm.ring = sm.qenc + kSlabBytes;
+  sm.encf = reinterpret_cast<float*>(sm.ring + prm.stages * kPart * kKBox);
+  sm.vec = reinterpret_cast<float4*>(sm.encf + kTile * kEncLanes);
+  sm.full = reinterpret_cast<uint64_t*>(sm.vec + 2 * kPart);
+  sm.empty = sm.full + prm.stages;
+
+  const int p0 = blockIdx.x * kTile;
+  const int rows = min(kTile, prm.P - p0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < prm.stages; ++s) {
+      gmma::mbar_init(&sm.full[s], 1);
+      gmma::mbar_init(&sm.empty[s], 4);  // the consumer warps
+    }
+    gmma::fence_barrier_init();
+  }
+  // Positional encoding of the tile's points (zero past the last one) by
+  // every thread, kept in float32, and its codes at enc_r[0]: thread i takes
+  // lane i % 128 of every other row. Its rows' depths are read at once, and
+  // its ray's coefficients again only where the ray changes (a tile spans
+  // one or two rays of S >= 64).
+  {
+    constexpr int kRows = kTile / (kThreads / kEncLanes);
+    const int l = threadIdx.x % kEncLanes, kind = lane_kind(prm.masks, l);
+    const int r_first = threadIdx.x / kEncLanes;
+    const float r0 = __ldg(prm.w.enc_r[0] + l);
+    float depth[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = r_first + 2 * i;
+      depth[i] = r < rows ? __ldg(prm.depths + p0 + r) : 0.f;
+    }
+    // The ray of point p0 + r, stepped along with r (no division a row).
+    int ray = (p0 + r_first) / prm.S, at = (p0 + r_first) % prm.S, loaded = -1;
+    float base = 0.f, slope = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = r_first + 2 * i;
+      float x = 0.f;
+      if (r < rows) {
+        if (ray != loaded) {
+          loaded = ray;
+          base = __ldg(prm.base + (size_t)ray * kEncLanes + l);
+          slope = __ldg(prm.slope + (size_t)ray * kEncLanes + l);
+        }
+        x = encode_value(depth[i], slope, base, kind);
+      }
+      for (at += 2; at >= prm.S; at -= prm.S) ++ray;
+      sm.encf[r * kEncLanes + l] = x;
+      sm.qenc[swz(r, l)] = static_cast<uint8_t>(quant(x, r0));
     }
   }
+  gmma::fence_proxy_async();
+  __syncthreads();
+
+  // The producer warpgroup gives its registers to the consumers: 128 x 24 +
+  // 128 x 232 = 256 x 128, the budget of a block when two share an SM.
+  if (threadIdx.x < 128) {
+    gmma::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) produce<kPart>(prm, sm);
+    return;
+  }
+  gmma::setmaxnreg_inc<232>();
+  consume<kPart>(prm, sm, p0, rows);
 }
 
-size_t smem_bytes(int units) {
-  return sizeof(int) * kWarps * kScratch + sizeof(float) * kTile * kEncLd +
-         (size_t)kTile * (kQEncLd + 2 * (units + 16)) + sizeof(float) * kTile * 4;
-}
-
-template <bool kSigmaOnly>
-int launch(const MlpInt8Weights* w, const float* base, const float* slope,
-           const float* depths, const float* masks, float* out, int P, int S,
-           cudaStream_t st) {
-  const size_t smem = smem_bytes(w->units);
-  const cudaError_t err = cudaFuncSetAttribute(
-      mlp_int8_kernel<kSigmaOnly>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (P + kTile - 1) / kTile;
-  mlp_int8_kernel<kSigmaOnly><<<blocks, kWarps * 32, smem, st>>>(*w, base, slope, depths,
-                                                                  masks, out, P, S);
+template <int kPart>
+int launch_part(const I8Params& prm, cudaStream_t st) {
+  const int smem = smem_bytes(prm.u, prm.stages);
+  cudaError_t e = cudaFuncSetAttribute(mlp_int8_kernel<kPart>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(mlp_int8_kernel<kPart>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (prm.P + kTile - 1) / kTile;
+  mlp_int8_kernel<kPart><<<blocks, kThreads, smem, st>>>(prm);
   return (int)cudaGetLastError();
 }
 
 bool weights_ok(const MlpInt8Weights* w) {
-  return w->n_layers >= 1 && w->n_layers <= kMaxLayers && w->units % 256 == 0 &&
-         w->enc_r[0] != nullptr && w->trunk_enc_w[0] == nullptr &&
-         (w->w_sig_enc == nullptr) == (w->enc_r_sf == nullptr);
+  return w->n_layers >= 1 && w->n_layers <= kMaxLayers && w->units >= 256 &&
+         w->units % 256 == 0 && stages_of(w->units) >= 2 && w->enc_r[0] != nullptr &&
+         w->trunk_enc_w[0] == nullptr && (w->w_sig_enc == nullptr) == (w->enc_r_sf == nullptr);
+}
+
+// Returns 0, a cudaError_t, or -CUresult when a tensor map cannot be encoded.
+int launch(const MlpInt8Weights* w, const float* base, const float* slope, const float* depths,
+           const float* masks, float* out, int P, int S, bool sigma_only, cudaStream_t st) {
+  if (!weights_ok(w)) return (int)cudaErrorInvalidValue;
+  const gmma::EncodeTiled fn = gmma::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int u = w->units, n = w->n_layers, part = part_of(u);
+  I8Params prm{};  // copied into the launch's parameters
+  int err = 0;
+  for (int i = 0; i < n && !err; ++i) {
+    err = gmma::encode_map_u8(fn, &prm.trunk[i], w->trunk_w[i], i == 0 ? kEncLanes : u, u, part);
+    if (!err && w->trunk_enc_w[i] != nullptr) {
+      err = gmma::encode_map_u8(fn, &prm.trunk_enc[i], w->trunk_enc_w[i], kEncLanes, u, part);
+      prm.skips |= 1 << i;
+    }
+  }
+  if (!err) err = gmma::encode_map_u8(fn, &prm.feat, w->w_feat, u, u, part);
+  if (!err && w->w_feat_enc != nullptr)
+    err = gmma::encode_map_u8(fn, &prm.feat_enc, w->w_feat_enc, kEncLanes, u, part);
+  if (!err) err = gmma::encode_map_u8(fn, &prm.rf_top, w->w_rf_top, u, u / 2, part);
+  if (!err) err = gmma::encode_map_u8(fn, &prm.rf_enc, w->w_rf_enc, kEncLanes, u / 2, part);
+  if (err) return -err;
+  prm.w = *w;
+  prm.base = base;
+  prm.slope = slope;
+  prm.depths = depths;
+  prm.masks = masks;
+  prm.out = out;
+  prm.P = P;
+  prm.S = S;
+  prm.u = u;
+  prm.n = n;
+  prm.products = sigma_only ? n : n + 2;
+  prm.stages = stages_of(u);
+  prm.last_enc = w->w_sig_enc != nullptr;
+  return part == 128 ? launch_part<128>(prm, st) : launch_part<64>(prm, st);
 }
 
 }  // namespace
 
 // base, slope: [rays, 128]; depths: [rays, S]; masks: [3, 128] raw/sin/cos
 // lane selectors; out: [rays * S, 4] (r, g, b, sigma) or [rays * S] sigma.
+// Returns 0, a cudaError_t, or -CUresult when a tensor map cannot be
+// encoded.
 KNT_EXPORT int knt_ray_march_mlp_int8(const MlpInt8Weights* w, const float* base,
                                       const float* slope, const float* depths,
                                       const float* masks, float* out, int rays,
                                       int S, int sigma_only, void* stream) {
   const long long points = (long long)rays * S;
   if (points <= 0) return 0;
-  if (!weights_ok(w) || points > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int P = (int)points;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (sigma_only) return launch<true>(w, base, slope, depths, masks, out, P, S, st);
-  return launch<false>(w, base, slope, depths, masks, out, P, S, st);
+  if (points > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return launch(w, base, slope, depths, masks, out, (int)points, S, sigma_only != 0,
+                (cudaStream_t)stream);
 }

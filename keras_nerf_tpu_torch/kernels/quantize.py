@@ -139,6 +139,30 @@ def quantize_packed(packed: dict, act_amax: dict, config) -> dict:
     return out
 
 
+# The int8 weight arrays of a quantize_packed dict besides the trunk's.
+INT8_WEIGHTS = ("w_feat", "w_sig", "w_feat_enc", "w_sig_enc", "w_rf_top",
+                "w_rf_enc", "w_rgb")
+
+
+def transposed_int8_weights(q: dict) -> dict:
+    """The ``[fan_out, fan_in]`` copies of ``q``'s int8 weights, the K-major
+    operands of the ``ray_march_mlp_int8`` kernel's products (``wgmma``
+    takes no transpose for 8-bit types): made on the first call and kept in
+    ``q["transposed"]``, so one quantized state is transposed once, not at
+    every launch. They live in memory only: no checkpoint holds them, and
+    ``q``'s own arrays are never changed after they are made."""
+    t = q.get("transposed")
+    if t is None:
+        def tr(x):
+            return None if x is None else x.t().contiguous()
+
+        t = {"trunk_w": [tr(w) for w in q["trunk_w"]],
+             "trunk_enc_w": [tr(w) for w in q["trunk_enc_w"]]}
+        t.update({name: tr(q[name]) for name in INT8_WEIGHTS})
+        q["transposed"] = t
+    return t
+
+
 def _quant_act(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """float32 activation -> int8 codes (held as float32 integers):
     ``clip(round(x r), -127, 127)``, ties to even as ``jnp.round``."""

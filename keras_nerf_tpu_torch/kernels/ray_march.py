@@ -857,41 +857,46 @@ def _stash_struct(stash: dict, points: int, units: int, n_layers: int,
     return s
 
 
-FWD_TILE_ELEMS = 128 * 256   # csrc/ray_march_mlp.cu: points x u of a tile
+FWD_TILE_ELEMS = 128 * 256   # csrc/ray_march_mlp.cu: points x u of a tile (u = 256, 512)
 FWD_STAGES = 3               # kStages: ring stages of weight slabs
 FWD_STAGE_BYTES = 4 * 64 * 128  # [64 K x 256 N] bf16 as four 64 x 64 boxes
-FWD_FLOATS = 128 * 4 + 512 + LANE + 256 * 3  # kFloats: the heads' float32 area
+FWD_MAX_UNITS = 768          # kMaxUnits
+FWD_FLOATS = 128 * 4 + FWD_MAX_UNITS + LANE + FWD_MAX_UNITS // 2 * 3  # kFloats
 
 
 def ray_march_mlp_plan(units: int) -> dict:
     """The tile and shared memory of the ``ray_march_mlp`` kernel (and of
     ``apply_mlp``, its input mode) at width ``units`` (mirrors
     csrc/ray_march_mlp.cu). ``tile``: points per block, 128 at u = 256 (the
-    two consumer warpgroups take 64 rows each) and 64 at u = 512 (each
-    takes half the columns), so that the activation tile is 64 KB;
-    ``smem_bytes``: that tile, the encoding tile (``tile`` x 128 bf16), the
-    ring of weight stages, the heads' float32 columns and partial sums, the
-    mbarriers and 1 KB of alignment. Raises on a width the kernel does not
-    take."""
-    if units not in (256, 512):
-        raise ValueError(f"ray_march_mlp takes dense_units 256 or 512 (got "
-                         f"{units}): its activation tile of {FWD_TILE_ELEMS} "
-                         f"elements holds 128 or 64 points")
-    tile = FWD_TILE_ELEMS // units
-    smem = (1024 + 2 * FWD_TILE_ELEMS + tile * 2 * LANE
+    two consumer warpgroups take 64 rows each) and 64 at u = 512 and 768
+    (each takes half the columns, at 768 in ``passes`` of 128 columns);
+    ``smem_bytes``: the activation tile (``tile`` x u bf16), the encoding
+    tile (``tile`` x 128 bf16), the ring of weight stages, the heads'
+    float32 columns and partial sums, the mbarriers and 1 KB of alignment.
+    Raises on a width the kernel does not take."""
+    if units not in (256, 512, 768):
+        raise ValueError(f"ray_march_mlp takes dense_units 256, 512 or 768 "
+                         f"(got {units}): wider activation tiles of 64 "
+                         f"points leave no room for the ring in 227 KB")
+    tile = 64 if units == 768 else FWD_TILE_ELEMS // units
+    smem = (1024 + 2 * tile * units + tile * 2 * LANE
             + FWD_STAGES * FWD_STAGE_BYTES + 4 * FWD_FLOATS
             + 8 * (2 * FWD_STAGES + 1))
     return {"tile": tile, "split": "rows" if units == 256 else "columns",
-            "stages": FWD_STAGES, "smem_bytes": smem}
+            "passes": 3 if units == 768 else 1, "stages": FWD_STAGES,
+            "smem_bytes": smem}
 
 
-def swizzled_offset(r: int, c: int, tile: int) -> int:
-    """Byte offset of element ``(r, c)`` of a ``[tile x cols]`` bf16 tile of
-    ``ray_march_mlp``'s shared memory (csrc/ray_march_mlp.cu: ``swz``):
-    64-column boxes of ``tile`` rows of 128 bytes, the 16-byte chunk
-    ``c // 8`` of row ``r`` stored at chunk ``(c // 8) ^ (r % 8)``."""
-    return ((c >> 6) * tile * 128 + r * 128
-            + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2)
+def swizzled_offset(r: int, c: int, tile: int, elem_bytes: int = 2) -> int:
+    """Byte offset of element ``(r, c)`` of a ``[tile x cols]`` tile of
+    ``ray_march_mlp``'s shared memory (bf16, csrc/ray_march_mlp.cu:
+    ``swz``) or, with ``elem_bytes`` 1, of ``ray_march_mlp_int8``'s code
+    tiles (csrc/ray_march_mlp_int8.cu: ``swz``): boxes of ``tile`` rows of
+    128 bytes, the 16-byte chunk of byte ``b = c * elem_bytes`` of row
+    ``r`` stored at chunk ``(b // 16) % 8 ^ (r % 8)``."""
+    b = c * elem_bytes
+    return ((b >> 7) * tile * 128 + r * 128
+            + ((((b >> 4) & 7) ^ (r & 7)) << 4) + (b & 15))
 
 
 def _raise_on_mapped(err: int, name: str) -> None:
@@ -979,14 +984,16 @@ class _MlpInt8Weights(ctypes.Structure):
     ]
 
 
-def _mlp_int8_struct(q: dict, device: torch.device):
+def _mlp_int8_struct(q: dict, device: torch.device) -> _MlpInt8Weights:
     """The device pointers of a :func:`quantize_packed` dict, each array
-    checked for its device, type, contiguity and shape, with the int8
-    weights transposed to ``[fan_out, fan_in]`` for the kernel's
-    column-major B fragments. Returns the structure and the transposed
-    copies, which must live until the launch is enqueued."""
+    checked for its device, type, contiguity and shape; the int8 weights
+    are their ``[fan_out, fan_in]`` copies, the K-major operands of the
+    kernel's products, made once per quantized state
+    (:func:`~keras_nerf_tpu_torch.kernels.quantize.transposed_int8_weights`)
+    and kept in ``q``."""
+    from keras_nerf_tpu_torch.kernels.quantize import transposed_int8_weights
+
     s = _MlpInt8Weights()
-    keep = []
     n = len(q["trunk_w"])
     u = q["trunk_b"][0].shape[1]
     if n > MAX_LAYERS or u % 256:
@@ -996,22 +1003,15 @@ def _mlp_int8_struct(q: dict, device: torch.device):
     half = u // 2
 
     def opt(x, name, dtype, shape):
-        if x is None:
-            return None
-        ptr = _check(x, name, dtype, device, shape)
-        if dtype is not i8:
-            return ptr
-        keep.append(x.t().contiguous())
-        return keep[-1].data_ptr()
+        return None if x is None else _check(x, name, dtype, device, shape)
 
     for i in range(n):
         fan = LANE if i == 0 else u
-        s.trunk_w[i] = opt(q["trunk_w"][i], f"trunk_w[{i}]", i8, (fan, u))
+        opt(q["trunk_w"][i], f"trunk_w[{i}]", i8, (fan, u))
         for key in ("trunk_u", "trunk_b", "trunk_r"):
             getattr(s, key)[i] = _check(q[key][i], f"{key}[{i}]", f32,
                                         device, (1, u))
-        s.trunk_enc_w[i] = opt(q["trunk_enc_w"][i], f"trunk_enc_w[{i}]", i8,
-                               (LANE, u))
+        opt(q["trunk_enc_w"][i], f"trunk_enc_w[{i}]", i8, (LANE, u))
         s.trunk_enc_u[i] = opt(q["trunk_enc_u"][i], f"trunk_enc_u[{i}]", f32,
                                (1, u))
         s.enc_r[i] = opt(q["enc_r"][i], f"enc_r[{i}]", f32, (1, LANE))
@@ -1038,23 +1038,76 @@ def _mlp_int8_struct(q: dict, device: torch.device):
         if q[name] is None and name not in last:
             raise ValueError(f"{name} is missing")
         setattr(s, name, opt(q[name], name, dtype, shapes[name]))
+    # The pointers the kernel reads: the transposed copies of every int8
+    # array checked above.
+    t = transposed_int8_weights(q)
+    for i in range(n):
+        s.trunk_w[i] = t["trunk_w"][i].data_ptr()
+        enc_w = t["trunk_enc_w"][i]
+        s.trunk_enc_w[i] = None if enc_w is None else enc_w.data_ptr()
+    for name in _INT8_HEAD_ARRAYS:
+        if name.startswith("w_"):
+            setattr(s, name, None if t[name] is None else t[name].data_ptr())
     s.n_layers = n
     s.units = u
-    return s, keep
+    return s
 
 
-def _ray_march_mlp_int8_cuda(q, base, slope, depths, masks, sigma_only=False):
+I8_TILE = 64         # csrc/ray_march_mlp_int8.cu: kTile, points per block
+I8_KBOX = 128        # kKBox: K bytes of a swizzled row, one TMA box
+I8_SLAB_BYTES = I8_TILE * I8_KBOX   # kSlabBytes: a 128-K slab of codes
+I8_ENC_BYTES = I8_TILE * LANE * 4   # kEncBytes: the float32 encoding tile
+I8_MAX_STAGES = 4    # kMaxStages
+SMEM_PER_SM = 233472  # kSmemPerSm: 228 KB an SM, 1 KB of it per block
+
+
+def ray_march_mlp_int8_plan(units: int) -> dict:
+    """The tile, parts and shared memory of the ``ray_march_mlp_int8``
+    kernel at width ``units`` (mirrors csrc/ray_march_mlp_int8.cu).
+    ``tile``: 64 points per block; ``part``: output columns a product
+    takes at once, 128 up to u = 1024 and 64 above; ``stages``: ring
+    stages of ``[part x 128]`` int8 weights, 2 where two blocks then share
+    an SM (``blocks_per_sm``), else as many as fit, at most 4;
+    ``smem_bytes``: 1 KB of alignment, the two ping-pong code tiles, the
+    encoding's code tile and float32 tile, two parts' epilogue vectors
+    (four float32 per column), and the ring with its mbarriers.
+    Raises, naming the width, on one the kernel does not take: not a
+    multiple of 256, or too wide for two stages (above 1280)."""
+    part = 128 if units <= 1024 else 64
+    fixed = (1024 + 2 * I8_TILE * units + I8_SLAB_BYTES + I8_ENC_BYTES
+             + 2 * part * 16)
+    stage = part * I8_KBOX + 16
+    most = (SMEM_PER_BLOCK - fixed) // stage
+    if units < 256 or units % 256 or most < 2:
+        raise ValueError(f"ray_march_mlp_int8 takes dense_units a multiple "
+                         f"of 256 from 256 to 1280 (got {units}): its two "
+                         f"code tiles of 64 x dense_units bytes and a ring "
+                         f"of two weight stages must fit 227 KB")
+    if 2 * (fixed + 2 * stage + 1024) <= SMEM_PER_SM:
+        stages, blocks = 2, 2
+    else:
+        stages, blocks = min(I8_MAX_STAGES, most), 1
+    return {"tile": I8_TILE, "part": part, "stages": stages,
+            "blocks_per_sm": blocks, "smem_bytes": fixed + stages * stage}
+
+
+def _ray_march_mlp_int8_cuda(q, base, slope, depths, masks, sigma_only=False,
+                             lib=None):
+    """The ``ray_march_mlp_int8`` launch; ``lib`` another build of its C
+    entry point (``time_ray_march_mlp_int8`` times a parent's kernel
+    through it), else this package's library."""
     from keras_nerf_tpu_torch.kernels._build import load
 
-    lib = load()
     dev = base.device
     r, s = depths.shape
     f32 = torch.float32
-    weights, _transposed = _mlp_int8_struct(q, dev)
+    ray_march_mlp_int8_plan(q["trunk_b"][0].shape[1])
+    weights = _mlp_int8_struct(q, dev)
+    lib = load() if lib is None else lib
     out = torch.empty((r * s,) if sigma_only else (r * s, 4), dtype=f32,
                       device=dev)
     with torch.cuda.device(dev):
-        _raise_on(lib.knt_ray_march_mlp_int8(
+        _raise_on_mapped(lib.knt_ray_march_mlp_int8(
             ctypes.addressof(weights),
             _check(base, "base", f32, dev, (r, LANE)),
             _check(slope, "slope", f32, dev, (r, LANE)),
@@ -1106,9 +1159,11 @@ def _ray_march_quadrature_cuda(rgbs, t, white_background=False,
     return image, depth, weights, d_rgb, d_sigma
 
 
-BWD_TILE_ELEMS = 128 * 256   # csrc/mlp_backward.cu: points x u of a tile
+BWD_TILE_ELEMS = 128 * 256   # csrc/mlp_backward.cu: points x u of a tile (u = 256, 512)
 BWD_STAGES = 3               # kStages: ring stages of weight slabs
 BWD_STAGE_BYTES = 128 * 256  # one TMA box of [64 K x 256 rows] bf16
+BWD_WIDE_STAGES = 2          # kWideStages: the ring at u = 768
+BWD_WIDE_STAGE_BYTES = 128 * 128  # kWideStageBytes: [64 K x 128 rows]
 SMEM_PER_BLOCK = 232448      # the H100's 227 KB of shared memory a block
 
 
@@ -1116,21 +1171,24 @@ def mlp_backward_plan(units: int) -> dict:
     """The tile and shared memory of the ``mlp_backward`` kernel at width
     ``units`` (mirrors csrc/mlp_backward.cu). ``tile``: points per block,
     128 at u = 256 (the two consumer warpgroups take 64 rows each) and 64
-    at u = 512 (each takes half the columns), so that the cotangent tile
-    and the mask tile are 64 KB each; ``smem_bytes``: those two, the ring
-    of weight slabs, the tile's ``d_sigma_pre`` (float32), the sigma column
-    of ``w_sf`` (bf16), the mbarriers and 1 KB of alignment. Raises on a
-    width the kernel does not take."""
-    if units not in (256, 512):
-        raise ValueError(f"mlp_backward takes dense_units 256 or 512 (got "
-                         f"{units}): its cotangent and mask tiles of "
-                         f"{BWD_TILE_ELEMS} elements each hold 128 or 64 "
-                         f"points")
-    tile = BWD_TILE_ELEMS // units
-    smem = (1024 + 2 * 2 * BWD_TILE_ELEMS + BWD_STAGES * BWD_STAGE_BYTES
-            + 4 * tile + 2 * units + 8 * (2 * BWD_STAGES + 2))
+    at u = 512 and 768 (each takes half the columns); ``stages`` of
+    ``stage_bytes``: the ring of weight slabs, 3 of 32 KB, or 2 of 16 KB at
+    u = 768, where the cotangent and mask tiles take 96 KB each;
+    ``smem_bytes``: those two tiles, the ring, the tile's ``d_sigma_pre``
+    (float32), the sigma column of ``w_sf`` (bf16), the mbarriers and 1 KB
+    of alignment. Raises on a width the kernel does not take."""
+    if units not in (256, 512, 768):
+        raise ValueError(f"mlp_backward takes dense_units 256, 512 or 768 "
+                         f"(got {units}): wider cotangent and mask tiles of "
+                         f"64 points leave no room for the ring in 227 KB")
+    wide = units == 768
+    tile = 64 if wide else BWD_TILE_ELEMS // units
+    stages, stage = ((BWD_WIDE_STAGES, BWD_WIDE_STAGE_BYTES) if wide
+                     else (BWD_STAGES, BWD_STAGE_BYTES))
+    smem = (1024 + 2 * 2 * tile * units + stages * stage + 4 * tile
+            + 2 * units + 8 * (2 * stages + 2))
     return {"tile": tile, "split": "rows" if units == 256 else "columns",
-            "stages": BWD_STAGES, "smem_bytes": smem}
+            "stages": stages, "stage_bytes": stage, "smem_bytes": smem}
 
 
 def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None,

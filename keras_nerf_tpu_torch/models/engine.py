@@ -42,6 +42,7 @@ import torch
 from keras_nerf_tpu_torch.kernels.quantize import (
     collect_act_amax,
     quantize_packed,
+    transposed_int8_weights,
 )
 from keras_nerf_tpu_torch.kernels.ray_march import (
     encode_block128,
@@ -351,8 +352,11 @@ def quantize_render_params(coarse_params: Params, fine_params: Params, rays,
         enc = encode_block128(pos.reshape(-1, 3),
                               d[:, None, :].expand(pos.shape).reshape(-1, 3),
                               config.pos_emb_xyz, config.pos_emb_dir)
-        out.append(quantize_packed(
-            packed, collect_act_amax(packed, enc, config.mlp), config.mlp))
+        q = quantize_packed(packed, collect_act_amax(packed, enc, config.mlp),
+                            config.mlp)
+        if q["w_feat"].is_cuda:
+            transposed_int8_weights(q)  # the kernel's operands, once
+        out.append(q)
     return tuple(out)
 
 

@@ -10,7 +10,12 @@ views, one epoch (5 steps) at a time, the first half of the epochs with
 the MSE and the rest with L1; after each epoch it holds the 16^2 card step
 against the CPU step for the MSE, for L1 as ``chip_smoke.py`` holds it
 (at the CPU's subgradient, ``_compare_l1_steps``) and for plain L1, each
-read against ``STEP_TOL``. With ``--parent`` (the ``kernels/csrc``
+read against ``STEP_TOL``. For the MSE step it also prints every leaf's
+relative norm and relative max beside the leaf's conditioning
+(:func:`conditioning`: a leaf that sums many terms of both signs to a
+small total amplifies the bf16 roundings of its terms by that factor), and
+the pixel-channels whose clip to [0, 1] decides differently on the card
+and on the CPU (:func:`clip_flips`). With ``--parent`` (the ``kernels/csrc``
 directory of another checkout) each state is read twice, the second time
 with that checkout's ``ray_march_mlp.cu`` behind the ``ray_march_mlp`` and
 ``apply_mlp`` wrappers: whether a reading follows the forward kernel or
@@ -21,6 +26,7 @@ card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -75,6 +81,135 @@ def main(argv=None) -> int:
     return 0
 
 
+def leaf_names(params: dict) -> list:
+    """The names of ``params``' leaves, in ``tree_leaves`` order."""
+    names = [f"trunk[{i}].{k}" for i, layer in enumerate(params["trunk"])
+             for k in layer]
+    return names + [f"{key}.{k}" for key in ("sigma", "features",
+                                            "rgb_features", "rgb")
+                    for k in params[key]]
+
+
+def conditioning(cs, state, small, cfg) -> list:
+    """Per model, per leaf, the conditioning of its gradient as a sum over
+    the step's points: ``||sum_p |c_p| || / ||sum_p c_p||`` (Frobenius
+    norms), ``c_p`` the point's term (``x_p^T delta_p`` of a kernel,
+    ``delta_p`` of a bias), from the float32 reference MSE step on the CPU
+    (autograd through ``models/mlp.py``'s dense layers, whose inputs and
+    output cotangents a wrapper records)."""
+    from keras_nerf_tpu_torch.models import engine
+    from keras_nerf_tpu_torch.models import mlp
+
+    cpu = torch.device("cpu")
+    batch, draws = small
+    p0 = [cs._to(x, cpu) for x in (state.coarse_params, state.fine_params)]
+    where = {}   # data_ptr of a leaf -> (model, leaf index)
+    for m, params in enumerate(p0):
+        for i, leaf in enumerate(engine.tree_leaves(params)):
+            where[leaf.data_ptr()] = (m, i)
+    sums = {}    # (model, leaf) -> [sum of |terms|, sum of terms]
+    dense = mlp._dense
+
+    def recorded(x, p):
+        y = dense(x, p)
+        if y.requires_grad:
+            xs = x.detach().reshape(-1, x.shape[-1]).double()
+
+            def hook(g, xs=xs, p=p):
+                gs = g.reshape(-1, g.shape[-1]).double()
+                for key, a, t in (
+                        (p["kernel"], xs.abs().T @ gs.abs(), xs.T @ gs),
+                        (p["bias"], gs.abs().sum(0), gs.sum(0))):
+                    k = where[key.data_ptr()]
+                    old = sums.get(k, (0.0, 0.0))
+                    sums[k] = (old[0] + a, old[1] + t)
+            y.register_hook(hook)
+        return y
+
+    mlp._dense = recorded
+    try:
+        engine.train_step(
+            engine.TrainState(p0[0], p0[1], {}, {}, 0),
+            (batch[0].to(cpu), tuple(x.to(cpu) for x in batch[1])),
+            [x.to(cpu) for x in draws], engine.make_optimizer("sgd", 1.0),
+            dataclasses.replace(cfg, use_kernels=False), cs.E2E_CHUNK)
+    finally:
+        mlp._dense = dense
+    return [[float(sums[(m, i)][0].norm() / sums[(m, i)][1].norm())
+             for i in range(len(engine.tree_leaves(params)))]
+            for m, params in enumerate(p0)]
+
+
+def clip_flips(cs, state, small, cfg, devices=("cpu", "cuda")) -> list:
+    """Where the MSE step's clip to [0, 1] decides differently on the card
+    and on the CPU: per pass (coarse, fine), the pixel-channels whose
+    composite (white background) lies inside (0, 1) on one device and not
+    on the other, out of all, and the share of the pass's summed absolute
+    residual |image - target| that such pixels carry (the MSE gradient of a
+    pixel passes the clip only inside). The MLP runs as the step runs it
+    (the kernel on the card, its plain version on the CPU); the composite is
+    the plain quadrature's on each device; the fine pass takes the CPU's
+    depths on both, so that only the MLP's rounding differs."""
+    from keras_nerf_tpu_torch.models import engine
+
+    (images, rays), draws = small
+    n_rays = images.shape[1] * images.shape[2]
+    chunk = cs.E2E_CHUNK
+    o, d, t = (x.reshape(n_rays, -1) for x in rays)
+    target = images[..., :3].reshape(n_rays, 3).float().cpu()
+    enc = (cfg.pos_emb_xyz, cfg.pos_emb_dir)
+    pre, tf = [], None
+    for dev in map(torch.device, devices):
+        packs = [trm.pack_mlp_params(cs._to(x, dev), cfg.mlp, *enc)
+                 for x in (state.coarse_params, state.fine_params)]
+        out = {"coarse": [], "fine": []}
+        fine_t = []
+        for k in range(n_rays // chunk):
+            sl = slice(k * chunk, (k + 1) * chunk)
+            oo, dd, tc = (x[sl].to(dev) for x in (o, d, t))
+            base, slope, masks = trm.ray_encoding_coeffs(oo, dd, *enc)
+            for name, packed, tt in (("coarse", packs[0], tc),
+                                     ("fine", packs[1], None)):
+                if tt is None:
+                    tt = (fine_t if tf is None else tf)[k].to(dev)
+                rgbs = trm.ray_march_mlp(packed, base, slope, tt, masks)
+                img, _, w = trm.ray_march_quadrature.plain(
+                    rgbs.reshape(chunk, -1, 4), tt, False, False, True)
+                out[name].append((img + (1.0 - w.sum(1))[:, None]).cpu())
+                if tf is None and name == "coarse":
+                    fine_t.append(trm.sample_merge.plain(
+                        tt, w, draws[k].to(dev), tt).cpu())
+        tf = fine_t if tf is None else tf
+        pre.append({n: torch.cat(v) for n, v in out.items()})
+    rows = []
+    for name in ("coarse", "fine"):
+        b, a = pre[0][name], pre[1][name]
+        inside = [(x > 0.0) & (x < 1.0) for x in (a, b)]
+        flip = inside[0] != inside[1]
+        resid = (b.clamp(0.0, 1.0) - target).abs()
+        rows.append((name, int(flip.sum()), flip.numel(),
+                     float(resid[flip].sum() / resid[inside[1]].sum()),
+                     float((a - b).abs().max())))
+    return rows
+
+
+def _per_leaf(cs, tag, state, small, cfg, kappa) -> None:
+    """The MSE step, card against CPU, leaf by leaf beside each leaf's
+    conditioning; leaves over ``STEP_TOL`` are marked."""
+    (_, g_card), (_, g_cpu) = (cs._one_step(state, small, cfg, dev, None)
+                               for dev in ("cuda", "cpu"))
+    names = leaf_names(state.coarse_params)
+    tol = cs.STEP_TOL
+    for model, la, lb, kap in zip(("coarse", "fine"), g_card, g_cpu, kappa):
+        for name, a, b, k in zip(names, la, lb, kap):
+            rn = float((a - b).norm() / b.norm())
+            rm = float((a - b).abs().max() / b.abs().max())
+            over = rn > tol["grad_rel_norm"] or rm > tol["grad_rel_max"]
+            print(f"{tag}: mse leaf {model} {name}: relative norm {rn:.3e}, "
+                  f"relative max {rm:.3e}, conditioning sum|terms|/|sum| "
+                  f"{k:.3e}{'  OVER' if over else ''}", flush=True)
+
+
 def _read_states(cs, builds: dict, epochs: int) -> None:
     """Train epoch by epoch (on this package's kernels) and read the checks
     at each state with each build: ``builds`` maps a label to the function
@@ -91,9 +226,19 @@ def _read_states(cs, builds: dict, epochs: int) -> None:
         builds["new"]()
         cs._compile_train(nerf, "mse" if loss == "mse" else cs.l1_loss)
         nerf.fit(dataset, epochs=1, verbose=False)
+        kappa = conditioning(cs, nerf.state, small, cfg)
+        builds["new"]()
+        for name, k, total, share, diff in clip_flips(cs, nerf.state, small,
+                                                     cfg):
+            print(f"state {epoch}: mse clip decisions, {name} pass: {k} of "
+                  f"{total} pixel-channels differ between the card and the "
+                  f"CPU, carrying {share:.3e} of the CPU's summed residual "
+                  f"inside the clip; composites differ by at most "
+                  f"{diff:.3e}", flush=True)
         for label, install in builds.items():
             install()
             tag = f"state {epoch} (after an epoch of {loss}), {label} kernel"
+            _per_leaf(cs, tag, nerf.state, small, cfg, kappa)
             cs._compare_steps(f"{tag}: mse", nerf.state, small, cfg,
                               ("cuda", None), ("cpu", None))
             cs._compare_l1_steps(f"{tag}: l1 at the CPU's subgradient",

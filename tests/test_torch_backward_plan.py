@@ -4,9 +4,10 @@ The kernel runs only on the card (``tests/test_torch_cuda.py``). What it
 takes is decided in Python by :func:`mlp_backward_plan`, which mirrors
 ``csrc/mlp_backward.cu``: a block of 128 points at u = 256 and 64 at
 u = 512, whose cotangent and mask tiles are 64 KB each, beside a ring of
-three 32 KB weight slabs, within the H100's 227 KB of shared memory a
-block. Every other width raises, naming the width, before anything is
-built or launched.
+three 32 KB weight slabs; at u = 768 64 points, tiles of 96 KB and a ring
+of two 16 KB slabs; within the H100's 227 KB of shared memory a block.
+Every other width raises, naming the width, before anything is built or
+launched (ROADMAP C12).
 """
 
 import re
@@ -29,31 +30,47 @@ def _constant(name: str) -> str:
 
 
 @pytest.mark.parametrize("units,tile,split", [(256, 128, "rows"),
-                                              (512, 64, "columns")])
+                                              (512, 64, "columns"),
+                                              (768, 64, "columns")])
 def test_plan_fits_the_tiles_in_227_kb(units, tile, split):
     plan = trm.mlp_backward_plan(units)
     assert plan["tile"] == tile and plan["split"] == split
-    assert plan["stages"] == 3
-    # The cotangent tile and the mask tile: 64 KB of bf16 each.
-    assert 2 * plan["tile"] * units == 64 * 1024
-    ring = plan["stages"] * trm.BWD_STAGE_BYTES
+    assert (plan["stages"], plan["stage_bytes"]) == (
+        (2, 16384) if units == 768 else (3, 32768))
+    # The cotangent tile and the mask tile: 64 KB of bf16 each (96 KB at
+    # u = 768).
+    assert 2 * plan["tile"] * units == (96 if units == 768 else 64) * 1024
+    ring = plan["stages"] * plan["stage_bytes"]
     assert plan["smem_bytes"] >= 2 * 64 * 1024 + ring + 1024
     assert plan["smem_bytes"] <= trm.SMEM_PER_BLOCK == 227 * 1024
 
 
-@pytest.mark.parametrize("units", [0, 128, 384, 640, 768, 1024])
+@pytest.mark.parametrize("units", [0, 128, 384, 640, 1024])
 def test_plan_refuses_other_widths_by_name(units):
-    with pytest.raises(ValueError, match=rf"dense_units 256 or 512 \(got "
-                                         rf"{units}\)"):
+    with pytest.raises(ValueError, match=rf"dense_units 256, 512 or 768 "
+                                         rf"\(got {units}\)"):
         trm.mlp_backward_plan(units)
 
 
 @pytest.mark.parametrize("name,mirror", [
     ("kStages", "BWD_STAGES"), ("kTileElems", "BWD_TILE_ELEMS"),
-    ("kStageBytes", "BWD_STAGE_BYTES")])
+    ("kStageBytes", "BWD_STAGE_BYTES"), ("kWideStages", "BWD_WIDE_STAGES"),
+    ("kWideStageBytes", "BWD_WIDE_STAGE_BYTES")])
 def test_plan_mirrors_the_kernel_source(name, mirror):
-    env = {"kBoxRows": int(_constant("kBoxRows"))}
+    env = {"kBoxRows": int(_constant("kBoxRows")),
+           "kWideBoxRows": int(_constant("kWideBoxRows"))}
     assert eval(_constant(name), {}, env) == getattr(trm, mirror)
+
+
+@pytest.mark.parametrize("units", [256, 512, 768])
+def test_plan_bytes_are_the_kernel_sources_formula(units):
+    m = re.search(r"constexpr int smem_bytes\(int tile, int units, int stages, "
+                  r"int stage_bytes\) \{\s*return ([^;]+);", SOURCE)
+    assert m is not None
+    plan = trm.mlp_backward_plan(units)
+    env = {"tile": plan["tile"], "units": units, "stages": plan["stages"],
+           "stage_bytes": plan["stage_bytes"]}
+    assert eval(" ".join(m.group(1).split()), {}, env) == plan["smem_bytes"]
 
 
 def test_kernel_source_checks_the_same_limit():
@@ -65,14 +82,14 @@ def test_wrapper_refuses_a_width_before_building_or_launching():
     """On CUDA tensors the wrapper checks the plan before it loads the
     library; its launch function raises here too, on the CPU, where no
     compiler exists, so the check comes first."""
-    cfg = NeRFConfig(n_layers=2, dense_units=768, skip_layer=1)
+    cfg = NeRFConfig(n_layers=2, dense_units=1024, skip_layer=1)
     params = init_mlp(torch.Generator().manual_seed(0), cfg.mlp, cfg.in_xyz,
                       cfg.in_dir)
     packed = trm.pack_mlp_params(params, cfg.mlp, 10, 4)
-    stash = trm.alloc_stash(8, 768, 2, torch.device("cpu"))
+    stash = trm.alloc_stash(8, 1024, 2, torch.device("cpu"))
     d_rgb = torch.zeros((8, trm.D_HEAD), dtype=torch.bfloat16)
     d_sigma = torch.zeros(8, dtype=torch.bfloat16)
     before = trm.mlp_backward.launches
-    with pytest.raises(ValueError, match="768"):
+    with pytest.raises(ValueError, match="1024"):
         trm._mlp_backward_cuda(d_rgb, d_sigma, packed, stash)
     assert trm.mlp_backward.launches == before

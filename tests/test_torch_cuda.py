@@ -34,6 +34,7 @@ one step. ``mma_ceiling`` (T7) is held as ``ray_march_mlp``, relative to its
 largest output, 3e-2.
 """
 
+import functools
 import math
 
 import pytest
@@ -129,10 +130,11 @@ def _forward(mode, cfg, packed, rm_args, enc, plain=False):
 # (units, rays, samples): no point; one block's 50 rows (a ragged tile that
 # TMA and the prologue fill with zeros, no store past P); 17 past a whole
 # number of tiles; u = 512 (64-point tiles, each warpgroup half the
-# columns); and the training chunk's fine launch.
+# columns); u = 768 (each half in passes of 128 columns, ROADMAP C10); and
+# the training chunk's fine launch.
 _FWD_EDGES = {"empty": (256, 0, 64), "ragged_50": (256, 5, 10),
               "ragged_8192_plus_17": (256, 8209, 1),
-              "units_512": (512, 17, 241),
+              "units_512": (512, 17, 241), "units_768": (768, 17, 241),
               "fine_chunk_2048x192": (256, 2048, 192)}
 _FWD_MODES = ("sigma_only", "full", "train", "input", "input_stash")
 
@@ -172,11 +174,13 @@ def test_forward_matches_plain_at_edge_shapes(cuda_device, case, mode):
 
 
 def test_forward_refuses_other_widths_before_launching(cuda_device):
-    cfg, packed, rm_args, enc = _fwd_inputs(cuda_device, 768, 4, 16)
+    # 1024, the first width of the JAX envelope the kernel does not take
+    # (ROADMAP C12).
+    cfg, packed, rm_args, enc = _fwd_inputs(cuda_device, 1024, 4, 16)
     before = (trm.ray_march_mlp.launches, trm.apply_mlp.launches)
-    with pytest.raises(ValueError, match="768"):
+    with pytest.raises(ValueError, match="1024"):
         trm.ray_march_mlp(packed, *rm_args)
-    with pytest.raises(ValueError, match="768"):
+    with pytest.raises(ValueError, match="1024"):
         trm.apply_mlp(packed, enc)
     assert (trm.ray_march_mlp.launches, trm.apply_mlp.launches) == before
 
@@ -366,9 +370,12 @@ def _assert_backward_close(got, want, n_layers, label):
 
 
 # (units, points): u = 512 (64-point tiles, each warpgroup half the
-# columns), a point count 17 past a tile and one below a single tile (TMA's
-# zero rows, no store past P), and the training chunk's fine launch.
-_BWD_EDGES = {"units_512": (512, 4096 + 1), "ragged_8192_plus_17": (256, 8209),
+# columns), u = 768 (each half in passes of 128 columns from a ring of two
+# 16 KB stages, ROADMAP C10), a point count 17 past a tile and one below a
+# single tile (TMA's zero rows, no store past P), and the training chunk's
+# fine launch.
+_BWD_EDGES = {"units_512": (512, 4096 + 1), "units_768": (768, 4096 + 1),
+              "ragged_8192_plus_17": (256, 8209),
               "ragged_50": (256, 50), "fine_chunk_2048x192": (256, 2048 * 192)}
 
 
@@ -406,9 +413,9 @@ def test_mlp_backward_repeats_bit_for_bit(cuda_device):
 
 
 def test_mlp_backward_refuses_other_widths_before_launching(cuda_device):
-    packed, stash, (d_rgb, d_sigma), _ = _bwd_inputs(cuda_device, 64, 768)
+    packed, stash, (d_rgb, d_sigma), _ = _bwd_inputs(cuda_device, 64, 1024)
     before = trm.mlp_backward.launches
-    with pytest.raises(ValueError, match="768"):
+    with pytest.raises(ValueError, match="1024"):
         trm.mlp_backward(d_rgb, d_sigma, packed, stash)
     assert trm.mlp_backward.launches == before
 
@@ -657,6 +664,141 @@ def test_ray_march_mlp_int8_matches_plain(cuda_device, n_layers, skip,
     assert float((got - want).abs().max()) <= 1e-3
     sigma = got if sigma_only else got[:, 3]
     assert float(sigma.max()) > 0.1          # the fog is not empty
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_state_cpu(units, n_layers, skip, seed=6):
+    """A fog's weights of width ``units``, quantized on the CPU from 512
+    points of its own rays (the plain forward's stash: the bf16 kernels
+    take no width above 768, ROADMAP C12)."""
+    from keras_nerf_tpu_torch.kernels import quantize as tq
+
+    cpu = torch.device("cpu")
+    cfg = NeRFConfig(n_layers=n_layers, skip_layer=skip, dense_units=units)
+    g = torch.Generator().manual_seed(seed)
+    params = init_mlp(g, cfg.mlp, cfg.in_xyz, cfg.in_dir)
+    params["sigma"]["bias"] += 1.0
+    packed = trm.pack_mlp_params(params, cfg.mlp, 10, 4)
+    o = torch.zeros(16, 3)
+    o[:, 2] = 4.0
+    d = torch.nn.functional.normalize(torch.randn(16, 3, generator=g), dim=-1)
+    t = torch.sort(torch.rand(16, 32, generator=g) * 4 + 2, dim=-1).values
+    base, slope, masks = trm.ray_encoding_coeffs(o, d, 10, 4)
+    enc = trm.encode_points(base, slope, t, masks).reshape(-1, 128)
+    assert enc.device == cpu
+    return tq.quantize_packed(packed, tq.collect_act_amax(packed, enc,
+                                                          cfg.mlp), cfg.mlp)
+
+
+# (rays, samples): no point; one block's 50 rows; 17 past a whole number of
+# 64-point tiles.
+_INT8_POINTS = {"empty": (0, 64), "ragged_50": (5, 10),
+                "ragged_8192_plus_17": (8209, 1)}
+
+
+@pytest.mark.parametrize("layers", [(8, 4), (3, 2)],
+                         ids=["no_last_skip", "last_skip"])
+@pytest.mark.parametrize("sigma_only", [True, False])
+@pytest.mark.parametrize("case", sorted(_INT8_POINTS))
+@pytest.mark.parametrize("units", [256, 512, 768, 1280])
+def test_ray_march_mlp_int8_matches_plain_at_edge_shapes(
+        cuda_device, units, case, sigma_only, layers):
+    """T4 on wgmma s8 against its plain version at every part width (128
+    columns up to u = 1024, 64 at 1280) and ring depth (2 stages at u =
+    256, 4 at 512 and 768, 3 at 1280), with and without the last layer's
+    encoding product, each run twice with identical bits; 1e-3 as above."""
+    from keras_nerf_tpu_torch.models.engine import tree_map
+
+    q = tree_map(lambda x: None if x is None else x.to(cuda_device),
+                 _int8_state_cpu(units, *layers))
+    rays, samples = _INT8_POINTS[case]
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    o = torch.zeros(rays, 3, device=cuda_device)
+    o[:, 2] = 4.0
+    d = torch.nn.functional.normalize(
+        torch.randn(rays, 3, generator=g, device=cuda_device), dim=-1)
+    t = torch.sort(torch.rand(rays, samples, generator=g, device=cuda_device)
+                   * 4 + 2, dim=-1).values
+    base, slope, masks = trm.ray_encoding_coeffs(o, d, 10, 4)
+    before = trm.ray_march_mlp_int8.launches
+    got, again = (trm.ray_march_mlp_int8(q, base, slope, t, masks,
+                                         sigma_only=sigma_only)
+                  for _ in range(2))
+    want = trm.ray_march_mlp_int8.plain(q, base, slope, t, masks,
+                                        sigma_only=sigma_only)
+    torch.cuda.synchronize()
+    assert trm.ray_march_mlp_int8.launches == before + 2
+    assert got.shape == want.shape
+    assert torch.equal(got, again)
+    if got.numel():
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-3
+        sigma = got if sigma_only else got[:, 3]
+        assert float(sigma.max()) > 0.1          # the fog is not empty
+
+
+def test_nerf_at_768_units_renders_and_trains_through_the_kernels(
+        cuda_device):
+    """ROADMAP C10: dense_units 768 on the card. A 16^2 render through the
+    kernels against the CPU's (image 2e-3, depth 5e-3, chip_smoke.py's
+    budgets), and one MSE step (T3) and one L1 step (T5/T6) whose losses
+    and whole gradients are held against the CPU's (rtol 0.03, relative
+    norm 0.03, chip_smoke.py's STEP_TOL), each launching only its
+    kernels."""
+    from keras_nerf_tpu_torch.data import generate_ray_batch, pose_spherical
+
+    cpu = torch.device("cpu")
+    cfg = NeRFConfig(n_layers=2, dense_units=768, n_coarse=16, n_fine=16,
+                     white_background=True)
+    g = torch.Generator().manual_seed(4)
+    params = list(engine.init_params(g, cfg, cpu))
+    for p in params:
+        p["sigma"]["bias"] += 1.0
+    rays = generate_ray_batch(pose_spherical(30.0, ORBIT["phi"],
+                                             ORBIT["z_translate"])[None], g,
+                              image_height=16, image_width=16, focal=20.0,
+                              near=ORBIT["near"], far=ORBIT["far"],
+                              n_samples=16)
+    draws = [sorted_uniforms(g, (128,), 16) for _ in range(2)]
+    target = torch.rand(1, 16, 16, 4, generator=g)
+
+    def on(x, dev):
+        return engine.tree_map(lambda v: v.to(dev), x)
+
+    trm.reset_launch_counts()
+    card = engine.render_image_batch(*on(params, cuda_device),
+                                     on(rays, cuda_device),
+                                     on(draws, cuda_device), cfg, 128)[1]
+    host = engine.render_image_batch(*params, rays, draws, cfg, 128)[1]
+    assert {k.name: k.launches for k in trm.KERNELS}["ray_march_mlp"] == 4
+    assert float((card["image"].cpu() - host["image"]).abs().max()) <= 2e-3
+    assert float((card["depth"].cpu() - host["depth"]).abs().max()) <= 5e-3
+
+    def l1(y_true, y_pred):
+        return (y_pred - y_true).abs().mean()
+
+    for loss_fn, kernels in ((None, ("ray_march_mlp", "mlp_backward",
+                                     "mlp_weight_grad")),
+                             (l1, ("apply_mlp", "mlp_backward",
+                                   "mlp_weight_grad"))):
+        steps = []
+        for dev in (cuda_device, cpu):
+            state = engine.TrainState(*on(params, dev), {}, {}, 0)
+            trm.reset_launch_counts()
+            new, metrics = engine.train_step(
+                state, (target.to(dev), on(rays, dev)), on(draws, dev),
+                engine.make_optimizer("sgd", 1.0), cfg, 128, loss_fn=loss_fn)
+            launched = {k.name for k in trm.KERNELS if k.launches}
+            grads = torch.cat([(a - b).double().cpu().flatten() for a, b in
+                               zip(engine.tree_leaves(state[:2]),
+                                   engine.tree_leaves(new[:2]))])
+            steps.append((metrics, grads, launched))
+        (m_card, g_card, on_card), (m_host, g_host, on_host) = steps
+        assert set(kernels) <= on_card and not on_host
+        for key in ("coarse_loss", "fine_loss"):
+            assert math.isclose(float(m_card[key]), float(m_host[key]),
+                                rel_tol=0.03), key
+        assert float((g_card - g_host).norm() / g_host.norm()) <= 0.03
 
 
 @pytest.mark.parametrize("mode", ["bare", "epi"])

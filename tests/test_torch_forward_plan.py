@@ -4,10 +4,10 @@
 The kernel runs only on the card (``tests/test_torch_cuda.py``). What it
 takes is decided in Python by :func:`ray_march_mlp_plan`, which mirrors
 ``csrc/ray_march_mlp.cu``: a block of 128 points at u = 256 and 64 at
-u = 512, whose activation tile is 64 KB, beside the encoding tile and a
-ring of three 32 KB weight stages, within the H100's 227 KB of shared
-memory a block. Every other width raises, naming the width, before anything
-is built or launched. The tiles' 128-byte swizzled layout is mirrored by
+u = 512 and 768, whose activation tile is 64 KB (96 KB at 768), beside the
+encoding tile and a ring of three 32 KB weight stages, within the H100's
+227 KB of shared memory a block. Every other width raises, naming the
+width, before anything is built or launched (ROADMAP C12). The tiles' 128-byte swizzled layout is mirrored by
 :func:`swizzled_offset`, held here against the layout ``wgmma`` reads.
 """
 
@@ -41,23 +41,26 @@ def _constants() -> dict:
 
 
 @pytest.mark.parametrize("units,tile,split", [(256, 128, "rows"),
-                                              (512, 64, "columns")])
+                                              (512, 64, "columns"),
+                                              (768, 64, "columns")])
 def test_plan_fits_the_tiles_in_227_kb(units, tile, split):
     plan = trm.ray_march_mlp_plan(units)
     assert plan["tile"] == tile and plan["split"] == split
     assert plan["stages"] == 3
-    # The activation tile: 64 KB of bf16; the encoding tile beside it.
-    assert plan["tile"] * units * 2 == 64 * 1024
+    assert plan["passes"] == (3 if units == 768 else 1)
+    # The activation tile: 64 KB of bf16 (96 KB at u = 768); the encoding
+    # tile beside it.
+    assert plan["tile"] * units * 2 == (96 if units == 768 else 64) * 1024
     enc = plan["tile"] * trm.LANE * 2
     ring = plan["stages"] * trm.FWD_STAGE_BYTES
     assert plan["smem_bytes"] >= 64 * 1024 + enc + ring + 1024
     assert plan["smem_bytes"] <= trm.SMEM_PER_BLOCK == 227 * 1024
 
 
-@pytest.mark.parametrize("units", [0, 128, 384, 640, 768, 1024])
+@pytest.mark.parametrize("units", [0, 128, 384, 640, 1024])
 def test_plan_refuses_other_widths_by_name(units):
-    with pytest.raises(ValueError, match=rf"dense_units 256 or 512 \(got "
-                                         rf"{units}\)"):
+    with pytest.raises(ValueError, match=rf"dense_units 256, 512 or 768 "
+                                         rf"\(got {units}\)"):
         trm.ray_march_mlp_plan(units)
 
 
@@ -68,13 +71,13 @@ def test_plan_mirrors_the_kernel_source(name, mirror):
     assert _constants()[name] == getattr(trm, mirror)
 
 
-@pytest.mark.parametrize("units", [256, 512])
+@pytest.mark.parametrize("units", [256, 512, 768])
 def test_plan_bytes_are_the_kernel_sources_formula(units):
-    m = re.search(r"constexpr int smem_bytes\(int tile\) \{\s*return "
-                  r"([^;]+);", SOURCE)
+    m = re.search(r"constexpr int smem_bytes\(int tile, int units\) \{\s*"
+                  r"return ([^;]+);", SOURCE)
     assert m is not None
     plan = trm.ray_march_mlp_plan(units)
-    env = {**_constants(), "tile": plan["tile"]}
+    env = {**_constants(), "tile": plan["tile"], "units": units}
     assert eval(" ".join(m.group(1).split()), {}, env) == plan["smem_bytes"]
 
 
@@ -83,7 +86,7 @@ def test_kernel_source_checks_the_same_limit():
     assert trm.SMEM_PER_BLOCK == 232448
 
 
-def _wide_inputs(units=768, points=8):
+def _wide_inputs(units=1024, points=8):
     cfg = NeRFConfig(n_layers=2, dense_units=units, skip_layer=1)
     g = torch.Generator().manual_seed(0)
     packed = trm.pack_mlp_params(init_mlp(g, cfg.mlp, cfg.in_xyz,
@@ -109,7 +112,7 @@ def test_wrapper_refuses_a_width_before_building_or_launching(monkeypatch,
     monkeypatch.setattr(_build, "load", no_build)
     packed, base, slope, t, masks, enc = _wide_inputs()
     before = (trm.ray_march_mlp.launches, trm.apply_mlp.launches)
-    with pytest.raises(ValueError, match="768"):
+    with pytest.raises(ValueError, match="1024"):
         if entry == "ray_march_mlp":
             trm._ray_march_mlp_cuda(packed, base, slope, t, masks)
         else:

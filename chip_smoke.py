@@ -138,16 +138,38 @@ CEILING_CHECK = dict(CEILING_RUN, rep=2)
 # the products with fewer guard bits: at equal depth they drift further,
 # 1.8x in the first reading (bare mode, H100), hence 2.
 CEILING_DRIFT_RATIO = 2.0
-# ROADMAP C10: the bf16 kernels at u = 768, the JAX envelope's width after
-# 512, at a cut depth of 3 layers with skip 1 (a trunk skip layer and a
-# last skip layer); T4 also at u = 512. Kernel checks on a 16^2 frame's
-# rays [256 x 64]; timings at the render chunk's coarse shape.
-WIDE = dict(n_layers=3, dense_units=768, skip_layer=1)
-INT8_WIDTHS = (512, 768)
+# The same chain summed on the tensor cores (a bf16 cuBLAS product with a
+# float32 output, chip_smoke._tensor_core_order) is the plain order of the
+# kernel's own accumulation: the kernel may drift at most as far as it
+# (ROADMAP C7; it read ratio 1.000, H100, both modes).
+CEILING_TC_RATIO = 1.0
+# The shapes past the main path's 8 x 256, each with the widths T4 is also
+# held at: ROADMAP C10, the bf16 kernels at u = 768, the JAX envelope's
+# width after 512, on the resident route (T4 also at 512); ROADMAP C12, the
+# streamed route: u = 1024 and 2048 (T4 at 1536 and 2048, past its
+# resident 1280) at a cut depth of 3 layers with skip 1 (a trunk skip layer
+# and the last one reading the encoding), and 40 layers of 256 with skip 4
+# (9 skip layers, 53 weight-grad tasks: more than one launch holds). Kernel
+# checks on a 16^2 frame's rays [256 x 64]; timings at the render chunk's
+# coarse shape.
+WIDE_SHAPES = (
+    (dict(n_layers=3, dense_units=768, skip_layer=1), (512,)),
+    (dict(n_layers=3, dense_units=1024, skip_layer=1), (1536,)),
+    (dict(n_layers=3, dense_units=2048, skip_layer=1), ()),
+    (dict(n_layers=40, dense_units=256, skip_layer=4), ()),
+)
 # The calibration on the card against the CPU's: activation ranges read
 # from bf16 activations that can round the other way, one bf16 step
 # (tests/test_torch_quantize.py), and codes within one step.
 CALIB_RTOL = 8e-3
+# (n_layers, dense_units) of the wide shapes whose int8 calibration is held
+# against the CPU's on the card's fine calibration depths only (as the MSE
+# and L1 steps are held on the card's draws), and not also on the CPU's
+# own: at 40 layers the CPU alone, moved from its own fine depths onto the
+# card's, moves the scales past CALIB_RTOL (the witness that
+# _wide_phases prints), so the draw of depths, not the kernels, is what the
+# budget cannot absorb there.
+CALIB_PINNED = {(40, 256)}
 # Training kernels vs plain versions on the same inputs. bf16 arrays are
 # held relative to their largest magnitude ("rel") and, so that garbled
 # small entries cannot hide under the largest, by the norm of the
@@ -491,8 +513,19 @@ def main() -> int:
     occ_in = _occupancy_phases(nerf, cfg, gen, (o, d, tc), errors,
                                rel_errors, card_tag)
 
-    # ---- 4e. u = 768 on every path (C10), T4 at 512 and 768 --------------
-    wide = _wide_phases(gen, errors, rel_errors, card_tag)
+    # ---- 4e. every path past 8 x 256 (C10, C12) -----------------------
+    wide = {"launches": {}, "times": {}}
+    for shape, int8_widths in WIDE_SHAPES:
+        t0 = time.perf_counter()
+        got = _wide_phases(gen, errors, rel_errors, card_tag, shape,
+                           int8_widths)
+        label = _shape_label(shape)
+        log(f"phases at {label}: {time.perf_counter() - t0:.1f} s (wall, "
+            f"CPU references included)")
+        for path, launches in got["launches"].items():
+            wide["launches"][f"{path}_{label}"] = launches
+        for name, rows in got["times"].items():
+            wide["times"].setdefault(name, []).extend(rows)
 
     # ---- 5. training kernels against their plain versions ----------------
     train_in = _train_inputs(cfg, gen)
@@ -541,9 +574,8 @@ def main() -> int:
     # both paths, and T5/T6 against T3 on the same MSE and the same fine
     # depths.
     small = _small_step_inputs(gen)
-    _compare_steps(f"train step {E2E_IMG}^2, card kernels vs CPU plain "
-                   f"versions", tnerf.state, small, cfg,
-                   ("cuda", None), ("cpu", None))
+    _compare_mse_steps(f"train step {E2E_IMG}^2, card kernels vs CPU plain "
+                       f"versions", tnerf.state, small, cfg)
     _compare_l1_steps(f"l1 train step {E2E_IMG}^2, card kernels vs CPU "
                       f"plain versions, at the CPU's subgradient",
                       tnerf.state, small, cfg)
@@ -675,7 +707,7 @@ def main() -> int:
                    "render_occupancy": occ_in["launches"][k.name],
                    "render_occupancy_quantized":
                        occ_in["q_launches"][k.name],
-                   **{f"{path}_u{WIDE['dense_units']}": launches[k.name]
+                   **{path: launches[k.name]
                       for path, launches in wide["launches"].items()}}
         for path in ("train", "custom", "quantized", "probe"):
             if k.name not in totals[path]:
@@ -1371,15 +1403,136 @@ def _compare_l1_steps(label, state, small, cfg):
              f"the render budget")
 
 
-def _compare_steps(label, state, small, cfg, run_a, run_b):
+class PinnedMse:
+    """The card's 16^2 MSE step recorded, and the CPU's pinned to it
+    (ROADMAP C11). Each device draws its fine depths from its own coarse
+    weights, and the clip of each composite to [0, 1] passes the MSE's
+    gradient only inside: where a composite lies at the clip's edge, the
+    two devices' decisions are a draw of float32 rounding, and at a trained
+    state 3 of 768 flipped decisions moved the coarse leaves by 3-6%. So
+    the card's step records its fine depths (``sample_merge``) and each
+    pass's clipped image (inside the clip where 0 < image < 1); the CPU
+    step then takes the card's depths, and the card's decision at a
+    pixel-channel whose CPU composite lies within the render budget
+    ``E2E_TOL["image"]`` of 0 or 1, its own elsewhere. ``far`` counts the
+    decisions that differ farther from the edge, which fail the check."""
+
+    def __init__(self):
+        self.depths, self.images = [], []
+        self.near = self.far = self.pinned = 0
+
+    def recording(self):
+        from keras_nerf_tpu_torch.kernels import ray_march as trm
+
+        def merge(launch):
+            def call(*args, **kwargs):
+                out = launch(*args, **kwargs)
+                self.depths.append(out.clone())
+                return out
+            return call
+
+        def quad(launch):
+            def call(*args, **kwargs):
+                out = launch(*args, **kwargs)
+                if kwargs.get("target") is not None:
+                    self.images.append(out[0].clone())
+                return out
+            return call
+
+        return _Swapped([(trm.sample_merge, "_launch", merge),
+                         (trm.ray_march_quadrature, "_launch", quad)])
+
+    def pinning(self):
+        import torch
+
+        from keras_nerf_tpu_torch.kernels import ray_march as trm
+
+        depths, images = iter(self.depths), iter(self.images)
+        budget = E2E_TOL["image"]
+
+        def merge(plain):
+            def call(*args, **kwargs):
+                own = plain(*args, **kwargs)
+                card = next(depths).to(own.device)
+                assert card.shape == own.shape
+                return card
+            return call
+
+        def slope(own):
+            def call(pre_clip):
+                card = next(images).to(pre_clip.device)
+                inside = (card > 0.0) & (card < 1.0)
+                mine = (pre_clip > 0.0) & (pre_clip < 1.0)
+                near = ((pre_clip.abs() <= budget)
+                        | ((pre_clip - 1.0).abs() <= budget))
+                differ = inside != mine
+                self.near += int(near.sum())
+                self.pinned += int((differ & near).sum())
+                self.far += int((differ & ~near).sum())
+                return torch.where(differ & near, inside.to(pre_clip.dtype),
+                                   own(pre_clip))
+            return call
+
+        return _Swapped([(trm.sample_merge, "plain", merge),
+                         (trm, "clip_subgradient", slope)])
+
+
+class _Swapped:
+    """Within ``with``, each ``(owner, attribute, wrap)`` has its attribute
+    replaced by ``wrap(attribute)``."""
+
+    def __init__(self, swaps):
+        self.swaps = swaps
+
+    def __enter__(self):
+        self.saved = [(o, a, getattr(o, a)) for o, a, _ in self.swaps]
+        for o, a, wrap in self.swaps:
+            setattr(o, a, wrap(getattr(o, a)))
+        return self
+
+    def __exit__(self, *exc):
+        for o, a, old in self.saved:
+            setattr(o, a, old)
+        return False
+
+
+def _compare_mse_steps(label, state, small, cfg):
+    """The card's 16^2 MSE step against the CPU's pinned to its fine depths
+    and near-edge clip decisions (:class:`PinnedMse`), held at
+    ``STEP_TOL``; fails where a clip decision differs farther from the edge
+    than the render budget. The unpinned reading (each device's own depths
+    and decisions) is printed beside it, not held."""
+    pin = PinnedMse()
+    with pin.recording():
+        card = _one_step(state, small, cfg, "cuda", None)
+    with pin.pinning():
+        host = _one_step(state, small, cfg, "cpu", None)
+    _compare_steps(f"{label}, the CPU on the card's fine depths and clip "
+                   f"decisions", state, small, cfg, None, None,
+                   steps=(card, host))
+    log(f"{label}: {pin.pinned} of {pin.near} pixel-channels within "
+        f"{E2E_TOL['image']:.0e} of the clip's edge took the card's "
+        f"decision; {pin.far} decisions differ farther from it (must be 0)")
+    if pin.far:
+        fail(f"{label}: the card's clip decisions differ from the CPU's "
+             f"beyond the render budget")
+    _compare_steps(f"{label}, each device on its own draws (unpinned, not "
+                   f"held)", state, small, cfg, None, None,
+                   steps=(card, _one_step(state, small, cfg, "cpu", None)),
+                   held=False)
+
+
+def _compare_steps(label, state, small, cfg, run_a, run_b, steps=None,
+                   held=True):
     """One SGD (lr 1) step from ``state``'s weights on the same batch and
-    draws for each run ``(device, loss_fn)``, held at ``STEP_TOL``: losses
-    relative, per-leaf gradients (the parameter change) of both models by
-    relative norm and relative max, ``run_b`` the reference."""
+    draws for each run ``(device, loss_fn)`` (or the two given ``steps``,
+    ``_one_step``'s results), held at ``STEP_TOL`` unless not ``held``:
+    losses relative, per-leaf gradients (the parameter change) of both
+    models by relative norm and relative max, ``run_b`` the reference."""
     import numpy as np
 
-    (m_a, g_a), (m_b, g_b) = (_one_step(state, small, cfg, *run)
-                              for run in (run_a, run_b))
+    (m_a, g_a), (m_b, g_b) = steps or [_one_step(state, small, cfg, *run)
+                                       for run in (run_a, run_b)]
     loss_err = max(abs(m_a[k] - m_b[k]) / abs(m_b[k])
                    for k in ("coarse_loss", "fine_loss"))
     worst = {}
@@ -1393,8 +1546,9 @@ def _compare_steps(label, state, small, cfg, run_a, run_b):
         f"{STEP_TOL['grad_rel_max']}); losses "
         f"{m_a['coarse_loss']:.5f}/{m_a['fine_loss']:.5f} vs "
         f"{m_b['coarse_loss']:.5f}/{m_b['fine_loss']:.5f}")
-    if not (np.isfinite(loss_err) and loss_err <= STEP_TOL["loss_rtol"]
-            and all(map(_within_step_tol, worst.values()))):
+    if held and not (np.isfinite(loss_err)
+                     and loss_err <= STEP_TOL["loss_rtol"]
+                     and all(map(_within_step_tol, worst.values()))):
         fail(f"{label}: the two steps disagree")
 
 
@@ -1904,7 +2058,10 @@ def _ceiling_probe(errors, card_tag):
     # roundings of sums taken in another order compound past TOL. Read the
     # kernel and the plain version (float32 sums) each against the plain
     # version with float64 sums, two valid orders, and hold the kernel's
-    # drift to CEILING_DRIFT_RATIO times the plain version's.
+    # drift to CEILING_DRIFT_RATIO times the plain version's, and to
+    # CEILING_TC_RATIO times that of the same chain summed on the tensor
+    # cores (_tensor_core_order), the plain order of the kernel's own
+    # accumulation.
     c = CEILING_RUN
     ws, bs, seed = make_inputs(c["grid"], c["u"], "cuda", seed=1,
                                bias_scale=0.05)
@@ -1915,8 +2072,22 @@ def _ceiling_probe(errors, card_tag):
         plain = mma_ceiling.plain(ws, bs, seed, c["t"], c["rep"], mode)
         wide = mma_ceiling.plain(ws, bs, seed, c["t"], c["rep"], mode,
                                  sums=torch.float64)
+        tc = _tensor_core_order(ws, bs, seed, c["t"], c["rep"], mode)
         torch.cuda.synchronize()
         drift, plain_drift = _rel_max(got, wide), _rel_max(plain, wide)
+        tc_drift = _rel_max(tc, wide)
+        ok = (bool(torch.isfinite(got).all())
+              and drift <= CEILING_TC_RATIO * tc_drift)
+        log(f"check mma_ceiling {mode} at full depth against the chain "
+            f"summed on the tensor cores (bf16 torch.mm, float32 out, "
+            f"reduced-precision reduction off): drift from the float64 "
+            f"order, kernel {drift:.3e}, that chain {tc_drift:.3e}: ratio "
+            f"{drift / tc_drift:.3f} (at most {CEILING_TC_RATIO:g}); kernel "
+            f"against that chain {_rel_max(got, tc):.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("mma_ceiling at full depth drifts further than the chain "
+                 "summed on the tensor cores does")
         ok = (bool(torch.isfinite(got).all())
               and drift <= CEILING_DRIFT_RATIO * plain_drift)
         log(f"check mma_ceiling {mode} at full depth [{c['grid']} x "
@@ -1929,7 +2100,7 @@ def _ceiling_probe(errors, card_tag):
         if not ok:
             fail("mma_ceiling at full depth drifts further than the plain "
                  "version does")
-        del got, plain, wide
+        del got, plain, wide, tc
     reset_launch_counts()
     rows = measure(iters=3, **CEILING_RUN)
     torch.cuda.synchronize()
@@ -1946,6 +2117,34 @@ def _ceiling_probe(errors, card_tag):
     # The timing phase's inputs, as measure makes them.
     return launches, make_inputs(CEILING_RUN["grid"], CEILING_RUN["u"],
                                  "cuda")
+
+
+def _tensor_core_order(ws, bs, seed, t, rep, mode):
+    """``mma_ceiling_plain``'s chain with each product summed on the tensor
+    cores: a bf16 ``torch.mm`` with a float32 output (cuBLAS; PyTorch's
+    reduced-precision reduction off), then the probe's own float32 bias,
+    relu and bf16 rounding. A yardstick of ROADMAP C7 only: the package
+    never calls it."""
+    import torch
+
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        steps = seed.shape[0] // 8
+        u = ws[0].shape[0]
+        io = torch.arange(t, dtype=torch.float32, device=seed.device) * 1e-4
+        h = (io[None, :, None] + seed[::8, :1, None]).expand(steps, t, u)
+        h = h.reshape(steps * t, u).to(torch.bfloat16)
+        for _ in range(rep):
+            for w, b in zip(ws, bs):
+                acc = torch.mm(h, w, out_dtype=torch.float32)
+                if mode == "epi":
+                    acc = torch.relu(acc + b)
+                h = acc.to(torch.bfloat16)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+    return h.reshape(steps, t, u)[:, :8, :128].float().reshape(steps * 8, 128)
 
 
 def _quantized_modes(qi: dict, cfg) -> list:
@@ -2011,14 +2210,42 @@ def _counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
-def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
-    """ROADMAP C10 at ``WIDE`` (u = 768, 3 layers, skip 1), fog weights.
+def _calibration_error(q, q_ref):
+    """(worst relative error of the scales, most steps a code moved) of the
+    quantized states ``q`` (card) against ``q_ref`` (CPU)."""
+    import torch
+
+    from keras_nerf_tpu_torch.models import engine
+
+    scale_err, moved = 0.0, 0
+    for a, b in zip(engine.tree_leaves([{k: v for k, v in x.items()
+                                         if k != "transposed"} for x in q]),
+                    engine.tree_leaves(list(q_ref))):
+        a = a.cpu()
+        if a.dtype == torch.int8:
+            moved = max(moved, int((a.int() - b.int()).abs().max()))
+        else:
+            scale_err = max(scale_err, float(((a - b).abs() / b.abs()
+                                              .clamp_min(1e-30)).max()))
+    return scale_err, moved
+
+
+def _shape_label(shape: dict) -> str:
+    return f"u{shape['dense_units']}x{shape['n_layers']}"
+
+
+def _wide_phases(gen, errors, rel_errors, card_tag, shape,
+                 int8_widths) -> dict:
+    """ROADMAP C10 and C12 at ``shape`` (one of ``WIDE_SHAPES``), fog
+    weights.
 
     * Each kernel and mode against its plain version on the same inputs,
       each run twice with identical bits, on a 16^2 frame's rays [256 x
       64]: ``ray_march_mlp`` sigma-only, full and train (``TRAIN_TOL``,
       outputs and stash), ``apply_mlp`` with and without its stash,
-      ``mlp_backward`` in both modes on the plain chain's cotangents.
+      ``mlp_backward`` in both modes on the plain chain's cotangents,
+      ``mlp_weight_grad`` on the plain chain's stash and each mode's plain
+      cotangents (per leaf, its launches per call printed).
     * Every path through the kernels, its launch counts read just after it
       runs: the 16^2 render (``render_image_batch``) against the CPU's
       (``E2E_TOL``); an MSE step (T3) and an L1 step (T5/T6) against the
@@ -2026,15 +2253,17 @@ def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
       relative norm (each leaf's worst printed); a 32^3 bake through
       ``model_density_fn`` (one chunk held against ``apply_mlp``'s plain
       version); the int8 calibration (``quantize_render_params``, whose
-      ranges come from ``apply_mlp``'s stash) against the CPU's (scales at
-      ``CALIB_RTOL``, codes within one step) and a 16^2 int8 render on the
+      ranges come from ``apply_mlp``'s stash) against the CPU's on the
+      card's fine depths and, outside ``CALIB_PINNED``, on its own (scales
+      at ``CALIB_RTOL``, codes within one step) and a 16^2 int8 render on the
       card's int8 weights against the CPU's (``E2E_TOL``).
-    * T4 at each of ``INT8_WIDTHS`` against its plain version in both
-      modes, twice with identical bits (``TOL``).
+    * T4 at the shape's width and each of ``int8_widths`` against its plain
+      version in both modes, twice with identical bits (``TOL``).
 
-    Each 768 kernel mode and T4 at 512 and 768 are then timed at [4096 x
-    64] beside its plain version and bound. Returns ``{"launches": by
-    path, "times": kernel -> [timing rows]}``."""
+    Each kernel mode (``mlp_weight_grad`` on the plain chain's operands)
+    and T4 at each width are then timed at [4096 x 64] beside its plain
+    version and bound. Returns ``{"launches": by path, "times": kernel ->
+    [timing rows]}``."""
     import torch
 
     from keras_nerf_tpu_torch.kernels import quantize as tq
@@ -2046,7 +2275,7 @@ def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
 
     dev, cpu = torch.device("cuda"), torch.device("cpu")
     cfg = NeRFConfig(n_coarse=N_COARSE, n_fine=N_FINE,
-                     white_background=True, **WIDE)
+                     white_background=True, **shape)
     width, n = cfg.dense_units, cfg.n_layers
     params = [_fog(init_mlp(gen, cfg.mlp, cfg.in_xyz, cfg.in_dir))
               for _ in range(2)]
@@ -2105,6 +2334,7 @@ def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
         rgbs.reshape(r, N_COARSE, 4), t, True, False, True, target=target,
         loss_scale=2.0 / (3 * r))
     g_out = torch.randn(p, 4, generator=gen, device=dev).to(torch.bfloat16)
+    plain_cots = {}
     for label, args, kw in (
             ("quadrature mode", (quad[3], quad[4]), {}),
             ("output-head mode", (g_out, rgbs), {"from_output": True})):
@@ -2117,6 +2347,28 @@ def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
             fail(f"mlp_backward {label} at {tag}: two runs differ")
         report(_held("mlp_backward", list(zip(leaves[0], leaves[2])),
                      f"mlp_backward {label} at {tag}, identical bits twice"))
+        plain_cots[label] = runs[2]
+    # mlp_weight_grad on the plain chain's stash and each mode's plain
+    # cotangents, as the main path holds it: every packed gradient per leaf
+    # (TRAIN_TOL), twice with identical bits, in as many launches per call
+    # as weight_grad_plan splits the call into.
+    for label, cots in plain_cots.items():
+        split = len(trm.weight_grad_plan(
+            [(a.shape[1], g.shape[1], b is not None) for a, g, _, b in
+             trm.weight_grad_tasks(stash, cots, trm.zero_grads(packed))],
+            p)["launches"])
+        want = trm.mlp_weight_grad.plain(stash, cots, trm.zero_grads(packed))
+        runs = [trm.mlp_weight_grad(stash, cots, trm.zero_grads(packed))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        leaves = [engine.tree_leaves(x) for x in (*runs, want)]
+        if not all(torch.equal(a, b) for a, b in zip(leaves[0], leaves[1])):
+            fail(f"mlp_weight_grad on the {label}'s cotangents at {tag}: two "
+                 f"runs differ")
+        report(_held("mlp_weight_grad", list(zip(leaves[0], leaves[2])),
+                     f"mlp_weight_grad, every packed gradient on the "
+                     f"{label}'s cotangents at {tag}, {split} launch(es) per "
+                     f"call, identical bits twice"))
 
     launches = {}
     # ---- the render ---------------------------------------------------------
@@ -2200,35 +2452,68 @@ def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
         fail(f"the bake at u {width} is empty or full")
 
     # ---- the int8 tier: calibration, render, T4 ----------------------------
+    # Each device calibrates the fine model on the fine depths that it draws
+    # from its own float32 coarse render. The card's calibration is held
+    # against the CPU's on the card's fine depths (the kernels on the same
+    # inputs) at every shape, and against the CPU's on its own depths
+    # (each device end to end) at every shape outside CALIB_PINNED. The
+    # witness is the CPU alone on the two sets of depths: how far the draw
+    # of fine depths moves the scales with no kernel in it.
     calib = sorted_uniforms(gen, (o.shape[0],), N_FINE)
+    card_depths, host_depths = [], []
+
+    def recorded(into):
+        def wrap(invert):
+            def call(*args, **kwargs):
+                into.append(invert(*args, **kwargs))
+                return into[-1]
+            return call
+        return wrap
+
+    def pinned(invert):
+        pending = list(card_depths)
+
+        def call(*args, **kwargs):
+            own = invert(*args, **kwargs)
+            assert pending[0].shape == own.shape
+            return pending.pop(0).to(own.device)
+        return call
+
     torch.cuda.synchronize()
     reset_launch_counts()
-    q = engine.quantize_render_params(params[0], params[1], rays, calib, cfg)
+    with _Swapped([(engine, "invert_cdf", recorded(card_depths))]):
+        q = engine.quantize_render_params(params[0], params[1], rays, calib,
+                                          cfg)
     torch.cuda.synchronize()
     launches["int8_calibration"] = _counts()
     _ran(launches["int8_calibration"], ("apply_mlp",),
          f"int8 calibration at u {width}")
-    q_host = engine.quantize_render_params(
-        *(_to(x, cpu) for x in params), tuple(x.to(cpu) for x in rays),
-        calib.to(cpu), cfg)
-    scale_err, moved = 0.0, 0
-    for a, b in zip(engine.tree_leaves([{k: v for k, v in x.items()
-                                         if k != "transposed"} for x in q]),
-                    engine.tree_leaves(list(q_host))):
-        a = a.cpu()
-        if a.dtype == torch.int8:
-            moved = max(moved, int((a.int() - b.int()).abs().max()))
-        else:
-            scale_err = max(scale_err, float(((a - b).abs() / b.abs()
-                                              .clamp_min(1e-30)).max()))
-    ok = scale_err <= CALIB_RTOL and moved <= 1
-    log(f"int8 calibration at u {width}, card (apply_mlp's stash) vs CPU: "
-        f"scales worst relative error {scale_err:.3e} (tolerance "
-        f"{CALIB_RTOL:.0e}), codes moved at most {moved} step(s) "
-        f"(tolerance 1); launches {launches['int8_calibration']} "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        fail(f"the int8 calibration at u {width} disagrees with the CPU's")
+    host_args = (*(_to(x, cpu) for x in params),
+                 tuple(x.to(cpu) for x in rays), calib.to(cpu), cfg)
+    with _Swapped([(engine, "invert_cdf", pinned)]):
+        q_pinned = engine.quantize_render_params(*host_args)
+    with _Swapped([(engine, "invert_cdf", recorded(host_depths))]):
+        q_own = engine.quantize_render_params(*host_args)
+    shift = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(card_depths, host_depths))
+    held_own = (n, width) not in CALIB_PINNED
+    for label, got, want, held in (
+            ("card vs the CPU on the card's fine calibration depths", q,
+             q_pinned, True),
+            ("card vs the CPU on its own depths", q, q_own, held_own),
+            ("witness: the CPU on the card's depths vs on its own",
+             q_pinned, q_own, False)):
+        scale_err, moved = _calibration_error(got, want)
+        ok = scale_err <= CALIB_RTOL and moved <= 1
+        log(f"int8 calibration at u {width}, {n} layers (apply_mlp's "
+            f"stash), {label}: scales worst relative error {scale_err:.3e} "
+            f"(tolerance {CALIB_RTOL:.0e}), codes moved at most {moved} "
+            f"step(s) (tolerance 1), fine depths {shift:.3e} apart at most; "
+            f"launches {launches['int8_calibration']} "
+            + ({True: "ok", False: "FAIL"}[ok] if held else "(not held)"))
+        if held and not ok:
+            fail(f"the int8 calibration at u {width}, {n} layers disagrees "
+                 f"with the CPU's ({label})")
     torch.cuda.synchronize()
     reset_launch_counts()
     _, card = engine.render_image_batch(params[0], params[1], rays, draws,
@@ -2258,18 +2543,18 @@ def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
         fail(f"the card's int8 render at u {width} disagrees with the CPU's")
 
     states = {width: (q[0], cfg)}
-    for u_q in INT8_WIDTHS:
+    for u_q in int8_widths:
         if u_q in states:
             continue
         c_q = NeRFConfig(n_coarse=N_COARSE, n_fine=N_FINE,
                          white_background=True,
-                         **dict(WIDE, dense_units=u_q))
+                         **dict(shape, dense_units=u_q))
         pk = trm.pack_mlp_params(_fog(init_mlp(gen, c_q.mlp, c_q.in_xyz,
                                                c_q.in_dir)), c_q.mlp,
                                  c_q.pos_emb_xyz, c_q.pos_emb_dir)
         states[u_q] = (tq.quantize_packed(pk, tq.collect_act_amax(
             pk, enc, c_q.mlp), c_q.mlp), c_q)
-    for u_q in INT8_WIDTHS:
+    for u_q in states:
         q_u = states[u_q][0]
         for sigma_only in (True, False):
             runs = [f(q_u, base, slope, t, masks, sigma_only=sigma_only)
@@ -2309,6 +2594,13 @@ def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
         target=target.repeat(rays4 // r, 1), loss_scale=2.0 / (3 * rays4))
     weight_bytes = sum(x.numel() * x.element_size()
                        for x in engine.tree_leaves(packed))
+    weight_elems = sum(x.numel() for x in engine.tree_leaves(packed))
+    g4 = torch.randn(p4, 4, generator=gen, device=dev).to(torch.bfloat16)
+    cots4 = trm.mlp_backward.plain(q4[3], q4[4], packed, st4)
+    cot_bytes = sum(x.numel() * x.element_size() for x in
+                    engine.tree_leaves([cots4[k] for k in ("d_rgb", "d_rf",
+                                                           "d_sf", "d_pre")]))
+    acc4 = trm.zero_grads(packed)
     fwd = p4 * trm.fwd_flop_per_point(cfg.mlp)
     fwd_sigma = p4 * trm.fwd_flop_per_point(cfg.mlp, sigma_only=True)
     dx = p4 * trm.bwd_dx_flop_per_point(cfg.mlp)
@@ -2335,8 +2627,14 @@ def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
         (trm.mlp_backward, "quadrature mode", lambda f: f(
             q4[3], q4[4], packed, st4),
          _bound(weight_bytes + 34 * p4 + 2 * act, dx, PEAK_BF16_FLOPS)),
+        (trm.mlp_backward, "output-head mode", lambda f: f(
+            g4, rgb4, packed, st4, from_output=True),
+         _bound(weight_bytes + 56 * p4 + 2 * act, dx, PEAK_BF16_FLOPS)),
+        (trm.mlp_weight_grad, "dW and db", lambda f: f(st4, cots4, acc4),
+         _bound(cot_bytes + act + 256 * p4 + 2 * F32B * weight_elems, fwd,
+                PEAK_BF16_FLOPS)),
     ]
-    for u_q in INT8_WIDTHS:
+    for u_q in states:
         q_u, c_q = states[u_q]
         q_bytes = sum(x.numel() * x.element_size() for x in
                       engine.tree_leaves([q_u["trunk_w"], q_u["w_feat"]]))
@@ -2355,7 +2653,7 @@ def _wide_phases(gen, errors, rel_errors, card_tag) -> dict:
     for k, mode, call, (bms, by) in rows:
         kms = _time_ms(lambda: call(k), 20)
         pms = _time_ms(lambda: call(k.plain), 3)
-        if "u 5" not in mode and "u 7" not in mode:
+        if " at u " not in mode:
             mode = f"{mode} at u {width}"
         log(f"time {k.name} {mode}, {n} layers [{rays4} x {N_COARSE}]: "
             f"{kms:.4f} ms/launch kernel, {pms:.3f} ms/launch plain, bound "

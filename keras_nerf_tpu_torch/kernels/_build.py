@@ -145,6 +145,13 @@ ENTRY_POINTS = {
     "knt_mlp_weight_grad": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     "knt_ray_march_mlp_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "knt_mma_ceiling": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # The streamed routes and the device tables of tensor maps they read.
+    "knt_encode_maps": [_P, _I, _P],
+    "knt_mlp_streamed": [_P, _I, _I] + [_P] * 6 + [_I, _I, _I, _P, _I, _P,
+                                                   _P, _P],
+    "knt_mlp_backward_streamed": [_P, _I, _I] + [_P] * 9 + [_I, _P],
+    "knt_ray_march_mlp_int8_streamed": [_P, _I, _I] + [_P] * 5
+    + [_I, _I, _I, _P, _P],
 }
 
 

@@ -3,15 +3,18 @@
 //
 // * mbarrier: init, arrive, arrive with an expected transaction count, and
 //   a parity wait;
-// * TMA: a 2-D tile load that completes on an mbarrier;
+// * TMA: a 2-D and a 3-D tile load that complete on an mbarrier, from a
+//   tensor map in the kernel's parameters or in device memory (64-byte
+//   aligned, written by the host before the launch);
 // * wgmma: fence, commit, wait, the shared-memory matrix descriptors of the
 //   128-byte swizzle (MN-major and K-major), m64nNk16 bf16 x bf16 -> f32
 //   products (N = 64, 128, 256) and m64nNk32 s8 x s8 -> s32 products (N =
 //   64, 128) with both operands in shared memory;
-// * the proxy fence and the named barrier that hand a tile written by
-//   threads to wgmma, and setmaxnreg;
-// * on the host, the tensor map of a row-major bf16 or int8 array in
-//   swizzled boxes.
+// * the proxy fences that hand data written by threads to wgmma (shared
+//   memory) or to a TMA load (device memory), the named barrier, and
+//   setmaxnreg;
+// * on the host, the tensor map of a row-major bf16 or int8 array, 2-D or
+//   3-D (planes of [rows, cols]), in swizzled boxes.
 //
 // Layouts. A TMA box whose inner extent is 128 bytes (64 bf16), loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte aligned buffer, is the
@@ -102,6 +105,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The 3-D form: the box of `map` at (c0 inner, c1, c2 outer), c2 the
+// plane of a [planes, rows, cols] array.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A map in the parameters or, written by the host before the launch, in
+// device memory (no proxy fence needed: the device never writes a map).
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n"
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -161,6 +178,15 @@ __device__ __forceinline__ uint64_t desc_sw128_kmajor(const void* p) {
 // async proxy (wgmma, TMA) once the threads that read them have met.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Makes this thread's generic-proxy writes to device memory visible to the
+// async proxy: a block that stores a tile with plain stores and reads it
+// back by TMA runs this in every storing thread, then a barrier (an
+// mbarrier arrive, or bar.sync) before the thread that issues the load.
+// Without it TMA may read what the memory held before the stores.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a
@@ -383,6 +409,25 @@ inline int encode_map_u8(EncodeTiled fn, CUtensorMap* map, const void* base,
                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The map of a row-major [planes, rows, cols] array of elem_bytes-byte
+// elements (2: bf16, 1: int8 codes) in boxes of box_cols columns (128
+// bytes) x box_rows rows of one plane, with the 128-byte swizzle; reads past
+// any edge return zeros; read by tma_load_3d. Returns the CUresult.
+inline int encode_map_3d(EncodeTiled fn, CUtensorMap* map, const void* base, int elem_bytes,
+                         long long cols, long long rows, long long planes, int box_cols,
+                         int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)(cols * elem_bytes),
+                                 (cuuint64_t)(cols * rows * elem_bytes)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return (int)fn(map,
+                 elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                 3, const_cast<void*>(base), dims, strides, box, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace gmma

@@ -1,10 +1,12 @@
 // The MLP's packed weights and its kept activations, which the forward
-// (ray_march_mlp.cu) and the dX chain (mlp_backward.cu) share, and the
+// (ray_march_mlp.cu) and the dX chain (mlp_backward.cu) share, the device
+// table of a packed state that their streamed routes read, and the
 // nvcuda::wmma 16x16x16 bf16 -> float32 helpers of the tensor-core ceiling
 // probe (mma_ceiling.cu), the product loop the MLP kernels ran before they
 // moved to wgmma (gmma.cuh); no MLP kernel uses them.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 
@@ -45,7 +47,52 @@ struct MlpStash {
   knt::bf16* rf;
 };
 
+// The head arrays of MlpWeights, in its order: the tail of a device table.
+struct MlpHeads {
+  const knt::bf16* w_sf;
+  const knt::bf16* w_sf_enc;
+  const float* b_sf;
+  const knt::bf16* w_rf_top;
+  const knt::bf16* w_rf_enc;
+  const float* b_rf;
+  const knt::bf16* w_rgb;
+  const float* b_rgb;
+};
+
 namespace knt {
+
+// Tensor maps of the device table: per layer trunk_w[i] and trunk_enc_w[i],
+// then these five.
+constexpr int kTableHeadMaps = 5;
+enum TableHead { kMapSf, kMapSfEnc, kMapRfTop, kMapRfEnc, kMapRgb };
+
+// A view of the device table of a packed state, any number of layers n,
+// which the streamed kernels read (built once per packed state by
+// kernels/ray_march.py: _mlp_table; its layout is mlp_table_layout): 2 n +
+// 5 tensor maps of 128 bytes (trunk_w[i], trunk_enc_w[i] (all zero where
+// null), then TableHead's, each array in [64 x 64] boxes of bf16 with the
+// 128-byte swizzle), then the n trunk biases, the n trunk_enc_w pointers
+// (null where a layer reads no encoding) and MlpHeads. The buffer is
+// 64-byte aligned, as TMA needs a map in device memory to be.
+struct MlpTable {
+  const CUtensorMap* trunk;
+  const CUtensorMap* trunk_enc;
+  const CUtensorMap* heads;
+  const float* const* trunk_b;
+  const bf16* const* trunk_enc_w;
+  const MlpHeads* w;
+};
+
+__device__ __forceinline__ MlpTable table_of(const void* base, int n) {
+  MlpTable t;
+  t.trunk = static_cast<const CUtensorMap*>(base);
+  t.trunk_enc = t.trunk + n;
+  t.heads = t.trunk_enc + n;
+  t.trunk_b = reinterpret_cast<const float* const*>(t.heads + kTableHeadMaps);
+  t.trunk_enc_w = reinterpret_cast<const bf16* const*>(t.trunk_b + n);
+  t.w = reinterpret_cast<const MlpHeads*>(t.trunk_enc_w + n);
+  return t;
+}
 
 using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
 using AFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,

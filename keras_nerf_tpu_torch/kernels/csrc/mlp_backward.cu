@@ -601,6 +601,303 @@ int launch(const MlpWeights* w, const bf16* d_rgb, const bf16* d_sigma, const bf
   return u == 512 ? launch_tile<512>(prm, s) : launch_tile<768>(prm, s);
 }
 
+// ---- the streamed route: any width (a multiple of 256), any depth ---------
+//
+// The kernel above keeps the cotangent and the mask tiles in shared memory
+// and its tensor maps in fixed arrays of kMaxLayers; at u >= 1024 two such
+// tiles of 64 points no longer fit beside a ring, and past 16 layers the
+// arrays run out. mlp_backward_plan picks this route for those shapes (u =
+// 256, 512 and 768 up to 16 layers keep the kernel above, unchanged):
+// * Every layer's bf16 cotangent is written to device memory anyway (d_rf,
+//   d_sf, d_pre[i]: mlp_weight_grad's operands), 128 columns (a pass) at a
+//   time with stores from the accumulators. The next layer reads it back by
+//   TMA, one [64 points x 64 K] slab a ring stage, beside the stage's [128
+//   rows x 64 K] of W (K-major, as above). d_pre is one [n, P, u] array.
+// * Plain stores read back by TMA: every storing thread runs
+//   fence.proxy.async.global, then arrives on `ready`; the producer waits
+//   on it before it loads the next layer's input (gmma.cuh).
+// * The relu mask of each output column pair comes from the stash's h (one
+//   [n, P, u] array) in the epilogue; the sigma column of w_sf from the
+//   table's w_sf. The weights' maps are read from the packed state's device
+//   table (mlp.cuh: MlpTable); the cotangents' maps are parameters.
+// * The head cotangent tile ([64 x 16] bf16, made in the prologue as above)
+//   stays in shared memory for the rgb layer. One consumer warpgroup takes
+//   the 64 rows and every column, a pass at a time (m64n128k16); one
+//   producer warp; two blocks share an SM.
+// * Shared memory: ring 3 x 24 KB + the head tile 8 KB + d_sigma 256 B + 1
+//   KB of alignment = 81.3 KB (mlp_backward_plan mirrors it).
+// * No atomics and a fixed k order: two runs give identical bits.
+namespace streamed {
+
+constexpr int kTile = 64;                        // points per block
+constexpr int kStages = 3;
+constexpr int kABytes = kTile * 128;             // A: [64 points x 64 K] bf16, one box
+constexpr int kStageBytes = kABytes + 2 * kABytes;  // + B: [128 rows x 64 K], two boxes
+constexpr int kPass = 128;                       // output columns a pass
+constexpr int kConsumers = 128;                  // one warpgroup
+constexpr int kThreads = kConsumers + 32;        // and the producer warp
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + kABytes + 4 * kTile +
+                           8 * (2 * kStages + 1);
+
+struct Params {
+  CUtensorMap d_rf, d_sf, d_pre;  // the cotangents, read back as the next layer's input
+  const void* table;              // MlpTable
+  const bf16* d_rgb;              // quadrature mode
+  const bf16* d_sigma;
+  const bf16* g;                  // output-head mode
+  const float* y;
+  bf16* d_rgb_out;
+  const bf16* h;                  // the stash's h, [n, P, u]
+  bf16* d_rf_ptr;                 // [P, u / 2]
+  bf16* d_sf_ptr;                 // [P, u + 16]
+  bf16* d_pre_ptr;                // [n, P, u]
+  int P, u, n;
+};
+
+struct SSmem {
+  uint8_t* ring;
+  uint8_t* head;     // the head cotangent tile, [64 x 16] in a [64 x 64] box
+  float* sig;        // d_sigma_pre of the tile's points
+  uint64_t* full;    // kStages
+  uint64_t* empty;   // kStages
+  uint64_t* ready;   // a layer's output is in device memory
+};
+
+// Layer L as layer_of above: 0 the rgb head (K 16), 1 the rgb-feature layer
+// (K u/2), 2 the sigma/feature head (K u), 3 + j the trunk layer n-1-j.
+__device__ __forceinline__ const CUtensorMap* map_of(const Params& prm, const MlpTable& t, int L) {
+  return L == 0 ? &t.heads[kMapRgb] : L == 1 ? &t.heads[kMapRfTop]
+       : L == 2 ? &t.heads[kMapSf] : &t.trunk[prm.n + 2 - L];
+}
+__device__ __forceinline__ int k_of(const Params& prm, int L) {
+  return L == 0 ? kHead : L == 1 ? prm.u / 2 : prm.u;
+}
+__device__ __forceinline__ int n_of(const Params& prm, int L) { return L == 0 ? prm.u / 2 : prm.u; }
+
+// The producer thread: every stage of every layer, each layer's input once
+// the layer before has written it.
+__device__ void produce(const Params& prm, const SSmem& sm, int p0) {
+  const MlpTable t = table_of(prm.table, prm.n);
+  int g = 0;
+  for (int L = 0; L < prm.n + 2; ++L) {
+    const CUtensorMap* map = map_of(prm, t, L);
+    const int slabs = (k_of(prm, L) + 63) / 64;
+    if (L > 0) gmma::mbar_wait(sm.ready, (L - 1) & 1);
+    for (int pass = 0; pass < n_of(prm, L) / kPass; ++pass) {
+      for (int ks = 0; ks < slabs; ++ks, ++g) {
+        const int s = g % kStages;
+        uint8_t* st = sm.ring + s * kStageBytes;
+        gmma::mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
+        gmma::mbar_arrive_expect_tx(&sm.full[s], 2 * kABytes + (L > 0 ? kABytes : 0));
+        for (int b = 0; b < 2; ++b)
+          gmma::tma_load_2d(st + kABytes + b * kABytes, map, &sm.full[s], 64 * ks,
+                            kPass * pass + 64 * b);
+        if (L == 1)
+          gmma::tma_load_2d(st, &prm.d_rf, &sm.full[s], 64 * ks, p0);
+        else if (L == 2)
+          gmma::tma_load_2d(st, &prm.d_sf, &sm.full[s], 64 * ks, p0);
+        else if (L > 2)
+          gmma::tma_load_3d(st, &prm.d_pre, &sm.full[s], 64 * ks, p0, prm.n + 2 - L);
+      }
+    }
+  }
+}
+
+// One layer: every pass's products, then its epilogue (d_sigma's term of
+// the sigma column at L = 2, the relu mask from L = 2 on) stored as bf16
+// from the registers.
+__device__ __forceinline__ void run_layer(const Params& prm, const MlpTable& t, const SSmem& sm,
+                                          int L, int& g, int p0, int rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int u = prm.u, k = k_of(prm, L), n_out = n_of(prm, L);
+  const int slabs = (k + 63) / 64, ksteps = k < 64 ? k / 16 : 4;
+  const int r0 = 16 * warp + lane / 4;
+  const size_t plane = (size_t)prm.P * u;
+  bf16* dst = L == 0 ? prm.d_rf_ptr : L == 1 ? prm.d_sf_ptr : prm.d_pre_ptr + (prm.n + 1 - L) * plane;
+  const int ld = L == 0 ? u / 2 : L == 1 ? u + kHead : u;
+  const bf16* mask = L >= 2 ? prm.h + (prm.n + 1 - L) * plane : nullptr;
+  const bf16* wsig = t.w->w_sf + u;  // column u of w_sf, row stride u + 128
+  for (int pass = 0; pass < n_out / kPass; ++pass) {
+    float acc[kPass / 2];
+    int scale = 0;     // the pass's first product overwrites the accumulators
+    int pending = -1;  // the stage of the last committed group
+    for (int ks = 0; ks < slabs; ++ks, ++g) {
+      const int s = g % kStages;
+      const uint8_t* st = sm.ring + s * kStageBytes;
+      gmma::mbar_wait(&sm.full[s], (g / kStages) & 1);
+      const uint64_t da = gmma::desc_sw128_kmajor(L == 0 ? sm.head : st);
+      const uint64_t db = gmma::desc_sw128_kmajor(st + kABytes);
+      gmma::fence_operands(acc);
+      gmma::fence();
+      for (int kk = 0; kk < ksteps; ++kk) {
+        gmma::mma_m64k16<kPass, 0, 0>(acc, da + 2 * kk, db + 2 * kk, scale);
+        scale = 1;
+      }
+      gmma::commit();
+      gmma::fence_operands(acc);
+      gmma::wait<1>();
+      gmma::fence_operands(acc);
+      if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+      pending = s;
+    }
+    gmma::wait<0>();
+    gmma::fence_operands(acc);
+    if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+
+#pragma unroll
+    for (int j = 0; j < kPass / 8; ++j) {
+      const int c = kPass * pass + 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        if (r >= rows) continue;
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (L == 2) {
+          const float sg = sm.sig[r];
+          v0 = __fmaf_rn(sg, __bfloat162float(wsig[(size_t)c * (u + 128)]), v0);
+          v1 = __fmaf_rn(sg, __bfloat162float(wsig[(size_t)(c + 1) * (u + 128)]), v1);
+        }
+        if (mask != nullptr) {
+          const __nv_bfloat162 hv =
+              *reinterpret_cast<const __nv_bfloat162*>(mask + (size_t)(p0 + r) * u + c);
+          if (!(__low2float(hv) > 0.f)) v0 = 0.f;
+          if (!(__high2float(hv) > 0.f)) v1 = 0.f;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(p0 + r) * ld + c) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+  if (L == 1) {
+    // d_sf's column u: d_sigma_pre, then 15 zeros.
+    for (int r = threadIdx.x; r < rows; r += kConsumers) {
+      uint4* d = reinterpret_cast<uint4*>(prm.d_sf_ptr + (size_t)(p0 + r) * (u + kHead) + u);
+      const __nv_bfloat162 s0 = __floats2bfloat162_rn(sm.sig[r], 0.f);
+      d[0] = make_uint4(*reinterpret_cast<const uint32_t*>(&s0), 0u, 0u, 0u);
+      d[1] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // The next layer reads this one's output by TMA.
+  if (L < prm.n + 1) {
+    gmma::fence_proxy_async_global();
+    gmma::mbar_arrive(sm.ready);
+  }
+}
+
+// The head cotangents into the head tile and sig, as prologue above; in
+// the output-head mode also d_rgb_out.
+__device__ __forceinline__ void prologue(const Params& prm, const SSmem& sm, int p0, int rows) {
+  for (int r = threadIdx.x; r < kTile; r += kConsumers) {
+    uint4 q[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+    float sig = 0.f;
+    if (r < rows) {
+      const size_t p = (size_t)(p0 + r);
+      if (prm.g == nullptr) {
+        const uint4* src = reinterpret_cast<const uint4*>(prm.d_rgb + p * kHead);
+        q[0] = src[0];
+        q[1] = src[1];
+        sig = __bfloat162float(prm.d_sigma[p]);
+      } else {
+        float e[3];
+        for (int c = 0; c < 3; ++c) {
+          const float yv = prm.y[p * 4 + c];
+          e[c] = __fmul_rn(__fmul_rn(__bfloat162float(prm.g[p * 4 + c]), yv),
+                           __fsub_rn(1.f, yv));
+        }
+        const __nv_bfloat162 e01 = __floats2bfloat162_rn(e[0], e[1]);
+        const __nv_bfloat162 e2 = __floats2bfloat162_rn(e[2], 0.f);
+        q[0].x = *reinterpret_cast<const uint32_t*>(&e01);
+        q[0].y = *reinterpret_cast<const uint32_t*>(&e2);
+        if (prm.y[p * 4 + 3] > 0.f) sig = __bfloat162float(prm.g[p * 4 + 3]);
+        uint4* out = reinterpret_cast<uint4*>(prm.d_rgb_out + p * kHead);
+        out[0] = q[0];
+        out[1] = q[1];
+      }
+    }
+    *reinterpret_cast<uint4*>(sm.head + swz<kTile>(r, 0)) = q[0];
+    *reinterpret_cast<uint4*>(sm.head + swz<kTile>(r, 8)) = q[1];
+    sm.sig[r] = sig;
+  }
+  gmma::fence_proxy_async();
+  gmma::bar_sync(kFullBar, kConsumers);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+mlp_backward_streamed_kernel(const __grid_constant__ Params prm) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (gmma::smem_addr(smem_raw) & 1023)) & 1023);
+  SSmem sm;
+  sm.ring = base;
+  sm.head = sm.ring + kStages * kStageBytes;
+  sm.sig = reinterpret_cast<float*>(sm.head + kABytes);
+  sm.full = reinterpret_cast<uint64_t*>(sm.sig + kTile);
+  sm.empty = sm.full + kStages;
+  sm.ready = sm.empty + kStages;
+
+  const int p0 = blockIdx.x * kTile;
+  const int rows = min(kTile, prm.P - p0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      gmma::mbar_init(&sm.full[s], 1);
+      gmma::mbar_init(&sm.empty[s], kConsumers / 32);
+    }
+    gmma::mbar_init(sm.ready, kConsumers);
+    gmma::fence_barrier_init();
+  }
+  __syncthreads();
+  // Warps 0-3 are the consumer warpgroup; warp 4 holds the producer.
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) produce(prm, sm, p0);
+    return;
+  }
+  prologue(prm, sm, p0, rows);
+  const MlpTable t = table_of(prm.table, prm.n);
+  int g = 0;
+  for (int L = 0; L < prm.n + 2; ++L) run_layer(prm, t, sm, L, g, p0, rows);
+}
+
+// table: the packed state's device table (n layers of u units); h: the
+// stash's h as one [n, P, u] array; d_rf, d_sf, d_pre: the cotangent arrays
+// (d_pre one [n, P, u] array). Returns 0, a cudaError_t, or -CUresult.
+int launch(const void* table, int n, int u, const bf16* d_rgb, const bf16* d_sigma,
+           const bf16* g, const float* y, bf16* d_rgb_out, const bf16* h, bf16* d_rf,
+           bf16* d_sf, bf16* d_pre, int P, void* stream) {
+  if (P <= 0) return 0;
+  if (n < 1 || u < 256 || u % 256 || table == nullptr) return (int)cudaErrorInvalidValue;
+  const gmma::EncodeTiled fn = gmma::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  Params prm{};  // copied into the launch's parameters
+  int err = gmma::encode_map(fn, &prm.d_rf, d_rf, u / 2, P, 64);
+  if (!err) err = gmma::encode_map(fn, &prm.d_sf, d_sf, u + kHead, P, 64);
+  if (!err) err = gmma::encode_map_3d(fn, &prm.d_pre, d_pre, 2, u, P, n, 64, 64);
+  if (err) return -err;
+  prm.table = table;
+  prm.d_rgb = d_rgb;
+  prm.d_sigma = d_sigma;
+  prm.g = g;
+  prm.y = y;
+  prm.d_rgb_out = d_rgb_out;
+  prm.h = h;
+  prm.d_rf_ptr = d_rf;
+  prm.d_sf_ptr = d_sf;
+  prm.d_pre_ptr = d_pre;
+  prm.P = P;
+  prm.u = u;
+  prm.n = n;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mlp_backward_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int blocks = (P + kTile - 1) / kTile;
+  mlp_backward_streamed_kernel<<<blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(prm);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace streamed
+
 }  // namespace
 
 // w: the packed weights (u = 256, 512 or 768); d_rgb [P, 16], d_sigma [P] bf16
@@ -622,4 +919,21 @@ KNT_EXPORT int knt_mlp_backward_from_output(const MlpWeights* w, const bf16* g,
                                             int P, void* stream) {
   if (g == nullptr || y == nullptr || d_rgb_out == nullptr) return (int)cudaErrorInvalidValue;
   return launch(w, nullptr, nullptr, g, y, d_rgb_out, st, ct, P, stream);
+}
+
+// The streamed route (mlp_backward_plan's "streamed"), both modes: table,
+// the packed state's device table of n layers of u units; the quadrature
+// mode's d_rgb [P, 16] and d_sigma [P], or the output-head mode's g [P, 4],
+// y [P, 4] and d_rgb_out [P, 16] (the others null); h: the stash's h as one
+// [n, P, u] array; d_rf [P, u / 2], d_sf [P, u + 16] and d_pre [n, P, u]
+// written. Returns 0, a cudaError_t, or -CUresult.
+KNT_EXPORT int knt_mlp_backward_streamed(const void* table, int n, int u, const bf16* d_rgb,
+                                         const bf16* d_sigma, const bf16* g, const float* y,
+                                         bf16* d_rgb_out, const bf16* h, bf16* d_rf, bf16* d_sf,
+                                         bf16* d_pre, int P, void* stream) {
+  if ((g == nullptr) == (d_rgb == nullptr) || (g != nullptr && (y == nullptr || d_rgb_out == nullptr)) ||
+      (g == nullptr && d_sigma == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return streamed::launch(table, n, u, d_rgb, d_sigma, g, y, d_rgb_out, h, d_rf, d_sf, d_pre, P,
+                          stream);
 }

@@ -50,6 +50,12 @@
 // * Blocks of one slice are adjacent in launch order, the two row tiles of
 //   one N tile side by side, so blocks that read the same rows of an
 //   operand run together and share them in L2.
+// * A launch takes at most kMaxTasks tasks and kMaxTiles tiles. A call with
+//   more (a deep or wide model) is split by weight_grad_plan into launches
+//   of consecutive tiles, each block's work and each task's partial offsets
+//   as one launch would have them; a task's slices are added (its `reduce`
+//   flag) by the launch that holds its last tile, after every launch that
+//   wrote them, in the same order: the split changes no bit.
 #include <cuda.h>
 #include <cuda_bf16.h>
 
@@ -76,13 +82,15 @@ constexpr int kThreads = 128 + 32 * kConsumerWarps;
 
 // One weight array; mirrored in kernels/ray_march.py (_WgTask). poff and
 // bpoff index the float32 partial-sum buffer: slices x [K, N], then
-// slices x [N] for the bias.
+// slices x [N] for the bias. reduce: this launch adds the slices into out
+// (and bias_out), 0 where a later launch of the call holds the task's last
+// tiles.
 struct WgTask {
   const bf16* a;
   const bf16* g;
   float* out;
   float* bias_out;
-  int k, n, ldo, poff, bpoff;
+  int k, n, ldo, poff, bpoff, reduce;
 };
 
 // One block's output, per slice: rows m0 .. m0 + 127 and columns n0 ..
@@ -242,6 +250,7 @@ __global__ void wg_reduce_kernel(const WgReduceTable tab,
                                  const float* __restrict__ partial,
                                  int slices) {
   const WgTask t = tab.t[blockIdx.y];
+  if (!t.reduce) return;
   const int kn = t.k * t.n;
   const int total = kn + (t.bias_out != nullptr ? t.n : 0);
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;

@@ -84,6 +84,8 @@
 //   fault traps (gmma::mbar_wait) instead of holding the card.
 #include <cuda.h>
 
+#include <cstring>
+
 #include "encode.cuh"
 #include "gmma.cuh"
 #include "mlp.cuh"
@@ -722,6 +724,399 @@ int launch(const MlpWeights* w, const float* base, const float* slope, const flo
   return enc_in != nullptr ? launch_width<true>(prm, s) : launch_width<false>(prm, s);
 }
 
+// ---- the streamed route: any width (a multiple of 256), any depth ---------
+//
+// The kernel above keeps a layer's whole input in shared memory and its
+// weights' tensor maps in fixed arrays of kMaxLayers in its parameters. At
+// u >= 1024 a 64-point activation tile is >= 128 KB, and a second tile and
+// the ring no longer fit beside it in 227 KB; past 16 layers the arrays run
+// out. ray_march_mlp_plan picks this route for those shapes (u = 256, 512
+// and 768 up to 16 layers keep the kernel above, unchanged):
+// * Each product's output leaves the block as it is made, 128 columns (a
+//   pass) at a time, with bf16 stores from the accumulators: to the stash in
+//   the train mode (h[i] and the features, one [n + 1, P, u] array, then
+//   rf), else to a ping-pong scratch of two [P, u] planes. The next product
+//   reads its input back from there by TMA, one [64 points x 64 K] slab a
+//   ring stage, beside the stage's [64 K x 128 N] of weights: shared memory
+//   holds the ring, the encoding tile and the heads' sums at any u.
+// * A tile written with plain stores and read back by TMA: every storing
+//   thread runs fence.proxy.async.global, then arrives on the `ready`
+//   mbarrier; the producer waits on it before it loads the next product's
+//   input (gmma.cuh). The weights come first in every stage's order, so
+//   nothing else waits.
+// * The weights' tensor maps are read from the packed state's device table
+//   (mlp.cuh: MlpTable), built once per packed state; the per-launch arrays'
+//   maps (the activations, the input encoding) are parameters.
+// * One consumer warpgroup owns the tile's 64 rows and every column, a pass
+//   at a time (m64n128k16, 64 float32 accumulators a thread); one producer
+//   warp. The heads' dots (sigma from w_sf's column u, rgb from w_rgb's
+//   columns 0..2, read from device memory) are summed pass by pass in
+//   registers, then over each quad. Two blocks share an SM, so one's
+//   epilogue runs under the other's products.
+// * Shared memory: ring 3 x 24 KB + the encoding tile 16 KB + partial head
+//   sums 1 KB + 1 KB of alignment = 90.1 KB (ray_march_mlp_plan mirrors it).
+// * No atomics and a fixed k order: two runs give identical bits.
+namespace streamed {
+
+constexpr int kTile = 64;                          // points per block
+constexpr int kStages = 3;
+constexpr int kABytes = kTile * 128;               // A: [64 points x 64 K] bf16, one box
+constexpr int kStageBytes = kABytes + 2 * kBox;    // + B: [64 K x 128 N], two boxes
+constexpr int kPass = 128;                         // output columns a pass
+constexpr int kConsumers = 128;                    // one warpgroup
+constexpr int kThreads = kConsumers + 32;          // and the producer warp
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kABytes + 4 * 4 * kTile +
+                           8 * (2 * kStages + 2);
+
+struct Params {
+  CUtensorMap x;        // [planes, P, u] bf16: the stash's h and features, or the scratch
+  CUtensorMap enc_in;   // input mode: [P, 128]
+  const void* table;    // MlpTable
+  const float* base;
+  const float* slope;
+  const float* depths;
+  const float* masks;
+  float* out;
+  bf16* x_ptr;          // x's array
+  bf16* enc_out;        // the train mode's stash enc (null in the input mode)
+  bf16* rf_out;         // the train mode's stash rf, else null
+  int P, S, u, n, products, train, enc_in_mode;
+};
+
+// Product L of the chain, as layer_of above: W over the activations (the
+// encoding for layer 0), then W over the encoding where it has one.
+struct SLayer {
+  const CUtensorMap* map[2];
+  int slabs[2];  // 64-row K slabs of each run (0: no run)
+  bool enc0;
+  int n;         // output columns
+  const float* bias;
+};
+
+__device__ __forceinline__ SLayer layer_of(const Params& prm, const MlpTable& t, int L) {
+  SLayer l;
+  l.enc0 = L == 0;
+  l.slabs[0] = L == 0 ? kEncLanes / 64 : prm.u / 64;
+  l.n = prm.u;
+  bool enc;
+  if (L < prm.n) {
+    l.map[0] = &t.trunk[L];
+    l.map[1] = &t.trunk_enc[L];
+    enc = L > 0 && t.trunk_enc_w[L] != nullptr;
+    l.bias = t.trunk_b[L];
+  } else if (L == prm.n) {
+    l.map[0] = &t.heads[kMapSf];
+    l.map[1] = &t.heads[kMapSfEnc];
+    enc = t.w->w_sf_enc != nullptr;
+    l.bias = t.w->b_sf;
+  } else {
+    l.map[0] = &t.heads[kMapRfTop];
+    l.map[1] = &t.heads[kMapRfEnc];
+    enc = true;
+    l.bias = t.w->b_rf;
+    l.n = prm.u / 2;
+  }
+  l.slabs[1] = enc ? kEncLanes / 64 : 0;
+  return l;
+}
+
+// The plane of x that product L (<= n) writes.
+__device__ __forceinline__ int plane_of(const Params& prm, int L) { return prm.train ? L : L & 1; }
+
+struct SSmem {
+  uint8_t* ring;
+  uint8_t* enc;      // the encoding tile, [64 x 128] bf16
+  float* red;        // partial head sums: [row][r, g, b, sigma]
+  uint64_t* full;    // kStages
+  uint64_t* empty;   // kStages
+  uint64_t* enc_full;
+  uint64_t* ready;   // a product's output is in device memory
+};
+
+// The producer thread: the input tile (input mode), then every stage of
+// every product, each product's input once the product before has written
+// it.
+__device__ void produce(const Params& prm, const SSmem& sm, int p0) {
+  const MlpTable t = table_of(prm.table, prm.n);
+  if (prm.enc_in_mode) {
+    gmma::mbar_arrive_expect_tx(sm.enc_full, 2 * kABytes);
+    for (int b = 0; b < kEncLanes / 64; ++b)
+      gmma::tma_load_2d(sm.enc + b * kABytes, &prm.enc_in, sm.enc_full, 64 * b, p0);
+  }
+  int g = 0;
+  for (int L = 0; L < prm.products; ++L) {
+    const SLayer l = layer_of(prm, t, L);
+    if (L > 0) gmma::mbar_wait(sm.ready, (L - 1) & 1);
+    const int plane = L > 0 ? plane_of(prm, L - 1) : 0;
+    for (int pass = 0; pass < l.n / kPass; ++pass) {
+      for (int run = 0; run < 2; ++run) {
+        for (int ks = 0; ks < l.slabs[run]; ++ks, ++g) {
+          const int s = g % kStages;
+          uint8_t* st = sm.ring + s * kStageBytes;
+          const bool a = run == 0 && !l.enc0;
+          gmma::mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
+          gmma::mbar_arrive_expect_tx(&sm.full[s], 2 * kBox + (a ? kABytes : 0));
+          for (int b = 0; b < 2; ++b)
+            gmma::tma_load_2d(st + kABytes + b * kBox, l.map[run], &sm.full[s],
+                              kPass * pass + 64 * b, 64 * ks);
+          if (a) gmma::tma_load_3d(st, &prm.x, &sm.full[s], 64 * ks, p0, plane);
+        }
+      }
+    }
+  }
+}
+
+// One product: every pass's products into float32 accumulators, the
+// epilogue (bias, relu on the trunk, bf16) stored from the registers, the
+// head's dots summed along.
+template <int kHead>
+__device__ __forceinline__ void run_layer(const Params& prm, const MlpTable& t, const SSmem& sm,
+                                          int L, int& g, int p0, int rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const SLayer l = layer_of(prm, t, L);
+  const int r0 = 16 * warp + lane / 4;
+  const bool relu = L < prm.n;
+  bf16* dst = L <= prm.n ? prm.x_ptr + (size_t)plane_of(prm, L) * prm.P * prm.u : prm.rf_out;
+  const size_t ld_sf = prm.u + kEncLanes;
+  const bf16* wsig = t.w->w_sf + prm.u;  // column u of w_sf, row stride ld_sf
+  const bf16* wrgb = t.w->w_rgb;
+  float dot[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  for (int pass = 0; pass < l.n / kPass; ++pass) {
+    float acc[kPass / 2];
+    int scale = 0;     // the pass's first product overwrites the accumulators
+    int pending = -1;  // the stage of the last committed group
+    for (int run = 0; run < 2; ++run) {
+      for (int ks = 0; ks < l.slabs[run]; ++ks, ++g) {
+        const int s = g % kStages;
+        const uint8_t* st = sm.ring + s * kStageBytes;
+        gmma::mbar_wait(&sm.full[s], (g / kStages) & 1);
+        const uint8_t* a = run == 1 || l.enc0 ? sm.enc + ks * kABytes : st;
+        const uint64_t da = gmma::desc_sw128_kmajor(a);
+        const uint64_t db = gmma::desc_sw128(st + kABytes, kBox, 1024);
+        gmma::fence_operands(acc);
+        gmma::fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          gmma::mma_m64k16<kPass, 0, 1>(acc, da + 2 * k, db + (k * 2048 >> 4), scale);
+          scale = 1;
+        }
+        gmma::commit();
+        gmma::fence_operands(acc);
+        gmma::wait<1>();
+        gmma::fence_operands(acc);
+        if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+        pending = s;
+      }
+    }
+    gmma::wait<0>();
+    gmma::fence_operands(acc);
+    if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+
+#pragma unroll
+    for (int j = 0; j < kPass / 8; ++j) {
+      const int c = kPass * pass + 8 * j + 2 * (lane % 4);
+      const float b0 = __ldg(l.bias + c), b1 = __ldg(l.bias + c + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = __fadd_rn(acc[4 * j + 2 * h], b0);
+        float v1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+        const int r = r0 + 8 * h;
+        if (dst != nullptr && r < rows)
+          *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(p0 + r) * l.n + c) = o;
+        const float x0 = __low2float(o), x1 = __high2float(o);
+        if (kHead == kSigmaHead) {
+          dot[h][0] = __fmaf_rn(x0, __bfloat162float(wsig[c * ld_sf]), dot[h][0]);
+          dot[h][0] = __fmaf_rn(x1, __bfloat162float(wsig[(c + 1) * ld_sf]), dot[h][0]);
+        } else if (kHead == kRgbHead) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            dot[h][q] = __fmaf_rn(x0, __bfloat162float(wrgb[c * kEncLanes + q]), dot[h][q]);
+            dot[h][q] = __fmaf_rn(x1, __bfloat162float(wrgb[(c + 1) * kEncLanes + q]), dot[h][q]);
+          }
+        }
+      }
+    }
+  }
+  if (kHead != kNoHead) {
+    constexpr int kQ = kHead == kSigmaHead ? 1 : 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        float x = dot[h][q];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        if (lane % 4 == 0) sm.red[4 * (r0 + 8 * h) + (kHead == kSigmaHead ? 3 : q)] = x;
+      }
+    }
+  }
+  // The next product reads this one's output by TMA.
+  if (L + 1 < prm.products) {
+    gmma::fence_proxy_async_global();
+    gmma::mbar_arrive(sm.ready);
+  }
+}
+
+// The consumers' prologue: the encoding tile (built, or loaded in the input
+// mode) and, in the train mode, its copy to the stash.
+__device__ __forceinline__ void prologue(const Params& prm, const SSmem& sm, int p0, int rows) {
+  const int ct = threadIdx.x;
+  if (!prm.enc_in_mode) {
+    for (int v = ct; v < kTile * (kEncLanes / 8); v += kConsumers) {
+      const int r = v / (kEncLanes / 8), c = (v % (kEncLanes / 8)) * 8;
+      uint32_t q[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x0 = 0.f, x1 = 0.f;
+        if (r < rows) {
+          x0 = encode_lane(prm.base, prm.slope, prm.depths, prm.masks, p0 + r, c + 2 * e, prm.S);
+          x1 = encode_lane(prm.base, prm.slope, prm.depths, prm.masks, p0 + r, c + 2 * e + 1,
+                           prm.S);
+        }
+        const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+        q[e] = *reinterpret_cast<const uint32_t*>(&b);
+      }
+      *reinterpret_cast<uint4*>(sm.enc + swz<kTile>(r, c)) = make_uint4(q[0], q[1], q[2], q[3]);
+    }
+  }
+  gmma::fence_proxy_async();
+  gmma::bar_sync(kFullBar, kConsumers);
+  if (prm.enc_in_mode) {
+    gmma::mbar_wait(sm.enc_full, 0);
+  } else if (prm.enc_out != nullptr) {
+    store_tile<kTile>(prm.enc_out, p0, 0, rows, kEncLanes, sm.enc, ct, kConsumers);
+  }
+}
+
+// The tile's outputs, as write_out above, from the quads' sums.
+__device__ __forceinline__ void write_out(const Params& prm, const MlpTable& t, const SSmem& sm,
+                                          int p0, int rows) {
+  const MlpHeads* w = t.w;
+  const bool sigma_only = prm.products == prm.n;
+  const size_t ld_sf = prm.u + kEncLanes;
+  for (int r = threadIdx.x; r < rows; r += kConsumers) {
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = sm.red[4 * r + q];
+    if (w->w_sf_enc != nullptr) {
+      float e = 0.f;
+      for (int c = 0; c < kEncLanes; ++c) {
+        const bf16 x = *reinterpret_cast<const bf16*>(sm.enc + swz<kTile>(r, c));
+        e = __fmaf_rn(__bfloat162float(x), __bfloat162float(w->w_sf_enc[c * ld_sf + prm.u]), e);
+      }
+      v[3] = __fadd_rn(v[3], e);
+    }
+    const int p = p0 + r;
+    const float sig = fmaxf(__fadd_rn(v[3], w->b_sf[prm.u]), 0.f);
+    if (sigma_only) {
+      prm.out[p] = sig;
+      continue;
+    }
+    float4 o;
+    o.x = 1.f / (1.f + expf(-__fadd_rn(v[0], w->b_rgb[0])));
+    o.y = 1.f / (1.f + expf(-__fadd_rn(v[1], w->b_rgb[1])));
+    o.z = 1.f / (1.f + expf(-__fadd_rn(v[2], w->b_rgb[2])));
+    o.w = sig;
+    reinterpret_cast<float4*>(prm.out)[p] = o;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+mlp_streamed_kernel(const __grid_constant__ Params prm) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (gmma::smem_addr(smem_raw) & 1023)) & 1023);
+  SSmem sm;
+  sm.ring = base;
+  sm.enc = sm.ring + kStages * kStageBytes;
+  sm.red = reinterpret_cast<float*>(sm.enc + 2 * kABytes);
+  sm.full = reinterpret_cast<uint64_t*>(sm.red + 4 * kTile);
+  sm.empty = sm.full + kStages;
+  sm.enc_full = sm.empty + kStages;
+  sm.ready = sm.enc_full + 1;
+
+  const int p0 = blockIdx.x * kTile;
+  const int rows = min(kTile, prm.P - p0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      gmma::mbar_init(&sm.full[s], 1);
+      gmma::mbar_init(&sm.empty[s], kConsumers / 32);
+    }
+    gmma::mbar_init(sm.enc_full, 1);
+    gmma::mbar_init(sm.ready, kConsumers);
+    gmma::fence_barrier_init();
+  }
+  __syncthreads();
+  // Warps 0-3 are the consumer warpgroup (wgmma's warpgroups start at a
+  // warp index that is a multiple of 4); warp 4 holds the producer.
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) produce(prm, sm, p0);
+    return;
+  }
+  prologue(prm, sm, p0, rows);
+  const MlpTable t = table_of(prm.table, prm.n);
+  int g = 0;
+  for (int L = 0; L < prm.n - 1; ++L) run_layer<kNoHead>(prm, t, sm, L, g, p0, rows);
+  run_layer<kSigmaHead>(prm, t, sm, prm.n - 1, g, p0, rows);
+  if (prm.products > prm.n) {
+    run_layer<kNoHead>(prm, t, sm, prm.n, g, p0, rows);
+    run_layer<kRgbHead>(prm, t, sm, prm.n + 1, g, p0, rows);
+  }
+  gmma::bar_sync(kFullBar, kConsumers);
+  write_out(prm, t, sm, p0, rows);
+}
+
+// table: the packed state's device table (n layers of u units); x: the
+// output planes ([n + 1, P, u] of the stash in the train mode, else a [2,
+// P, u] scratch); enc_in: the input mode's [P, 128] (else null, and base,
+// slope, depths, masks give the points); enc_out, rf_out: the train mode's
+// stash enc (null in the input mode) and rf. Returns 0, a cudaError_t, or
+// -CUresult when a tensor map cannot be encoded.
+int launch(const void* table, int n, int u, const float* base, const float* slope,
+           const float* depths, const float* masks, const bf16* enc_in, float* out, int P, int S,
+           bool sigma_only, bf16* x, bool train, bf16* enc_out, bf16* rf_out, void* stream) {
+  if (n < 1 || u < 256 || u % 256 || (train && sigma_only) || table == nullptr || x == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const gmma::EncodeTiled fn = gmma::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  Params prm{};  // copied into the launch's parameters
+  int err = gmma::encode_map_3d(fn, &prm.x, x, 2, u, P, train ? n + 1 : 2, 64, 64);
+  if (!err && enc_in != nullptr) err = gmma::encode_map(fn, &prm.enc_in, enc_in, kEncLanes, P, 64);
+  if (err) return -err;
+  prm.table = table;
+  prm.base = base;
+  prm.slope = slope;
+  prm.depths = depths;
+  prm.masks = masks;
+  prm.out = out;
+  prm.x_ptr = x;
+  prm.enc_out = enc_out;
+  prm.rf_out = rf_out;
+  prm.P = P;
+  prm.S = S;
+  prm.u = u;
+  prm.n = n;
+  prm.products = sigma_only ? n : n + 2;
+  prm.train = train;
+  prm.enc_in_mode = enc_in != nullptr;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mlp_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int blocks = (P + kTile - 1) / kTile;
+  mlp_streamed_kernel<<<blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(prm);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace streamed
+
 }  // namespace
 
 // w: the packed weights (u = 256, 512 or 768); base, slope: [rays, 128]; depths:
@@ -750,4 +1145,60 @@ KNT_EXPORT int knt_apply_mlp(const MlpWeights* w, const bf16* enc, float* out,
   if (P <= 0) return 0;
   if (stash != nullptr && stash->enc != enc) return (int)cudaErrorInvalidValue;
   return launch(w, nullptr, nullptr, nullptr, nullptr, enc, out, P, 1, false, stash, stream);
+}
+
+// The streamed route (ray_march_mlp_plan's "streamed"), both entry points'
+// modes: table, the packed state's device table of n layers of u units;
+// enc: the input mode's [P, 128] bf16 or null (then base, slope, depths,
+// masks and S give the points, as knt_ray_march_mlp); x: the stash's h and
+// features as one [n + 1, P, u] array when train, else a [2, P, u] scratch;
+// enc_out: the stash's enc to write (null in the input mode); rf_out: the
+// stash's rf when train. Returns 0, a cudaError_t, or -CUresult.
+KNT_EXPORT int knt_mlp_streamed(const void* table, int n, int u, const float* base,
+                                const float* slope, const float* depths, const float* masks,
+                                const bf16* enc, float* out, int P, int S, int sigma_only,
+                                bf16* x, int train, bf16* enc_out, bf16* rf_out, void* stream) {
+  if (P <= 0) return 0;
+  return streamed::launch(table, n, u, base, slope, depths, masks, enc, out, P, S,
+                          sigma_only != 0, x, train != 0, enc_out, rf_out, stream);
+}
+
+// ---- the device tables of tensor maps ----------------------------------
+//
+// A kernel's fixed array of maps in its parameters holds a fixed number of
+// layers; the streamed routes (here, mlp_backward.cu, ray_march_mlp_int8.cu)
+// take any number, so the maps of a packed state's weights live in device
+// memory instead. kernels/ray_march.py (_device_table) lays a table out,
+// encodes its maps here into host memory once per packed state, appends
+// the arrays' pointers and copies the whole to the card once: no launch
+// encodes or copies it again.
+
+// One map of a table: a row-major [rows, cols] array of elem_bytes-byte
+// elements (2: bf16, 1: int8 codes) in boxes of 128 bytes x box_rows rows
+// with the 128-byte swizzle (gmma.cuh: encode_map, encode_map_u8), read by
+// tma_load_2d. Mirrored in kernels/ray_march.py (_MapSpec).
+struct MapSpec {
+  const void* base;  // null: the entry stays zero (an array the model lacks)
+  int cols, rows, elem_bytes, box_rows;
+};
+
+// Encodes count maps into out (count x 128 bytes of host memory, any
+// alignment). Returns 0, a cudaError_t, or -CUresult when a map cannot be
+// encoded.
+KNT_EXPORT int knt_encode_maps(const MapSpec* specs, int count, void* out) {
+  const gmma::EncodeTiled fn = gmma::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  for (int i = 0; i < count; ++i) {
+    CUtensorMap map;  // 64-byte aligned, as the encoder wants it
+    std::memset(&map, 0, sizeof(map));
+    const MapSpec& s = specs[i];
+    if (s.base != nullptr) {
+      if (s.elem_bytes != 1 && s.elem_bytes != 2) return (int)cudaErrorInvalidValue;
+      const int e = s.elem_bytes == 2 ? gmma::encode_map(fn, &map, s.base, s.cols, s.rows, s.box_rows)
+                                      : gmma::encode_map_u8(fn, &map, s.base, s.cols, s.rows, s.box_rows);
+      if (e != 0) return -e;
+    }
+    std::memcpy(static_cast<char*>(out) + (size_t)i * sizeof(map), &map, sizeof(map));
+  }
+  return 0;
 }

@@ -618,6 +618,449 @@ int launch(const MlpInt8Weights* w, const float* base, const float* slope, const
   return part == 128 ? launch_part<128>(prm, st) : launch_part<64>(prm, st);
 }
 
+// ---- the streamed route: any width (a multiple of 256), any depth ---------
+//
+// The kernel above keeps both ping-pong code tiles in shared memory (2 x 64
+// x u bytes) and its tensor maps in fixed arrays of kMaxLayers; above u =
+// 1280 the tiles and a ring of two stages no longer fit, and past 16 layers
+// the arrays run out. ray_march_mlp_int8_plan picks this route for those
+// shapes (u <= 1280 up to 16 layers keep the kernel above, unchanged). It
+// computes the same codes, sums and epilogues, so the same bits:
+// * Each product's output codes leave the block as they are made, 128
+//   columns (a part) at a time, to an int8 scratch of two [P, u] planes
+//   (ping-pong); the next product reads its K slabs back by TMA, one [64
+//   points x 128 K] slab a ring stage beside the stage's [128 N x 128 K] of
+//   weights. Every storing thread runs fence.proxy.async.global, then
+//   arrives on `ready`, which the producer waits on before it loads.
+// * The encoding's codes at each quantization site are made from the
+//   encoding recomputed (encode_lane, the same bits as the kernel above's
+//   encode_value), not from a kept float32 tile: shared memory holds the
+//   ring and one code tile at any u.
+// * The weights' maps and per-column vectors are read from the quantized
+//   state's device table (I8Table), built once per quantized state.
+// * One consumer warpgroup (64 rows, a part at a time, m64n128k32 s8 and a
+//   second accumulator set for the encoding's product), one producer warp;
+//   two blocks share an SM. Shared memory: ring 3 x 24 KB + the code tile 8
+//   KB + 1 KB of alignment = 81.1 KB (ray_march_mlp_int8_plan mirrors it).
+// * No atomics and a fixed order: two runs give identical bits.
+
+// The head arrays of MlpInt8Weights, in its order: the tail of a device
+// table.
+struct I8Heads {
+  const i8* w_feat;
+  const float* u_feat;
+  const float* b_feat;
+  const i8* w_sig;
+  const float* u_sig;
+  const float* b_sig;
+  const i8* w_feat_enc;
+  const float* u_feat_enc;
+  const i8* w_sig_enc;
+  const float* u_sig_enc;
+  const float* enc_r_sf;
+  const float* r_feat;
+  const i8* w_rf_top;
+  const float* u_rf_top;
+  const i8* w_rf_enc;
+  const float* u_rf_enc;
+  const float* enc_r_rf;
+  const float* b_rf;
+  const float* r_rf;
+  const i8* w_rgb;
+  const float* u_rgb;
+  const float* b_rgb;
+};
+
+namespace streamed {
+
+constexpr int kHeadMaps = 4;                     // feat, feat_enc, rf_top, rf_enc
+constexpr int kLayerPointers = 6;                // trunk_u, _b, _r, _enc_u, enc_r, trunk_enc_w
+constexpr int kStages = 3;
+constexpr int kPart = 128;                       // output columns a part
+constexpr int kStageBytes = kSlabBytes + kPart * kKBox;  // A [64 x 128 K] + B [128 N x 128 K]
+constexpr int kConsumers = 128;                  // one warpgroup
+constexpr int kThreads = kConsumers + 32;        // and the producer warp
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + kSlabBytes + 8 * (2 * kStages + 1);
+
+// A view of the device table of a quantized state (kernels/ray_march.py:
+// _mlp_int8_table; layout mlp_int8_table_layout): 2 n + 4 tensor maps of
+// 128 bytes (the transposed trunk_w[i], trunk_enc_w[i] (zero where null),
+// w_feat, w_feat_enc, w_rf_top, w_rf_enc, each in [64 rows x 128 K] boxes),
+// then n pointers each of trunk_u, trunk_b, trunk_r, trunk_enc_u, enc_r and
+// the transposed trunk_enc_w (null where a layer reads no encoding), then
+// I8Heads.
+struct I8Table {
+  const CUtensorMap* trunk;
+  const CUtensorMap* trunk_enc;
+  const CUtensorMap* heads;
+  const float* const* trunk_u;
+  const float* const* trunk_b;
+  const float* const* trunk_r;
+  const float* const* trunk_enc_u;
+  const float* const* enc_r;
+  const i8* const* trunk_enc_w;
+  const I8Heads* w;
+};
+
+__device__ __forceinline__ I8Table table_of(const void* base, int n) {
+  I8Table t;
+  t.trunk = static_cast<const CUtensorMap*>(base);
+  t.trunk_enc = t.trunk + n;
+  t.heads = t.trunk_enc + n;
+  t.trunk_u = reinterpret_cast<const float* const*>(t.heads + kHeadMaps);
+  t.trunk_b = t.trunk_u + n;
+  t.trunk_r = t.trunk_b + n;
+  t.trunk_enc_u = t.trunk_r + n;
+  t.enc_r = t.trunk_enc_u + n;
+  t.trunk_enc_w = reinterpret_cast<const i8* const*>(t.enc_r + n);
+  t.w = reinterpret_cast<const I8Heads*>(
+      reinterpret_cast<const void* const*>(t.trunk_u) + kLayerPointers * n);
+  return t;
+}
+
+struct Params {
+  CUtensorMap x;      // [2, P, u] int8: the ping-pong code planes
+  const void* table;  // I8Table
+  const float* base;
+  const float* slope;
+  const float* depths;
+  const float* masks;
+  float* out;
+  uint8_t* x_ptr;
+  int P, S, u, n, products;
+};
+
+// Product L as layer_of above, from the table.
+struct SLayer {
+  const CUtensorMap* map[2];
+  int slabs[2];  // 128-K slabs of each run (0: no run)
+  bool enc0;
+  bool relu;
+  int n;
+  const float* u;
+  const float* u_enc;
+  const float* b;
+  const float* r;
+};
+
+__device__ __forceinline__ SLayer layer_of(const Params& prm, const I8Table& t, int L) {
+  const I8Heads* w = t.w;
+  SLayer l;
+  l.enc0 = L == 0;
+  l.relu = L < prm.n;
+  l.slabs[0] = L == 0 ? 1 : prm.u / kKBox;
+  l.n = prm.u;
+  bool enc;
+  if (L < prm.n) {
+    l.map[0] = &t.trunk[L];
+    l.map[1] = &t.trunk_enc[L];
+    enc = L > 0 && t.trunk_enc_w[L] != nullptr;
+    l.u = t.trunk_u[L];
+    l.u_enc = t.trunk_enc_u[L];
+    l.b = t.trunk_b[L];
+    l.r = t.trunk_r[L];
+  } else if (L == prm.n) {
+    l.map[0] = &t.heads[0];
+    l.map[1] = &t.heads[1];
+    enc = w->w_feat_enc != nullptr;
+    l.u = w->u_feat;
+    l.u_enc = w->u_feat_enc;
+    l.b = w->b_feat;
+    l.r = w->r_feat;
+  } else {
+    l.map[0] = &t.heads[2];
+    l.map[1] = &t.heads[3];
+    enc = true;
+    l.u = w->u_rf_top;
+    l.u_enc = w->u_rf_enc;
+    l.b = w->b_rf;
+    l.r = w->r_rf;
+    l.n = prm.u / 2;
+  }
+  l.slabs[1] = enc ? 1 : 0;
+  return l;
+}
+
+struct SSmem {
+  uint8_t* ring;
+  uint8_t* qenc;     // the encoding's codes at the current site, [64 x 128]
+  uint64_t* full;    // kStages
+  uint64_t* empty;   // kStages
+  uint64_t* ready;   // a product's codes are in device memory
+};
+
+// The producer thread: every stage of every product, part by part (the
+// codes' K slabs, then the encoding's), each product's input once the
+// product before has written it.
+__device__ void produce(const Params& prm, const SSmem& sm, int p0) {
+  const I8Table t = table_of(prm.table, prm.n);
+  int g = 0;
+  for (int L = 0; L < prm.products; ++L) {
+    const SLayer l = layer_of(prm, t, L);
+    if (L > 0) gmma::mbar_wait(sm.ready, (L - 1) & 1);
+    for (int part = 0; part < l.n / kPart; ++part) {
+      for (int run = 0; run < 2; ++run) {
+        for (int ks = 0; ks < l.slabs[run]; ++ks, ++g) {
+          const int s = g % kStages;
+          uint8_t* st = sm.ring + s * kStageBytes;
+          const bool a = run == 0 && !l.enc0;
+          gmma::mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
+          gmma::mbar_arrive_expect_tx(&sm.full[s], kPart * kKBox + (a ? kSlabBytes : 0));
+          for (int b = 0; b < kPart / 64; ++b)
+            gmma::tma_load_2d(st + kSlabBytes + b * 64 * kKBox, l.map[run], &sm.full[s],
+                              kKBox * ks, kPart * part + 64 * b);
+          if (a) gmma::tma_load_3d(st, &prm.x, &sm.full[s], kKBox * ks, p0, (L - 1) & 1);
+        }
+      }
+    }
+  }
+}
+
+// One K run of a part's product into d, as run_products above; run 0 of a
+// product past the first reads each stage's own A slab.
+__device__ __forceinline__ void run_products(const SSmem& sm, const uint8_t* a_fixed, int slabs,
+                                             int (&d)[kPart / 2], int& g, int lane) {
+  int pending = -1;
+  for (int ks = 0; ks < slabs; ++ks, ++g) {
+    const int s = g % kStages;
+    const uint8_t* st = sm.ring + s * kStageBytes;
+    gmma::mbar_wait(&sm.full[s], (g / kStages) & 1);
+    const uint64_t da = gmma::desc_sw128_kmajor(a_fixed != nullptr ? a_fixed : st);
+    const uint64_t db = gmma::desc_sw128_kmajor(st + kSlabBytes);
+    gmma::fence_operands(d);
+    gmma::fence();
+#pragma unroll
+    for (int k = 0; k < kKBox / 32; ++k)
+      gmma::mma_s8_m64k32<kPart>(d, da + 2 * k, db + 2 * k, ks > 0 || k > 0);
+    gmma::commit();
+    gmma::fence_operands(d);
+    gmma::wait<1>();
+    gmma::fence_operands(d);
+    if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+    pending = s;
+  }
+  gmma::wait<0>();
+  gmma::fence_operands(d);
+  if (pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[pending]);
+}
+
+// Every part of product L: the products, then part_epilogue's arithmetic
+// with the per-column vectors read from device memory and each code pair
+// stored to the product's plane (not rgb_features', which only the rgb
+// dots read).
+template <int kHead>
+__device__ __forceinline__ void run_layer(const Params& prm, const I8Table& t, const SSmem& sm,
+                                          int L, int& g, int (&dot)[2][3], int r0, int lane,
+                                          int p0, int rows) {
+  const SLayer l = layer_of(prm, t, L);
+  const bool enc = l.slabs[1] > 0;
+  const float lo = l.relu ? 0.f : -127.f;
+  const int half = prm.u / 2;
+  uint8_t* dst = prm.x_ptr + (size_t)(L & 1) * prm.P * prm.u;
+  const i8* wsig = t.w->w_sig;
+  const i8* wrgb = t.w->w_rgb;
+  int acc[kPart / 2], acc_e[kPart / 2];
+  for (int part = 0; part < l.n / kPart; ++part) {
+    run_products(sm, l.enc0 ? sm.qenc : nullptr, l.slabs[0], acc, g, lane);
+    if (enc) run_products(sm, sm.qenc, 1, acc_e, g, lane);
+#pragma unroll
+    for (int j = 0; j < kPart / 8; ++j) {
+      const int c = kPart * part + 8 * j + 2 * (lane % 4);
+      float uu[2], bb[2], rr[2], ue[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uu[e] = __ldg(l.u + c + e);
+        bb[e] = __ldg(l.b + c + e);
+        rr[e] = __ldg(l.r + c + e);
+        if (enc) ue[e] = __ldg(l.u_enc + c + e);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t bits[2];
+        int q[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          float v = __fmul_rn(__int2float_rn(acc[i]), uu[e]);
+          if (enc) v = __fadd_rn(v, __fmul_rn(__int2float_rn(acc_e[i]), ue[e]));
+          bits[e] = quant_bits(__fadd_rn(v, bb[e]), rr[e], lo);
+          q[e] = static_cast<int>(bits[e] - 0x4B400000u);
+        }
+        const int r = r0 + 8 * h;
+        if (kHead != kRgbHead && r < rows)
+          *reinterpret_cast<uint16_t*>(dst + (size_t)(p0 + r) * prm.u + c) =
+              static_cast<uint16_t>(__byte_perm(bits[0], bits[1], 0x0040));
+        if (kHead == kSigmaHead) {
+          const char2 ws = __ldg(reinterpret_cast<const char2*>(wsig + c));
+          dot[h][0] += q[0] * ws.x + q[1] * ws.y;
+        } else if (kHead == kRgbHead) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const char2 wc = __ldg(reinterpret_cast<const char2*>(wrgb + k * half + c));
+            dot[h][k] += q[0] * wc.x + q[1] * wc.y;
+          }
+        }
+      }
+    }
+  }
+  // The next product reads these codes by TMA; every products' reads of
+  // the encoding's codes have retired once the warpgroup has met.
+  if (L + 1 < prm.products) {
+    gmma::fence_proxy_async_global();
+    gmma::mbar_arrive(sm.ready);
+  }
+  gmma::bar_sync(kBar, kConsumers);
+}
+
+// The encoding's codes at one site, from the encoding recomputed: thread t
+// takes lane t of every row (zeros past the last point).
+__device__ __forceinline__ void quant_site(const Params& prm, const SSmem& sm, const float* r,
+                                           int p0, int rows) {
+  const int t = threadIdx.x;
+  const float rl = __ldg(r + t);
+  for (int row = 0; row < kTile; ++row) {
+    const float x = row < rows ? encode_lane(prm.base, prm.slope, prm.depths, prm.masks, p0 + row,
+                                             t, prm.S)
+                               : 0.f;
+    sm.qenc[swz(row, t)] = static_cast<uint8_t>(quant(x, rl));
+  }
+  gmma::fence_proxy_async();
+  gmma::bar_sync(kBar, kConsumers);
+}
+
+// The consumer warpgroup, as consume above.
+__device__ void consume(const Params& prm, const SSmem& sm, int p0, int rows) {
+  const int t = threadIdx.x, lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;
+  const I8Table tb = table_of(prm.table, prm.n);
+  const I8Heads* w = tb.w;
+  int g = 0;
+  int dot[2][3] = {{0, 0, 0}, {0, 0, 0}};
+  quant_site(prm, sm, tb.enc_r[0], p0, rows);
+  for (int L = 0; L < prm.n; ++L) {
+    if (L > 0 && tb.trunk_enc_w[L] != nullptr) quant_site(prm, sm, tb.enc_r[L], p0, rows);
+    if (L == prm.n - 1)
+      run_layer<kSigmaHead>(prm, tb, sm, L, g, dot, r0, lane, p0, rows);
+    else
+      run_layer<kNoHead>(prm, tb, sm, L, g, dot, r0, lane, p0, rows);
+  }
+
+  const bool last_enc = w->w_sig_enc != nullptr;
+  int s_enc[2] = {0, 0};
+  if (last_enc) {
+    quant_site(prm, sm, w->enc_r_sf, p0, rows);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      for (int e = 0; e < 32; ++e) {
+        const int k = 32 * (lane % 4) + e;
+        s_enc[h] += static_cast<i8>(sm.qenc[swz(r0 + 8 * h, k)]) * __ldg(w->w_sig_enc + k);
+      }
+      s_enc[h] = quad_sum(s_enc[h]);
+    }
+  }
+  float sigma[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v = __fmul_rn(__int2float_rn(quad_sum(dot[h][0])), __ldg(w->u_sig));
+    if (last_enc) v = __fadd_rn(v, __fmul_rn(__int2float_rn(s_enc[h]), __ldg(w->u_sig_enc)));
+    sigma[h] = fmaxf(__fadd_rn(v, __ldg(w->b_sig)), 0.f);
+    dot[h][0] = 0;
+  }
+  if (prm.products == prm.n) {
+    if (lane % 4 == 0)
+      for (int h = 0; h < 2; ++h)
+        if (r0 + 8 * h < rows) prm.out[p0 + r0 + 8 * h] = sigma[h];
+    return;
+  }
+
+  run_layer<kNoHead>(prm, tb, sm, prm.n, g, dot, r0, lane, p0, rows);
+  quant_site(prm, sm, w->enc_r_rf, p0, rows);
+  run_layer<kRgbHead>(prm, tb, sm, prm.n + 1, g, dot, r0, lane, p0, rows);
+  float4 o[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float x = __fadd_rn(__fmul_rn(__int2float_rn(quad_sum(dot[h][k])), __ldg(w->u_rgb + k)),
+                                __ldg(w->b_rgb + k));
+      v[k] = 1.f / (1.f + expf(-x));
+    }
+    o[h] = make_float4(v[0], v[1], v[2], sigma[h]);
+  }
+  if (lane % 4 == 0)
+    for (int h = 0; h < 2; ++h)
+      if (r0 + 8 * h < rows) reinterpret_cast<float4*>(prm.out)[p0 + r0 + 8 * h] = o[h];
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+mlp_int8_streamed_kernel(const __grid_constant__ Params prm) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (gmma::smem_addr(smem_raw) & 1023)) & 1023);
+  SSmem sm;
+  sm.ring = base;
+  sm.qenc = sm.ring + kStages * kStageBytes;
+  sm.full = reinterpret_cast<uint64_t*>(sm.qenc + kSlabBytes);
+  sm.empty = sm.full + kStages;
+  sm.ready = sm.empty + kStages;
+
+  const int p0 = blockIdx.x * kTile;
+  const int rows = min(kTile, prm.P - p0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      gmma::mbar_init(&sm.full[s], 1);
+      gmma::mbar_init(&sm.empty[s], kConsumers / 32);
+    }
+    gmma::mbar_init(sm.ready, kConsumers);
+    gmma::fence_barrier_init();
+  }
+  __syncthreads();
+  // Warps 0-3 are the consumer warpgroup; warp 4 holds the producer.
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) produce(prm, sm, p0);
+    return;
+  }
+  consume(prm, sm, p0, rows);
+}
+
+// table: the quantized state's device table (n layers of u units); x: a
+// [2, P, u] int8 scratch. Returns 0, a cudaError_t, or -CUresult.
+int launch(const void* table, int n, int u, const float* base, const float* slope,
+           const float* depths, const float* masks, float* out, int P, int S, bool sigma_only,
+           uint8_t* x, cudaStream_t st) {
+  if (n < 1 || u < 256 || u % 256 || table == nullptr || x == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const gmma::EncodeTiled fn = gmma::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  Params prm{};  // copied into the launch's parameters
+  const int err = gmma::encode_map_3d(fn, &prm.x, x, 1, u, P, 2, kKBox, kTile);
+  if (err) return -err;
+  prm.table = table;
+  prm.base = base;
+  prm.slope = slope;
+  prm.depths = depths;
+  prm.masks = masks;
+  prm.out = out;
+  prm.x_ptr = x;
+  prm.P = P;
+  prm.S = S;
+  prm.u = u;
+  prm.n = n;
+  prm.products = sigma_only ? n : n + 2;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mlp_int8_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int blocks = (P + kTile - 1) / kTile;
+  mlp_int8_streamed_kernel<<<blocks, kThreads, kSmemBytes, st>>>(prm);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace streamed
+
 }  // namespace
 
 // base, slope: [rays, 128]; depths: [rays, S]; masks: [3, 128] raw/sin/cos
@@ -633,4 +1076,20 @@ KNT_EXPORT int knt_ray_march_mlp_int8(const MlpInt8Weights* w, const float* base
   if (points > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   return launch(w, base, slope, depths, masks, out, (int)points, S, sigma_only != 0,
                 (cudaStream_t)stream);
+}
+
+// The streamed route (ray_march_mlp_int8_plan's "streamed"): table, the
+// quantized state's device table of n layers of u units; x: a [2, P, u]
+// int8 scratch (P = rays * S); the rest as knt_ray_march_mlp_int8. Returns
+// 0, a cudaError_t, or -CUresult.
+KNT_EXPORT int knt_ray_march_mlp_int8_streamed(const void* table, int n, int u,
+                                               const float* base, const float* slope,
+                                               const float* depths, const float* masks,
+                                               float* out, int rays, int S, int sigma_only,
+                                               uint8_t* x, void* stream) {
+  const long long points = (long long)rays * S;
+  if (points <= 0) return 0;
+  if (points > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return streamed::launch(table, n, u, base, slope, depths, masks, out, (int)points, S,
+                          sigma_only != 0, x, (cudaStream_t)stream);
 }

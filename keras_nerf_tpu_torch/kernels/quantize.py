@@ -170,9 +170,11 @@ def _quant_act(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 
 def _doti8(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The exact int32 sum of code products, as float32: |sum| <= 127^2 x
-    fan-in < 2^24 for fan-ins up to 1024, so the float64 product and the
-    cast lose nothing (and ``torch.matmul`` has no int8 path on the CPU)."""
+    """The exact int32 sum of code products, as float32 (``torch.matmul``
+    has no int8 path on the CPU): the float64 sums of integers below 2^53
+    are exact, and the cast to float32 rounds to nearest even, as the
+    kernels' and JAX's int32 -> float32 conversions do; it is exact for
+    fan-ins up to 1024 (|sum| <= 127^2 x fan-in < 2^24)."""
     return (a.double() @ w.double()).float()
 
 

@@ -49,6 +49,19 @@ training split keeps the activations and cotangents in device memory,
 ~10 KB per point at 8 x 256 (:func:`alloc_stash`,
 :func:`alloc_cotangents`).
 
+The four MLP kernels take every width and depth of the JAX package's
+envelope (:func:`kernel_supported`). Each has a resident route, whose
+tiles stay in shared memory and whose weights' tensor maps ride in the
+launch's parameters (u = 256, 512, 768 and up to :data:`MAX_LAYERS` layers
+for the bf16 ones, up to 1280 for the int8 one), and a streamed route for
+every other shape, in the same source, that reads each layer's input back
+from device memory by TMA and the weights' maps from a device table built
+once per packed state (:func:`mlp_table_layout`); the plans pick the route
+by shape (:func:`ray_march_mlp_plan`, :func:`mlp_backward_plan`,
+:func:`ray_march_mlp_int8_plan`). ``mlp_weight_grad`` splits a call of more
+than :data:`MAX_WG_TASKS` arrays or :data:`MAX_WG_TILES` tiles over
+launches (:func:`weight_grad_plan`) with the same bits.
+
 Each kernel is reached through a :class:`KernelWrapper`: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version, and
 ``launches`` counts kernel launches only. The plain versions repeat the
@@ -60,6 +73,7 @@ matters), so the CPU tests hold them against the JAX package and
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -82,7 +96,7 @@ LANE = 128
 D_HEAD = 16        # head cotangent columns: rgb 0..2 (sigma after features)
 ENC_XYZ_OFF = 0    # xyz encoding block occupies lanes [0, 64)
 ENC_DIR_OFF = 64   # dir encoding block occupies lanes [64, 128)
-MAX_LAYERS = 16    # csrc/ray_march_mlp.cu: kMaxLayers
+MAX_LAYERS = 16    # csrc/mlp.cuh: kMaxLayers, the resident kernels' arrays
 
 
 def _f32(x: float) -> float:
@@ -104,12 +118,14 @@ _SIN_COEFFS = tuple(_f32(c) for c in (
 
 def kernel_supported(config, pos_emb_xyz: int,
                      pos_emb_dir: int) -> bool:
-    """Static shape envelope of the kernels (the JAX package's envelope)."""
+    """Static shape envelope of the kernels, the JAX package's
+    (`ray_march.py:98-104`): ``dense_units`` a multiple of 256, any number
+    of layers. Past the resident kernels' widths and depths the plans route
+    a model to the streamed kernels (:func:`ray_march_mlp_plan`)."""
     u = config.dense_units
     return (u % LANE == 0 and (u // 2) % LANE == 0
             and encoded_dim(3, pos_emb_xyz) <= 64
-            and encoded_dim(3, pos_emb_dir) <= 64
-            and config.n_layers <= MAX_LAYERS)
+            and encoded_dim(3, pos_emb_dir) <= 64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,9 +183,8 @@ def pack_mlp_params(params, config, pos_emb_xyz: int,
     if not kernel_supported(config, pos_emb_xyz, pos_emb_dir):
         raise ValueError(
             f"kernels require dense_units % {LANE} == 0, dense_units//2 % "
-            f"{LANE} == 0, encodings <= 64 dims and <= {MAX_LAYERS} layers "
-            f"(got units={u}, layers={config.n_layers}, Lx={pos_emb_xyz}, "
-            f"Ld={pos_emb_dir})")
+            f"{LANE} == 0 and encodings <= 64 dims (got units={u}, "
+            f"layers={config.n_layers}, Lx={pos_emb_xyz}, Ld={pos_emb_dir})")
     dev = params["sigma"]["kernel"].device
     in_x = encoded_dim(3, pos_emb_xyz)
     in_d = encoded_dim(3, pos_emb_dir)
@@ -490,10 +505,9 @@ def ray_march_quadrature_plain(rgbs: torch.Tensor, t: torch.Tensor,
                          "sigma_only")
     rgb = rgbs[..., :3]
     d_image = (image - target) * _f32(loss_scale)
-    inside = (pre_clip > 0.0) & (pre_clip < 1.0)
-    boundary = (pre_clip == 0.0) | (pre_clip == 1.0)
-    d_pre = torch.where(inside, d_image,
-                        torch.where(boundary, 0.5 * d_image,
+    slope = clip_subgradient(pre_clip)
+    d_pre = torch.where(slope == 1.0, d_image,
+                        torch.where(slope == 0.5, 0.5 * d_image,
                                     torch.zeros_like(d_image)))
     d_w = (rgb * d_pre[:, None, :]).sum(dim=-1)
     if white_background:
@@ -509,6 +523,16 @@ def ray_march_quadrature_plain(rgbs: torch.Tensor, t: torch.Tensor,
                         device=t.device)
     d_rgb[:, :3] = (g_rgb * rgb * (1.0 - rgb)).reshape(r * s, 3)
     return (*out, d_rgb, d_sigma.reshape(r * s).to(torch.bfloat16))
+
+
+def clip_subgradient(pre_clip: torch.Tensor) -> torch.Tensor:
+    """The derivative of ``clip(x, 0, 1)`` that XLA's autodiff takes, per
+    composite: 1 inside (0, 1), 0.5 at exactly 0 or 1, 0 outside (ROADMAP
+    C5); float32, the shape of ``pre_clip``."""
+    one = torch.ones_like(pre_clip)
+    return torch.where((pre_clip > 0.0) & (pre_clip < 1.0), one,
+                       torch.where((pre_clip == 0.0) | (pre_clip == 1.0),
+                                   0.5 * one, 0.0 * one))
 
 
 def alloc_cotangents(points: int, units: int, n_layers: int,
@@ -754,38 +778,254 @@ def _sample_merge_cuda(cp, w, u, mp):
     return out
 
 
-def _mlp_struct(packed: dict, device: torch.device) -> _MlpWeights:
-    s = _MlpWeights()
+def _mlp_pointers(packed: dict, device: torch.device) -> dict:
+    """The device pointers of a packed dict's arrays (None where it has
+    None), each array checked for its device, type, contiguity and shape:
+    ``trunk_w``, ``trunk_enc_w`` and ``trunk_b`` as lists, then the heads
+    of :data:`MLP_HEAD_ARRAYS`."""
     n = len(packed["trunk_w"])
     u = packed["trunk_b"][0].shape[1]
-    if n > MAX_LAYERS or u % 256:
-        raise ValueError(f"ray_march_mlp supports <= {MAX_LAYERS} layers of "
-                         f"a multiple of 256 units (got {n} x {u})")
+    if u % 256:
+        raise ValueError(f"the MLP kernels take a multiple of 256 units "
+                         f"(got {u})")
     bf16, f32 = torch.bfloat16, torch.float32
+    out = {"trunk_w": [], "trunk_enc_w": [], "trunk_b": []}
     for i in range(n):
-        s.trunk_w[i] = _check(packed["trunk_w"][i], f"trunk_w[{i}]", bf16,
-                              device)
+        out["trunk_w"].append(_check(packed["trunk_w"][i], f"trunk_w[{i}]",
+                                     bf16, device, (LANE if i == 0 else u,
+                                                    u)))
         enc_w = packed["trunk_enc_w"][i]
-        s.trunk_enc_w[i] = (None if enc_w is None else
-                            _check(enc_w, f"trunk_enc_w[{i}]", bf16, device,
-                                   (LANE, u)))
-        s.trunk_b[i] = _check(packed["trunk_b"][i], f"trunk_b[{i}]", f32,
-                              device, (1, u))
-    s.w_sf = _check(packed["w_sf"], "w_sf", bf16, device, (u, u + LANE))
-    s.w_sf_enc = (None if packed["w_sf_enc"] is None else
-                  _check(packed["w_sf_enc"], "w_sf_enc", bf16, device,
-                         (LANE, u + LANE)))
-    s.b_sf = _check(packed["b_sf"], "b_sf", f32, device, (1, u + LANE))
-    s.w_rf_top = _check(packed["w_rf_top"], "w_rf_top", bf16, device,
-                        (u, u // 2))
-    s.w_rf_enc = _check(packed["w_rf_enc"], "w_rf_enc", bf16, device,
-                        (LANE, u // 2))
-    s.b_rf = _check(packed["b_rf"], "b_rf", f32, device, (1, u // 2))
-    s.w_rgb = _check(packed["w_rgb"], "w_rgb", bf16, device, (u // 2, LANE))
-    s.b_rgb = _check(packed["b_rgb"], "b_rgb", f32, device, (1, LANE))
+        out["trunk_enc_w"].append(
+            None if enc_w is None else
+            _check(enc_w, f"trunk_enc_w[{i}]", bf16, device, (LANE, u)))
+        out["trunk_b"].append(_check(packed["trunk_b"][i], f"trunk_b[{i}]",
+                                     f32, device, (1, u)))
+    shapes = {"w_sf": (bf16, (u, u + LANE)),
+              "w_sf_enc": (bf16, (LANE, u + LANE)),
+              "b_sf": (f32, (1, u + LANE)), "w_rf_top": (bf16, (u, u // 2)),
+              "w_rf_enc": (bf16, (LANE, u // 2)), "b_rf": (f32, (1, u // 2)),
+              "w_rgb": (bf16, (u // 2, LANE)), "b_rgb": (f32, (1, LANE))}
+    for name in MLP_HEAD_ARRAYS:
+        x = packed[name]
+        if x is None and name != "w_sf_enc":
+            raise ValueError(f"{name} is missing")
+        dtype, shape = shapes[name]
+        out[name] = None if x is None else _check(x, name, dtype, device,
+                                                  shape)
+    return out
+
+
+def _mlp_struct(packed: dict, device: torch.device) -> _MlpWeights:
+    """The resident kernels' ``MlpWeights``: at most :data:`MAX_LAYERS`
+    layers (the plans route deeper models to the streamed kernels)."""
+    ptrs = _mlp_pointers(packed, device)
+    n = len(ptrs["trunk_w"])
+    if n > MAX_LAYERS:
+        raise ValueError(f"the resident MLP kernels take at most "
+                         f"{MAX_LAYERS} layers (got {n})")
+    s = _MlpWeights()
+    for key in ("trunk_w", "trunk_enc_w", "trunk_b"):
+        for i, x in enumerate(ptrs[key]):
+            getattr(s, key)[i] = x
+    for name in MLP_HEAD_ARRAYS:
+        setattr(s, name, ptrs[name])
     s.n_layers = n
-    s.units = u
+    s.units = packed["trunk_b"][0].shape[1]
     return s
+
+
+# --------------------------------------------------------------------------
+# The device tables of the streamed kernels.
+
+MAP_BYTES = 128      # sizeof(CUtensorMap)
+TABLE_HEAD_MAPS = 5  # csrc/mlp.cuh: kTableHeadMaps
+# The heads of csrc/mlp.cuh's MlpHeads (and MlpWeights), in its order.
+MLP_HEAD_ARRAYS = ("w_sf", "w_sf_enc", "b_sf", "w_rf_top", "w_rf_enc",
+                   "b_rf", "w_rgb", "b_rgb")
+# The maps of csrc/mlp.cuh's TableHead, in its order.
+MLP_HEAD_MAPS = ("w_sf", "w_sf_enc", "w_rf_top", "w_rf_enc", "w_rgb")
+I8_TABLE_HEAD_MAPS = 4  # csrc/ray_march_mlp_int8.cu: streamed::kHeadMaps
+I8_HEAD_MAPS = ("w_feat", "w_feat_enc", "w_rf_top", "w_rf_enc")
+# The per-layer pointer arrays of csrc/ray_march_mlp_int8.cu's I8Table.
+I8_LAYER_POINTERS = ("trunk_u", "trunk_b", "trunk_r", "trunk_enc_u", "enc_r",
+                     "trunk_enc_w")
+
+
+def _table_layout(n_layers: int, head_maps: int, layer_pointers,
+                  head_pointers) -> dict:
+    """Byte offsets of a device table: ``2 n + head_maps`` tensor maps of
+    128 bytes (``trunk`` and ``trunk_enc``, n each, then ``head_maps``),
+    then n pointers for each of ``layer_pointers`` and the
+    ``head_pointers``; ``bytes`` in all."""
+    if n_layers < 1:
+        raise ValueError(f"a table needs at least one layer (got "
+                         f"{n_layers})")
+    n = n_layers
+    out = {"trunk": 0, "trunk_enc": MAP_BYTES * n,
+           "head_maps": 2 * MAP_BYTES * n}
+    off = MAP_BYTES * (2 * n + head_maps)
+    for name in layer_pointers:
+        out[name] = off
+        off += 8 * n
+    out["heads"] = off
+    out["bytes"] = off + 8 * len(head_pointers)
+    return out
+
+
+def mlp_table_layout(n_layers: int) -> dict:
+    """The layout of the device table that the streamed ``ray_march_mlp``
+    and ``mlp_backward`` kernels read (csrc/mlp.cuh: ``MlpTable``,
+    ``table_of``): the maps of ``trunk_w[i]`` and ``trunk_enc_w[i]``, then
+    :data:`MLP_HEAD_MAPS`; the pointers ``trunk_b`` and ``trunk_enc_w`` per
+    layer, then :data:`MLP_HEAD_ARRAYS`."""
+    return _table_layout(n_layers, TABLE_HEAD_MAPS, ("trunk_b",
+                                                     "trunk_enc_w"),
+                         MLP_HEAD_ARRAYS)
+
+
+def mlp_int8_table_layout(n_layers: int) -> dict:
+    """The layout of the device table that the streamed
+    ``ray_march_mlp_int8`` kernel reads (csrc/ray_march_mlp_int8.cu:
+    ``I8Table``): the maps of the transposed ``trunk_w[i]`` and
+    ``trunk_enc_w[i]``, then :data:`I8_HEAD_MAPS`'s; the pointers of
+    :data:`I8_LAYER_POINTERS` per layer, then the ``I8Heads`` of
+    ``_INT8_HEAD_ARRAYS``."""
+    return _table_layout(n_layers, I8_TABLE_HEAD_MAPS, I8_LAYER_POINTERS,
+                         _INT8_HEAD_ARRAYS)
+
+
+class _MapSpec(ctypes.Structure):
+    """Mirror of ``struct MapSpec`` in csrc/ray_march_mlp.cu."""
+
+    _fields_ = [("base", ctypes.c_void_p),
+                *((f, ctypes.c_int) for f in ("cols", "rows", "elem_bytes",
+                                              "box_rows"))]
+
+
+# Tables by the identity (address, shape, type) of every array they name: a
+# table is a function of those alone, so a hit is always right, also for an
+# address reused by another array of the same shape. A few packed states at
+# a time (a step's two models, a render's, a calibration's) are live.
+_TABLES: collections.OrderedDict = collections.OrderedDict()
+_TABLE_CACHE = 16
+
+
+def _identity(x):
+    return None if x is None else (x.data_ptr(), tuple(x.shape), x.dtype)
+
+
+def _device_table(maps, pointers, device: torch.device, lib) -> torch.Tensor:
+    """A device table (:func:`_table_layout`): ``maps`` as ``(array or None,
+    box_rows)``, each a 2-D array in boxes of 128 bytes x ``box_rows`` rows
+    with the 128-byte swizzle (zeros for None); ``pointers`` arrays or
+    None, in the layout's order. Encoded on the host
+    (csrc/ray_march_mlp.cu: ``knt_encode_maps``) and copied to ``device``
+    once per set of arrays: a later launch with the same arrays reuses it,
+    with no copy."""
+    key = (str(device), tuple((_identity(x), br) for x, br in maps),
+           tuple(_identity(x) for x in pointers))
+    table = _TABLES.get(key)
+    if table is not None:
+        _TABLES.move_to_end(key)
+        return table
+    specs = (_MapSpec * len(maps))()
+    for spec, (x, box_rows) in zip(specs, maps):
+        if x is not None:
+            spec.base = x.data_ptr()
+            spec.rows, spec.cols = x.shape
+            spec.elem_bytes = x.element_size()
+            spec.box_rows = box_rows
+    map_bytes = MAP_BYTES * len(maps)
+    host = np.zeros(map_bytes + 8 * len(pointers), np.uint8)
+    _raise_on_mapped(lib.knt_encode_maps(ctypes.addressof(specs), len(maps),
+                                         host.ctypes.data), "tensor maps")
+    host[map_bytes:].view(np.uint64)[:] = [
+        0 if x is None else x.data_ptr() for x in pointers]
+    table = torch.from_numpy(host).to(device)
+    _TABLES[key] = table
+    while len(_TABLES) > _TABLE_CACHE:
+        _TABLES.popitem(last=False)
+    return table
+
+
+def mlp_table_entries(packed: dict) -> tuple:
+    """``(maps, pointers)`` of a packed state's device table, in the order
+    of :func:`mlp_table_layout`: each map ``(array or None, box_rows)``, a
+    [64 x 64] bf16 box that both the forward (MN-major weights) and the dX
+    chain (K-major) read; each pointer an array or None."""
+    maps = [(w, 64) for w in [*packed["trunk_w"], *packed["trunk_enc_w"],
+                              *(packed[k] for k in MLP_HEAD_MAPS)]]
+    pointers = [*packed["trunk_b"], *packed["trunk_enc_w"],
+                *(packed[k] for k in MLP_HEAD_ARRAYS)]
+    return maps, pointers
+
+
+def _mlp_table(packed: dict, device: torch.device, lib) -> torch.Tensor:
+    """The device table of a packed state, its arrays checked as for the
+    resident kernels."""
+    _mlp_pointers(packed, device)
+    return _device_table(*mlp_table_entries(packed), device, lib)
+
+
+def _planes(blocks, points: int, units: int, device, name: str) -> int:
+    """The address of ``blocks`` (bf16 ``[points, units]`` each) read as one
+    ``[len(blocks), points, units]`` array, as the streamed kernels read the
+    stash's h (and features) and the cotangents' d_pre: each block must
+    follow the one before, as :func:`alloc_stash` and
+    :func:`alloc_cotangents` lay them out."""
+    first = blocks[0].data_ptr()
+    step = points * units * 2
+    for i, b in enumerate(blocks):
+        _check(b, f"{name}[{i}]", torch.bfloat16, device, (points, units))
+        if b.data_ptr() != first + i * step:
+            raise ValueError(f"the streamed MLP kernels read {name} as one "
+                             f"[{len(blocks)}, P, {units}] array: each block "
+                             f"must follow the one before (alloc_stash, "
+                             f"alloc_cotangents)")
+    return first
+
+
+def _mlp_streamed(packed, device, lib, sigma_only=False, stash=None,
+                  points=None, enc=None):
+    """The streamed forward (``knt_mlp_streamed``): ``points = (base, slope,
+    depths, masks)`` (``ray_march_mlp``'s modes) or ``enc`` (``apply_mlp``'s
+    input mode), with or without a stash."""
+    n, u = len(packed["trunk_w"]), packed["trunk_b"][0].shape[1]
+    table = _mlp_table(packed, device, lib)
+    f32, bf16 = torch.float32, torch.bfloat16
+    if points is not None:
+        base, slope, depths, masks = points
+        r, s = depths.shape
+        p = r * s
+        args = (_check(base, "base", f32, device, (r, LANE)),
+                _check(slope, "slope", f32, device, (r, LANE)),
+                _check(depths, "depths", f32, device),
+                _check(masks, "masks", f32, device, (3, LANE)), None)
+    else:
+        p, s = enc.shape[0], 1
+        args = (None, None, None, None, enc.data_ptr())
+    if p >= 2 ** 31:
+        raise ValueError(f"the MLP kernels take fewer than 2^31 points "
+                         f"(got {p})")
+    enc_out = rf_out = None
+    if stash is not None:
+        x = _planes([*stash["h"], stash["features"]], p, u, device,
+                    "stash h and features")
+        if points is not None:
+            enc_out = _check(stash["enc"], "stash enc", bf16, device,
+                             (p, LANE))
+        rf_out = _check(stash["rf"], "stash rf", bf16, device, (p, u // 2))
+    else:
+        scratch = torch.empty((2, p, u), dtype=bf16, device=device)
+        x = scratch.data_ptr()
+    out = torch.empty((p,) if sigma_only else (p, 4), dtype=f32,
+                      device=device)
+    with torch.cuda.device(device):
+        _raise_on_mapped(lib.knt_mlp_streamed(
+            table.data_ptr(), n, u, *args, out.data_ptr(), p, s,
+            int(sigma_only), x, int(stash is not None), enc_out, rf_out,
+            _stream(device)), "ray_march_mlp (streamed)")
+    return out
 
 
 class _MlpStash(ctypes.Structure):
@@ -822,6 +1062,7 @@ class _WgTask(ctypes.Structure):
         ("ldo", ctypes.c_int),
         ("poff", ctypes.c_int),
         ("bpoff", ctypes.c_int),
+        ("reduce", ctypes.c_int),
     ]
 
 
@@ -863,26 +1104,64 @@ FWD_STAGE_BYTES = 4 * 64 * 128  # [64 K x 256 N] bf16 as four 64 x 64 boxes
 FWD_MAX_UNITS = 768          # kMaxUnits
 FWD_FLOATS = 128 * 4 + FWD_MAX_UNITS + LANE + FWD_MAX_UNITS // 2 * 3  # kFloats
 
+# The streamed kernels (the streamed namespaces of csrc/ray_march_mlp.cu,
+# mlp_backward.cu and ray_march_mlp_int8.cu): 64 points a block, one
+# consumer warpgroup, output columns in passes of 128, a ring of 3 stages
+# of an activation slab ([64 points x 128 bytes]) and two weight boxes
+# ([64 x 128 bytes] each).
+STREAM_TILE = 64             # kTile
+STREAM_STAGES = 3            # kStages
+STREAM_PASS = 128            # kPass (kPart in the int8 kernel)
+STREAM_STAGE_BYTES = 3 * STREAM_TILE * 128  # kStageBytes
 
-def ray_march_mlp_plan(units: int) -> dict:
-    """The tile and shared memory of the ``ray_march_mlp`` kernel (and of
-    ``apply_mlp``, its input mode) at width ``units`` (mirrors
-    csrc/ray_march_mlp.cu). ``tile``: points per block, 128 at u = 256 (the
-    two consumer warpgroups take 64 rows each) and 64 at u = 512 and 768
-    (each takes half the columns, at 768 in ``passes`` of 128 columns);
-    ``smem_bytes``: the activation tile (``tile`` x u bf16), the encoding
-    tile (``tile`` x 128 bf16), the ring of weight stages, the heads'
-    float32 columns and partial sums, the mbarriers and 1 KB of alignment.
-    Raises on a width the kernel does not take."""
-    if units not in (256, 512, 768):
-        raise ValueError(f"ray_march_mlp takes dense_units 256, 512 or 768 "
-                         f"(got {units}): wider activation tiles of 64 "
-                         f"points leave no room for the ring in 227 KB")
+
+def _check_units(kernel: str, units: int) -> None:
+    if units < 256 or units % 256:
+        raise ValueError(f"{kernel} takes dense_units a multiple of 256 (got "
+                         f"{units}): the JAX package's envelope, dense_units "
+                         f"and dense_units / 2 multiples of 128")
+
+
+def _streamed_plan(units: int, resident_bytes: int) -> dict:
+    """The streamed kernels' plan: ``resident_bytes`` of shared memory kept
+    beside the ring (the encoding or head tile, partial sums, mbarriers)."""
+    smem = 1024 + STREAM_STAGES * STREAM_STAGE_BYTES + resident_bytes
+    return {"route": "streamed", "tile": STREAM_TILE, "split": "passes",
+            "passes": units // STREAM_PASS, "stages": STREAM_STAGES,
+            "stage_bytes": STREAM_STAGE_BYTES, "smem_bytes": smem,
+            "blocks_per_sm": 2 if 2 * (smem + 1024) <= SMEM_PER_SM else 1}
+
+
+def ray_march_mlp_plan(units: int, n_layers: int = 8) -> dict:
+    """The route, tile and shared memory of the ``ray_march_mlp`` kernel
+    (and of ``apply_mlp``, its input mode) for ``n_layers`` layers of
+    ``units`` (mirrors csrc/ray_march_mlp.cu).
+
+    ``route`` "resident" (u = 256, 512 or 768, at most :data:`MAX_LAYERS`
+    layers): the activation tile stays in shared memory. ``tile``: points
+    per block, 128 at u = 256 (the two consumer warpgroups take 64 rows
+    each) and 64 at u = 512 and 768 (each takes half the columns, at 768 in
+    ``passes`` of 128 columns); ``smem_bytes``: the activation tile
+    (``tile`` x u bf16), the encoding tile (``tile`` x 128 bf16), the ring
+    of weight stages, the heads' float32 columns and partial sums, the
+    mbarriers and 1 KB of alignment.
+
+    ``route`` "streamed" (any other multiple of 256, any depth): each
+    product's output goes to device memory and the next reads it back, so
+    ``smem_bytes`` (the ring, the encoding tile, the heads' partial sums,
+    the mbarriers) does not grow with the width. Raises, naming the width,
+    on one outside the JAX package's envelope."""
+    _check_units("ray_march_mlp", units)
+    if units > FWD_MAX_UNITS or n_layers > MAX_LAYERS:
+        return _streamed_plan(units, STREAM_TILE * 2 * LANE
+                              + 4 * 4 * STREAM_TILE
+                              + 8 * (2 * STREAM_STAGES + 2))
     tile = 64 if units == 768 else FWD_TILE_ELEMS // units
     smem = (1024 + 2 * tile * units + tile * 2 * LANE
             + FWD_STAGES * FWD_STAGE_BYTES + 4 * FWD_FLOATS
             + 8 * (2 * FWD_STAGES + 1))
-    return {"tile": tile, "split": "rows" if units == 256 else "columns",
+    return {"route": "resident", "tile": tile,
+            "split": "rows" if units == 256 else "columns",
             "passes": 3 if units == 768 else 1, "stages": FWD_STAGES,
             "smem_bytes": smem}
 
@@ -916,13 +1195,17 @@ def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
     dev = base.device
     r, s = depths.shape
     f32 = torch.float32
+    plan = ray_march_mlp_plan(packed["trunk_b"][0].shape[1],
+                              len(packed["trunk_w"]))
+    if stash is not None and sigma_only:
+        raise ValueError("the train mode (stash) runs the full MLP")
+    if plan["route"] == "streamed":
+        return _mlp_streamed(packed, dev, load() if lib is None else lib,
+                             sigma_only, stash, (base, slope, depths, masks))
     weights = _mlp_struct(packed, dev)
-    ray_march_mlp_plan(weights.units)
     lib = load() if lib is None else lib
     stash_s = None
     if stash is not None:
-        if sigma_only:
-            raise ValueError("the train mode (stash) runs the full MLP")
         stash_s = _stash_struct(stash, r * s, weights.units, weights.n_layers,
                                 dev)
     shape = (r * s,) if sigma_only else (r * s, 4)
@@ -946,16 +1229,21 @@ def _apply_mlp_cuda(packed, enc, stash=None, lib=None):
 
     dev = enc.device
     p = enc.shape[0]
-    weights = _mlp_struct(packed, dev)
-    ray_march_mlp_plan(weights.units)
-    lib = load() if lib is None else lib
+    plan = ray_march_mlp_plan(packed["trunk_b"][0].shape[1],
+                              len(packed["trunk_w"]))
     _check(enc, "enc", torch.bfloat16, dev, (p, LANE))
     if enc.data_ptr() % 16:
         raise ValueError("apply_mlp reads enc by TMA: its data must be "
                          "16-byte aligned")
-    stash_s = None
     if stash is not None:
         _check_stash_enc(enc, stash)
+    if plan["route"] == "streamed":
+        return _mlp_streamed(packed, dev, load() if lib is None else lib,
+                             stash=stash, enc=enc)
+    weights = _mlp_struct(packed, dev)
+    lib = load() if lib is None else lib
+    stash_s = None
+    if stash is not None:
         stash_s = _stash_struct(stash, p, weights.units, weights.n_layers,
                                 dev)
     out = torch.empty((p, 4), dtype=torch.float32, device=dev)
@@ -984,23 +1272,26 @@ class _MlpInt8Weights(ctypes.Structure):
     ]
 
 
-def _mlp_int8_struct(q: dict, device: torch.device) -> _MlpInt8Weights:
+def _mlp_int8_pointers(q: dict, device: torch.device) -> dict:
     """The device pointers of a :func:`quantize_packed` dict, each array
-    checked for its device, type, contiguity and shape; the int8 weights
-    are their ``[fan_out, fan_in]`` copies, the K-major operands of the
-    kernel's products, made once per quantized state
-    (:func:`~keras_nerf_tpu_torch.kernels.quantize.transposed_int8_weights`)
-    and kept in ``q``."""
+    checked for its device, type, contiguity and shape: per-layer lists
+    (``trunk_w``, ``trunk_u``, ``trunk_b``, ``trunk_r``, ``trunk_enc_w``,
+    ``trunk_enc_u``, ``enc_r``), then ``_INT8_HEAD_ARRAYS`` by name. The
+    int8 weights' pointers are their ``[fan_out, fan_in]`` copies, the
+    K-major operands of the kernel's products, made once per quantized
+    state (:func:`~keras_nerf_tpu_torch.kernels.quantize.
+    transposed_int8_weights`) and kept in ``q``."""
     from keras_nerf_tpu_torch.kernels.quantize import transposed_int8_weights
 
-    s = _MlpInt8Weights()
     n = len(q["trunk_w"])
     u = q["trunk_b"][0].shape[1]
-    if n > MAX_LAYERS or u % 256:
-        raise ValueError(f"ray_march_mlp_int8 supports <= {MAX_LAYERS} layers "
-                         f"of a multiple of 256 units (got {n} x {u})")
+    if u % 256:
+        raise ValueError(f"ray_march_mlp_int8 takes a multiple of 256 units "
+                         f"(got {u})")
     i8, f32 = torch.int8, torch.float32
     half = u // 2
+    s = {k: [] for k in ("trunk_w", "trunk_u", "trunk_b", "trunk_r",
+                         "trunk_enc_w", "trunk_enc_u", "enc_r")}
 
     def opt(x, name, dtype, shape):
         return None if x is None else _check(x, name, dtype, device, shape)
@@ -1009,12 +1300,12 @@ def _mlp_int8_struct(q: dict, device: torch.device) -> _MlpInt8Weights:
         fan = LANE if i == 0 else u
         opt(q["trunk_w"][i], f"trunk_w[{i}]", i8, (fan, u))
         for key in ("trunk_u", "trunk_b", "trunk_r"):
-            getattr(s, key)[i] = _check(q[key][i], f"{key}[{i}]", f32,
-                                        device, (1, u))
+            s[key].append(_check(q[key][i], f"{key}[{i}]", f32, device,
+                                 (1, u)))
         opt(q["trunk_enc_w"][i], f"trunk_enc_w[{i}]", i8, (LANE, u))
-        s.trunk_enc_u[i] = opt(q["trunk_enc_u"][i], f"trunk_enc_u[{i}]", f32,
-                               (1, u))
-        s.enc_r[i] = opt(q["enc_r"][i], f"enc_r[{i}]", f32, (1, LANE))
+        s["trunk_enc_u"].append(opt(q["trunk_enc_u"][i], f"trunk_enc_u[{i}]",
+                                    f32, (1, u)))
+        s["enc_r"].append(opt(q["enc_r"][i], f"enc_r[{i}]", f32, (1, LANE)))
         if i and (q["trunk_enc_w"][i] is None) != (q["enc_r"][i] is None):
             raise ValueError(f"layer {i}: trunk_enc_w and enc_r must both be "
                              f"given or both be None")
@@ -1037,20 +1328,61 @@ def _mlp_int8_struct(q: dict, device: torch.device) -> _MlpInt8Weights:
         dtype = i8 if name.startswith("w_") else f32
         if q[name] is None and name not in last:
             raise ValueError(f"{name} is missing")
-        setattr(s, name, opt(q[name], name, dtype, shapes[name]))
+        s[name] = opt(q[name], name, dtype, shapes[name])
     # The pointers the kernel reads: the transposed copies of every int8
     # array checked above.
     t = transposed_int8_weights(q)
-    for i in range(n):
-        s.trunk_w[i] = t["trunk_w"][i].data_ptr()
-        enc_w = t["trunk_enc_w"][i]
-        s.trunk_enc_w[i] = None if enc_w is None else enc_w.data_ptr()
+    s["trunk_w"] = [w.data_ptr() for w in t["trunk_w"]]
+    s["trunk_enc_w"] = [None if w is None else w.data_ptr()
+                        for w in t["trunk_enc_w"]]
     for name in _INT8_HEAD_ARRAYS:
         if name.startswith("w_"):
-            setattr(s, name, None if t[name] is None else t[name].data_ptr())
-    s.n_layers = n
-    s.units = u
+            s[name] = None if t[name] is None else t[name].data_ptr()
     return s
+
+
+def _mlp_int8_struct(q: dict, device: torch.device) -> _MlpInt8Weights:
+    """The resident kernel's ``MlpInt8Weights`` (at most
+    :data:`MAX_LAYERS` layers) from :func:`_mlp_int8_pointers`."""
+    ptrs = _mlp_int8_pointers(q, device)
+    n = len(ptrs["trunk_w"])
+    if n > MAX_LAYERS:
+        raise ValueError(f"the resident ray_march_mlp_int8 kernel takes at "
+                         f"most {MAX_LAYERS} layers (got {n})")
+    s = _MlpInt8Weights()
+    for key in ("trunk_w", "trunk_u", "trunk_b", "trunk_r", "trunk_enc_w",
+                "trunk_enc_u", "enc_r"):
+        for i, x in enumerate(ptrs[key]):
+            getattr(s, key)[i] = x
+    for name in _INT8_HEAD_ARRAYS:
+        setattr(s, name, ptrs[name])
+    s.n_layers = n
+    s.units = q["trunk_b"][0].shape[1]
+    return s
+
+
+def mlp_int8_table_entries(q: dict) -> tuple:
+    """``(maps, pointers)`` of a quantized state's device table, in the
+    order of :func:`mlp_int8_table_layout`: the transposed int8 weights
+    (made once per quantized state) in [64 rows x 128 K] boxes, and their
+    pointers where the kernel reads a weight."""
+    from keras_nerf_tpu_torch.kernels.quantize import transposed_int8_weights
+
+    t = transposed_int8_weights(q)
+    maps = [(w, 64) for w in [*t["trunk_w"], *t["trunk_enc_w"],
+                              *(t[k] for k in I8_HEAD_MAPS)]]
+    pointers = [x for key in I8_LAYER_POINTERS for x in
+                (t["trunk_enc_w"] if key == "trunk_enc_w" else q[key])]
+    pointers += [t[k] if k.startswith("w_") else q[k]
+                 for k in _INT8_HEAD_ARRAYS]
+    return maps, pointers
+
+
+def _mlp_int8_table(q: dict, device: torch.device, lib) -> torch.Tensor:
+    """The device table of a quantized state, its arrays checked as for the
+    resident kernel."""
+    _mlp_int8_pointers(q, device)
+    return _device_table(*mlp_int8_table_entries(q), device, lib)
 
 
 I8_TILE = 64         # csrc/ray_march_mlp_int8.cu: kTile, points per block
@@ -1061,34 +1393,43 @@ I8_MAX_STAGES = 4    # kMaxStages
 SMEM_PER_SM = 233472  # kSmemPerSm: 228 KB an SM, 1 KB of it per block
 
 
-def ray_march_mlp_int8_plan(units: int) -> dict:
-    """The tile, parts and shared memory of the ``ray_march_mlp_int8``
-    kernel at width ``units`` (mirrors csrc/ray_march_mlp_int8.cu).
-    ``tile``: 64 points per block; ``part``: output columns a product
-    takes at once, 128 up to u = 1024 and 64 above; ``stages``: ring
-    stages of ``[part x 128]`` int8 weights, 2 where two blocks then share
-    an SM (``blocks_per_sm``), else as many as fit, at most 4;
-    ``smem_bytes``: 1 KB of alignment, the two ping-pong code tiles, the
-    encoding's code tile and float32 tile, two parts' epilogue vectors
-    (four float32 per column), and the ring with its mbarriers.
-    Raises, naming the width, on one the kernel does not take: not a
-    multiple of 256, or too wide for two stages (above 1280)."""
+def ray_march_mlp_int8_plan(units: int, n_layers: int = 8) -> dict:
+    """The route, tile, parts and shared memory of the
+    ``ray_march_mlp_int8`` kernel for ``n_layers`` layers of ``units``
+    (mirrors csrc/ray_march_mlp_int8.cu).
+
+    ``route`` "resident" (u up to 1280, at most :data:`MAX_LAYERS` layers):
+    the code tiles stay in shared memory. ``tile``: 64 points per block;
+    ``part``: output columns a product takes at once, 128 up to u = 1024 and
+    64 above; ``stages``: ring stages of ``[part x 128]`` int8 weights, 2
+    where two blocks then share an SM (``blocks_per_sm``), else as many as
+    fit, at most 4; ``smem_bytes``: 1 KB of alignment, the two ping-pong
+    code tiles, the encoding's code tile and float32 tile, two parts'
+    epilogue vectors (four float32 per column), and the ring with its
+    mbarriers.
+
+    ``route`` "streamed" (any other multiple of 256, any depth): the codes
+    go through an int8 scratch in device memory, parts of 128 columns;
+    ``smem_bytes`` (the ring, the encoding's code tile, the mbarriers) does
+    not grow with the width. Raises, naming the width, on one outside the
+    JAX package's envelope."""
+    _check_units("ray_march_mlp_int8", units)
     part = 128 if units <= 1024 else 64
     fixed = (1024 + 2 * I8_TILE * units + I8_SLAB_BYTES + I8_ENC_BYTES
              + 2 * part * 16)
     stage = part * I8_KBOX + 16
     most = (SMEM_PER_BLOCK - fixed) // stage
-    if units < 256 or units % 256 or most < 2:
-        raise ValueError(f"ray_march_mlp_int8 takes dense_units a multiple "
-                         f"of 256 from 256 to 1280 (got {units}): its two "
-                         f"code tiles of 64 x dense_units bytes and a ring "
-                         f"of two weight stages must fit 227 KB")
+    if most < 2 or n_layers > MAX_LAYERS:
+        return {**_streamed_plan(units, I8_SLAB_BYTES
+                                 + 8 * (2 * STREAM_STAGES + 1)),
+                "part": STREAM_PASS}
     if 2 * (fixed + 2 * stage + 1024) <= SMEM_PER_SM:
         stages, blocks = 2, 2
     else:
         stages, blocks = min(I8_MAX_STAGES, most), 1
-    return {"tile": I8_TILE, "part": part, "stages": stages,
-            "blocks_per_sm": blocks, "smem_bytes": fixed + stages * stage}
+    return {"route": "resident", "tile": I8_TILE, "part": part,
+            "stages": stages, "blocks_per_sm": blocks,
+            "smem_bytes": fixed + stages * stage}
 
 
 def _ray_march_mlp_int8_cuda(q, base, slope, depths, masks, sigma_only=False,
@@ -1101,18 +1442,28 @@ def _ray_march_mlp_int8_cuda(q, base, slope, depths, masks, sigma_only=False,
     dev = base.device
     r, s = depths.shape
     f32 = torch.float32
-    ray_march_mlp_int8_plan(q["trunk_b"][0].shape[1])
-    weights = _mlp_int8_struct(q, dev)
+    n, u = len(q["trunk_w"]), q["trunk_b"][0].shape[1]
+    plan = ray_march_mlp_int8_plan(u, n)
     lib = load() if lib is None else lib
-    out = torch.empty((r * s,) if sigma_only else (r * s, 4), dtype=f32,
-                      device=dev)
-    with torch.cuda.device(dev):
-        _raise_on_mapped(lib.knt_ray_march_mlp_int8(
-            ctypes.addressof(weights),
-            _check(base, "base", f32, dev, (r, LANE)),
+    args = (_check(base, "base", f32, dev, (r, LANE)),
             _check(slope, "slope", f32, dev, (r, LANE)),
             _check(depths, "depths", f32, dev),
-            _check(masks, "masks", f32, dev, (3, LANE)), out.data_ptr(), r, s,
+            _check(masks, "masks", f32, dev, (3, LANE)))
+    out = torch.empty((r * s,) if sigma_only else (r * s, 4), dtype=f32,
+                      device=dev)
+    if plan["route"] == "streamed":
+        table = _mlp_int8_table(q, dev, lib)
+        scratch = torch.empty((2, r * s, u), dtype=torch.int8, device=dev)
+        with torch.cuda.device(dev):
+            _raise_on_mapped(lib.knt_ray_march_mlp_int8_streamed(
+                table.data_ptr(), n, u, *args, out.data_ptr(), r, s,
+                int(sigma_only), scratch.data_ptr(), _stream(dev)),
+                "ray_march_mlp_int8 (streamed)")
+        return out
+    weights = _mlp_int8_struct(q, dev)
+    with torch.cuda.device(dev):
+        _raise_on_mapped(lib.knt_ray_march_mlp_int8(
+            ctypes.addressof(weights), *args, out.data_ptr(), r, s,
             int(sigma_only), _stream(dev)), "ray_march_mlp_int8")
     return out
 
@@ -1167,27 +1518,38 @@ BWD_WIDE_STAGE_BYTES = 128 * 128  # kWideStageBytes: [64 K x 128 rows]
 SMEM_PER_BLOCK = 232448      # the H100's 227 KB of shared memory a block
 
 
-def mlp_backward_plan(units: int) -> dict:
-    """The tile and shared memory of the ``mlp_backward`` kernel at width
-    ``units`` (mirrors csrc/mlp_backward.cu). ``tile``: points per block,
-    128 at u = 256 (the two consumer warpgroups take 64 rows each) and 64
-    at u = 512 and 768 (each takes half the columns); ``stages`` of
-    ``stage_bytes``: the ring of weight slabs, 3 of 32 KB, or 2 of 16 KB at
-    u = 768, where the cotangent and mask tiles take 96 KB each;
-    ``smem_bytes``: those two tiles, the ring, the tile's ``d_sigma_pre``
-    (float32), the sigma column of ``w_sf`` (bf16), the mbarriers and 1 KB
-    of alignment. Raises on a width the kernel does not take."""
-    if units not in (256, 512, 768):
-        raise ValueError(f"mlp_backward takes dense_units 256, 512 or 768 "
-                         f"(got {units}): wider cotangent and mask tiles of "
-                         f"64 points leave no room for the ring in 227 KB")
+def mlp_backward_plan(units: int, n_layers: int = 8) -> dict:
+    """The route, tile and shared memory of the ``mlp_backward`` kernel for
+    ``n_layers`` layers of ``units`` (mirrors csrc/mlp_backward.cu).
+
+    ``route`` "resident" (u = 256, 512 or 768, at most :data:`MAX_LAYERS`
+    layers): the cotangent and mask tiles stay in shared memory. ``tile``:
+    points per block, 128 at u = 256 (the two consumer warpgroups take 64
+    rows each) and 64 at u = 512 and 768 (each takes half the columns);
+    ``stages`` of ``stage_bytes``: the ring of weight slabs, 3 of 32 KB, or
+    2 of 16 KB at u = 768, where the cotangent and mask tiles take 96 KB
+    each; ``smem_bytes``: those two tiles, the ring, the tile's
+    ``d_sigma_pre`` (float32), the sigma column of ``w_sf`` (bf16), the
+    mbarriers and 1 KB of alignment.
+
+    ``route`` "streamed" (any other multiple of 256, any depth): each
+    layer's cotangent, written to device memory for ``mlp_weight_grad``
+    anyway, is read back as the next layer's input and the masks come from
+    the stash, so ``smem_bytes`` (the ring, the head cotangent tile,
+    ``d_sigma_pre``, the mbarriers) does not grow with the width. Raises,
+    naming the width, on one outside the JAX package's envelope."""
+    _check_units("mlp_backward", units)
+    if units > 768 or n_layers > MAX_LAYERS:
+        return _streamed_plan(units, STREAM_TILE * 128 + 4 * STREAM_TILE
+                              + 8 * (2 * STREAM_STAGES + 1))
     wide = units == 768
     tile = 64 if wide else BWD_TILE_ELEMS // units
     stages, stage = ((BWD_WIDE_STAGES, BWD_WIDE_STAGE_BYTES) if wide
                      else (BWD_STAGES, BWD_STAGE_BYTES))
     smem = (1024 + 2 * 2 * tile * units + stages * stage + 4 * tile
             + 2 * units + 8 * (2 * stages + 2))
-    return {"tile": tile, "split": "rows" if units == 256 else "columns",
+    return {"route": "resident", "tile": tile,
+            "split": "rows" if units == 256 else "columns",
             "stages": stages, "stage_bytes": stage, "smem_bytes": smem}
 
 
@@ -1200,13 +1562,16 @@ def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None,
 
     dev = d_rgb.device
     p = d_rgb.shape[0]
-    weights = _mlp_struct(packed, dev)
-    u, n = weights.units, weights.n_layers
-    mlp_backward_plan(u)
+    u, n = packed["trunk_b"][0].shape[1], len(packed["trunk_w"])
+    plan = mlp_backward_plan(u, n)
     lib = load() if lib is None else lib
-    stash_s = _stash_struct(stash, p, u, n, dev)
     if cots is None:
         cots = alloc_cotangents(p, u, n, dev)
+    if plan["route"] == "streamed":
+        return _mlp_backward_streamed(d_rgb, d_sigma, packed, stash, cots,
+                                      from_output, lib)
+    weights = _mlp_struct(packed, dev)
+    stash_s = _stash_struct(stash, p, u, n, dev)
     bf16 = torch.bfloat16
     ct = _MlpCotangents()
     ct.d_rf = _check(cots["d_rf"], "d_rf", bf16, dev, (p, u // 2))
@@ -1232,6 +1597,41 @@ def _mlp_backward_cuda(d_rgb, d_sigma, packed, stash, cots=None,
                 ctypes.addressof(stash_s), ctypes.addressof(ct), p,
                 _stream(dev))
     _raise_on_mapped(err, "mlp_backward")
+    cots["d_rgb"] = d_rgb
+    return cots
+
+
+def _mlp_backward_streamed(d_rgb, d_sigma, packed, stash, cots, from_output,
+                           lib):
+    """The streamed ``mlp_backward`` (``knt_mlp_backward_streamed``), both
+    modes; the stash's h and the cotangents' d_pre each read as one
+    ``[n, P, u]`` array."""
+    dev = d_rgb.device
+    p = d_rgb.shape[0]
+    u, n = packed["trunk_b"][0].shape[1], len(packed["trunk_w"])
+    if p >= 2 ** 31:
+        raise ValueError(f"the MLP kernels take fewer than 2^31 points "
+                         f"(got {p})")
+    table = _mlp_table(packed, dev, lib)
+    bf16 = torch.bfloat16
+    h = _planes(stash["h"], p, u, dev, "stash h")
+    d_pre = _planes(cots["d_pre"], p, u, dev, "d_pre")
+    d_rf = _check(cots["d_rf"], "d_rf", bf16, dev, (p, u // 2))
+    d_sf = _check(cots["d_sf"], "d_sf", bf16, dev, (p, u + D_HEAD))
+    if from_output:
+        g, y = d_rgb, d_sigma
+        d_rgb = torch.empty((p, D_HEAD), dtype=bf16, device=dev)
+        heads = (None, None, _check(g, "g", bf16, dev, (p, 4)),
+                 _check(y, "y", torch.float32, dev, (p, 4)),
+                 d_rgb.data_ptr())
+    else:
+        heads = (_check(d_rgb, "d_rgb", bf16, dev, (p, D_HEAD)),
+                 _check(d_sigma, "d_sigma", bf16, dev, (p,)), None, None,
+                 None)
+    with torch.cuda.device(dev):
+        _raise_on_mapped(lib.knt_mlp_backward_streamed(
+            table.data_ptr(), n, u, *heads, h, d_rf, d_sf, d_pre, p,
+            _stream(dev)), "mlp_backward (streamed)")
     cots["d_rgb"] = d_rgb
     return cots
 
@@ -1265,8 +1665,10 @@ def weight_grad_plan(shapes, points: int) -> dict:
     of ``chunk`` points, a multiple of :data:`WG_STEP`, from 0; ``bounds``
     their ``[begin, end)``, only the last ending at ``points``), each
     task's offsets into the float32 partial buffer (``poff``: ``slices x
-    [K, N]``; ``bpoff``: then ``slices x [N]`` where it has a bias) and the
-    buffer's size ``partial_floats``."""
+    [K, N]``; ``bpoff``: then ``slices x [N]`` where it has a bias), the
+    buffer's size ``partial_floats``, and the ``launches`` of the call
+    (:func:`_wg_launches`): one, unless the call holds more than
+    :data:`MAX_WG_TASKS` tasks or :data:`MAX_WG_TILES` tiles."""
     tiles = []
     for j, (k, n, _) in enumerate(shapes):
         if k % WG_TILE_K or n % 16 or k <= 0 or n <= 0:
@@ -1288,7 +1690,37 @@ def weight_grad_plan(shapes, points: int) -> dict:
     return {"tiles": tiles, "slices": slices, "chunk": chunk,
             "bounds": [(s * chunk, min(points, (s + 1) * chunk))
                        for s in range(slices)],
-            "poff": poff, "bpoff": bpoff, "partial_floats": off}
+            "poff": poff, "bpoff": bpoff, "partial_floats": off,
+            "launches": _wg_launches(tiles)}
+
+
+def _wg_launches(tiles) -> list:
+    """The call's tiles split into launches of consecutive tiles, each with
+    at most :data:`MAX_WG_TILES` tiles of at most :data:`MAX_WG_TASKS`
+    tasks: ``{"tiles": (first, end), "tasks": [task, ...] (the table of the
+    launch, in order), "reduce": [task, ...]}``, ``reduce`` the tasks whose
+    last tile the launch holds, whose slices it adds into their
+    accumulators. Each block's tile, slice and partial offsets are the
+    plan's whatever the split, and a task is added up only after every
+    launch that writes its partials, in slice order: one result, bit for
+    bit."""
+    last = {tl[0]: i for i, tl in enumerate(tiles)}
+    launches, first, tasks = [], 0, []
+
+    def close(end):
+        launches.append({"tiles": (first, end), "tasks": tasks,
+                         "reduce": [j for j in tasks
+                                    if first <= last[j] < end]})
+
+    for i, (task, *_) in enumerate(tiles):
+        new = task not in tasks
+        if i - first == MAX_WG_TILES or (new and len(tasks) == MAX_WG_TASKS):
+            close(i)
+            first, tasks, new = i, [], True
+        if new:
+            tasks = tasks + [task]
+    close(len(tiles))
+    return launches
 
 
 def _mlp_weight_grad_cuda(stash, cots, grads):
@@ -1296,9 +1728,6 @@ def _mlp_weight_grad_cuda(stash, cots, grads):
 
     lib = load()
     tasks = weight_grad_tasks(stash, cots, grads)
-    if len(tasks) > MAX_WG_TASKS:
-        raise ValueError(f"mlp_weight_grad takes at most {MAX_WG_TASKS} "
-                         f"weight arrays (got {len(tasks)})")
     dev = stash["enc"].device
     p = stash["enc"].shape[0]
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1309,31 +1738,36 @@ def _mlp_weight_grad_cuda(stash, cots, grads):
                              f"{tuple(out.shape)} do not fit [K, >= N]")
     plan = weight_grad_plan([(a.shape[1], g.shape[1], bias is not None)
                              for a, g, _, bias in tasks], p)
-    if len(plan["tiles"]) > MAX_WG_TILES:
-        raise ValueError(f"mlp_weight_grad takes at most {MAX_WG_TILES} "
-                         f"tiles (got {len(plan['tiles'])})")
     if plan["partial_floats"] >= 2 ** 31:
         raise ValueError("mlp_weight_grad: partial sums exceed 2^31 floats")
-    table = (_WgTask * len(tasks))()
+    rows = []
     for j, (a, g, out, bias) in enumerate(tasks):
         k, n = a.shape[1], g.shape[1]
-        t = table[j]
-        t.a = _check(a, f"A[{j}]", bf16, dev, (p, k))
-        t.g = _check(g, f"G[{j}]", bf16, dev, (p, n))
-        t.out = _check(out, f"out[{j}]", f32, dev)
-        t.bias_out = (None if bias is None else
+        rows.append(dict(
+            a=_check(a, f"A[{j}]", bf16, dev, (p, k)),
+            g=_check(g, f"G[{j}]", bf16, dev, (p, n)),
+            out=_check(out, f"out[{j}]", f32, dev),
+            bias_out=(None if bias is None else
                       _check(bias, f"bias_out[{j}]", f32, dev,
-                             (1, out.shape[1])))
-        t.k, t.n, t.ldo = k, n, out.shape[1]
-        t.poff, t.bpoff = plan["poff"][j], plan["bpoff"][j]
-    tiles = (_WgTile * len(plan["tiles"]))(*plan["tiles"])
+                             (1, out.shape[1]))),
+            k=k, n=n, ldo=out.shape[1], poff=plan["poff"][j],
+            bpoff=plan["bpoff"][j]))
     partial = torch.empty((plan["partial_floats"],), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.knt_mlp_weight_grad(
-            ctypes.addressof(table), len(tasks), ctypes.addressof(tiles),
-            len(tiles), p, plan["slices"], plan["chunk"], partial.data_ptr(),
-            _stream(dev))
-    _raise_on_mapped(err, "mlp_weight_grad")
+    for launch in plan["launches"]:
+        local = {j: i for i, j in enumerate(launch["tasks"])}
+        table = (_WgTask * len(local))(*(
+            _WgTask(**rows[j], reduce=int(j in launch["reduce"]))
+            for j in launch["tasks"]))
+        first, end = launch["tiles"]
+        tiles = (_WgTile * (end - first))(*(
+            (local[j], m0, n0, nt) for j, m0, n0, nt in
+            plan["tiles"][first:end]))
+        with torch.cuda.device(dev):
+            err = lib.knt_mlp_weight_grad(
+                ctypes.addressof(table), len(local), ctypes.addressof(tiles),
+                len(tiles), p, plan["slices"], plan["chunk"],
+                partial.data_ptr(), _stream(dev))
+        _raise_on_mapped(err, "mlp_weight_grad")
     return grads
 
 

@@ -10,8 +10,11 @@ views, one epoch (5 steps) at a time, the first half of the epochs with
 the MSE and the rest with L1; after each epoch it holds the 16^2 card step
 against the CPU step for the MSE, for L1 as ``chip_smoke.py`` holds it
 (at the CPU's subgradient, ``_compare_l1_steps``) and for plain L1, each
-read against ``STEP_TOL``. For the MSE step it also prints every leaf's
-relative norm and relative max beside the leaf's conditioning
+read against ``STEP_TOL``; the MSE step as ``chip_smoke.py`` holds it (the
+CPU on the card's fine depths and near-edge clip decisions,
+``_compare_mse_steps``, ROADMAP C11), its unpinned reading beside it. For
+the MSE step it also prints every leaf's relative norm and relative max
+(each device on its own draws) beside the leaf's conditioning
 (:func:`conditioning`: a leaf that sums many terms of both signs to a
 small total amplifies the bf16 roundings of its terms by that factor), and
 the pixel-channels whose clip to [0, 1] decides differently on the card
@@ -239,8 +242,7 @@ def _read_states(cs, builds: dict, epochs: int) -> None:
             install()
             tag = f"state {epoch} (after an epoch of {loss}), {label} kernel"
             _per_leaf(cs, tag, nerf.state, small, cfg, kappa)
-            cs._compare_steps(f"{tag}: mse", nerf.state, small, cfg,
-                              ("cuda", None), ("cpu", None))
+            cs._compare_mse_steps(f"{tag}: mse", nerf.state, small, cfg)
             cs._compare_l1_steps(f"{tag}: l1 at the CPU's subgradient",
                                  nerf.state, small, cfg)
             cs._compare_steps(f"{tag}: plain l1", nerf.state, small, cfg,

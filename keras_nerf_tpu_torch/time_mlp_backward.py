@@ -2,7 +2,7 @@
 build of its source and against PyTorch's own calls for the same chain.
 
     python -m keras_nerf_tpu_torch.time_mlp_backward [--parent DIR] \\
-        [--iters 20] [--out FILE]
+        [--units 256,512,768] [--iters 20] [--out FILE]
 
 ``DIR`` is the ``keras_nerf_tpu_torch/kernels/csrc`` directory of another
 checkout (the parent commit unpacked with ``git archive`` into a directory
@@ -10,9 +10,12 @@ that ``.gitignore`` lists): its ``mlp_backward.cu`` is compiled alone, with
 this package's ``nvcc`` flags, into a library with the same C entry points,
 and launched through this package's wrapper (the same argument checks and
 structs). At the training chunk's coarse and fine launches, [2048 x 64] and
-[2048 x 192] points of the 8 x 256 MLP, and in both modes (quadrature,
-output head), it times in turns: parent, this tree, the PyTorch chain, this
-tree, parent; device ms per launch by CUDA events over ``iters`` launches,
+[2048 x 192] points of the 8-layer MLP of each of ``--units`` (256 by
+default), and in both modes (quadrature,
+output head), it times in turns: parent, this tree, this tree's streamed
+route (the kernel that the plan picks past u = 768 or 16 layers, forced
+here at the resident route's shapes), the PyTorch chain, the streamed
+route, this tree, parent; device ms per launch by CUDA events over ``iters`` launches,
 with a spin kernel holding the stream while the host enqueues them (as
 ``chip_smoke.py`` times). Each build is first held against the plain
 version (relative max of every cotangent). The card's name and power
@@ -74,10 +77,11 @@ def pytorch_chain(a, b, packed: dict, stash: dict, from_output=False):
     return run
 
 
-def make_inputs(points: int, device, seed: int = 0):
-    """Seeded weights of the 8 x 256 MLP, a random stash (about half of
-    each h_i above zero) and the head inputs of both modes."""
-    cfg = NeRFConfig()
+def make_inputs(points: int, device, seed: int = 0, units: int = 256):
+    """Seeded weights of the 8-layer MLP of width ``units``, a random stash
+    (about half of each h_i above zero) and the head inputs of both
+    modes."""
+    cfg = NeRFConfig(dense_units=units)
     g = torch.Generator(device=device).manual_seed(seed)
     packed = trm.pack_mlp_params(init_mlp(g, cfg.mlp, cfg.in_xyz,
                                           cfg.in_dir), cfg.mlp, 10, 4)
@@ -128,8 +132,10 @@ def _rel_max(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def measure(parent: Path | None = None, iters: int = 20) -> dict:
-    """The turns at both shapes in both modes; see the module's text."""
+def measure(parent: Path | None = None, iters: int = 20,
+            units=(256,)) -> dict:
+    """The turns at both shapes in both modes at each width; see the
+    module's text."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_mlp_backward needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -141,19 +147,24 @@ def measure(parent: Path | None = None, iters: int = 20) -> dict:
     q = "clocks.sm,power.draw,power.limit,temperature.gpu"
     out = {"card": _smi("name,power.limit"), "clocks": [
         {"when": "before the turns", q: _smi(q)}], "turns": {}, "errors": {}}
-    builds = {"new": None} if lib is None else {"new": None, "parent": lib}
-    for shape, points in SHAPES.items():
-        packed, stash, heads = make_inputs(points, dev)
-        cots = trm.alloc_cotangents(points, 256, 8, dev)
+    builds = {"new": None, "streamed": "streamed"}
+    if lib is not None:
+        builds["parent"] = lib
+    for width, (shape, points) in (
+            (w, item) for w in units for item in SHAPES.items()):
+        packed, stash, heads = make_inputs(points, dev, units=width)
+        cots = trm.alloc_cotangents(points, width, 8, dev)
         for mode in MODES:
             a, b = heads[mode]
             fo = mode == "output head"
-            key = f"{shape} {mode}"
+            key = f"{shape} {mode} at u {width}"
             want = trm.mlp_backward_plain(a, b, packed, stash,
                                           from_output=fo)
             calls = {label: (lambda lb=lb: trm._mlp_backward_cuda(
                 a, b, packed, stash, cots, from_output=fo, lib=lb))
-                for label, lb in builds.items()}
+                for label, lb in builds.items() if label != "streamed"}
+            calls["streamed"] = lambda: trm._mlp_backward_streamed(
+                a, b, packed, stash, cots, fo, _build.load())
             for label, call in calls.items():
                 got = call()
                 torch.cuda.synchronize()
@@ -164,7 +175,7 @@ def measure(parent: Path | None = None, iters: int = 20) -> dict:
                                          zip(got["d_pre"], want["d_pre"]))}
             chain = pytorch_chain(a, b, packed, stash, from_output=fo)
             order = (["parent"] if lib is not None else []) + [
-                "new", "pytorch chain", "new"] + (
+                "new", "streamed", "pytorch chain", "streamed", "new"] + (
                 ["parent"] if lib is not None else [])
             times = []
             for label in order:
@@ -184,10 +195,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="kernels/csrc directory of another checkout")
+    ap.add_argument("--units", default="256",
+                    help="comma-separated widths of the 8-layer MLP")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
-    res = measure(args.parent, args.iters)
+    res = measure(args.parent, args.iters,
+                  tuple(int(x) for x in args.units.split(",")))
     text = json.dumps(res)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -3,20 +3,24 @@ the card, in turns against another build of its source and against
 PyTorch's own calls for the same MLP.
 
     python -m keras_nerf_tpu_torch.time_ray_march_mlp [--parent DIR] \\
-        [--iters 20] [--out FILE]
+        [--units 256,512,768] [--iters 20] [--out FILE]
 
 ``DIR`` is the ``keras_nerf_tpu_torch/kernels/csrc`` directory of another
 checkout (the parent commit unpacked with ``git archive`` into a directory
 that ``.gitignore`` lists): its ``ray_march_mlp.cu`` is compiled alone,
 with this package's ``nvcc`` flags, into a library with the same C entry
 points, and launched through this package's wrappers (the same argument
-checks and structs). On the 8 x 256 MLP (seed-0 weights, sigma bias +1: a
-fog) it times every mode at the shapes of its path (:data:`SHAPES`): the
+checks and structs). On the 8-layer MLP of each of ``--units`` (256 by
+default; seed-0 weights, sigma bias +1: a fog) it times every mode at the
+shapes of its path (:data:`SHAPES`): the
 training chunk's train mode at [2048 x 64] and [2048 x 192], the render
 chunk's sigma-only [4096 x 64] and full [4096 x 192] modes, and
 ``apply_mlp`` without and with its stash at 131,072 and 393,216 points.
-At each it runs in turns: parent, this tree, the PyTorch chain, this tree,
-parent; device ms per launch by CUDA events over ``iters`` launches, with a
+At each it runs in turns: parent, this tree, this tree's streamed route
+(the kernel that the plans pick past u = 768 or 16 layers, whose weights'
+tensor maps come from a device table, forced here at the resident route's
+shapes), the PyTorch chain, the streamed route, this tree, parent; device
+ms per launch by CUDA events over ``iters`` launches, with a
 spin kernel holding the stream while the host enqueues them
 (``time_mlp_backward.time_ms``). Each build is first held against the
 plain version (largest absolute error of the outputs, relative max of
@@ -101,11 +105,12 @@ def pytorch_chain(packed: dict, enc: torch.Tensor, sigma_only=False):
     return run
 
 
-def make_inputs(rays: int, samples: int, device, seed: int = 0):
-    """Seeded fog weights of the 8 x 256 MLP, random rays' encoding
-    coefficients and sorted depths, and the same points encoded outside the
-    kernel (``encode_block128``)."""
-    cfg = NeRFConfig()
+def make_inputs(rays: int, samples: int, device, seed: int = 0,
+                units: int = 256):
+    """Seeded fog weights of the 8-layer MLP of width ``units``, random
+    rays' encoding coefficients and sorted depths, and the same points
+    encoded outside the kernel (``encode_block128``)."""
+    cfg = NeRFConfig(dense_units=units)
     g = torch.Generator(device=device).manual_seed(seed)
     params = init_mlp(g, cfg.mlp, cfg.in_xyz, cfg.in_dir)
     params["sigma"]["bias"] += 1.0
@@ -121,18 +126,28 @@ def make_inputs(rays: int, samples: int, device, seed: int = 0):
     return cfg, packed, (base, slope, t, masks), enc
 
 
+STREAMED = "streamed"   # the label of this tree's streamed route
+
+
 def _call(mode: str, packed, rm_args, enc, stash, lib=None, plain=False):
     """One launch of ``mode`` through this package's wrapper, on ``lib``'s
-    build (None: this package's library), or the plain version."""
+    build (None: this package's library; :data:`STREAMED`: its streamed
+    route, whatever the shape), or the plain version."""
     if mode in ("sigma_only", "full", "train"):
         kw = dict(sigma_only=mode == "sigma_only",
                   stash=stash if mode == "train" else None)
         if plain:
             return trm.ray_march_mlp_plain(packed, *rm_args, **kw)
+        if lib == STREAMED:
+            return trm._mlp_streamed(packed, enc.device, _build.load(),
+                                     points=rm_args, **kw)
         return trm._ray_march_mlp_cuda(packed, *rm_args, lib=lib, **kw)
     st = stash if mode == "input_stash" else None
     if plain:
         return trm.apply_mlp_plain(packed, enc, stash=st)
+    if lib == STREAMED:
+        return trm._mlp_streamed(packed, enc.device, _build.load(), stash=st,
+                                 enc=enc)
     return trm._apply_mlp_cuda(packed, enc, stash=st, lib=lib)
 
 
@@ -140,8 +155,9 @@ def _stash_blocks(stash: dict) -> list:
     return [stash["features"], stash["rf"], *stash["h"]]
 
 
-def measure(parent: Path | None = None, iters: int = 20) -> dict:
-    """The turns at every shape; see the module's text."""
+def measure(parent: Path | None = None, iters: int = 20,
+            units=(256,)) -> dict:
+    """The turns at every shape and width; see the module's text."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_ray_march_mlp needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -152,9 +168,14 @@ def measure(parent: Path | None = None, iters: int = 20) -> dict:
     q = "clocks.sm,power.draw,power.limit,temperature.gpu"
     out = {"card": _smi("name,power.limit"), "clocks": [
         {"when": "before the turns", q: _smi(q)}], "turns": {}, "errors": {}}
-    builds = {"new": None} if lib is None else {"new": None, "parent": lib}
-    for key, (mode, rays, samples) in SHAPES.items():
-        cfg, packed, rm_args, enc = make_inputs(rays, samples, dev)
+    builds = {"new": None, STREAMED: STREAMED}
+    if lib is not None:
+        builds["parent"] = lib
+    for width, (key, (mode, rays, samples)) in (
+            (w, item) for w in units for item in SHAPES.items()):
+        key = f"{key} at u {width}"
+        cfg, packed, rm_args, enc = make_inputs(rays, samples, dev,
+                                                units=width)
         u, n, p = cfg.dense_units, cfg.n_layers, rays * samples
         stash = (trm.alloc_stash(p, u, n, dev, enc=enc) if mode ==
                  "input_stash" else trm.alloc_stash(p, u, n, dev))
@@ -176,7 +197,7 @@ def measure(parent: Path | None = None, iters: int = 20) -> dict:
         chain = pytorch_chain(packed, chain_enc,
                               sigma_only=mode == "sigma_only")
         order = (["parent"] if lib is not None else []) + [
-            "new", "pytorch chain", "new"] + (
+            "new", STREAMED, "pytorch chain", STREAMED, "new"] + (
             ["parent"] if lib is not None else [])
         times = []
         for label in order:
@@ -197,10 +218,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="kernels/csrc directory of another checkout")
+    ap.add_argument("--units", default="256",
+                    help="comma-separated widths of the 8-layer MLP")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
-    res = measure(args.parent, args.iters)
+    res = measure(args.parent, args.iters,
+                  tuple(int(x) for x in args.units.split(",")))
     text = json.dumps(res)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -3,15 +3,15 @@ on the card, in turns against another build of its source and against
 PyTorch's own calls for the same int8 MLP.
 
     python -m keras_nerf_tpu_torch.time_ray_march_mlp_int8 [--parent DIR] \\
-        [--iters 20] [--out FILE]
+        [--units 256,512,768] [--iters 20] [--out FILE]
 
 ``DIR`` is the ``keras_nerf_tpu_torch/kernels/csrc`` directory of another
 checkout (the parent commit unpacked with ``git archive`` into a directory
 that ``.gitignore`` lists): its ``ray_march_mlp_int8.cu`` is compiled
 alone, with this package's ``nvcc`` flags, into a library with the same C
 entry point, and launched through this package's wrapper (the same checks,
-struct and transposed weights). The 8 x 256 MLP (seed-0 weights, sigma
-bias +1: a fog) is quantized on the card from the timed points themselves
+struct and transposed weights). The 8-layer MLP of each of ``--units`` (256
+by default; seed-0 weights, sigma bias +1: a fog) is quantized on the card from the timed points themselves
 (``collect_act_amax``, ``quantize_packed``), and the kernel is timed at the
 render chunk's shapes (:data:`SHAPES`): sigma-only [4096 x 64] (the coarse
 pass) and full [4096 x 192] (the fine pass). At each it runs in turns:
@@ -105,8 +105,9 @@ def pytorch_chain(q: dict, enc: torch.Tensor, sigma_only=False):
     return run
 
 
-def measure(parent: Path | None = None, iters: int = 20) -> dict:
-    """The turns at every shape; see the module's text."""
+def measure(parent: Path | None = None, iters: int = 20,
+            units=(256,)) -> dict:
+    """The turns at every shape and width; see the module's text."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_ray_march_mlp_int8 needs an NVIDIA card")
     dev = torch.device("cuda")
@@ -118,8 +119,11 @@ def measure(parent: Path | None = None, iters: int = 20) -> dict:
         {"when": "before the turns", q_smi: _smi(q_smi)}], "turns": {},
         "errors": {}}
     builds = {"new": None} if lib is None else {"new": None, "parent": lib}
-    for key, (sigma_only, rays, samples) in SHAPES.items():
-        cfg, packed, rm_args, enc = make_inputs(rays, samples, dev)
+    for width, (key, (sigma_only, rays, samples)) in (
+            (w, item) for w in units for item in SHAPES.items()):
+        key = f"{key} at u {width}"
+        cfg, packed, rm_args, enc = make_inputs(rays, samples, dev,
+                                                units=width)
         q = tq.quantize_packed(packed, tq.collect_act_amax(packed, enc,
                                                            cfg.mlp), cfg.mlp)
         tq.transposed_int8_weights(q)
@@ -157,10 +161,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="kernels/csrc directory of another checkout")
+    ap.add_argument("--units", default="256",
+                    help="comma-separated widths of the 8-layer MLP")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
-    res = measure(args.parent, args.iters)
+    res = measure(args.parent, args.iters,
+                  tuple(int(x) for x in args.units.split(",")))
     text = json.dumps(res)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

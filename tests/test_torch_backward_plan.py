@@ -2,12 +2,15 @@
 
 The kernel runs only on the card (``tests/test_torch_cuda.py``). What it
 takes is decided in Python by :func:`mlp_backward_plan`, which mirrors
-``csrc/mlp_backward.cu``: a block of 128 points at u = 256 and 64 at
-u = 512, whose cotangent and mask tiles are 64 KB each, beside a ring of
-three 32 KB weight slabs; at u = 768 64 points, tiles of 96 KB and a ring
-of two 16 KB slabs; within the H100's 227 KB of shared memory a block.
-Every other width raises, naming the width, before anything is built or
-launched (ROADMAP C12).
+``csrc/mlp_backward.cu``. Its resident route (u = 256, 512 and 768, up to
+16 layers): a block of 128 points at u = 256 and 64 at u = 512, whose
+cotangent and mask tiles are 64 KB each, beside a ring of three 32 KB
+weight slabs; at u = 768 64 points, tiles of 96 KB and a ring of two 16 KB
+slabs; within the H100's 227 KB of shared memory a block. Its streamed
+route (every other multiple of 256, any depth: ROADMAP C12): 64 points,
+each layer's cotangent read back from device memory, the same shared
+memory at every width. A width outside the JAX package's envelope raises,
+naming the width, before anything is built or launched.
 """
 
 import re
@@ -34,6 +37,7 @@ def _constant(name: str) -> str:
                                               (768, 64, "columns")])
 def test_plan_fits_the_tiles_in_227_kb(units, tile, split):
     plan = trm.mlp_backward_plan(units)
+    assert plan["route"] == "resident"
     assert plan["tile"] == tile and plan["split"] == split
     assert (plan["stages"], plan["stage_bytes"]) == (
         (2, 16384) if units == 768 else (3, 32768))
@@ -45,11 +49,40 @@ def test_plan_fits_the_tiles_in_227_kb(units, tile, split):
     assert plan["smem_bytes"] <= trm.SMEM_PER_BLOCK == 227 * 1024
 
 
-@pytest.mark.parametrize("units", [0, 128, 384, 640, 1024])
+@pytest.mark.parametrize("units", [0, 128, 384, 640, 1000])
 def test_plan_refuses_other_widths_by_name(units):
-    with pytest.raises(ValueError, match=rf"dense_units 256, 512 or 768 "
+    # Outside the JAX package's envelope: not a multiple of 256.
+    with pytest.raises(ValueError, match=rf"dense_units a multiple of 256 "
                                          rf"\(got {units}\)"):
         trm.mlp_backward_plan(units)
+
+
+def _streamed_constants() -> dict:
+    body = SOURCE[SOURCE.index("namespace streamed {"):]
+    env = {}
+    for name in ("kTile", "kStages", "kABytes", "kStageBytes", "kPass",
+                 "kSmemBytes"):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", body)
+        assert m is not None, name
+        env[name] = eval(" ".join(m.group(1).split("//")[0].split()), {},
+                         env)
+    return env
+
+
+# (units, layers): the widths the resident tiles cannot hold (1024 refused
+# before the streamed route), up to 8192, and depths past 16 layers.
+@pytest.mark.parametrize("units,n_layers", [
+    (1024, 8), (1536, 8), (2048, 3), (8192, 3), (256, 17), (256, 40),
+    (768, 17)])
+def test_plan_streams_wider_and_deeper_models(units, n_layers):
+    plan = trm.mlp_backward_plan(units, n_layers)
+    env = _streamed_constants()
+    assert plan["route"] == "streamed"
+    assert (plan["tile"], plan["stages"], plan["stage_bytes"]) == (
+        env["kTile"], env["kStages"], env["kStageBytes"]) == (64, 3, 24576)
+    assert plan["passes"] == units // env["kPass"]
+    assert plan["smem_bytes"] == env["kSmemBytes"] <= trm.SMEM_PER_BLOCK
+    assert plan["blocks_per_sm"] == 2
 
 
 @pytest.mark.parametrize("name,mirror", [
@@ -78,18 +111,21 @@ def test_kernel_source_checks_the_same_limit():
     assert trm.SMEM_PER_BLOCK == 232448
 
 
-def test_wrapper_refuses_a_width_before_building_or_launching():
+def test_wrapper_refuses_a_width_before_building_or_launching(monkeypatch):
     """On CUDA tensors the wrapper checks the plan before it loads the
     library; its launch function raises here too, on the CPU, where no
     compiler exists, so the check comes first."""
-    cfg = NeRFConfig(n_layers=2, dense_units=1024, skip_layer=1)
+    # 384 is outside the JAX package's envelope, so pack_mlp_params refuses
+    # it too: let it pack one.
+    monkeypatch.setattr(trm, "kernel_supported", lambda *a: True)
+    cfg = NeRFConfig(n_layers=2, dense_units=384, skip_layer=1)
     params = init_mlp(torch.Generator().manual_seed(0), cfg.mlp, cfg.in_xyz,
                       cfg.in_dir)
     packed = trm.pack_mlp_params(params, cfg.mlp, 10, 4)
-    stash = trm.alloc_stash(8, 1024, 2, torch.device("cpu"))
+    stash = trm.alloc_stash(8, 384, 2, torch.device("cpu"))
     d_rgb = torch.zeros((8, trm.D_HEAD), dtype=torch.bfloat16)
     d_sigma = torch.zeros(8, dtype=torch.bfloat16)
     before = trm.mlp_backward.launches
-    with pytest.raises(ValueError, match="1024"):
+    with pytest.raises(ValueError, match="384"):
         trm._mlp_backward_cuda(d_rgb, d_sigma, packed, stash)
     assert trm.mlp_backward.launches == before

@@ -90,12 +90,12 @@ def test_ray_march_mlp_matches_plain(cuda_device, n_layers, skip,
     assert float((got - want).abs().max()) <= 3e-2
 
 
-def _fwd_inputs(device, units, rays, samples, seed=7):
-    """Seeded weights of an 8-layer MLP of width ``units`` (a fog: sigma
-    bias +1, so every head and every layer carries a value), random rays'
-    encoding coefficients and depths, and the same points encoded outside
-    the kernel for the input mode."""
-    cfg = NeRFConfig(dense_units=units)
+def _fwd_inputs(device, units, rays, samples, seed=7, n_layers=8):
+    """Seeded weights of an ``n_layers``-layer MLP (skip 4) of width
+    ``units`` (a fog: sigma bias +1, so every head and every layer carries
+    a value), random rays' encoding coefficients and depths, and the same
+    points encoded outside the kernel for the input mode."""
+    cfg = NeRFConfig(dense_units=units, n_layers=n_layers)
     g = torch.Generator(device=device).manual_seed(seed)
     params = init_mlp(g, cfg.mlp, cfg.in_xyz, cfg.in_dir)
     params["sigma"]["bias"] += 1.0
@@ -127,15 +127,18 @@ def _forward(mode, cfg, packed, rm_args, enc, plain=False):
     return f(packed, enc, stash=stash), stash
 
 
-# (units, rays, samples): no point; one block's 50 rows (a ragged tile that
-# TMA and the prologue fill with zeros, no store past P); 17 past a whole
-# number of tiles; u = 512 (64-point tiles, each warpgroup half the
-# columns); u = 768 (each half in passes of 128 columns, ROADMAP C10); and
-# the training chunk's fine launch.
+# (units, rays, samples[, layers]): no point; one block's 50 rows (a ragged
+# tile that TMA and the prologue fill with zeros, no store past P); 17 past
+# a whole number of tiles; u = 512 (64-point tiles, each warpgroup half the
+# columns); u = 768 (each half in passes of 128 columns, ROADMAP C10); the
+# training chunk's fine launch; and the streamed route (ROADMAP C12): u =
+# 1024 and 2048, and 40 layers of 256.
 _FWD_EDGES = {"empty": (256, 0, 64), "ragged_50": (256, 5, 10),
               "ragged_8192_plus_17": (256, 8209, 1),
               "units_512": (512, 17, 241), "units_768": (768, 17, 241),
-              "fine_chunk_2048x192": (256, 2048, 192)}
+              "fine_chunk_2048x192": (256, 2048, 192),
+              "units_1024": (1024, 17, 241), "units_2048": (2048, 17, 241),
+              "layers_40": (256, 17, 241, 40)}
 _FWD_MODES = ("sigma_only", "full", "train", "input", "input_stash")
 
 
@@ -146,9 +149,10 @@ def test_forward_matches_plain_at_edge_shapes(cuda_device, case, mode):
     without and with its stash) against its plain version, each run twice
     with identical bits; budgets as above: outputs 3e-2, kept activations
     relative max 3e-2 and relative norm 1e-2."""
-    units, rays, samples = _FWD_EDGES[case]
+    units, rays, samples, *layers = _FWD_EDGES[case]
     cfg, packed, rm_args, enc = _fwd_inputs(cuda_device, units, rays,
-                                            samples)
+                                            samples, n_layers=(layers or
+                                                               [8])[0])
     kernel = trm.apply_mlp if mode.startswith("input") else trm.ray_march_mlp
     before = kernel.launches
     runs = [_forward(mode, cfg, packed, rm_args, enc) for _ in range(2)]
@@ -173,14 +177,16 @@ def test_forward_matches_plain_at_edge_shapes(cuda_device, case, mode):
             _assert_bf16_close(x, z, 3e-2, case)
 
 
-def test_forward_refuses_other_widths_before_launching(cuda_device):
-    # 1024, the first width of the JAX envelope the kernel does not take
-    # (ROADMAP C12).
-    cfg, packed, rm_args, enc = _fwd_inputs(cuda_device, 1024, 4, 16)
+def test_forward_refuses_other_widths_before_launching(cuda_device,
+                                                      monkeypatch):
+    # 384, outside the JAX package's envelope (384 / 2 is not a multiple of
+    # 128): pack_mlp_params refuses it too, so let it pack one.
+    monkeypatch.setattr(trm, "kernel_supported", lambda *a: True)
+    cfg, packed, rm_args, enc = _fwd_inputs(cuda_device, 384, 4, 16)
     before = (trm.ray_march_mlp.launches, trm.apply_mlp.launches)
-    with pytest.raises(ValueError, match="1024"):
+    with pytest.raises(ValueError, match="384"):
         trm.ray_march_mlp(packed, *rm_args)
-    with pytest.raises(ValueError, match="1024"):
+    with pytest.raises(ValueError, match="384"):
         trm.apply_mlp(packed, enc)
     assert (trm.ray_march_mlp.launches, trm.apply_mlp.launches) == before
 
@@ -335,13 +341,13 @@ def test_mlp_backward_matches_plain(cuda_device, n_layers, skip):
         _assert_bf16_close(got["d_pre"][i], want["d_pre"][i], 3e-2, i)
 
 
-def _bwd_inputs(device, points, units, seed=0):
+def _bwd_inputs(device, points, units, seed=0, n_layers=8):
     """Seeded weights, a random stash (about half of each h_i above zero,
     so every relu mask is mixed) and the head inputs of both modes: the
     quadrature's ``d_rgb [P, 16]`` (columns 0..2) and ``d_sigma [P]``, and
     T6's ``g [P, 4]`` bf16 with ``y [P, 4]`` (sigmoid-like rgb, relu
     sigma with zeros)."""
-    cfg = NeRFConfig(dense_units=units)
+    cfg = NeRFConfig(dense_units=units, n_layers=n_layers)
     g = torch.Generator(device=device).manual_seed(seed)
     packed = trm.pack_mlp_params(init_mlp(g, cfg.mlp, cfg.in_xyz,
                                           cfg.in_dir), cfg.mlp, 10, 4)
@@ -369,14 +375,17 @@ def _assert_backward_close(got, want, n_layers, label):
                            (label, i))
 
 
-# (units, points): u = 512 (64-point tiles, each warpgroup half the
-# columns), u = 768 (each half in passes of 128 columns from a ring of two
-# 16 KB stages, ROADMAP C10), a point count 17 past a tile and one below a
-# single tile (TMA's zero rows, no store past P), and the training chunk's
-# fine launch.
+# (units, points[, layers]): u = 512 (64-point tiles, each warpgroup half
+# the columns), u = 768 (each half in passes of 128 columns from a ring of
+# two 16 KB stages, ROADMAP C10), a point count 17 past a tile and one below
+# a single tile (TMA's zero rows, no store past P), the training chunk's
+# fine launch, and the streamed route (ROADMAP C12): u = 1024 and 2048, and
+# 40 layers of 256.
 _BWD_EDGES = {"units_512": (512, 4096 + 1), "units_768": (768, 4096 + 1),
               "ragged_8192_plus_17": (256, 8209),
-              "ragged_50": (256, 50), "fine_chunk_2048x192": (256, 2048 * 192)}
+              "ragged_50": (256, 50), "fine_chunk_2048x192": (256, 2048 * 192),
+              "units_1024": (1024, 4096 + 1), "units_2048": (2048, 4096 + 1),
+              "layers_40": (256, 4096 + 1, 40)}
 
 
 @pytest.mark.parametrize("from_output", [False, True],
@@ -386,8 +395,10 @@ def test_mlp_backward_matches_plain_at_edge_shapes(cuda_device, case,
                                                    from_output):
     """Both modes against the plain version, each run twice with identical
     bits; budgets as the chain's tests above."""
-    units, points = _BWD_EDGES[case]
-    packed, stash, quad_in, out_in = _bwd_inputs(cuda_device, points, units)
+    units, points, *layers = _BWD_EDGES[case]
+    n_layers = (layers or [8])[0]
+    packed, stash, quad_in, out_in = _bwd_inputs(cuda_device, points, units,
+                                                 n_layers=n_layers)
     a, b = out_in if from_output else quad_in
     want = trm.mlp_backward_plain(a, b, packed, stash,
                                   from_output=from_output)
@@ -396,7 +407,7 @@ def test_mlp_backward_matches_plain_at_edge_shapes(cuda_device, case,
     torch.cuda.synchronize()
     for x, y in zip(*(engine.tree_leaves(r) for r in runs)):
         assert torch.equal(x, y), case
-    _assert_backward_close(runs[0], want, 8, case)
+    _assert_backward_close(runs[0], want, n_layers, case)
 
 
 def test_mlp_backward_repeats_bit_for_bit(cuda_device):
@@ -412,15 +423,19 @@ def test_mlp_backward_repeats_bit_for_bit(cuda_device):
         assert torch.equal(x, y)
 
 
-def test_mlp_backward_refuses_other_widths_before_launching(cuda_device):
-    packed, stash, (d_rgb, d_sigma), _ = _bwd_inputs(cuda_device, 64, 1024)
+def test_mlp_backward_refuses_other_widths_before_launching(cuda_device,
+                                                           monkeypatch):
+    # 384, outside the JAX package's envelope: let pack_mlp_params pack it.
+    monkeypatch.setattr(trm, "kernel_supported", lambda *a: True)
+    packed, stash, (d_rgb, d_sigma), _ = _bwd_inputs(cuda_device, 64, 384)
     before = trm.mlp_backward.launches
-    with pytest.raises(ValueError, match="1024"):
+    with pytest.raises(ValueError, match="384"):
         trm.mlp_backward(d_rgb, d_sigma, packed, stash)
     assert trm.mlp_backward.launches == before
 
 
-@pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1)])
+# (40, 4): 53 weight arrays, more than one launch holds (ROADMAP C12).
+@pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1), (40, 4)])
 def test_mlp_weight_grad_matches_plain_and_repeats_bit_for_bit(
         cuda_device, n_layers, skip):
     cfg, packed, base, slope, t, masks, target = _train_inputs(
@@ -669,8 +684,8 @@ def test_ray_march_mlp_int8_matches_plain(cuda_device, n_layers, skip,
 @functools.lru_cache(maxsize=None)
 def _int8_state_cpu(units, n_layers, skip, seed=6):
     """A fog's weights of width ``units``, quantized on the CPU from 512
-    points of its own rays (the plain forward's stash: the bf16 kernels
-    take no width above 768, ROADMAP C12)."""
+    points of its own rays (the plain forward's stash), so that the int8
+    kernel is held on states that no bf16 kernel made."""
     from keras_nerf_tpu_torch.kernels import quantize as tq
 
     cpu = torch.device("cpu")
@@ -700,13 +715,14 @@ _INT8_POINTS = {"empty": (0, 64), "ragged_50": (5, 10),
                          ids=["no_last_skip", "last_skip"])
 @pytest.mark.parametrize("sigma_only", [True, False])
 @pytest.mark.parametrize("case", sorted(_INT8_POINTS))
-@pytest.mark.parametrize("units", [256, 512, 768, 1280])
+@pytest.mark.parametrize("units", [256, 512, 768, 1280, 1536, 2048])
 def test_ray_march_mlp_int8_matches_plain_at_edge_shapes(
         cuda_device, units, case, sigma_only, layers):
     """T4 on wgmma s8 against its plain version at every part width (128
     columns up to u = 1024, 64 at 1280) and ring depth (2 stages at u =
-    256, 4 at 512 and 768, 3 at 1280), with and without the last layer's
-    encoding product, each run twice with identical bits; 1e-3 as above."""
+    256, 4 at 512 and 768, 3 at 1280), and on the streamed route at 1536
+    and 2048 (ROADMAP C12), with and without the last layer's encoding
+    product, each run twice with identical bits; 1e-3 as above."""
     from keras_nerf_tpu_torch.models.engine import tree_map
 
     q = tree_map(lambda x: None if x is None else x.to(cuda_device),
@@ -735,6 +751,36 @@ def test_ray_march_mlp_int8_matches_plain_at_edge_shapes(
         assert float((got - want).abs().max()) <= 1e-3
         sigma = got if sigma_only else got[:, 3]
         assert float(sigma.max()) > 0.1          # the fog is not empty
+
+
+@pytest.mark.parametrize("sigma_only", [True, False])
+def test_ray_march_mlp_int8_streamed_at_40_layers_matches_plain(cuda_device,
+                                                               sigma_only):
+    """T4's streamed route at 40 layers of 256 (skip 4: nine encoding
+    sites, past the resident kernel's 16 layers of tensor maps, ROADMAP
+    C12), twice with identical bits; 1e-3 as above."""
+    from keras_nerf_tpu_torch.models.engine import tree_map
+
+    q = tree_map(lambda x: None if x is None else x.to(cuda_device),
+                 _int8_state_cpu(256, 40, 4))
+    assert trm.ray_march_mlp_int8_plan(256, 40)["route"] == "streamed"
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    o = torch.zeros(257, 3, device=cuda_device)
+    o[:, 2] = 4.0
+    d = torch.nn.functional.normalize(
+        torch.randn(257, 3, generator=g, device=cuda_device), dim=-1)
+    t = torch.sort(torch.rand(257, 64, generator=g, device=cuda_device) * 4
+                   + 2, dim=-1).values
+    base, slope, masks = trm.ray_encoding_coeffs(o, d, 10, 4)
+    got, again = (trm.ray_march_mlp_int8(q, base, slope, t, masks,
+                                         sigma_only=sigma_only)
+                  for _ in range(2))
+    want = trm.ray_march_mlp_int8.plain(q, base, slope, t, masks,
+                                        sigma_only=sigma_only)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-3
 
 
 def test_nerf_at_768_units_renders_and_trains_through_the_kernels(

@@ -3,11 +3,15 @@
 
 The kernel runs only on the card (``tests/test_torch_cuda.py``). What it
 takes is decided in Python by :func:`ray_march_mlp_plan`, which mirrors
-``csrc/ray_march_mlp.cu``: a block of 128 points at u = 256 and 64 at
-u = 512 and 768, whose activation tile is 64 KB (96 KB at 768), beside the
-encoding tile and a ring of three 32 KB weight stages, within the H100's
-227 KB of shared memory a block. Every other width raises, naming the
-width, before anything is built or launched (ROADMAP C12). The tiles' 128-byte swizzled layout is mirrored by
+``csrc/ray_march_mlp.cu``. Its resident route (u = 256, 512 and 768, up to
+16 layers): a block of 128 points at u = 256 and 64 at u = 512 and 768,
+whose activation tile is 64 KB (96 KB at 768), beside the encoding tile and
+a ring of three 32 KB weight stages, within the H100's 227 KB of shared
+memory a block. Its streamed route (every other multiple of 256, any
+depth: ROADMAP C12): 64 points, each product's output through device
+memory, so shared memory does not grow with the width. A width outside the
+JAX package's envelope raises, naming the width, before anything is built
+or launched. The tiles' 128-byte swizzled layout is mirrored by
 :func:`swizzled_offset`, held here against the layout ``wgmma`` reads.
 """
 
@@ -40,11 +44,25 @@ def _constants() -> dict:
     return env
 
 
+def _streamed_constants() -> dict:
+    """The constants of the source's streamed route (its own namespace)."""
+    body = SOURCE[SOURCE.index("namespace streamed {"):]
+    env = {"kEncLanes": trm.LANE, "kBox": _constants()["kBox"]}
+    for name in ("kTile", "kStages", "kABytes", "kStageBytes", "kPass",
+                 "kConsumers", "kThreads", "kSmemBytes"):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", body)
+        assert m is not None, name
+        env[name] = eval(" ".join(m.group(1).split("//")[0].split()), {},
+                         env)
+    return env
+
+
 @pytest.mark.parametrize("units,tile,split", [(256, 128, "rows"),
                                               (512, 64, "columns"),
                                               (768, 64, "columns")])
 def test_plan_fits_the_tiles_in_227_kb(units, tile, split):
     plan = trm.ray_march_mlp_plan(units)
+    assert plan["route"] == "resident"
     assert plan["tile"] == tile and plan["split"] == split
     assert plan["stages"] == 3
     assert plan["passes"] == (3 if units == 768 else 1)
@@ -57,11 +75,41 @@ def test_plan_fits_the_tiles_in_227_kb(units, tile, split):
     assert plan["smem_bytes"] <= trm.SMEM_PER_BLOCK == 227 * 1024
 
 
-@pytest.mark.parametrize("units", [0, 128, 384, 640, 1024])
+@pytest.mark.parametrize("units", [0, 128, 384, 640, 1000])
 def test_plan_refuses_other_widths_by_name(units):
-    with pytest.raises(ValueError, match=rf"dense_units 256, 512 or 768 "
+    # Outside the JAX package's envelope: not a multiple of 256.
+    with pytest.raises(ValueError, match=rf"dense_units a multiple of 256 "
                                          rf"\(got {units}\)"):
         trm.ray_march_mlp_plan(units)
+
+
+# (units, layers): the widths the resident tile cannot hold (1024 refused
+# before the streamed route), up to 8192, and depths past the resident
+# kernel's 16 layers of tensor maps.
+_STREAMED = [(1024, 8), (1536, 8), (2048, 3), (8192, 3), (256, 17),
+             (256, 40), (768, 17)]
+
+
+@pytest.mark.parametrize("units,n_layers", _STREAMED)
+def test_plan_streams_wider_and_deeper_models(units, n_layers):
+    plan = trm.ray_march_mlp_plan(units, n_layers)
+    env = _streamed_constants()
+    assert plan["route"] == "streamed"
+    assert plan["tile"] == env["kTile"] == 64
+    assert plan["passes"] == units // env["kPass"]
+    assert plan["stages"] == env["kStages"]
+    assert plan["stage_bytes"] == env["kStageBytes"] == 24 * 1024
+    # The same shared memory at every width: the ring, the encoding tile,
+    # the heads' sums; two blocks an SM.
+    assert plan["smem_bytes"] == env["kSmemBytes"] <= trm.SMEM_PER_BLOCK
+    assert plan["blocks_per_sm"] == 2
+    assert 2 * (plan["smem_bytes"] + 1024) <= trm.SMEM_PER_SM
+
+
+def test_plan_keeps_the_resident_route_up_to_16_layers():
+    for units in (256, 512, 768):
+        assert trm.ray_march_mlp_plan(units, 16)["route"] == "resident"
+        assert trm.ray_march_mlp_plan(units, 17)["route"] == "streamed"
 
 
 @pytest.mark.parametrize("name,mirror", [
@@ -86,7 +134,14 @@ def test_kernel_source_checks_the_same_limit():
     assert trm.SMEM_PER_BLOCK == 232448
 
 
-def _wide_inputs(units=1024, points=8):
+@pytest.mark.parametrize("name,mirror", [
+    ("kTile", "STREAM_TILE"), ("kStages", "STREAM_STAGES"),
+    ("kPass", "STREAM_PASS"), ("kStageBytes", "STREAM_STAGE_BYTES")])
+def test_streamed_plan_mirrors_the_kernel_source(name, mirror):
+    assert _streamed_constants()[name] == getattr(trm, mirror)
+
+
+def _wide_inputs(units=384, points=8):
     cfg = NeRFConfig(n_layers=2, dense_units=units, skip_layer=1)
     g = torch.Generator().manual_seed(0)
     packed = trm.pack_mlp_params(init_mlp(g, cfg.mlp, cfg.in_xyz,
@@ -110,9 +165,12 @@ def test_wrapper_refuses_a_width_before_building_or_launching(monkeypatch,
         raise AssertionError("the library was loaded before the width check")
 
     monkeypatch.setattr(_build, "load", no_build)
+    # 384 is outside the JAX package's envelope (384 / 2 is not a multiple
+    # of 128), so pack_mlp_params refuses it too: let it pack one.
+    monkeypatch.setattr(trm, "kernel_supported", lambda *a: True)
     packed, base, slope, t, masks, enc = _wide_inputs()
     before = (trm.ray_march_mlp.launches, trm.apply_mlp.launches)
-    with pytest.raises(ValueError, match="1024"):
+    with pytest.raises(ValueError, match="384"):
         if entry == "ray_march_mlp":
             trm._ray_march_mlp_cuda(packed, base, slope, t, masks)
         else:

@@ -8,7 +8,10 @@ columns in parts of 128 (64 above u = 1024), two ping-pong int8 code tiles
 of 64 x u, the encoding's float32 tile and code tile, two parts' epilogue
 vectors, and a ring of int8 weight stages: 2 where two blocks then share
 an SM (u = 256), else as many as fit, at most 4. Every multiple of 256 from
-256 to 1280 fits the H100's 227 KB a block; any other width raises, naming
+256 to 1280 fits the H100's 227 KB a block (the resident route, up to 16
+layers); wider or deeper models take the streamed route (ROADMAP C12: the
+codes through an int8 scratch in device memory, the same shared memory at
+every width); a width outside the JAX package's envelope raises, naming
 it, before anything is built or launched. The code tiles' 128-byte
 swizzled layout is mirrored by ``swizzled_offset(..., elem_bytes=1)`` and
 held against the layout ``wgmma`` reads. The epilogue's two float32 tricks
@@ -86,6 +89,7 @@ def _source_plan(u: int) -> dict:
 @pytest.mark.parametrize("units", WIDTHS)
 def test_plan_fits_227_kb_at_every_width(units):
     plan = trm.ray_march_mlp_int8_plan(units)
+    assert plan["route"] == "resident"
     assert plan["tile"] == 64
     assert plan["part"] == (128 if units <= 1024 else 64)
     assert 2 <= plan["stages"] <= 4
@@ -99,11 +103,38 @@ def test_plan_fits_227_kb_at_every_width(units):
     assert blocks * (plan["smem_bytes"] + 1024) <= trm.SMEM_PER_SM
 
 
-@pytest.mark.parametrize("units", [0, 128, 384, 640, 1000, 1536])
+@pytest.mark.parametrize("units", [0, 128, 384, 640, 1000])
 def test_plan_refuses_other_widths_by_name(units):
+    # Outside the JAX package's envelope: not a multiple of 256.
     with pytest.raises(ValueError, match=rf"ray_march_mlp_int8 takes "
                                          rf"dense_units .*\(got {units}\)"):
         trm.ray_march_mlp_int8_plan(units)
+
+
+def _streamed_constants() -> dict:
+    body = SOURCE[SOURCE.index("namespace streamed {"):]
+    env = _constants()
+    for name in ("kStages", "kPart", "kStageBytes", "kSmemBytes"):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", body)
+        assert m is not None, name
+        env[name] = eval(" ".join(m.group(1).split("//")[0].split()), {},
+                         env)
+    return env
+
+
+# (units, layers): 1536 (refused before the streamed route: the resident
+# code tiles and two stages no longer fit), up to 8192, and depths past 16.
+@pytest.mark.parametrize("units,n_layers", [
+    (1536, 8), (2048, 3), (8192, 3), (256, 17), (256, 40), (1280, 17)])
+def test_plan_streams_wider_and_deeper_models(units, n_layers):
+    plan = trm.ray_march_mlp_int8_plan(units, n_layers)
+    env = _streamed_constants()
+    assert plan["route"] == "streamed"
+    assert (plan["tile"], plan["part"], plan["stages"]) == (
+        env["kTile"], env["kPart"], env["kStages"]) == (64, 128, 3)
+    assert plan["stage_bytes"] == env["kStageBytes"] == trm.STREAM_STAGE_BYTES
+    assert plan["smem_bytes"] == env["kSmemBytes"] <= trm.SMEM_PER_BLOCK
+    assert plan["blocks_per_sm"] == 2
 
 
 @pytest.mark.parametrize("name,mirror", [
@@ -135,11 +166,11 @@ def test_wrapper_refuses_a_width_before_building_or_launching(monkeypatch):
         raise AssertionError("the library was loaded before the width check")
 
     monkeypatch.setattr(_build, "load", no_build)
-    u = 1536
-    q = {"trunk_b": [torch.zeros(1, u)]}
+    u = 640   # outside the JAX package's envelope
+    q = {"trunk_w": [None], "trunk_b": [torch.zeros(1, u)]}
     base = slope = torch.zeros(2, trm.LANE)
     before = trm.ray_march_mlp_int8.launches
-    with pytest.raises(ValueError, match="1536"):
+    with pytest.raises(ValueError, match="640"):
         trm._ray_march_mlp_int8_cuda(q, base, slope, torch.zeros(2, 4),
                                      torch.zeros(3, trm.LANE))
     assert trm.ray_march_mlp_int8.launches == before

@@ -14,7 +14,6 @@
 
 namespace knt {
 
-constexpr float kBig = 0x1.c363ccp+127f;           // 3.0e38, masked min/max
 constexpr float kWeightEps = 0x1.4f8b58p-17f;      // 1e-5, weights + eps
 constexpr float kDenomMin = 0x1.4f8b58p-17f;       // 1e-5, inverse-CDF clamp
 constexpr float kLastDelta = 0x1.b7cdfep-34f;      // 1e-10, last interval

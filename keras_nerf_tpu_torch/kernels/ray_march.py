@@ -91,6 +91,12 @@ from keras_nerf_tpu_torch.kernels.ceiling import (
 )
 from keras_nerf_tpu_torch.kernels.quantize import ray_march_mlp_int8_plain
 from keras_nerf_tpu_torch.ops.rendering import RenderOutput, render_rays
+from keras_nerf_tpu_torch.ops.sampling import (
+    invert_cdf_of,
+    merge_sorted,
+    midpoints,
+    sequential_cdf,
+)
 
 LANE = 128
 D_HEAD = 16        # head cotangent columns: rgb 0..2 (sigma after features)
@@ -105,8 +111,6 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-_BIG = _f32(3.0e38)   # masked min/max fill
-_WEIGHT_EPS = _f32(1e-5)
 _LAST_DELTA = _f32(1e-10)
 _HALF_PI = _f32(np.pi / 2)
 _TWO_PI = _f32(2.0 * np.pi)
@@ -644,62 +648,49 @@ def mlp_weight_grad_plain(stash: dict, cots: dict, grads: dict) -> dict:
 def sample_merge_plain(cp: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
                        mp: torch.Tensor | None) -> torch.Tensor:
     """Plain version of the ``sample_merge`` kernel
-    (`_sample_merge_prologue`, `ray_march.py:987-1099`): the CDF source
-    ``cp`` and bin weights ``w [R, s_c]``, sorted draws ``u [R, n]`` ->
-    sorted depths. The draws invert the CDF of ``w + 1e-5`` over the
-    edge-padded midpoints of ``cp``; then, by the merge partner ``mp``:
+    (`_sample_merge_prologue`, `ray_march.py:987-1099`): the sorted CDF
+    source ``cp`` and bin weights ``w >= 0`` ``[R, s_c]``, sorted draws ``u
+    [R, n]`` -> sorted depths. The draws invert the CDF of ``w`` over the
+    edge-padded midpoints of ``cp`` (:func:`invert_cdf_of` on
+    :func:`sequential_cdf`); then, by the merge partner ``mp``:
 
     * ``None`` (``s_m = 0``): the drawn depths alone, ``[R, n]``;
-    * a sorted ``[R, s_m]`` tensor (``s_m > 0``): merged with it,
-      ``[R, s_m + n]``. The fine pass passes ``cp`` itself (the TPU
-      kernel's ``s_m = -1``, which the same ranks give).
+    * a sorted ``[R, s_m]`` tensor (``s_m > 0``): :func:`merge_sorted` with
+      it, a partner depth before an equal drawn one, ``[R, s_m + n]``. The
+      fine pass passes ``cp`` itself (the TPU kernel's ``s_m = -1``, which
+      the same ranks give).
 
-    The CDF is built with sequential float32 sums over the bins, the order
-    the kernel's single thread uses, so the two agree to the bit; the
-    brackets are masked max/min over all bins and the merge counts ranks,
-    a partner depth before an equal drawn one, as in the TPU kernel."""
-    s_c = cp.shape[1]
-    big = _BIG
-    wp = w + _WEIGHT_EPS
-    tot = torch.zeros_like(wp[:, 0])
-    for i in range(s_c):
-        tot = tot + wp[:, i]
-    pdf = wp / tot[:, None]
-    incl = torch.zeros_like(tot)
-    cdf = torch.empty_like(wp)
-    for i in range(s_c):
-        incl = incl + pdf[:, i]
-        cdf[:, i] = incl - pdf[:, i]
-    total = incl
-    mids = 0.5 * (cp[:, :-1] + cp[:, 1:])
-    mid_last = mids.amax(dim=1)
-    mids = torch.cat([mids, mid_last[:, None]], dim=1)
+    The CDF is JAX's ``invert_cdf``'s, 0-prepended and inclusive, each
+    prefix the one before plus a bin's share (the kernel sums it in the
+    same order, so the two agree to the bit); the TPU prologue forms it as
+    ``inclusive - pdf``, one float32 rounding apart."""
+    fine = invert_cdf_of(u, midpoints(cp), sequential_cdf(w))
+    return fine if mp is None else merge_sorted(mp, fine)
 
-    le = cdf[:, None, :] <= u[:, :, None]                       # [R, n, s_c]
-    cdf_below = torch.where(le, cdf[:, None, :], -big).amax(dim=2)
-    cdf_above = torch.where(le, big, cdf[:, None, :]).amin(dim=2)
-    cdf_above = torch.where(cdf_above >= 0.5 * big, total[:, None], cdf_above)
-    bin_below = torch.where(le, mids[:, None, :], -big).amax(dim=2)
-    bin_above = torch.where(le, big, mids[:, None, :]).amin(dim=2)
-    bin_above = torch.where(bin_above >= 0.5 * big, mid_last[:, None],
-                            bin_above)
-    denom = cdf_above - cdf_below
-    denom = torch.where(denom < _WEIGHT_EPS, torch.ones_like(denom), denom)
-    t = (u - cdf_below) / denom
-    fine = bin_below + t * (bin_above - bin_below)
-    if mp is None:
-        return fine
 
-    n, s_p = u.shape[1], mp.shape[1]
-    dev = cp.device
-    rank_c = (torch.arange(s_p, device=dev)
-              + (fine[:, None, :] < mp[:, :, None]).sum(dim=2))
-    rank_f = (torch.arange(n, device=dev)
-              + (mp[:, None, :] <= fine[:, :, None]).sum(dim=2))
-    out = torch.zeros((cp.shape[0], s_p + n), dtype=cp.dtype, device=dev)
-    out.scatter_(1, rank_c, mp)
-    out.scatter_(1, rank_f, fine)
-    return out
+SAMPLE_MERGE_RAYS = 4   # rays (warps) a block of the sample_merge kernel
+
+
+def sample_merge_plan(s_c: int, n: int, s_m: int) -> tuple[int, int]:
+    """``(rays a block, dynamic shared bytes)`` of the ``sample_merge``
+    kernel for ``s_c`` bins, ``n`` draws and ``s_m`` partner depths (0: no
+    merge). Each ray's warp keeps the 0-prepended CDF and the edge-padded
+    midpoints (``s_c + 1`` floats each) and, where it merges, the partner
+    and the drawn depths, behind 3 floats that align the weights to 16
+    bytes, rounded up to 4 floats (mirrors csrc/sample_merge.cu's
+    ``ray_floats``); a ray that does not fit a block's shared memory
+    raises."""
+    if s_c < 2:
+        raise ValueError("sample_merge needs at least 2 bins")
+    floats = 3 + 2 * (s_c + 1) + (s_m + n if s_m > 0 else 0)
+    per_ray = 4 * (-(-floats // 4) * 4)
+    if per_ray > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"sample_merge: {s_c} bins, {n} draws and {s_m} partner depths "
+            f"need {per_ray} bytes of shared memory a ray, more than the "
+            f"{SMEM_PER_BLOCK} of a block")
+    rays = min(SAMPLE_MERGE_RAYS, SMEM_PER_BLOCK // per_ray)
+    return rays, rays * per_ray
 
 
 # --------------------------------------------------------------------------
@@ -757,24 +748,40 @@ def _raise_on(err: int, name: str) -> None:
                            f"cudaError {err}")
 
 
-def _sample_merge_cuda(cp, w, u, mp):
+def _cdf_source_stride(cp: torch.Tensor, rays: int, s_c: int) -> int:
+    """The row stride of the CDF source ``cp [rays, s_c]``: ``s_c`` for a
+    contiguous tensor, 0 for one row broadcast to every ray (the occupancy
+    render's probe-bin centres, ``expand`` of a row)."""
+    if tuple(cp.shape) != (rays, s_c):
+        raise ValueError(f"cp has shape {tuple(cp.shape)}, expected "
+                         f"{(rays, s_c)}")
+    if cp.stride(1) != 1 or cp.stride(0) not in (0, s_c):
+        raise ValueError("cp must be contiguous, or one contiguous row "
+                         "broadcast to every ray")
+    return cp.stride(0)
+
+
+def _sample_merge_cuda(cp, w, u, mp, lib=None):
     from keras_nerf_tpu_torch.kernels._build import load
 
-    lib = load()
-    dev = cp.device
-    r, s_c = cp.shape
+    lib = lib or load()
+    dev = w.device
+    r, s_c = w.shape
     n = u.shape[1]
     s_m = 0 if mp is None else mp.shape[1]
-    if s_c < 2:
-        raise ValueError("sample_merge needs at least 2 bins")
+    rays_per_block, smem = sample_merge_plan(s_c, n, s_m)
     f32 = torch.float32
+    if cp.device != dev or cp.dtype != f32:
+        raise TypeError(f"cp is {cp.dtype} on {cp.device}, expected {f32} "
+                        f"on {dev}")
+    cp_stride = _cdf_source_stride(cp, r, s_c)
     mp_ptr = (_check(mp, "mp", f32, dev, (r, s_m)) if s_m > 0 else None)
     out = torch.empty((r, n + s_m), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         _raise_on(lib.knt_sample_merge(
-            _check(cp, "cp", f32, dev), _check(w, "w", f32, dev, (r, s_c)),
+            cp.data_ptr(), cp_stride, _check(w, "w", f32, dev, (r, s_c)),
             _check(u, "u", f32, dev, (r, n)), mp_ptr, out.data_ptr(), r, s_c,
-            n, s_m, _stream(dev)), "sample_merge")
+            n, s_m, rays_per_block, smem, _stream(dev)), "sample_merge")
     return out
 
 
@@ -1929,8 +1936,11 @@ def _pass_points(points, sample_inputs):
             raise ValueError("pass points or sample_inputs, not both")
         if len(sample_inputs) not in (3, 4):
             raise ValueError("sample_inputs is (cp, w, u) or (cp, w, u, mp)")
-        cp, wc, u = (x.to(torch.float32).contiguous()
-                     for x in sample_inputs[:3])
+        cp, wc, u = (x.to(torch.float32) for x in sample_inputs[:3])
+        # A row broadcast to every ray (stride 0) is read as it is.
+        if cp.stride(0) != 0:
+            cp = cp.contiguous()
+        wc, u = wc.contiguous(), u.contiguous()
         mp = sample_inputs[3] if len(sample_inputs) == 4 else cp
         if mp is not None:
             mp = mp.to(torch.float32).contiguous()

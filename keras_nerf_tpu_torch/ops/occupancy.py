@@ -33,6 +33,7 @@ import torch
 from keras_nerf_tpu_torch.ops.sampling import (
     invert_cdf_of,
     midpoints,
+    sequential_cdf,
     sorted_uniforms,
 )
 
@@ -184,7 +185,8 @@ def occupancy_along_rays(origin: torch.Tensor, direction: torch.Tensor,
       occ_grid: ``[G, G, G]`` binary floats (:func:`bake_occupancy_grid`).
 
     Returns ``(bin_mids [R, n_probe], occ [R, n_probe])``: the centres
-    broadcast to every ray (a view; the kernel path copies it), and the
+    broadcast to every ray (a view, row stride 0, which ``sample_merge``
+    reads as it is), and the
     occupancy, 0 for points outside the box. ``o + d mid`` rounds twice
     and the voxel index is ``floor(((p - lo) / (hi - lo)) G)``, as in the
     JAX package; the gather is one flat index."""
@@ -214,22 +216,10 @@ def sample_occupied(draws: torch.Generator | torch.Tensor,
     D - 1 interior midpoints of ``bin_mids``."""
     if isinstance(draws, torch.Generator):
         draws = sorted_uniforms(draws, (bin_mids.shape[0],), n_samples)
-    # The total and the CDF are summed bin after bin in float32, the order
-    # of XLA's reductions on the CPU (torch.cumsum accumulates in float64
-    # there, torch.sum pairwise), so that the depths are the JAX package's
-    # bit for bit: through the encoding's highest frequencies one ulp of a
-    # depth moves the density visibly.
-    w = occ + 1e-5
-    total = torch.zeros_like(w[..., 0])
-    for i in range(w.shape[-1]):
-        total = total + w[..., i]
-    pdf = w / total[..., None]
-    acc = torch.zeros_like(total)
-    cdf = []
-    for i in range(w.shape[-1]):
-        acc = acc + pdf[..., i]
-        cdf.append(acc)
-    return invert_cdf_of(draws, midpoints(bin_mids), torch.stack(cdf, -1))
+    # The sequential CDF gives the JAX package's depths bit for bit: through
+    # the encoding's highest frequencies one ulp of a depth moves the
+    # density visibly.
+    return invert_cdf_of(draws, midpoints(bin_mids), sequential_cdf(occ))
 
 
 @torch.no_grad()

@@ -44,6 +44,25 @@ def invert_cdf(u: torch.Tensor, mid_points: torch.Tensor,
     return invert_cdf_of(u, mid_points, torch.cumsum(pdf, dim=-1))
 
 
+def sequential_cdf(weights: torch.Tensor) -> torch.Tensor:
+    """The inclusive CDF ``[..., S]`` of ``weights + 1e-5``, the total and
+    every prefix summed bin after bin in float32 (``torch.cumsum``
+    accumulates in float64 on the CPU, ``torch.sum`` pairwise): each
+    prefix is the one before plus the bin's share, so the CDF never steps
+    down. The ``sample_merge`` kernel sums in the same order."""
+    w = weights + 1e-5
+    total = torch.zeros_like(w[..., 0])
+    for i in range(w.shape[-1]):
+        total = total + w[..., i]
+    pdf = w / total[..., None]
+    acc = torch.zeros_like(total)
+    cdf = []
+    for i in range(w.shape[-1]):
+        acc = acc + pdf[..., i]
+        cdf.append(acc)
+    return torch.stack(cdf, -1)
+
+
 def invert_cdf_of(u: torch.Tensor, mid_points: torch.Tensor,
                   cdf: torch.Tensor) -> torch.Tensor:
     """:func:`invert_cdf` from the inclusive CDF ``[..., S]`` of the

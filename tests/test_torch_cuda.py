@@ -210,13 +210,41 @@ def test_ray_march_quadrature_matches_plain(cuda_device, sigma_only,
         assert float((a - b).abs().max()) <= 1e-4
 
 
+def _merge_weights(kind: str, r: int, s_c: int, g) -> torch.Tensor:
+    """Bin weights for sample_merge: ``cubed`` (uniform cubed), ``occupancy``
+    (0/1, every fifth ray empty), ``heavy`` (log-normal with sigma 8, half
+    the bins zeroed: a trained coarse pass's surface bins) or ``one bin``
+    (all of each ray's mass in one bin)."""
+    dev = g.device
+    if kind == "cubed":
+        return torch.rand(r, s_c, generator=g, device=dev) ** 3
+    if kind == "occupancy":
+        w = (torch.rand(r, s_c, generator=g, device=dev) > 0.6).float()
+        w[::5] = 0.0
+        return w
+    if kind == "heavy":
+        w = torch.exp(8.0 * torch.randn(r, s_c, generator=g, device=dev))
+        return torch.where(torch.rand(r, s_c, generator=g, device=dev) < 0.5,
+                           0.0, w)
+    w = torch.zeros(r, s_c, device=dev)
+    w[torch.arange(r, device=dev),
+      torch.randint(0, s_c, (r,), generator=g, device=dev)] = 1.0
+    return w
+
+
+@pytest.mark.parametrize("mode", ["coarse", "none", "partner"])
+@pytest.mark.parametrize("weights", ["cubed", "heavy", "one bin"])
 @pytest.mark.parametrize("s_c,n_fine", [(64, 128), (24, 16)])
-def test_sample_merge_matches_plain(cuda_device, s_c, n_fine):
+def test_sample_merge_matches_plain(cuda_device, s_c, n_fine, weights, mode):
     _, _, _, t, u = _chunk(cuda_device, s_c=s_c, n_fine=n_fine)
     g = torch.Generator(device=cuda_device).manual_seed(2)
-    w = torch.rand(t.shape, generator=g, device=cuda_device) ** 3
-    got = trm.sample_merge(t, w, u, t)
-    want = trm.sample_merge_plain(t, w, u, t)
+    w = _merge_weights(weights, t.shape[0], s_c, g)
+    mp = {"coarse": t, "none": None,
+          "partner": torch.sort(torch.rand(t.shape, generator=g,
+                                           device=cuda_device) * 4 + 2,
+                                dim=-1).values}[mode]
+    got = trm.sample_merge(t, w, u, mp)
+    want = trm.sample_merge_plain(t, w, u, mp)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-6
     assert bool((got[:, 1:] >= got[:, :-1]).all())
@@ -880,20 +908,21 @@ def test_quantized_render_runs_the_int8_kernel_and_never_the_bf16_one(
     assert (images >= 0).all() and (images <= 1).all()
 
 
+@pytest.mark.parametrize("weights", ["occupancy", "heavy", "one bin"])
 @pytest.mark.parametrize("s_c,n,s_m", [
     (64, 128, -1), (64, 64, 0), (64, 64, 64), (24, 16, 40),
     (300, 200, 0), (4096, 64, 64)])     # the last needs > 48 KB of smem
 def test_sample_merge_three_modes_match_plain_bit_for_bit(cuda_device, s_c,
-                                                          n, s_m):
+                                                          n, s_m, weights):
     """The merge with the CDF source (the TPU's s_m = -1, mp = cp), no
     merge (0) and another partner (> 0): the kernel's depths are its plain
-    version's, bit for bit, sorted; empty rays among them."""
+    version's, bit for bit, sorted, and the same bits twice; empty rays,
+    heavy-tailed weights and all mass in one bin among them."""
     g = torch.Generator(device=cuda_device).manual_seed(7)
     r = 512
     cp = torch.sort(torch.rand(r, s_c, generator=g, device=cuda_device) * 4
                     + 2, dim=-1).values
-    w = (torch.rand(r, s_c, generator=g, device=cuda_device) > 0.6).float()
-    w[::5] = 0.0
+    w = _merge_weights(weights, r, s_c, g)
     u = sorted_uniforms(g, (r,), n)
     mp = (cp if s_m < 0 else None if s_m == 0 else
           torch.sort(torch.rand(r, s_m, generator=g, device=cuda_device) * 4
@@ -906,6 +935,26 @@ def test_sample_merge_three_modes_match_plain_bit_for_bit(cuda_device, s_c,
     assert got.shape == (r, n + (s_c if s_m < 0 else s_m))
     assert torch.equal(got, want)
     assert bool((got[:, 1:] >= got[:, :-1]).all())
+    assert torch.equal(trm.sample_merge(cp, w, u, mp), got)
+
+
+@pytest.mark.parametrize("s_m", [0, 64])
+def test_sample_merge_reads_one_broadcast_row_of_bins(cuda_device, s_m):
+    """The occupancy render's CDF source, the probe-bin centres broadcast to
+    every ray (row stride 0), gives the bits of its contiguous copy."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    r, s_c = 4096, 64
+    row = torch.sort(torch.rand(s_c, generator=g, device=cuda_device) * 4
+                     + 2).values
+    cp = row.expand(r, s_c)
+    w = _merge_weights("occupancy", r, s_c, g)
+    u = sorted_uniforms(g, (r,), 64)
+    mp = None if s_m == 0 else torch.sort(
+        torch.rand(r, s_m, generator=g, device=cuda_device) * 4 + 2,
+        dim=-1).values
+    got = trm.sample_merge(cp, w, u, mp)
+    assert torch.equal(got, trm.sample_merge(cp.contiguous(), w, u, mp))
+    assert torch.equal(got, trm.sample_merge_plain(cp, w, u, mp))
 
 
 def test_train_then_occupancy_render_cli_on_the_card(cuda_device, tmp_path):

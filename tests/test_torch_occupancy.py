@@ -285,8 +285,8 @@ def test_sample_merge_modes_match_jax_prologue(scene, mode):
 def test_sample_merge_modes_agree_with_each_other(scene):
     """The partner mode is the no-merge draws merged with the partner; with
     the CDF source as partner (the TPU's ``s_m = -1``) it is, bit for bit,
-    what the fine pass's sampling computed before the other two modes
-    existed."""
+    the function written out on its own: the 0-prepended sequential CDF,
+    masked max/min brackets and the rank merge."""
     _, _, t, mids, occ, u = _chunk_inputs(scene)
     mids, occ, u, t = (torch.as_tensor(x) for x in (mids, occ, u, t))
     mids = mids.contiguous()
@@ -299,9 +299,48 @@ def test_sample_merge_modes_agree_with_each_other(scene):
     w = torch.rand(t.shape, generator=g) ** 3
     w[::3] = 0.0
     u8 = torch.sort(torch.rand(CHUNK, 8, generator=g), -1).values
-    fine = _sample_merge_before(t, w, u8)
+    fine = _sample_merge_written_out(t, w, u8)
     torch.testing.assert_close(trm.sample_merge(t, w, u8, t), fine, rtol=0,
                                atol=0)
+
+
+def test_sample_merge_no_merge_is_sample_occupied_bit_for_bit(scene):
+    """The occupancy render's two routes draw the same depths: the kernel
+    path's ``sample_merge`` without merge and the reference path's
+    :func:`sample_occupied`, on the same draws (one CDF helper)."""
+    _, _, _, mids, occ, u = _chunk_inputs(scene)
+    mids, occ, u = (torch.as_tensor(x) for x in (mids, occ, u))
+    torch.testing.assert_close(trm.sample_merge(mids, occ, u, None),
+                               tocc.sample_occupied(u, mids, occ), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("mode", ["no_merge", "partner"])
+def test_sample_merge_reads_the_probe_bins_as_one_row(scene, mode):
+    """``occupancy_along_rays`` gives the probe-bin centres as one row
+    broadcast to every ray (row stride 0); the chunk takes it without a
+    copy and draws the bits of the copied source."""
+    o, d, t, _, _, u = (torch.as_tensor(x) for x in _chunk_inputs(scene))
+    mids, occ = tocc.occupancy_along_rays(o, d, torch.as_tensor(
+        scene["grid"]), NEAR, FAR, N_PROBE)
+    assert mids.stride() == (0, 1)
+    assert trm._cdf_source_stride(mids, CHUNK, N_PROBE) == 0
+    assert trm._cdf_source_stride(mids.contiguous(), CHUNK, N_PROBE) == \
+        N_PROBE
+    with pytest.raises(ValueError, match="contiguous"):
+        trm._cdf_source_stride(torch.zeros(N_PROBE, CHUNK).T, CHUNK,
+                               N_PROBE)
+    mp = None if mode == "no_merge" else t
+    torch.testing.assert_close(trm.sample_merge(mids, occ, u, mp),
+                               trm.sample_merge(mids.contiguous(), occ, u,
+                                                mp), rtol=0, atol=0)
+    tp = trm.pack_mlp_params(params_from_jax(scene["pf"], "cpu"),
+                             JAX_CFG.mlp, 10, 4)
+    one_row, copied = (trm.fused_render_chunk(
+        tp, o, d, None, white_background=True,
+        sample_inputs=(src, occ, u, mp)) for src in (mids, mids.contiguous()))
+    for a, b in zip(one_row, copied):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("mode", ["no_merge", "partner"])
@@ -327,31 +366,31 @@ def test_fused_train_chunk_takes_the_four_tuple(scene, mode):
     assert got[2].shape == (CHUNK, N_SAMPLES + (0 if mp is None else 8))
 
 
-def _sample_merge_before(cp, w, u):
-    """``sample_merge_plain`` as it was with its one mode (``s_m = -1``)."""
+def _sample_merge_written_out(cp, w, u):
+    """``sample_merge_plain`` with the CDF source as partner, written out:
+    the total and the CDF summed bin after bin in float32 with a 0 in
+    front, masked max/min brackets over the edge-padded midpoints, then
+    each depth's slot by counting the other array."""
     s_c = cp.shape[1]
-    big = float(np.float32(3.0e38))
+    inf = float("inf")
     wp = w + float(np.float32(1e-5))
     tot = torch.zeros_like(wp[:, 0])
     for i in range(s_c):
         tot = tot + wp[:, i]
     pdf = wp / tot[:, None]
-    incl = torch.zeros_like(tot)
-    cdf = torch.empty_like(wp)
+    cdf = [torch.zeros_like(tot)]
     for i in range(s_c):
-        incl = incl + pdf[:, i]
-        cdf[:, i] = incl - pdf[:, i]
+        cdf.append(cdf[-1] + pdf[:, i])
+    cdf = torch.stack(cdf, 1)                               # [R, s_c + 1]
     mids = 0.5 * (cp[:, :-1] + cp[:, 1:])
-    mid_last = mids.amax(dim=1)
-    mids = torch.cat([mids, mid_last[:, None]], dim=1)
+    mids = torch.cat([mids, mids[:, -1:], mids[:, -1:]], dim=1)
     le = cdf[:, None, :] <= u[:, :, None]
-    cdf_below = torch.where(le, cdf[:, None, :], -big).amax(dim=2)
-    cdf_above = torch.where(le, big, cdf[:, None, :]).amin(dim=2)
-    cdf_above = torch.where(cdf_above >= 0.5 * big, incl[:, None], cdf_above)
-    bin_below = torch.where(le, mids[:, None, :], -big).amax(dim=2)
-    bin_above = torch.where(le, big, mids[:, None, :]).amin(dim=2)
-    bin_above = torch.where(bin_above >= 0.5 * big, mid_last[:, None],
-                            bin_above)
+    cdf_below = torch.where(le, cdf[:, None, :], -inf).amax(dim=2)
+    cdf_above = torch.where(le, inf, cdf[:, None, :]).amin(dim=2)
+    cdf_above = torch.where(cdf_above == inf, cdf[:, -1:], cdf_above)
+    bin_below = torch.where(le, mids[:, None, :], -inf).amax(dim=2)
+    bin_above = torch.where(le, inf, mids[:, None, :]).amin(dim=2)
+    bin_above = torch.where(bin_above == inf, mids[:, -1:], bin_above)
     denom = cdf_above - cdf_below
     denom = torch.where(denom < float(np.float32(1e-5)),
                         torch.ones_like(denom), denom)

@@ -63,7 +63,9 @@ chains, one bf16 matmul per layer; the
 card's SM clock, power and temperature sampled before and after), and the
 five model paths (the occupancy render among them) are profiled with
 ``torch.profiler``:
-device time by kernel and the device's busy share.
+device time by kernel and the device's busy share. A last profiler phase
+(``profile_quadrature``) fails unless each ``ray_march_quadrature`` call of
+the paths' modes runs one kernel on the card and nothing else (no fill).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Exits non-zero, with
@@ -701,6 +703,22 @@ def main() -> int:
         log(json.dumps({key: _profile(
             lambda: tnerf.fit(dataset, epochs=1, verbose=False),
             len(dataset), "step"), "card": card}))
+    # One kernel a quadrature call, in every mode of the paths, and no
+    # fill beside it: the kernel writes every output itself.
+    quad_calls = {
+        f"sigma-only [{CHUNK} x {N_COARSE}]":
+            lambda: ray_march_quadrature(coarse_sig, tc, True, True, True),
+        f"full, no weights [{CHUNK} x {s_f}]":
+            lambda: ray_march_quadrature(fine_in, tf_plain, True, False,
+                                         False)}
+    for name, p in train_in["passes"].items():
+        quad_calls[f"with_grad {name} [{TRAIN_CHUNK} x {p['t'].shape[1]}]"] = (
+            lambda p=p: ray_march_quadrature(
+                p["rgbs"], p["t"], True, False, p["weights"],
+                target=train_in["target"],
+                loss_scale=2.0 / (3 * TRAIN_CHUNK)))
+    log(json.dumps({"profile_quadrature": _one_kernel_each(
+        quad_calls, "quadrature"), "card": card}))
 
     entries = []
     step_per = (f"{IMG}^2 train step, {IMG * IMG // TRAIN_CHUNK} chunks of "
@@ -958,6 +976,59 @@ def _profile(run, units: int, unit: str) -> dict:
             "device_busy_share": device_ms / wall_ms if spans else None,
             f"device_ms_per_{unit}_by_kernel": dict(sorted(
                 per_kernel.items(), key=lambda kv: -kv[1])[:10])}
+
+
+def _one_kernel_each(calls: dict, kernel: str, reps: int = 20) -> dict:
+    """Each of ``calls`` ``reps`` times under one ``torch.profiler`` run,
+    each label inside its own ``record_function`` range, after a warm-up
+    call of each inside the same run: per label, every launch onto
+    the card (the runtime's launch, memset and copy calls, on the host's
+    clock inside the range) by the name of the activity it ran there (its
+    correlation id). Fails unless every label made ``reps`` launches, each
+    a kernel whose name holds ``kernel``: no fill, no copy, one kernel a
+    call."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
+        for label, call in calls.items():
+            with torch.profiler.record_function(label):
+                for _ in range(reps):
+                    call()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = {ev.name: ev.time_range for ev in events
+              if ev.name in calls and ev.device_type == cpu}
+    on_card = {ev.id: ev.name for ev in events
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.is_user_annotation}
+    seen = {label: {} for label in calls}
+    for ev in events:
+        if ev.device_type != cpu or not ev.name.startswith(
+                ("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy")):
+            continue
+        label = next((lb for lb, tr in ranges.items()
+                      if tr.start <= ev.time_range.start <= tr.end), None)
+        if label is None:
+            continue
+        name = on_card.get(ev.id)
+        if name is None:
+            name = f"{ev.name}: no record on the card"
+        else:
+            name = name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0]
+        seen[label][name] = seen[label].get(name, 0) + 1
+    for label, names in seen.items():
+        if (sum(names.values()) != reps or not all(
+                kernel in n or "no record" in n for n in names)):
+            fail(f"{label}: {reps} calls, one {kernel} kernel each "
+                 f"expected; the card ran {names}")
+    return {"calls_each": reps, "launches": seen}
 
 
 def _to(params, device):

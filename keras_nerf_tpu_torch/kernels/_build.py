@@ -137,8 +137,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "knt_sample_merge": [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "knt_ray_march_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "knt_ray_march_quadrature": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "knt_ray_march_quadrature_grad": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "knt_ray_march_quadrature": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P],
+    "knt_ray_march_quadrature_grad": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
     "knt_apply_mlp": [_P, _P, _P, _I, _P, _P],
     "knt_mlp_backward": [_P, _P, _P, _P, _P, _I, _P],
     "knt_mlp_backward_from_output": [_P] * 6 + [_I, _P],
@@ -166,11 +167,14 @@ def build_single(source: Path, out_dir: Path, names) -> ctypes.CDLL:
     """One ``.cu`` file (of this or another checkout) compiled alone with
     this package's flags into a library of its own, its C entry points
     ``names`` declared as :func:`load` declares them: the timing tools
-    launch another build of a kernel through this package's wrappers."""
+    launch another build of a kernel through this package's wrappers.
+    What the compiler printed (``-Xptxas -v``) goes to ``build.log``
+    beside it."""
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"lib{source.stem}.so"
-    _run([find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib_path),
-          str(source)])
+    (out_dir / "build.log").write_text(_run(
+        [find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib_path),
+         str(source)]))
     lib = ctypes.CDLL(str(lib_path))
     _declare(lib, names)
     return lib

@@ -1475,45 +1475,81 @@ def _ray_march_mlp_int8_cuda(q, base, slope, depths, masks, sigma_only=False,
     return out
 
 
+QUAD_MAX_K = 8          # csrc/ray_march_quadrature.cu: kMaxK, samples a lane
+QUAD_WINDOW = 32 * QUAD_MAX_K   # kWindow: the windowed route's step
+QUAD_GRAD_MAX_S = 4 * QUAD_WINDOW   # kGradWindows windows: S <= 1024
+# Warps (rays) a block, by measurement (time_quadrature, NVIDIA H100 80GB
+# HBM3): 8 in sigma-only mode, 4 where the colours go through the staging
+# buffer (at [4096 x 192] 8 read 0.0060 ms a launch, 4 0.0056).
+QUAD_RAYS_PER_BLOCK = {"sigma_only": 8, "colour": 4}
+
+
+def quadrature_plan(s: int, with_grad: bool = False,
+                    sigma_only: bool = False) -> dict:
+    """The route and block shape of the ``ray_march_quadrature`` kernel for
+    ``s`` samples a ray (mirrors csrc/ray_march_quadrature.cu): a warp a
+    ray, each lane holding ``k = ceil(s / 32)`` consecutive samples in
+    registers up to 256 samples (``route`` "registers", one window); above,
+    ``k`` = 8 and the warp walks ``windows`` of 256 carrying the scan
+    ("windowed"); no sample leaves the background alone. The with_grad
+    mode takes 1 to 1024 samples and raises, by name, outside."""
+    if s < 0 or with_grad and not 1 <= s <= QUAD_GRAD_MAX_S:
+        raise ValueError(f"ray_march_quadrature's with_grad mode takes at "
+                         f"most {QUAD_GRAD_MAX_S} samples per ray, and at "
+                         f"least 1 (got {s})")
+    k = max(1, min(QUAD_MAX_K, -(-s // 32)))
+    windows = -(-s // (32 * k))
+    return {"route": "registers" if windows <= 1 else "windowed", "k": k,
+            "windows": windows, "rays_per_block": QUAD_RAYS_PER_BLOCK[
+                "sigma_only" if sigma_only else "colour"]}
+
+
 def _ray_march_quadrature_cuda(rgbs, t, white_background=False,
                                sigma_only=False, emit_weights=True,
-                               target=None, loss_scale=0.0):
+                               target=None, loss_scale=0.0, lib=None,
+                               rays_per_block=None):
+    """The ``ray_march_quadrature`` launch, one kernel a call: it writes
+    every output (the image's zeros in sigma-only mode too). ``lib``
+    another build of its C entry points and ``rays_per_block`` another
+    block shape (``time_quadrature`` times both), else this package's
+    library and the plan's."""
     from keras_nerf_tpu_torch.kernels._build import load
 
-    lib = load()
     dev = t.device
     r, s = t.shape
     f32 = torch.float32
-    image = torch.zeros((r, 3), dtype=f32, device=dev)
+    if target is not None and sigma_only:
+        raise ValueError("the with_grad mode needs the colour: not "
+                         "sigma_only")
+    plan = quadrature_plan(s, target is not None, sigma_only)
+    rpb = plan["rays_per_block"] if rays_per_block is None else rays_per_block
+    lib = load() if lib is None else lib
+    rgbs_ptr = _check(rgbs, "rgbs", f32, dev,
+                      (r, s) if sigma_only else (r, s, 4))
+    if not sigma_only and rgbs_ptr % 16:
+        raise ValueError("rgbs must be 16-byte aligned: the kernel reads a "
+                         "sample's (r, g, b, sigma) as one float4")
+    t_ptr = _check(t, "t", f32, dev)
+    image = torch.empty((r, 3), dtype=f32, device=dev)
     depth = torch.empty((r,), dtype=f32, device=dev)
     weights = (torch.empty((r, s), dtype=f32, device=dev) if emit_weights
                else None)
     w_ptr = None if weights is None else weights.data_ptr()
-    rgbs_shape = (r, s) if sigma_only else (r, s, 4)
     if target is None:
         with torch.cuda.device(dev):
             _raise_on(lib.knt_ray_march_quadrature(
-                _check(rgbs, "rgbs", f32, dev, rgbs_shape),
-                _check(t, "t", f32, dev), image.data_ptr(), depth.data_ptr(),
-                w_ptr, r, s, int(white_background), int(sigma_only),
+                rgbs_ptr, t_ptr, image.data_ptr(), depth.data_ptr(), w_ptr,
+                r, s, int(white_background), int(sigma_only), rpb,
                 _stream(dev)), "ray_march_quadrature")
         return image, depth, weights
-    if sigma_only:
-        raise ValueError("the with_grad mode needs the colour: not "
-                         "sigma_only")
-    if s > 32 * 32:
-        raise ValueError(f"ray_march_quadrature's with_grad mode takes at "
-                         f"most 1024 samples per ray (got {s})")
     d_rgb = torch.empty((r * s, D_HEAD), dtype=torch.bfloat16, device=dev)
     d_sigma = torch.empty((r * s,), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         _raise_on(lib.knt_ray_march_quadrature_grad(
-            _check(rgbs, "rgbs", f32, dev, rgbs_shape),
-            _check(t, "t", f32, dev), _check(target, "target", f32, dev,
-                                             (r, 3)),
+            rgbs_ptr, t_ptr, _check(target, "target", f32, dev, (r, 3)),
             image.data_ptr(), depth.data_ptr(), w_ptr, d_rgb.data_ptr(),
             d_sigma.data_ptr(), r, s, int(white_background),
-            _f32(loss_scale), _stream(dev)), "ray_march_quadrature")
+            _f32(loss_scale), rpb, _stream(dev)), "ray_march_quadrature")
     return image, depth, weights, d_rgb, d_sigma
 
 

@@ -191,23 +191,48 @@ def test_forward_refuses_other_widths_before_launching(cuda_device,
     assert (trm.ray_march_mlp.launches, trm.apply_mlp.launches) == before
 
 
+# The register route (k = ceil(S / 32) samples a lane), its edges, and the
+# windowed route past 256 samples.
+QUAD_S = [1, 8, 31, 32, 33, 64, 192, 256, 257, 1024]
+
+
+@pytest.mark.parametrize("s", QUAD_S)
 @pytest.mark.parametrize("sigma_only,white_bg", [(True, False),
                                                  (False, True),
                                                  (False, False)])
 def test_ray_march_quadrature_matches_plain(cuda_device, sigma_only,
-                                            white_bg):
+                                            white_bg, s):
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    r, s = 300, 192
+    r = 300
     t = torch.sort(torch.rand(r, s, generator=g, device=cuda_device) * 4 + 2,
                    dim=-1).values
     rgbs = torch.rand(r, s, 4, generator=g, device=cuda_device)
     rgbs[..., 3] *= 5
     inp = rgbs[..., 3].contiguous() if sigma_only else rgbs
-    got = trm.ray_march_quadrature(inp, t, white_bg, sigma_only, True)
-    want = trm.ray_march_quadrature_plain(inp, t, white_bg, sigma_only, True)
+    for emit in (True, False):
+        got = trm.ray_march_quadrature(inp, t, white_bg, sigma_only, emit)
+        again = trm.ray_march_quadrature(inp, t, white_bg, sigma_only, emit)
+        want = trm.ray_march_quadrature_plain(inp, t, white_bg, sigma_only,
+                                              emit)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, again):
+            if b is None:
+                assert a is None and c is None
+                continue
+            assert float((a - b).abs().max()) <= 1e-4
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("sigma_only", [True, False])
+def test_ray_march_quadrature_takes_zero_samples(cuda_device, sigma_only):
+    """No sample: the background alone, as the plain version gives it."""
+    t = torch.empty(64, 0, device=cuda_device)
+    inp = t if sigma_only else torch.empty(64, 0, 4, device=cuda_device)
+    got = trm.ray_march_quadrature(inp, t, True, sigma_only, True)
+    want = trm.ray_march_quadrature_plain(inp, t, True, sigma_only, True)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
-        assert float((a - b).abs().max()) <= 1e-4
+        assert a.shape == b.shape and torch.equal(a, b)
 
 
 def _merge_weights(kind: str, r: int, s_c: int, g) -> torch.Tensor:
@@ -333,18 +358,22 @@ def test_ray_march_mlp_train_mode_matches_plain(cuda_device, n_layers, skip):
         _assert_bf16_close(stash_k["h"][i], stash_p["h"][i], 3e-2, i)
 
 
+@pytest.mark.parametrize("s", QUAD_S)
 @pytest.mark.parametrize("white_bg", [True, False])
-def test_ray_march_quadrature_with_grad_matches_plain(cuda_device, white_bg):
+def test_ray_march_quadrature_with_grad_matches_plain(cuda_device, white_bg,
+                                                      s):
     g = torch.Generator(device=cuda_device).manual_seed(4)
-    r, s = 300, 192
+    r = 300
     t = torch.sort(torch.rand(r, s, generator=g, device=cuda_device) * 4 + 2,
                    dim=-1).values
     rgbs = torch.rand(r, s, 4, generator=g, device=cuda_device)
     rgbs[..., 3] *= 3
     rgbs[::7, :, 3] = 0.0          # empty rays: white pixels clip at 1
+    rgbs[1::7, :, 3] = 1e4         # saturated rays
     target = torch.rand(r, 3, generator=g, device=cuda_device)
     kw = dict(target=target, loss_scale=2.0 / (3 * r))
     got = trm.ray_march_quadrature(rgbs, t, white_bg, False, True, **kw)
+    again = trm.ray_march_quadrature(rgbs, t, white_bg, False, True, **kw)
     want = trm.ray_march_quadrature_plain(rgbs, t, white_bg, False, True,
                                           **kw)
     torch.cuda.synchronize()
@@ -353,6 +382,16 @@ def test_ray_march_quadrature_with_grad_matches_plain(cuda_device, white_bg):
     for a, b in zip(got[3:], want[3:]):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         _assert_bf16_close(a, b, 1e-2)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+    if s == 1024:
+        over = torch.cat([t, t[:, -1:] + 1e-3], 1)
+        with pytest.raises(ValueError, match="ray_march_quadrature's "
+                                             "with_grad mode takes at most "
+                                             "1024 samples"):
+            trm.ray_march_quadrature(
+                torch.rand(r, 1025, 4, device=cuda_device), over, white_bg,
+                False, True, **kw)
 
 
 @pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1)])

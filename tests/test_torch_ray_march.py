@@ -21,7 +21,8 @@ from keras_nerf_tpu.models import mlp as jmlp
 from keras_nerf_tpu.ops import sampling as jsamp
 from keras_nerf_tpu_torch.kernels import ray_march as trm
 from keras_nerf_tpu_torch.models.mlp import MLPConfig
-from keras_nerf_tpu_torch.ops.sampling import sequential_cdf
+from keras_nerf_tpu_torch.ops.sampling import (invert_cdf_of,
+                                               sequential_cdf)
 from keras_nerf_tpu_torch.utils.convert import params_from_jax
 
 IMAGE_ATOL, DEPTH_ATOL, WEIGHTS_ATOL = 2e-3, 5e-3, 2e-3
@@ -132,7 +133,11 @@ def _heavy_tailed(r, s_c, seed):
     return w
 
 
-def test_sample_merge_cdf_never_steps_down_on_heavy_tailed_weights():
+HEAVY_SEEDS = (5, 9, 11, 13)
+
+
+@pytest.mark.parametrize("seed", HEAVY_SEEDS)
+def test_sample_merge_cdf_never_steps_down_on_heavy_tailed_weights(seed):
     """The CDF that sample_merge inverts is non-decreasing in every ray,
     by construction (each prefix the one before plus a bin's share), on the
     weights where the TPU prologue's ``inclusive - pdf`` steps down by an
@@ -140,9 +145,11 @@ def test_sample_merge_cdf_never_steps_down_on_heavy_tailed_weights():
     ``invert_cdf`` than the prologue's CDF puts them. (JAX sums the total
     in another order, so its CDF lies some ulps away, and in a bin with a
     tiny share the inverse CDF multiplies that by 1 / denom: on such
-    weights both definitions exceed ``SAMPLING_ATOL`` on a few depths.)"""
+    weights both definitions exceed ``SAMPLING_ATOL`` on a few depths;
+    :func:`test_sample_merge_on_heavy_tailed_weights_is_jax_on_jax_cdf`
+    accounts for every one.)"""
     r, s_c, n = 2000, 64, 128
-    w = torch.as_tensor(_heavy_tailed(r, s_c, seed=5))
+    w = torch.as_tensor(_heavy_tailed(r, s_c, seed=seed))
     cdf = sequential_cdf(w)
     assert bool((cdf[:, 1:] >= cdf[:, :-1]).all())
     # The prologue's exclusive form, one float32 rounding off the chain.
@@ -152,13 +159,11 @@ def test_sample_merge_cdf_never_steps_down_on_heavy_tailed_weights():
         total = total + wp[:, i]
     excl = cdf - wp / total[:, None]
     steps_down = int((excl[:, 1:] < excl[:, :-1]).any(dim=1).sum())
-    print(f"heavy-tailed weights, {r} rays: inclusive - pdf steps down in "
-          f"{steps_down}, the sequential CDF in 0")
+    print(f"heavy-tailed weights (seed {seed}), {r} rays: inclusive - pdf "
+          f"steps down in {steps_down}, the sequential CDF in 0")
     assert steps_down > 0
 
-    rng = np.random.default_rng(6)
-    cp = np.sort(rng.uniform(2, 6, (r, s_c)).astype(np.float32), -1)
-    u = np.sort(rng.uniform(size=(r, n)).astype(np.float32), -1)
+    cp, u = _heavy_draws(r, s_c, n)
     got = trm.sample_merge(*_t(cp, w.numpy(), u), None)
     assert bool((got[:, 1:] >= got[:, :-1]).all())
     want = np.asarray(jsamp.invert_cdf(
@@ -167,13 +172,115 @@ def test_sample_merge_cdf_never_steps_down_on_heavy_tailed_weights():
     before = _prologue_form(*_t(cp, u), w, excl)
     new_err = float(np.abs(got.numpy() - want).max())
     old_err = float(np.abs(before.numpy() - want).max())
-    print(f"heavy-tailed weights, drawn depths against JAX's invert_cdf: "
-          f"max abs {new_err:.3e}, the prologue's CDF {old_err:.3e} (JAX "
-          f"sums the total in another order: its CDF "
+    print(f"heavy-tailed weights (seed {seed}), drawn depths against JAX's "
+          f"invert_cdf: max abs {new_err:.3e}, the prologue's CDF "
+          f"{old_err:.3e} (JAX sums the total in another order: its CDF "
           f"{np.abs(cdf.numpy() - np.asarray(_jax_cdf(w))).max():.3e} "
           f"away); the two definitions "
           f"{float((got - before).abs().max()):.3e} apart")
     assert new_err <= old_err
+
+
+def _heavy_draws(r, s_c, n):
+    """The coarse depths and sorted draws of the heavy-tailed checks."""
+    rng = np.random.default_rng(6)
+    cp = np.sort(rng.uniform(2, 6, (r, s_c)).astype(np.float32), -1)
+    u = np.sort(rng.uniform(size=(r, n)).astype(np.float32), -1)
+    return cp, u
+
+
+F32_ULP = 2.0 ** -24   # unit roundoff of float32
+# A CDF of 64 bins, summed in any order: the total with at most 63
+# roundings (gamma_63 relative), each share one rounding of the divide,
+# each prefix at most 63 more roundings of a sum of shares <= 1. So each
+# entry lies within (63 + 1 + 63) u of the exact CDF, whatever the order,
+# and two orders lie within twice that of each other: 254 u = 1.514e-5.
+# (``w + 1e-5`` is one rounding of the same operands in both.)
+CDF_BUDGET = 2 * (63 + 1 + 63) * F32_ULP
+# Depths whose bracket differs between the two CDFs (a draw between the
+# two values of one entry), as measured per weights seed: 2,000 rays x 128
+# draws.
+BRACKET_CHANGES = {5: 0, 9: 0, 11: 1, 13: 0}
+
+
+@pytest.mark.parametrize("seed", HEAVY_SEEDS)
+def test_sample_merge_on_heavy_tailed_weights_is_jax_on_jax_cdf(seed):
+    """ROADMAP C13: the port's sampling against JAX's ``invert_cdf`` on
+    heavy-tailed weights is JAX's inversion on a CDF a few ulps away.
+
+    (a) Pinned: ``invert_cdf_of`` fed JAX's own inclusive CDF (the
+    expression of `keras_nerf_tpu/ops/sampling.py:119-121`) is JAX's
+    ``invert_cdf`` bit for bit. (b) The port's ``sequential_cdf`` lies
+    within :data:`CDF_BUDGET` of JAX's CDF, entry by entry. (c) Unpinned,
+    each drawn depth lies within ``SAMPLING_ATOL`` plus the first-order
+    effect of the two CDFs' difference at its own bracket (JAX's),
+    ``(|dc_lo| (1 - t) + |dc_hi| t) / denom (b_hi - b_lo)``, except where
+    the bracket itself differs between the two CDFs: those are counted
+    and held at :data:`BRACKET_CHANGES`. The witness: JAX's own float32
+    ``invert_cdf`` against a float64 inversion of the same weights."""
+    r, s_c, n = 2000, 64, 128
+    w = _heavy_tailed(r, s_c, seed=seed)
+    cp, u = _heavy_draws(r, s_c, n)
+    mids = np.array(jsamp.midpoints(jnp.asarray(cp)))
+    want = np.asarray(jsamp.invert_cdf(jnp.asarray(u), jnp.asarray(mids),
+                                       jnp.asarray(w)))
+    wj = jnp.asarray(w) + 1e-5
+    jax_cdf = np.array(jnp.cumsum(wj / jnp.sum(wj, axis=-1, keepdims=True),
+                                   axis=-1))
+    pinned = invert_cdf_of(*_t(u, mids, jax_cdf)).numpy()
+    assert np.array_equal(pinned, want)
+
+    port_cdf = sequential_cdf(torch.as_tensor(w)).numpy()
+    cdf_err = float(np.abs(port_cdf - jax_cdf).max())
+    assert cdf_err <= CDF_BUDGET
+
+    got = trm.sample_merge(*_t(cp, w, u), None).numpy()
+    zero = np.zeros((r, 1), np.float32)
+    cj = np.concatenate([zero, jax_cdf], 1)
+    cport = np.concatenate([zero, port_cdf], 1)
+    k_jax = _bracket(cj, u)
+    changed = k_jax != _bracket(cport, u)
+    lo, hi = np.maximum(k_jax - 1, 0), np.minimum(k_jax, s_c)
+    rows = np.arange(r)[:, None]
+    mp = np.concatenate([mids] + [mids[:, -1:]] * 2, 1)   # edge-padded
+    c_lo, c_hi = cj[rows, lo], cj[rows, hi]
+    b_lo, b_hi = mp[rows, lo], mp[rows, hi]
+    denom = c_hi - c_lo
+    denom = np.where(denom < np.float32(1e-5), np.float32(1.0), denom)
+    t = (u - c_lo) / denom
+    first = ((np.abs(cport[rows, lo] - c_lo) * (1 - t)
+              + np.abs(cport[rows, hi] - c_hi) * t) / denom * (b_hi - b_lo))
+    err = np.abs(got - want)
+    over = (err > SAMPLING_ATOL + first) & ~changed
+    share = float((err / (SAMPLING_ATOL + first))[~changed].max())
+
+    w64 = w.astype(np.float64) + 1e-5
+    cdf64 = torch.as_tensor(np.cumsum(w64 / w64.sum(-1, keepdims=True), -1))
+    f64 = invert_cdf_of(torch.as_tensor(u, dtype=torch.float64),
+                        torch.as_tensor(mids, dtype=torch.float64),
+                        cdf64).numpy()
+    print(f"C13, heavy-tailed weights seed {seed}, {r} rays x {n} draws: "
+          f"(a) invert_cdf_of on JAX's CDF against JAX's invert_cdf: max "
+          f"abs {np.abs(pinned - want).max():.3e} (budget 0, bit for bit); "
+          f"(b) sequential_cdf against JAX's CDF {cdf_err:.3e} (budget "
+          f"{CDF_BUDGET:.3e}); (c) depths: max abs {err.max():.3e}, "
+          f"{int((err > SAMPLING_ATOL).sum())} beyond SAMPLING_ATOL "
+          f"{SAMPLING_ATOL}, each within SAMPLING_ATOL + the first-order "
+          f"effect of the CDFs' difference at its bracket (worst share of "
+          f"that budget {share:.3f}, {int(over.sum())} beyond it), bracket "
+          f"changes {int(changed.sum())} (cap {BRACKET_CHANGES[seed]}), "
+          f"their largest error "
+          f"{(err[changed].max() if changed.any() else 0.0):.3e}; witness: "
+          f"JAX's float32 invert_cdf against a float64 inversion "
+          f"{np.abs(want - f64).max():.3e}")
+    assert not over.any()
+    assert int(changed.sum()) <= BRACKET_CHANGES[seed]
+
+
+def _bracket(cdf, u):
+    """The count of 0-prepended CDF entries <= each draw, per ray."""
+    return np.stack([np.searchsorted(c, x, side="right")
+                     for c, x in zip(cdf, u)])
 
 
 def _search_form(cp, w, u, mp):
@@ -339,3 +446,185 @@ def test_quadrature_plain_is_exact_transmittance():
     img_ref = np.clip((w_ref[..., None] * rgbs[..., :3]).sum(1)
                       + (1 - w_ref.sum(-1))[:, None], 0, 1)
     np.testing.assert_allclose(image.numpy(), img_ref, atol=1e-5)
+
+
+QUAD_TOL = {"abs": 1e-4, "rel": 1e-2, "rel_norm": 1e-2}   # chip_smoke.py's
+QUAD_S = [1, 8, 31, 32, 33, 64, 192, 256, 257, 1024]
+
+
+def _lane_scan(v, reverse=False):
+    """A warp's Hillis-Steele inclusive scan over the last axis (32
+    lanes), in the kernel's rounds: lane l adds lane l - off (l + off
+    when ``reverse``) for off = 1, 2, ..., 16."""
+    off = 1
+    while off < 32:
+        if reverse:
+            v = torch.cat([v[..., :-off] + v[..., off:], v[..., -off:]], -1)
+        else:
+            v = torch.cat([v[..., :off], v[..., off:] + v[..., :-off]], -1)
+        off *= 2
+    return v
+
+
+def _warp_sum(v):
+    """The kernel's butterfly reduction over 32 lanes (xor 16, 8, ..., 1):
+    every lane ends with the same sum."""
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ off]
+    return v[..., 0]
+
+
+def _blocked_form(rgbs, t, white_bg=False, sigma_only=False, target=None,
+                  loss_scale=0.0):
+    """ray_march_quadrature as csrc/ray_march_quadrature.cu computes it: a
+    warp a ray, lane l of window w holding samples w 32 k + l k + j; the
+    exclusive optical depth as (carry + the lanes' exclusive scan) + the
+    in-lane prefix; per-lane partial sums reduced by a butterfly; with a
+    target, the reverse walk on the same values: (suffix carry + the lanes'
+    exclusive reverse scan) + the in-lane suffix. Returns what
+    ``ray_march_quadrature_plain`` returns, weights included."""
+    r, s = t.shape
+    plan = trm.quadrature_plan(s, with_grad=target is not None)
+    k, n_win = plan["k"], plan["windows"]
+    pad = n_win * 32 * k
+    sigma = rgbs if sigma_only else rgbs[..., 3]
+    delta = torch.cat([t[:, 1:] - t[:, :-1],
+                       torch.full_like(t[:, :1], trm._LAST_DELTA)], 1)
+
+    def blocks(a):   # [r, s] -> [r, windows, 32 lanes, k], zeros past s
+        a = torch.cat([a, a.new_zeros(r, pad - s)], 1)
+        return a.reshape(r, n_win, 32, k)
+
+    x = blocks(sigma * delta)
+    pre, p = torch.zeros_like(x), torch.zeros_like(x[..., 0])
+    for j in range(k):
+        pre[..., j] = p
+        p = p + x[..., j]
+    incl = _lane_scan(p)
+    ex = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], -1)
+    carry, excl = torch.zeros(r), torch.zeros_like(x)
+    for w in range(n_win):
+        b = carry[:, None] + ex[:, w]
+        carry = carry + incl[:, w, 31]
+        excl[:, w] = b[..., None] + pre[:, w]
+    e, tr = torch.exp(-x), torch.exp(-excl)
+    wgt = (1.0 - e) * tr
+
+    def lane_sums(a):   # per lane over windows then samples, then butterfly
+        acc = torch.zeros(r, 32)
+        for w in range(n_win):
+            for j in range(k):
+                acc = acc + a[:, w, :, j]
+        return _warp_sum(acc)
+
+    depth = lane_sums(wgt * blocks(t))
+    weights = wgt.reshape(r, pad)[:, :s]
+    if sigma_only:
+        return torch.zeros(r, 3), depth, weights
+    c = [blocks(rgbs[..., i]) for i in range(3)]
+    pre_clip = torch.stack([lane_sums(wgt * ci) for ci in c], 1)
+    if white_bg:
+        pre_clip = pre_clip + (1.0 - lane_sums(wgt))[:, None]
+    image = pre_clip.clamp(0.0, 1.0)
+    if target is None:
+        return image, depth, weights
+    d_image = (image - target) * trm._f32(loss_scale)
+    dp = torch.where((pre_clip > 0) & (pre_clip < 1), d_image,
+                     torch.where((pre_clip == 0) | (pre_clip == 1),
+                                 0.5 * d_image, torch.zeros_like(d_image)))
+    dp = [dp[:, i, None, None, None] for i in range(3)]
+    d_w = (c[0] * dp[0] + c[1] * dp[1]) + c[2] * dp[2]
+    if white_bg:
+        d_w = d_w - ((dp[0] + dp[1]) + dp[2])
+    v = wgt * d_w
+    later, q = torch.zeros_like(v), torch.zeros_like(v[..., 0])
+    for j in reversed(range(k)):
+        later[..., j] = q
+        q = q + v[..., j]
+    suf = _lane_scan(q, reverse=True)
+    after = torch.cat([suf[..., 1:], torch.zeros_like(suf[..., :1])], -1)
+    suffix_carry, d_x = torch.zeros(r), torch.zeros_like(v)
+    for w in reversed(range(n_win)):
+        b = suffix_carry[:, None] + after[:, w]
+        suffix_carry = suffix_carry + suf[:, w, 0]
+        d_x[:, w] = e[:, w] * tr[:, w] * d_w[:, w] - (b[..., None]
+                                                      + later[:, w])
+    d_sigma = torch.where(blocks(sigma) > 0, d_x * blocks(delta), 0.0)
+    d_rgb = torch.zeros(r * s, trm.D_HEAD, dtype=torch.bfloat16)
+    for i in range(3):
+        g = wgt * dp[i] * c[i] * (1.0 - c[i])
+        d_rgb[:, i] = g.reshape(r, pad)[:, :s].reshape(-1).to(torch.bfloat16)
+    return (image, depth, weights, d_rgb,
+            d_sigma.reshape(r, pad)[:, :s].reshape(-1).to(torch.bfloat16))
+
+
+def _quad_inputs(s, case, r=8, seed=7):
+    rng = np.random.default_rng(seed + s)
+    t = np.sort(rng.uniform(2, 6, (r, s)), -1)
+    rgbs = rng.uniform(size=(r, s, 4))
+    rgbs[..., 3] = {"random": 5 * rgbs[..., 3], "saturated": 1e4,
+                    "zero sigma": 0.0}[case]
+    target = rng.uniform(size=(r, 3))
+    return _t(t.astype(np.float32), rgbs.astype(np.float32),
+              target.astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", ["sigma-only", "full", "full white",
+                                  "with_grad", "with_grad white"])
+@pytest.mark.parametrize("case", ["random", "saturated", "zero sigma"])
+@pytest.mark.parametrize("s", QUAD_S)
+def test_quadrature_blocked_form_matches_the_plain_version(s, case, mode):
+    """The kernel's design, run on the CPU, against
+    ``ray_march_quadrature_plain`` at the card's budgets (image, depth and
+    weights absolutely, the bf16 cotangents relative to their largest
+    entry and by norm), on the register route (S <= 256: k = ceil(S / 32)
+    samples a lane, its edges 31, 32, 33) and the windowed one (257,
+    1024); saturated rays (x >> 1), all-zero sigma and, on a white
+    background with zero sigma, a pre-clip image of exactly 1 (the clip's
+    subgradient 0.5, ROADMAP C5)."""
+    t, rgbs, target = _quad_inputs(s, case)
+    sigma_only = mode == "sigma-only"
+    inp = rgbs[..., 3].contiguous() if sigma_only else rgbs
+    kw = dict(white_bg="white" in mode, sigma_only=sigma_only)
+    if mode.startswith("with_grad"):
+        kw.update(target=target, loss_scale=2.0 / (3 * t.shape[0]))
+    got = _blocked_form(inp, t, **kw)
+    want = trm.ray_march_quadrature_plain(
+        inp, t, kw["white_bg"], sigma_only, True, target=kw.get("target"),
+        loss_scale=kw.get("loss_scale", 0.0))
+    assert len(got) == len(want)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= QUAD_TOL["abs"]
+    for a, b in zip(got[3:], want[3:]):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        a, b = a.float(), b.float()
+        scale = b.abs().max().clamp_min(1e-30)
+        assert float((a - b).abs().max() / scale) <= QUAD_TOL["rel"]
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) \
+            <= QUAD_TOL["rel_norm"]
+    if case == "zero sigma" and mode == "with_grad white":
+        assert bool((want[0] == 1.0).all())   # the clip's edge, slope 0.5
+        d_rgb = want[3].float()
+        assert float(d_rgb.abs().max()) == 0.0   # no weight, no colour term
+
+
+@pytest.mark.parametrize("s", [0] + QUAD_S + [1025, 4096])
+def test_quadrature_plan_routes(s):
+    """Registers up to 256 samples (k = ceil(S / 32) a lane), windows of
+    256 above; the with_grad mode refuses more than 1024 by name; 8 rays
+    a block in sigma-only mode, 4 with the colours."""
+    plan = trm.quadrature_plan(s)
+    assert plan["k"] == max(1, min(8, -(-s // 32)))
+    assert plan["windows"] == -(-s // (32 * plan["k"]))
+    assert plan["route"] == ("registers" if s <= 256 else "windowed")
+    assert plan["rays_per_block"] == 4
+    assert trm.quadrature_plan(s, sigma_only=True) == {
+        **plan, "rays_per_block": 8}
+    if not 1 <= s <= 1024:
+        with pytest.raises(ValueError, match="with_grad mode takes at most "
+                                             "1024 samples"):
+            trm.quadrature_plan(s, with_grad=True)
+    else:
+        assert trm.quadrature_plan(s, with_grad=True) == plan

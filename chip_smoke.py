@@ -18,7 +18,9 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   2048-ray chunks (and ``mlp_weight_grad`` against itself, bit for bit),
   trains 20 steps through ``NeRF.fit`` on an in-memory spheres scene, takes
   one step at 16384-ray chunks (peak memory), and holds one card step
-  against the same step on the CPU;
+  against the same step on the CPU, also at 64 + 1024 samples a ray
+  (ROADMAP C14: the with_grad quadrature past 1024 samples, also held
+  against its plain version and timed at [2048 x 1088]);
 * train with a custom loss (``compile(loss=l1)``): holds ``apply_mlp``
   (T5, with and without its stash), the output-head mode of
   ``mlp_backward`` and ``fused_mlp_backward`` (T6) against their plain
@@ -36,8 +38,8 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   plain version at 2 passes, reads it at the full 16 against the plain
   version with float64 sums (its drift at most ``CEILING_DRIFT_RATIO``
   times the plain version's), and runs ``profile_mma_ceiling.measure``
-  (TFLOP/s of the ``wmma`` product loop alone, the loop the MLP kernels
-  ran before they moved to ``wgmma``);
+  (TFLOP/s and the L2 weight rate of the ``wgmma`` product loop that the
+  MLP kernels run, alone);
 * the occupancy render (``inference --occupancy_grid 128``): bakes the fog
   weights' 128^3 grid through ``NeRF.bake_occupancy`` (8 ``apply_mlp``
   launches, one chunk held against its plain version), holds
@@ -94,6 +96,9 @@ N_COARSE, N_FINE = 64, 128
 IMG = 128
 FRAMES = [0.0, 10.0, 20.0, 30.0]
 TRAIN_CHUNK = 2048         # the training CLI's default --ray_chunks
+# ROADMAP C14: --num_fine_samples 1024, fine S = 64 + 1024, past the 1024
+# samples a ray that the with_grad quadrature once refused.
+C14_FINE = 1024
 BIG_CHUNK = 16384          # the round-5 recipe's --ray_chunks
 TRAIN_POSES, TRAIN_EPOCHS = 5, 4   # 20 steps
 E2E_IMG, E2E_CHUNK = 16, 128       # 2 chunks
@@ -146,7 +151,7 @@ CEILING_CHECK = dict(CEILING_RUN, rep=2)
 # 1.8x in the first reading (bare mode, H100), hence 2.
 CEILING_DRIFT_RATIO = 2.0
 # The same chain summed on the tensor cores (a bf16 cuBLAS product with a
-# float32 output, chip_smoke._tensor_core_order) is the plain order of the
+# float32 output, kernels/ceiling.py:pytorch_chain) is the plain order of the
 # kernel's own accumulation: the kernel may drift at most as far as it
 # (ROADMAP C7; it read ratio 1.000, H100, both modes).
 CEILING_TC_RATIO = 1.0
@@ -589,6 +594,7 @@ def main() -> int:
                       f"plain versions, at the CPU's subgradient",
                       tnerf.state, small, cfg)
     _compare_passes(tnerf.state, small, cfg)
+    _c14_step(tnerf.state, card_tag)
 
     # ---- 7. times ---------------------------------------------------------
     # One call per kernel mode at its path's chunk shape, with the least
@@ -717,6 +723,11 @@ def main() -> int:
                 p["rgbs"], p["t"], True, False, p["weights"],
                 target=train_in["target"],
                 loss_scale=2.0 / (3 * TRAIN_CHUNK)))
+    t14 = train_in["c14"]["t"]
+    quad_calls[f"with_grad fine [{TRAIN_CHUNK} x {t14.shape[1]}]"] = (
+        lambda: ray_march_quadrature(
+            train_in["c14"]["rgbs"], t14, True, False, False,
+            target=train_in["target"], loss_scale=2.0 / (3 * TRAIN_CHUNK)))
     log(json.dumps({"profile_quadrature": _one_kernel_each(
         quad_calls, "quadrature"), "card": card}))
 
@@ -1101,11 +1112,19 @@ def _train_inputs(cfg, gen) -> dict:
                                         tc, True, False, True)[2]
     u = sorted_uniforms(gen, (TRAIN_CHUNK,), N_FINE)
     tf = trm.sample_merge.plain(tc, wc, u, tc)
+    # The fine pass of 1024 draws (ROADMAP C14), from a generator of its
+    # own so that every other draw is unchanged: its depths and colours.
+    c14_gen = torch.Generator(device=dev)
+    c14_gen.manual_seed(16)
+    t14 = trm.sample_merge.plain(
+        tc, wc, sorted_uniforms(c14_gen, (TRAIN_CHUNK,), C14_FINE), tc)
+    rgbs14 = trm.ray_march_mlp.plain(packed, base, slope, t14, masks)
     return {"cfg": cfg, "packed": packed, "o": o, "d": d, "base": base,
             "slope": slope, "masks": masks, "target": target, "wc": wc,
             "u": u,
             "passes": {"coarse": {"t": tc, "weights": True},
-                       "fine": {"t": tf, "weights": False}}}
+                       "fine": {"t": tf, "weights": False}},
+            "c14": {"t": t14, "rgbs": rgbs14.reshape(TRAIN_CHUNK, -1, 4)}}
 
 
 def _rel_max(got, want) -> float:
@@ -1267,6 +1286,21 @@ def _train_kernel_checks(ti: dict):
                     f"mlp_weight_grad, every packed gradient, twice {shape}",
                     extra_ok=same)
         p.update(stash=stash_p, cots=cots_p, rgbs=rgbs, quad=q_p)
+    # ROADMAP C14: the with_grad mode past 1024 samples a ray.
+    c14 = ti["c14"]
+    kw = dict(target=ti["target"], loss_scale=2.0 / (3 * TRAIN_CHUNK))
+    q_args = (c14["rgbs"], c14["t"], True, False, False)
+    q_k = [trm.ray_march_quadrature(*q_args, **kw) for _ in range(2)]
+    q_p = trm.ray_march_quadrature.plain(*q_args, **kw)
+    torch.cuda.synchronize()
+    twice = all(torch.equal(a, b) for a, b in zip(q_k[0], q_k[1])
+                if a is not None)
+    err = max(float((a - b).abs().max()) for a, b in zip(q_k[0][:2],
+                                                         q_p[:2]))
+    yield _held("ray_march_quadrature", list(zip(q_k[0][3:], q_p[3:])),
+                f"ray_march_quadrature with_grad, no weights "
+                f"[{TRAIN_CHUNK} x {c14['t'].shape[1]}] (ROADMAP C14), "
+                f"identical bits twice {twice}", err=err, extra_ok=twice)
 
 
 def _custom_kernel_checks(ti: dict):
@@ -1469,9 +1503,9 @@ def _big_chunk_step(nerf, dataset, card_tag, loss):
     _compile_train(nerf, loss)
 
 
-def _small_step_inputs(gen):
-    """A 16^2 view of the spheres scene (2 chunks) with its rays and fine
-    draws, on the card."""
+def _small_step_inputs(gen, n_fine=N_FINE):
+    """A 16^2 view of the spheres scene (2 chunks) with its rays and
+    ``n_fine`` fine draws a ray, on the card."""
     import torch
 
     from keras_nerf_tpu_torch.data import generate_ray_batch
@@ -1484,9 +1518,40 @@ def _small_step_inputs(gen):
                               near=ORBIT["near"], far=ORBIT["far"],
                               n_samples=N_COARSE)
     batch = (torch.as_tensor(images, device="cuda"), rays)
-    draws = [sorted_uniforms(gen, (E2E_CHUNK,), N_FINE)
+    draws = [sorted_uniforms(gen, (E2E_CHUNK,), n_fine)
              for _ in range(E2E_IMG * E2E_IMG // E2E_CHUNK)]
     return batch, draws
+
+
+def _c14_step(state, card_tag):
+    """ROADMAP C14: a 16^2 MSE step at 64 + 1024 samples a ray through the
+    fused path (T3: the with_grad quadrature at S = 1088), the card's step
+    against the CPU's at ``STEP_TOL`` (:func:`_compare_mse_steps`), from
+    ``state``'s weights; fails unless the card's step ran the T3 kernels,
+    2 chunks of ``MSE_LAUNCHES``. Prints its seconds."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from keras_nerf_tpu_torch.models import NeRFConfig
+
+    cfg = NeRFConfig(n_coarse=N_COARSE, n_fine=C14_FINE,
+                     white_background=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    small = _small_step_inputs(gen, C14_FINE)
+    label = (f"train step {E2E_IMG}^2 at {N_COARSE} + {C14_FINE} samples "
+             f"(ROADMAP C14), card kernels vs CPU plain versions")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    _compare_mse_steps(label, state, small, cfg)
+    launches = {k.name: k.launches for k in KERNELS}
+    chunks = E2E_IMG * E2E_IMG // E2E_CHUNK
+    expected = {k.name: chunks * MSE_LAUNCHES.get(k.name, 0)
+                for k in KERNELS}
+    log(f"{label}: {time.perf_counter() - t0:.1f} s (wall: the card's step "
+        f"and two CPU steps) {card_tag}; card launches {launches}")
+    if launches != expected:
+        fail(f"{label}: launch counts {launches} != expected {expected}")
 
 
 def _one_step(state, small, cfg, device, loss_fn):
@@ -1864,6 +1929,16 @@ def _train_modes(ti: dict, cfg) -> list:
              + _weight_grad_partial_bytes(p["stash"], p["cots"], acc),
              _weight_grad_library(p["stash"], p["cots"], acc)),
         ]
+    # ROADMAP C14's fine pass of 1024 draws: on no 128^2 step (0 launches).
+    t14, rgbs14 = ti["c14"]["t"], ti["c14"]["rgbs"]
+    r, pts = TRAIN_CHUNK, t14.numel()
+    q_kw = dict(target=ti["target"], loss_scale=2.0 / (3 * r))
+    modes.append((trm.ray_march_quadrature, "train",
+                  f"with_grad fine [{r} x {t14.shape[1]}] (ROADMAP C14)",
+                  lambda f: f(rgbs14, t14, True, False, False, **q_kw), 0,
+                  _bound(pts * (20 + head_b) + r * 28, pts * 38,
+                         PEAK_F32_FLOPS),
+                  pts * (20 + head_pad_b) + r * 28))
     return modes
 
 
@@ -2175,7 +2250,11 @@ def _ceiling_probe(errors, card_tag):
         mma_ceiling,
         reset_launch_counts,
     )
-    from keras_nerf_tpu_torch.kernels.ceiling import MODES, make_inputs
+    from keras_nerf_tpu_torch.kernels.ceiling import (
+        MODES,
+        make_inputs,
+        pytorch_chain,
+    )
     from keras_nerf_tpu_torch.profile_mma_ceiling import measure
 
     c = CEILING_CHECK
@@ -2202,7 +2281,7 @@ def _ceiling_probe(errors, card_tag):
     # version with float64 sums, two valid orders, and hold the kernel's
     # drift to CEILING_DRIFT_RATIO times the plain version's, and to
     # CEILING_TC_RATIO times that of the same chain summed on the tensor
-    # cores (_tensor_core_order), the plain order of the kernel's own
+    # cores (ceiling.pytorch_chain), the plain order of the kernel's own
     # accumulation.
     c = CEILING_RUN
     ws, bs, seed = make_inputs(c["grid"], c["u"], "cuda", seed=1,
@@ -2214,7 +2293,7 @@ def _ceiling_probe(errors, card_tag):
         plain = mma_ceiling.plain(ws, bs, seed, c["t"], c["rep"], mode)
         wide = mma_ceiling.plain(ws, bs, seed, c["t"], c["rep"], mode,
                                  sums=torch.float64)
-        tc = _tensor_core_order(ws, bs, seed, c["t"], c["rep"], mode)
+        tc = pytorch_chain(ws, bs, seed, c["t"], c["rep"], mode)
         torch.cuda.synchronize()
         drift, plain_drift = _rel_max(got, wide), _rel_max(plain, wide)
         tc_drift = _rel_max(tc, wide)
@@ -2253,40 +2332,13 @@ def _ceiling_probe(errors, card_tag):
         log(f"ceiling probe {r['mode']}: T={r['T']} U={r['U']} rep="
             f"{r['rep']} grid={r['grid']}: {r['ms']:.3f} ms/call, "
             f"{r['tflops']:.1f} TFLOP/s ({100 * r['share_of_peak']:.1f}% of "
-            f"989 TFLOP/s bf16 dense) {card_tag}")
+            f"989 TFLOP/s bf16 dense), weights from L2 "
+            f"{r['l2_weight_tbps']:.2f} TB/s {card_tag}")
     if launches != expected:
         fail(f"ceiling probe launch counts {launches} != {expected}")
     # The timing phase's inputs, as measure makes them.
     return launches, make_inputs(CEILING_RUN["grid"], CEILING_RUN["u"],
                                  "cuda")
-
-
-def _tensor_core_order(ws, bs, seed, t, rep, mode):
-    """``mma_ceiling_plain``'s chain with each product summed on the tensor
-    cores: a bf16 ``torch.mm`` with a float32 output (cuBLAS; PyTorch's
-    reduced-precision reduction off), then the probe's own float32 bias,
-    relu and bf16 rounding. A yardstick of ROADMAP C7 only: the package
-    never calls it."""
-    import torch
-
-    matmul = torch.backends.cuda.matmul
-    saved = matmul.allow_bf16_reduced_precision_reduction
-    matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        steps = seed.shape[0] // 8
-        u = ws[0].shape[0]
-        io = torch.arange(t, dtype=torch.float32, device=seed.device) * 1e-4
-        h = (io[None, :, None] + seed[::8, :1, None]).expand(steps, t, u)
-        h = h.reshape(steps * t, u).to(torch.bfloat16)
-        for _ in range(rep):
-            for w, b in zip(ws, bs):
-                acc = torch.mm(h, w, out_dtype=torch.float32)
-                if mode == "epi":
-                    acc = torch.relu(acc + b)
-                h = acc.to(torch.bfloat16)
-    finally:
-        matmul.allow_bf16_reduced_precision_reduction = saved
-    return h.reshape(steps, t, u)[:, :8, :128].float().reshape(steps * 8, 128)
 
 
 def _quantized_modes(qi: dict, cfg) -> list:
@@ -2319,9 +2371,15 @@ def _quantized_modes(qi: dict, cfg) -> list:
 
 def _ceiling_modes(inputs: tuple) -> list:
     """T7's timing modes: one call of each mode at the TPU script's
-    defaults. Bound: its products at the bf16 peak (it moves about 1 MB)."""
+    defaults. Bound: its products at the bf16 peak (it moves about 1 MB);
+    the 9th item is the PyTorch chain of the same function
+    (``ceiling.pytorch_chain``: one bf16 ``torch.mm`` a layer)."""
     from keras_nerf_tpu_torch.kernels import ray_march as trm
-    from keras_nerf_tpu_torch.kernels.ceiling import MODES, ceiling_flop
+    from keras_nerf_tpu_torch.kernels.ceiling import (
+        MODES,
+        ceiling_flop,
+        pytorch_chain,
+    )
 
     c = CEILING_RUN
     ws, bs, seed = inputs
@@ -2332,7 +2390,10 @@ def _ceiling_modes(inputs: tuple) -> list:
     return [(trm.mma_ceiling, "probe", f"{mode} [T={c['t']}, u={c['u']}, "
              f"rep={c['rep']}, grid={c['grid']}]",
              lambda f, mode=mode: f(ws, bs, seed, c["t"], c["rep"], mode), 1,
-             _bound(nbytes, flop, PEAK_BF16_FLOPS)) for mode in MODES]
+             _bound(nbytes, flop, PEAK_BF16_FLOPS), None, None,
+             lambda mode=mode: pytorch_chain(ws, bs, seed, c["t"], c["rep"],
+                                             mode))
+            for mode in MODES]
 
 
 # ---------------------------------------------------------------------------

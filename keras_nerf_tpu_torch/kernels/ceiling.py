@@ -7,9 +7,10 @@ resident weights, ``rep`` passes, its input made from an iota and only an
 :func:`mma_ceiling_plain` is the plain version of the ``mma_ceiling``
 kernel (``csrc/mma_ceiling.cu``), which ``kernels/ray_march.py`` wraps;
 ``python -m keras_nerf_tpu_torch.profile_mma_ceiling`` times it. The probe
-lies on no path of the package: it measures the ceiling of the ``wmma``
-product loop (``csrc/mlp.cuh``) that the MLP kernels ran before they moved
-to ``wgmma``.
+lies on no path of the package: it measures the ceiling of the ``wgmma``
+product loop (``csrc/gmma.cuh``) that the MLP kernels run, their trunk's
+loop without the encoding, the heads or a stash. :func:`pytorch_chain` is
+the same chain in PyTorch ops, a yardstick the package never calls.
 """
 
 from __future__ import annotations
@@ -28,6 +29,20 @@ def ceiling_flop(steps: int, t: int, u: int, rep: int) -> int:
     """FLOPs of one call: ``2 T u^2`` per layer, ``L rep`` layers per grid
     step (`profile_mxu_ceiling.py:107`)."""
     return 2 * steps * t * u * u * LAYERS * rep
+
+
+def ceiling_tile(u: int) -> int:
+    """Rows a block of the kernel owns (csrc/mma_ceiling.cu: tile_of): 64
+    at u = 512, where its two warpgroups split the columns, else 128."""
+    return 64 if u == 512 else 128
+
+
+def ceiling_weight_bytes(steps: int, t: int, u: int, rep: int) -> int:
+    """Bytes of weights one call streams from L2 into shared memory: every
+    block of ``ceiling_tile(u)`` rows reads each ``[u, u]`` bf16 weight once
+    a layer."""
+    blocks = steps * -(-t // ceiling_tile(u))
+    return blocks * rep * LAYERS * u * u * 2
 
 
 def _check_args(ws, bs, seed, t: int, rep: int, mode: str) -> int:
@@ -71,6 +86,35 @@ def mma_ceiling_plain(ws: list, bs: list, seed: torch.Tensor, t: int,
     return h[:, :8, :128].float().reshape(steps * 8, 128)
 
 
+def pytorch_chain(ws: list, bs: list, seed: torch.Tensor, t: int, rep: int,
+                  mode: str = "bare") -> torch.Tensor:
+    """The kernel's function as a chain of PyTorch ops: ``L rep`` bf16
+    ``torch.mm`` calls of ``[steps T, u] @ [u, u]`` with float32 outputs
+    (cuBLAS; reduced-precision reduction off), each followed by the float32
+    bias, relu and bf16 rounding in PyTorch ops; returns what
+    :func:`mma_ceiling_plain` returns. A yardstick (its time, and the
+    tensor cores' own order of the sums) that the package never calls."""
+    u = _check_args(ws, bs, seed, t, rep, mode)
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        steps = seed.shape[0] // 8
+        io = torch.arange(t, dtype=torch.float32,
+                          device=seed.device) * _IOTA_SCALE
+        h = (io[None, :, None] + seed[::8, :1, None]).expand(steps, t, u)
+        h = h.reshape(steps * t, u).to(torch.bfloat16)
+        for _ in range(rep):
+            for w, b in zip(ws, bs):
+                acc = torch.mm(h, w, out_dtype=torch.float32)
+                if mode == "epi":
+                    acc = torch.relu(acc + b)
+                h = acc.to(torch.bfloat16)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+    return h.reshape(steps, t, u)[:, :8, :128].float().reshape(steps * 8, 128)
+
+
 class _CeilingWeights(ctypes.Structure):
     """Mirror of ``struct CeilingWeights`` in csrc/mma_ceiling.cu."""
 
@@ -79,13 +123,19 @@ class _CeilingWeights(ctypes.Structure):
 
 
 def mma_ceiling_cuda(ws: list, bs: list, seed: torch.Tensor, t: int,
-                     rep: int, mode: str = "bare") -> torch.Tensor:
+                     rep: int, mode: str = "bare", lib=None) -> torch.Tensor:
     """The ``mma_ceiling`` kernel's launch: arguments and result as
-    :func:`mma_ceiling_plain`."""
+    :func:`mma_ceiling_plain`; ``lib`` another build of its C entry point
+    (``profile_mma_ceiling --parent`` times a parent's kernel through it),
+    else this package's library."""
     from keras_nerf_tpu_torch.kernels._build import load
-    from keras_nerf_tpu_torch.kernels.ray_march import _check, _raise_on, _stream
+    from keras_nerf_tpu_torch.kernels.ray_march import (
+        _check,
+        _raise_on_mapped,
+        _stream,
+    )
 
-    lib = load()
+    lib = load() if lib is None else lib
     u = _check_args(ws, bs, seed, t, rep, mode)
     dev = seed.device
     cw = _CeilingWeights()
@@ -94,7 +144,7 @@ def mma_ceiling_cuda(ws: list, bs: list, seed: torch.Tensor, t: int,
         cw.b[i] = _check(b, f"b[{i}]", torch.float32, dev, (u,))
     out = torch.empty(seed.shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _raise_on(lib.knt_mma_ceiling(
+        _raise_on_mapped(lib.knt_mma_ceiling(
             ctypes.addressof(cw), _check(seed, "seed", torch.float32, dev),
             out.data_ptr(), seed.shape[0] // 8, t, u, rep,
             int(mode == "epi"), _stream(dev)), "mma_ceiling")

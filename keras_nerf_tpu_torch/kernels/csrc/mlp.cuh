@@ -1,14 +1,10 @@
 // The MLP's packed weights and its kept activations, which the forward
-// (ray_march_mlp.cu) and the dX chain (mlp_backward.cu) share, the device
-// table of a packed state that their streamed routes read, and the
-// nvcuda::wmma 16x16x16 bf16 -> float32 helpers of the tensor-core ceiling
-// probe (mma_ceiling.cu), the product loop the MLP kernels ran before they
-// moved to wgmma (gmma.cuh); no MLP kernel uses them.
+// (ray_march_mlp.cu) and the dX chain (mlp_backward.cu) share, and the
+// device table of a packed state that their streamed routes read.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include "common.cuh"
 
@@ -92,41 +88,6 @@ __device__ __forceinline__ MlpTable table_of(const void* base, int n) {
   t.trunk_enc_w = reinterpret_cast<const bf16* const*>(t.trunk_b + n);
   t.w = reinterpret_cast<const MlpHeads*>(t.trunk_enc_w + n);
   return t;
-}
-
-using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-using AFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
-                                     nvcuda::wmma::row_major>;
-using BFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                     nvcuda::wmma::row_major>;
-
-// acc[m][f] += A[m*16.., 0..K) @ W[0..K, n0 + f*16..]; A in shared memory
-// (all 64 rows of a point tile), W row-major [K, ldw] in global memory.
-template <int NF>
-__device__ __forceinline__ void mma_rows(AccFrag (&acc)[4][NF], const bf16* A,
-                                         int lda, const bf16* W, int ldw,
-                                         int K, int n0) {
-  AFrag a[4];
-  BFrag b;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      nvcuda::wmma::load_matrix_sync(a[m], A + m * 16 * lda + k0, lda);
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      nvcuda::wmma::load_matrix_sync(b, W + (size_t)k0 * ldw + n0 + f * 16, ldw);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) nvcuda::wmma::mma_sync(acc[m][f], a[m], b, acc[m][f]);
-    }
-  }
-}
-
-template <int NF>
-__device__ __forceinline__ void zero(AccFrag (&acc)[4][NF]) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int f = 0; f < NF; ++f) nvcuda::wmma::fill_fragment(acc[m][f], 0.f);
 }
 
 }  // namespace knt

@@ -40,8 +40,12 @@
 // its d_rgb rows go back through the staging buffer and out as whole rows,
 // lanes on neighbouring 16-byte pieces.
 // Above 256 samples the kernel walks windows of 256 (K = 8) carrying the
-// scan; the with_grad mode then keeps each window's carry (S <= 1024, four
-// windows) and re-reads the windows before the last in its reverse walk.
+// scan; the with_grad mode then keeps the carry in front of each window but
+// the last in the warp's slice of shared memory (one float a window, after
+// the staging buffers) and re-reads the windows before the last in its
+// reverse walk, each rebuilt from the very carry the forward walk used, so
+// both walks see the same bits. At most kMaxCarries carries a warp, S <=
+// 2^19: those of 16 rays a block still fit beside their staging buffers.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -51,7 +55,7 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 8;                  // samples a lane holds
 constexpr int kWindow = 32 * kMaxK;       // the windowed route's step
-constexpr int kGradWindows = 4;           // with_grad: S <= 1024
+constexpr int kMaxCarries = 2047;         // with_grad: S <= 2048 windows
 constexpr int kMaxThreads = 512;          // rays_per_block <= 16
 
 // The widest load of a lane's K floats: 4 where K is a multiple of 4, else
@@ -283,26 +287,29 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= rays) return;
+  // One window below K = 8 (S <= 224): the register route keeps no carry.
+  const int windows = K < kMaxK ? 1 : (S + kWindow - 1) / kWindow;
   float4* stage = smem + (threadIdx.x >> 5) * kStageFloat4s<K>;
+  // The carries in front of windows 0 .. windows - 2, after every warp's
+  // staging buffer (stage_bytes).
+  float* window_carry = reinterpret_cast<float*>(smem + (blockDim.x >> 5) * kStageFloat4s<K>) +
+                        (threadIdx.x >> 5) * (windows - 1);
   // The target is loaded with the first window, not after the walk.
   const float tg_r = target[(size_t)r * 3 + 0];
   const float tg_g = target[(size_t)r * 3 + 1];
   const float tg_b = target[(size_t)r * 3 + 2];
   const float* t_r = t + (size_t)r * S;
   const float* rgbs_r = rgbs + (size_t)r * S * 4;
-  const int windows = (S + 32 * K - 1) / (32 * K);
   float* w_r = weights == nullptr ? nullptr : weights + (size_t)r * S;
 
   // The forward walk. The last window's values stay in registers for the
-  // reverse walk; each window's carry is kept (windows <= kGradWindows).
+  // reverse walk; the carry in front of every other window is kept.
   Window<K, false> win;
   float e[K], tr[K], w[K];
-  float carry = 0.f, window_carry[kGradWindows];
+  float carry = 0.f;
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_w = 0.f, acc_d = 0.f;
   for (int k = 0; k < windows; ++k) {
-#pragma unroll
-    for (int i = 0; i < kGradWindows; ++i)
-      if (i == k) window_carry[i] = carry;
+    if (k + 1 < windows && lane == 0) window_carry[k] = carry;
     win.load(rgbs_r, t_r, S, k * 32 * K, lane, vec, stage);
     win.scan(lane, carry);
 #pragma unroll
@@ -341,6 +348,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const float dp_g = clip_grad(pre_g, __fmul_rn(__fsub_rn(img_g, tg_g), loss_scale));
   const float dp_b = clip_grad(pre_b, __fmul_rn(__fsub_rn(img_b, tg_b), loss_scale));
   const float dp_sum = white_bg ? dp_r + dp_g + dp_b : 0.f;
+  if (windows > 1) __syncwarp();   // lane 0's carries, for every lane
 
   // The reverse walk, last window first: sum_{j>s} w_j d_w_j as an in-lane
   // suffix plus one reverse warp scan of the lane totals.
@@ -348,10 +356,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int k = windows - 1; k >= 0; --k) {
     const int s0 = k * 32 * K;
     if (k != windows - 1) {   // only on the windowed route
-      float c0 = 0.f;
-#pragma unroll
-      for (int i = 0; i < kGradWindows; ++i)
-        if (i == k) c0 = window_carry[i];
+      float c0 = window_carry[k];
       win.load(rgbs_r, t_r, S, s0, lane, vec, stage);
       win.scan(lane, c0);
 #pragma unroll
@@ -461,11 +466,14 @@ bool vectorizable(int S, int k, const void* a, const void* b,
   return v > 1 && S % v == 0 && aligned(a) && aligned(b) && aligned(c);
 }
 
-// Dynamic shared memory of a block: a staging buffer a warp, none in
-// sigma-only mode. Past the 48 KB default the kernel is opted in first.
+// Dynamic shared memory of a block: a staging buffer a warp (none in
+// sigma-only mode), then `carries` floats a warp (the with_grad mode's
+// window carries). Past the 48 KB default the kernel is opted in first.
 template <int K, typename Kernel>
-cudaError_t stage_bytes(Kernel kernel, int rays_per_block, size_t* bytes) {
-  *bytes = (size_t)rays_per_block * kStageFloat4s<K> * sizeof(float4);
+cudaError_t stage_bytes(Kernel kernel, int rays_per_block, size_t* bytes,
+                        int carries = 0) {
+  *bytes = (size_t)rays_per_block *
+           (kStageFloat4s<K> * sizeof(float4) + carries * sizeof(float));
   if (*bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -525,7 +533,7 @@ KNT_EXPORT int knt_ray_march_quadrature(const float* rgbs, const float* t,
 
 // The with_grad mode: as above (full, not sigma_only) plus target [rays, 3]
 // and loss_scale = 2 / (3 R_chunk); writes d_rgb [rays * S, 16] and
-// d_sigma [rays * S] bf16. S <= 1024.
+// d_sigma [rays * S] bf16. 1 <= S <= 2^19.
 KNT_EXPORT int knt_ray_march_quadrature_grad(const float* rgbs, const float* t,
                                              const float* target, float* image,
                                              float* depth, float* weights,
@@ -534,7 +542,7 @@ KNT_EXPORT int knt_ray_march_quadrature_grad(const float* rgbs, const float* t,
                                              int S, int white_bg, float loss_scale,
                                              int rays_per_block, void* stream) {
   if (rays <= 0) return 0;
-  if (S < 1 || S > kGradWindows * kWindow || rays_per_block < 1 ||
+  if (S < 1 || S > (kMaxCarries + 1) * kWindow || rays_per_block < 1 ||
       32 * rays_per_block > kMaxThreads)
     return (int)cudaErrorInvalidValue;
   const int k = lane_samples(S);
@@ -546,7 +554,8 @@ KNT_EXPORT int knt_ray_march_quadrature_grad(const float* rgbs, const float* t,
   cudaError_t err = cudaSuccess;
 #define KNT_QUAD_GRAD_CASE(K)                                               \
   case K:                                                                   \
-    err = stage_bytes<K>(quadrature_grad_kernel<K>, rays_per_block, &bytes); \
+    err = stage_bytes<K>(quadrature_grad_kernel<K>, rays_per_block, &bytes, \
+                         (S + kWindow - 1) / kWindow - 1);                   \
     if (err != cudaSuccess) return (int)err;                                \
     quadrature_grad_kernel<K><<<grid, block, bytes, st>>>(                  \
         rgbs, t, target, image, depth, weights, d_rgb, d_sigma, rays, S,    \

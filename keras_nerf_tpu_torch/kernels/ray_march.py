@@ -1477,7 +1477,10 @@ def _ray_march_mlp_int8_cuda(q, base, slope, depths, masks, sigma_only=False,
 
 QUAD_MAX_K = 8          # csrc/ray_march_quadrature.cu: kMaxK, samples a lane
 QUAD_WINDOW = 32 * QUAD_MAX_K   # kWindow: the windowed route's step
-QUAD_GRAD_MAX_S = 4 * QUAD_WINDOW   # kGradWindows windows: S <= 1024
+# kMaxCarries: the with_grad mode keeps a float carry for every window but
+# the last in shared memory, at most 2047 a ray (S <= 2^19), which at 16
+# rays a block still fit beside their staging buffers.
+QUAD_MAX_CARRIES = 2047
 # Warps (rays) a block, by measurement (time_quadrature, NVIDIA H100 80GB
 # HBM3): 8 in sigma-only mode, 4 where the colours go through the staging
 # buffer (at [4096 x 192] 8 read 0.0060 ms a launch, 4 0.0056).
@@ -1492,10 +1495,13 @@ def quadrature_plan(s: int, with_grad: bool = False,
     registers up to 256 samples (``route`` "registers", one window); above,
     ``k`` = 8 and the warp walks ``windows`` of 256 carrying the scan
     ("windowed"); no sample leaves the background alone. The with_grad
-    mode takes 1 to 1024 samples and raises, by name, outside."""
-    if s < 0 or with_grad and not 1 <= s <= QUAD_GRAD_MAX_S:
+    mode keeps the carry in front of each window but the last in shared
+    memory for its reverse walk, at most ``QUAD_MAX_CARRIES``: it takes 1
+    to 2^19 samples and raises, by name, outside."""
+    most = (QUAD_MAX_CARRIES + 1) * QUAD_WINDOW
+    if s < 0 or with_grad and not 1 <= s <= most:
         raise ValueError(f"ray_march_quadrature's with_grad mode takes at "
-                         f"most {QUAD_GRAD_MAX_S} samples per ray, and at "
+                         f"most {most} samples per ray, and at "
                          f"least 1 (got {s})")
     k = max(1, min(QUAD_MAX_K, -(-s // 32)))
     windows = -(-s // (32 * k))

@@ -6,26 +6,28 @@ another build of its source, beside the launch floor.
 
 ``DIR`` is the ``keras_nerf_tpu_torch/kernels/csrc`` directory of another
 checkout (the parent commit unpacked with ``git archive`` into a directory
-that ``.gitignore`` lists): its ``ray_march_quadrature.cu`` is compiled
-alone, with this package's ``nvcc`` flags, and launched as that checkout's
-wrapper launched it (:func:`parent_call`: entry points that take no block
-shape, the image allocated by ``torch.zeros``, a fill launch of its own,
-unless ``fill`` is off: the parent's bare launch).
+that ``.gitignore`` lists) whose entry points take this tree's arguments:
+its ``ray_march_quadrature.cu`` is compiled alone, with this package's
+``nvcc`` flags, and launched through this package's wrapper.
 
-At the five shapes of the paths (:data:`SHAPES`): the MSE step's with_grad
-launches [2048 x 64] (with the weights) and [2048 x 192], the render's
-sigma-only coarse pass [4096 x 64] (with the weights), the occupancy
-frame's [4096 x 64] and the render's fine pass [4096 x 192] (no weights),
-white background, from a seed. Each build is first held against the plain
-version (largest absolute error of image, depth and weights; relative max
-of the bf16 cotangents) and run twice (identical bits or not); then, in
-turns, parent, parent bare, this tree, this tree, parent bare, parent:
-device ms per launch by CUDA events over ``iters`` launches, with a spin
-kernel holding the stream while the host enqueues them
-(``time_mlp_backward.time_ms``, as ``chip_smoke.py`` times). The fill
-alone (``torch.zeros`` of the image) and this tree's kernel at every block
-shape (:data:`RAYS_PER_BLOCK`) follow. The launch floor is
-``torch.cuda._sleep(0)`` timed the same way, before and after the turns.
+At the shapes of the paths (:data:`SHAPES`): the MSE step's with_grad
+launches [2048 x 64] (with the weights) and [2048 x 192], the fine pass of
+1024 draws [2048 x 1088] (ROADMAP C14: past the parent's 1024 samples, so
+this tree alone), the render's sigma-only coarse pass [4096 x 64] (with
+the weights), the occupancy frame's [4096 x 64] and the render's fine pass
+[4096 x 192] (no weights), white background, from a seed. Each build is
+first held against the plain version (largest absolute error of image,
+depth and weights; relative max of the bf16 cotangents) and run twice
+(identical bits or not), this tree's also against the parent's (identical
+bits or not); then, in turns, parent, this tree, this tree, parent: device
+ms per launch by CUDA events over ``iters`` launches, with a spin kernel
+holding the stream while the host enqueues them
+(``time_mlp_backward.time_ms``, as ``chip_smoke.py`` times). This tree's
+kernel at every block shape (:data:`RAYS_PER_BLOCK`) follows. With a
+parent, the with_grad mode at every S of :data:`PARENT_S` (up to the
+parent's 1024) is held against the parent's bits on 300 rays, both
+backgrounds. The launch floor is ``torch.cuda._sleep(0)`` timed the same
+way, before and after the turns.
 
 The card's name and power limit, and its clocks before and after, come from
 ``nvidia-smi``; the registers and spills of every instantiation of both
@@ -52,12 +54,17 @@ from keras_nerf_tpu_torch.time_mlp_backward import _smi, time_ms
 SHAPES = {
     "with_grad coarse [2048 x 64]": (2048, 64, "with_grad", True),
     "with_grad fine [2048 x 192]": (2048, 192, "with_grad", False),
+    "with_grad fine [2048 x 1088]": (2048, 1088, "with_grad", False),
     "sigma-only [4096 x 64]": (4096, 64, "sigma_only", True),
     "no weights [4096 x 64]": (4096, 64, "full", False),
     "full, no weights [4096 x 192]": (4096, 192, "full", False),
 }
 RAYS_PER_BLOCK = (1, 2, 4, 8, 16)
 ENTRY_POINTS = ("knt_ray_march_quadrature", "knt_ray_march_quadrature_grad")
+# The with_grad mode's sample counts held against the parent's bits: both
+# routes, their edges, and every window count up to the parent's four.
+PARENT_S = (1, 31, 32, 33, 192, 256, 257, 512, 513, 700, 768, 1000, 1024)
+PARENT_MAX_S = 1024
 
 
 def make_inputs(rays, s, mode, device, seed=0):
@@ -78,51 +85,18 @@ def make_inputs(rays, s, mode, device, seed=0):
     return (inp, t, True, sigma_only), kw
 
 
-def parent_call(lib, rgbs, t, white_bg, sigma_only, emit_weights,
-                target=None, loss_scale=0.0, fill=True):
-    """The parent's wrapper: its entry points take no block shape and its
-    image comes from ``torch.zeros`` (a fill launch), unless ``fill`` is
-    off."""
-    dev = t.device
-    r, s = t.shape
-    f32 = torch.float32
-    image = (torch.zeros if fill else torch.empty)((r, 3), dtype=f32,
-                                                   device=dev)
-    depth = torch.empty((r,), dtype=f32, device=dev)
-    weights = (torch.empty((r, s), dtype=f32, device=dev) if emit_weights
-               else None)
-    w_ptr = None if weights is None else weights.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if target is None:
-        trm._raise_on(lib.knt_ray_march_quadrature(
-            rgbs.data_ptr(), t.data_ptr(), image.data_ptr(),
-            depth.data_ptr(), w_ptr, r, s, int(white_bg), int(sigma_only),
-            stream), "ray_march_quadrature (parent)")
-        return image, depth, weights
-    d_rgb = torch.empty((r * s, trm.D_HEAD), dtype=torch.bfloat16,
-                        device=dev)
-    d_sigma = torch.empty((r * s,), dtype=torch.bfloat16, device=dev)
-    trm._raise_on(lib.knt_ray_march_quadrature_grad(
-        rgbs.data_ptr(), t.data_ptr(), target.data_ptr(), image.data_ptr(),
-        depth.data_ptr(), w_ptr, d_rgb.data_ptr(), d_sigma.data_ptr(), r, s,
-        int(white_bg), trm._f32(loss_scale), stream),
-        "ray_march_quadrature (parent)")
-    return image, depth, weights, d_rgb, d_sigma
-
-
 def _parent_lib(parent: Path):
-    """The parent's source built alone, its two entry points declared with
-    the parent's argument types (no block shape)."""
-    import ctypes
-
+    """The parent's source built alone, its entry points declared as this
+    package declares them, and what the compiler printed."""
     out_dir = _build.BUILD_ROOT.parent / "parent_quadrature"
-    lib = _build.build_single(parent / "ray_march_quadrature.cu", out_dir, ())
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.knt_ray_march_quadrature.argtypes = [P] * 5 + [I] * 4 + [P]
-    lib.knt_ray_march_quadrature_grad.argtypes = [P] * 8 + [I, I, I, F, P]
-    for name in ENTRY_POINTS:
-        getattr(lib, name).restype = I
+    lib = _build.build_single(parent / "ray_march_quadrature.cu", out_dir,
+                              ENTRY_POINTS)
     return lib, (out_dir / "build.log").read_text()
+
+
+def _same_bits(got, want) -> bool:
+    return all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, want))
 
 
 def ptxas_table(log: str) -> dict:
@@ -182,7 +156,7 @@ def measure(parent: Path | None = None, iters: int = 200) -> dict:
     dev = torch.device("cuda")
     _build.load()
     out = {"card": _smi("name,power.limit"), "turns": {}, "errors": {},
-           "fill_ms": {}, "rays_per_block": {},
+           "rays_per_block": {},
            "ptxas": {"new": ptxas_table(_section(
                _build.last_build().log, "ray_march_quadrature.cu"))}}
     lib = None
@@ -201,29 +175,32 @@ def measure(parent: Path | None = None, iters: int = 200) -> dict:
         args, kw = make_inputs(rays, s, mode, dev)
         builds = {"new": lambda: trm._ray_march_quadrature_cuda(
             *args, emit, **kw)}
-        if lib is not None:
-            builds["parent"] = lambda: parent_call(lib, *args, emit, **kw)
-            builds["parent bare"] = lambda: parent_call(lib, *args, emit,
-                                                        fill=False, **kw)
+        if lib is not None and (mode != "with_grad" or s <= PARENT_MAX_S):
+            builds["parent"] = lambda: trm._ray_march_quadrature_cuda(
+                *args, emit, lib=lib, **kw)
         want = trm.ray_march_quadrature_plain(*args, emit, **kw)
+        outs = {}
         for label, fn in builds.items():
             got, again = fn(), fn()
             torch.cuda.synchronize()
+            outs[label] = got
             out["errors"][f"{key} {label}"] = {
-                **_errors(got, want),
-                "identical_twice": all(
-                    a is None or torch.equal(a, b) for a, b in zip(got,
-                                                                   again))}
-        order = (["parent", "parent bare", "new", "new", "parent bare",
-                  "parent"] if lib is not None else ["new", "new"])
+                **_errors(got, want), "identical_twice": _same_bits(got,
+                                                                    again)}
+        if "parent" in outs:
+            out["errors"][f"{key} new"]["identical_to_parent"] = _same_bits(
+                outs["new"], outs["parent"])
+        for label, e in out["errors"].items():
+            if label.startswith(key):
+                print(f"check {label}: {e}", flush=True)
+        order = (["parent", "new", "new", "parent"] if "parent" in builds
+                 else ["new", "new"])
         times = []
         for label in order:
             ms = time_ms(builds[label], iters)
             times.append((label, ms))
             print(f"turn {key} {label}: {ms:.4f} ms/launch", flush=True)
         out["turns"][key] = times
-        out["fill_ms"][key] = time_ms(
-            lambda: torch.zeros((rays, 3), device=dev), iters)
         out["rays_per_block"][key] = {}
         for rpb in RAYS_PER_BLOCK:
             ms = time_ms(lambda: trm._ray_march_quadrature_cuda(
@@ -231,6 +208,20 @@ def measure(parent: Path | None = None, iters: int = 200) -> dict:
             out["rays_per_block"][key][rpb] = ms
             print(f"block shape {key}: {rpb} rays a block {ms:.4f} "
                   f"ms/launch", flush=True)
+    if lib is not None:
+        out["parent_bits"] = {}
+        for s in PARENT_S:
+            for white in (True, False):
+                args, kw = make_inputs(300, s, "with_grad", dev, seed=s)
+                args = (args[0], args[1], white, False)
+                same = _same_bits(
+                    trm._ray_march_quadrature_cuda(*args, True, **kw),
+                    trm._ray_march_quadrature_cuda(*args, True, lib=lib,
+                                                   **kw))
+                out["parent_bits"][f"with_grad S={s} white={white}"] = same
+        print(f"with_grad identical to the parent's bits at S in {PARENT_S}"
+              f", both backgrounds: {all(out['parent_bits'].values())}",
+              flush=True)
     out["launch_floor_ms"].append(time_ms(lambda: torch.cuda._sleep(0),
                                           iters))
     out["clocks"].append({"when": "after the turns", q: _smi(q)})

@@ -358,7 +358,9 @@ def test_ray_march_mlp_train_mode_matches_plain(cuda_device, n_layers, skip):
         _assert_bf16_close(stash_k["h"][i], stash_p["h"][i], 3e-2, i)
 
 
-@pytest.mark.parametrize("s", QUAD_S)
+# Past 1024 samples the with_grad mode keeps a carry a window in shared
+# memory (ROADMAP C14): 4, 4 and 15 carries.
+@pytest.mark.parametrize("s", QUAD_S + [1025, 1088, 4096])
 @pytest.mark.parametrize("white_bg", [True, False])
 def test_ray_march_quadrature_with_grad_matches_plain(cuda_device, white_bg,
                                                       s):
@@ -384,14 +386,15 @@ def test_ray_march_quadrature_with_grad_matches_plain(cuda_device, white_bg,
         _assert_bf16_close(a, b, 1e-2)
     for a, c in zip(got, again):
         assert torch.equal(a, c)
-    if s == 1024:
-        over = torch.cat([t, t[:, -1:] + 1e-3], 1)
+    if s == 4096:
+        over = 2 ** 19 + 1
         with pytest.raises(ValueError, match="ray_march_quadrature's "
                                              "with_grad mode takes at most "
-                                             "1024 samples"):
+                                             "524288 samples"):
             trm.ray_march_quadrature(
-                torch.rand(r, 1025, 4, device=cuda_device), over, white_bg,
-                False, True, **kw)
+                torch.rand(1, over, 4, device=cuda_device),
+                torch.linspace(2, 6, over, device=cuda_device)[None],
+                white_bg, False, True, target=target[:1], loss_scale=1.0)
 
 
 @pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1)])
@@ -914,18 +917,25 @@ def test_nerf_at_768_units_renders_and_trains_through_the_kernels(
         assert float((g_card - g_host).norm() / g_host.norm()) <= 0.03
 
 
+# Every width route of the wgmma probe (u = 128 and 384 on m64n128k16, 384
+# in three column passes, 512 with the columns split) and, at T = 64 and
+# 192, a 128-row tile whose second warpgroup lies past T.
+@pytest.mark.parametrize("t", [64, 192, 256])
+@pytest.mark.parametrize("u", [128, 256, 384, 512])
 @pytest.mark.parametrize("mode", ["bare", "epi"])
-def test_mma_ceiling_matches_plain(cuda_device, mode):
+def test_mma_ceiling_matches_plain(cuda_device, mode, u, t):
     from keras_nerf_tpu_torch.kernels import ceiling
 
-    ws, bs, seed = ceiling.make_inputs(4, 256, cuda_device, seed=2,
+    ws, bs, seed = ceiling.make_inputs(4, u, cuda_device, seed=2,
                                        bias_scale=0.05)
     seed[8:] = 0.5
-    got = trm.mma_ceiling(ws, bs, seed, 256, 2, mode)
-    want = trm.mma_ceiling.plain(ws, bs, seed, 256, 2, mode)
+    got = trm.mma_ceiling(ws, bs, seed, t, 2, mode)
+    again = trm.mma_ceiling(ws, bs, seed, t, 2, mode)
+    want = trm.mma_ceiling.plain(ws, bs, seed, t, 2, mode)
     torch.cuda.synchronize()
     assert _rel_max(got, want) <= 3e-2
     assert float(want.abs().max()) > 0.0
+    assert torch.equal(got, again)
 
 
 def test_quantized_render_runs_the_int8_kernel_and_never_the_bf16_one(

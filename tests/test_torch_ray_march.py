@@ -450,6 +450,12 @@ def test_quadrature_plain_is_exact_transmittance():
 
 QUAD_TOL = {"abs": 1e-4, "rel": 1e-2, "rel_norm": 1e-2}   # chip_smoke.py's
 QUAD_S = [1, 8, 31, 32, 33, 64, 192, 256, 257, 1024]
+# Past 1024 samples only the with_grad mode's windows changed (ROADMAP C14):
+# its carries in shared memory, 4 and 15 of them here.
+QUAD_GRAD_S = [1088, 4096]
+QUAD_MODES = ["sigma-only", "full", "full white", "with_grad",
+              "with_grad white"]
+QUAD_CASES = ["random", "saturated", "zero sigma"]
 
 
 def _lane_scan(v, reverse=False):
@@ -481,9 +487,11 @@ def _blocked_form(rgbs, t, white_bg=False, sigma_only=False, target=None,
     warp a ray, lane l of window w holding samples w 32 k + l k + j; the
     exclusive optical depth as (carry + the lanes' exclusive scan) + the
     in-lane prefix; per-lane partial sums reduced by a butterfly; with a
-    target, the reverse walk on the same values: (suffix carry + the lanes'
-    exclusive reverse scan) + the in-lane suffix. Returns what
-    ``ray_march_quadrature_plain`` returns, weights included."""
+    target, the reverse walk, last window first: each window before the
+    last rebuilt from the carry the forward walk stored for it, then (suffix
+    carry + the lanes' exclusive reverse scan) + the in-lane suffix.
+    Returns what ``ray_march_quadrature_plain`` returns, weights
+    included."""
     r, s = t.shape
     plan = trm.quadrature_plan(s, with_grad=target is not None)
     k, n_win = plan["k"], plan["windows"]
@@ -503,8 +511,9 @@ def _blocked_form(rgbs, t, white_bg=False, sigma_only=False, target=None,
         p = p + x[..., j]
     incl = _lane_scan(p)
     ex = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], -1)
-    carry, excl = torch.zeros(r), torch.zeros_like(x)
+    carry, excl, carries = torch.zeros(r), torch.zeros_like(x), []
     for w in range(n_win):
+        carries.append(carry)
         b = carry[:, None] + ex[:, w]
         carry = carry + incl[:, w, 31]
         excl[:, w] = b[..., None] + pre[:, w]
@@ -537,23 +546,28 @@ def _blocked_form(rgbs, t, white_bg=False, sigma_only=False, target=None,
     d_w = (c[0] * dp[0] + c[1] * dp[1]) + c[2] * dp[2]
     if white_bg:
         d_w = d_w - ((dp[0] + dp[1]) + dp[2])
-    v = wgt * d_w
-    later, q = torch.zeros_like(v), torch.zeros_like(v[..., 0])
-    for j in reversed(range(k)):
-        later[..., j] = q
-        q = q + v[..., j]
-    suf = _lane_scan(q, reverse=True)
-    after = torch.cat([suf[..., 1:], torch.zeros_like(suf[..., :1])], -1)
-    suffix_carry, d_x = torch.zeros(r), torch.zeros_like(v)
+    suffix_carry, d_x = torch.zeros(r), torch.zeros_like(x)
+    wgt_rev = wgt.clone()   # the weights as the reverse walk holds them
     for w in reversed(range(n_win)):
-        b = suffix_carry[:, None] + after[:, w]
-        suffix_carry = suffix_carry + suf[:, w, 0]
-        d_x[:, w] = e[:, w] * tr[:, w] * d_w[:, w] - (b[..., None]
-                                                      + later[:, w])
+        tr_w = tr[:, w]
+        if w != n_win - 1:   # rebuilt from the carry stored for it
+            tr_w = torch.exp(-((carries[w][:, None] + ex[:, w])[..., None]
+                               + pre[:, w]))
+            wgt_rev[:, w] = (1.0 - e[:, w]) * tr_w
+        v = wgt_rev[:, w] * d_w[:, w]
+        later, q = torch.zeros_like(v), torch.zeros_like(v[..., 0])
+        for j in reversed(range(k)):
+            later[..., j] = q
+            q = q + v[..., j]
+        suf = _lane_scan(q, reverse=True)
+        after = torch.cat([suf[..., 1:], torch.zeros_like(suf[..., :1])], -1)
+        b = suffix_carry[:, None] + after
+        suffix_carry = suffix_carry + suf[:, 0]
+        d_x[:, w] = e[:, w] * tr_w * d_w[:, w] - (b[..., None] + later)
     d_sigma = torch.where(blocks(sigma) > 0, d_x * blocks(delta), 0.0)
     d_rgb = torch.zeros(r * s, trm.D_HEAD, dtype=torch.bfloat16)
     for i in range(3):
-        g = wgt * dp[i] * c[i] * (1.0 - c[i])
+        g = wgt_rev * dp[i] * c[i] * (1.0 - c[i])
         d_rgb[:, i] = g.reshape(r, pad)[:, :s].reshape(-1).to(torch.bfloat16)
     return (image, depth, weights, d_rgb,
             d_sigma.reshape(r, pad)[:, :s].reshape(-1).to(torch.bfloat16))
@@ -570,19 +584,19 @@ def _quad_inputs(s, case, r=8, seed=7):
               target.astype(np.float32))
 
 
-@pytest.mark.parametrize("mode", ["sigma-only", "full", "full white",
-                                  "with_grad", "with_grad white"])
-@pytest.mark.parametrize("case", ["random", "saturated", "zero sigma"])
-@pytest.mark.parametrize("s", QUAD_S)
+@pytest.mark.parametrize("s,case,mode", [
+    (s, case, mode) for s in QUAD_S + QUAD_GRAD_S for case in QUAD_CASES
+    for mode in QUAD_MODES if s in QUAD_S or mode.startswith("with_grad")])
 def test_quadrature_blocked_form_matches_the_plain_version(s, case, mode):
     """The kernel's design, run on the CPU, against
     ``ray_march_quadrature_plain`` at the card's budgets (image, depth and
     weights absolutely, the bf16 cotangents relative to their largest
     entry and by norm), on the register route (S <= 256: k = ceil(S / 32)
     samples a lane, its edges 31, 32, 33) and the windowed one (257,
-    1024); saturated rays (x >> 1), all-zero sigma and, on a white
-    background with zero sigma, a pre-clip image of exactly 1 (the clip's
-    subgradient 0.5, ROADMAP C5)."""
+    1024, and with_grad 1088 and 4096: 5 and 16 windows, ROADMAP C14);
+    saturated rays (x >> 1), all-zero sigma and, on a white background
+    with zero sigma, a pre-clip image of exactly 1 (the clip's subgradient
+    0.5, ROADMAP C5)."""
     t, rgbs, target = _quad_inputs(s, case)
     sigma_only = mode == "sigma-only"
     inp = rgbs[..., 3].contiguous() if sigma_only else rgbs
@@ -610,11 +624,14 @@ def test_quadrature_blocked_form_matches_the_plain_version(s, case, mode):
         assert float(d_rgb.abs().max()) == 0.0   # no weight, no colour term
 
 
-@pytest.mark.parametrize("s", [0] + QUAD_S + [1025, 4096])
+@pytest.mark.parametrize("s", [0] + QUAD_S + [1025, 4096]
+                         + [1088, 2 ** 16, 2 ** 19, 2 ** 19 + 1])
 def test_quadrature_plan_routes(s):
     """Registers up to 256 samples (k = ceil(S / 32) a lane), windows of
-    256 above; the with_grad mode refuses more than 1024 by name; 8 rays
-    a block in sigma-only mode, 4 with the colours."""
+    256 above; the with_grad mode takes 1 to 2^19 samples (a carry in
+    shared memory for each window but the last, ROADMAP C14) and refuses
+    others by name; 8 rays a block in sigma-only mode, 4 with the
+    colours."""
     plan = trm.quadrature_plan(s)
     assert plan["k"] == max(1, min(8, -(-s // 32)))
     assert plan["windows"] == -(-s // (32 * plan["k"]))
@@ -622,9 +639,9 @@ def test_quadrature_plan_routes(s):
     assert plan["rays_per_block"] == 4
     assert trm.quadrature_plan(s, sigma_only=True) == {
         **plan, "rays_per_block": 8}
-    if not 1 <= s <= 1024:
+    if not 1 <= s <= 2 ** 19:
         with pytest.raises(ValueError, match="with_grad mode takes at most "
-                                             "1024 samples"):
+                                             "524288 samples"):
             trm.quadrature_plan(s, with_grad=True)
     else:
         assert trm.quadrature_plan(s, with_grad=True) == plan

@@ -32,6 +32,9 @@ from keras_nerf_tpu.kernels import ray_march as jrm
 from keras_nerf_tpu.models import NeRF as JaxNeRF
 from keras_nerf_tpu.models import engine as jengine
 from keras_nerf_tpu.models import mlp as jmlp
+from keras_nerf_tpu.ops.sampling import invert_cdf as jax_invert_cdf
+from keras_nerf_tpu.ops.sampling import merge_sorted as jax_merge_sorted
+from keras_nerf_tpu.ops.sampling import midpoints as jax_midpoints
 from keras_nerf_tpu.ops.sampling import sorted_uniforms as jax_sorted_uniforms
 from keras_nerf_tpu.utils import checkpoint as jckpt
 from keras_nerf_tpu_torch.kernels import ray_march as trm
@@ -112,6 +115,11 @@ def _t(*xs):
 TRAIN_CASES = [(3, 1, 24, 16, mode, white) for mode in ("coarse", "fine")
                for white in (True, False)]
 TRAIN_CASES += [(2, 4, 8, 8, mode, True) for mode in ("coarse", "fine")]
+# Fine S = 64 + 1024 = 1088: past the 1024 samples a ray that the card's
+# with_grad quadrature once refused (ROADMAP C14). Past 128 draws JAX's
+# engine samples outside its kernel (engine._fused_sampling_ok): the same
+# inverse CDF and merge, on XLA, then the kernel on the given depths.
+TRAIN_CASES += [(2, 4, 64, 1024, "fine", True)]
 
 
 @pytest.mark.parametrize("n_layers,skip,s_c,n_fine,mode,white_bg",
@@ -119,7 +127,8 @@ TRAIN_CASES += [(2, 4, 8, 8, mode, True) for mode in ("coarse", "fine")]
 def test_fused_train_chunk_matches_tpu_kernel(n_layers, skip, s_c, n_fine,
                                               mode, white_bg):
     """Coarse mode (given depths, weights out) and fine mode (in-kernel
-    sampling): image, depth, weights and every packed gradient."""
+    sampling; JAX's sampling on XLA past 128 draws, as its engine runs
+    it): image, depth, weights and every packed gradient."""
     cfg_j, packed_j, cfg_t, packed_t = _model(n_layers, skip)
     o, d, cp, wc, u, tgt = _chunk(s_c, n_fine)
     kw = dict(white_background=white_bg)
@@ -129,10 +138,16 @@ def test_fused_train_chunk_matches_tpu_kernel(n_layers, skip, s_c, n_fine,
         out_t = trm.fused_train_chunk(packed_t, *_t(o, d, cp, tgt), **kw)
         np.testing.assert_allclose(out_t[2].numpy(), np.asarray(out_j[2]),
                                    atol=WEIGHTS_ATOL)
+    elif n_fine > 128:
+        points = jax_merge_sorted(cp, jax_invert_cdf(u, jax_midpoints(cp),
+                                                     wc))
+        out_j = jrm.fused_train_chunk(packed_j, o, d, points, tgt, cfg_j,
+                                      emit_weights=False, **kw_j)
     else:
         out_j = jrm.fused_train_chunk(
             packed_j, o, d, None, tgt, cfg_j, emit_weights=False,
             sample_inputs=(cp, wc, u), **kw_j)
+    if mode == "fine":
         out_t = trm.fused_train_chunk(
             packed_t, *_t(o, d), None, torch.as_tensor(tgt),
             emit_weights=False, sample_inputs=_t(cp, wc, u), **kw)

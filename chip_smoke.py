@@ -50,6 +50,21 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   through ``render_orbit(occupancy_samples=64)`` in bf16 and int8 (4
   ``sample_merge``, 4 full MLP and 4 quadrature launches per frame) and
   holds a 16^2 occupancy frame against the CPU's on the card's grid;
+* the occupancy-train tier (``train_single --occupancy_train 128
+  --occupancy_train_samples 64 --occupancy_train_probe 64``) and pixel
+  sampling, after 60 exact steps from the seed-0 weights: ``NeRF.fit``
+  merged (one exact epoch, then a 128^3 bake and occupancy steps each
+  epoch: ``sample_merge`` in its partner mode, 8 launches a step, then T3
+  at [2048 x 128]), with ``--occupancy_train_no_merge`` (the no-merge mode,
+  T3 at [2048 x 64]) and with ``--occupancy_train_update 2
+  --occupancy_train_cache``, each run's launches, ``sample_merge`` modes,
+  MLP depths, probe gathers and bakes' occupied shares held; both
+  ``sample_merge`` modes against their plain versions on the path's
+  inputs, and T3's chain (twice, identical bits) on the inputs of the
+  path's coarse pass [2048 x 64] (no weights) and merged fine pass
+  [2048 x 128]; 16^2 occupancy steps on the card against the CPU (merged and
+  not, the MSE step's pinning) and the cached-rows step against the probed
+  one, bit for bit; 5 ``--pixel_sampling`` steps; each tier timed;
 * u = 768 (3 layers) on every path: each bf16 kernel mode held against its
   plain version (twice, identical bits), the 16^2 render, an MSE and an L1
   step, a 32^3 bake, the int8 calibration and an int8 render, each against
@@ -63,8 +78,8 @@ beside its cuBLAS yardstick, one product per weight array, and
 ``mlp_backward``, ``ray_march_mlp`` and ``apply_mlp`` beside their PyTorch
 chains, one bf16 matmul per layer; the
 card's SM clock, power and temperature sampled before and after), and the
-five model paths (the occupancy render among them) are profiled with
-``torch.profiler``:
+five model paths (the occupancy render among them) and the three
+occupancy-train tiers are profiled with ``torch.profiler``:
 device time by kernel and the device's busy share. A last profiler phase
 (``profile_quadrature``) fails unless each ``ray_march_quadrature`` call of
 the paths' modes runs one kernel on the card and nothing else (no fill).
@@ -543,28 +558,10 @@ def main() -> int:
 
     # ---- 5. training kernels against their plain versions ----------------
     train_in = _train_inputs(cfg, gen)
-    for name, err, rel, rel_norm, ok, label in _train_kernel_checks(
-            train_in):
-        errors[name] = max(errors.get(name, 0.0), err)
-        old = rel_errors.get(name, (0.0, 0.0))
-        rel_errors[name] = (max(old[0], rel), max(old[1], rel_norm))
-        log(f"check {label}: max_abs_err {err:.3e}, relative max "
-            f"{rel:.3e}, relative norm {rel_norm:.3e} (tolerance "
-            f"{TRAIN_TOL[name]}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"{label} disagrees with its plain version")
+    _record_held(_train_kernel_checks(train_in), errors, rel_errors)
 
     # T5 and T6 at the same shapes, on the custom loss's cotangents.
-    for name, err, rel, rel_norm, ok, label in _custom_kernel_checks(
-            train_in):
-        errors[name] = max(errors.get(name, 0.0), err)
-        old = rel_errors.get(name, (0.0, 0.0))
-        rel_errors[name] = (max(old[0], rel), max(old[1], rel_norm))
-        log(f"check {label}: max_abs_err {err:.3e}, relative max "
-            f"{rel:.3e}, relative norm {rel_norm:.3e} (tolerance "
-            f"{TRAIN_TOL[name]}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"{label} disagrees with its plain version")
+    _record_held(_custom_kernel_checks(train_in), errors, rel_errors)
 
     # ---- 6. main path: training through NeRF.fit -------------------------
     dataset = _train_dataset()
@@ -595,6 +592,10 @@ def main() -> int:
                       tnerf.state, small, cfg)
     _compare_passes(tnerf.state, small, cfg)
     _c14_step(tnerf.state, card_tag)
+
+    # ---- 6c. the occupancy-train tier and pixel sampling (A10b) ---------
+    occ_train = _occupancy_train_phases(cfg, dataset, errors, rel_errors,
+                                        card_tag)
 
     # ---- 7. times ---------------------------------------------------------
     # One call per kernel mode at its path's chunk shape, with the least
@@ -645,8 +646,10 @@ def main() -> int:
     modes += _quantized_modes(int8_in, cfg)
     modes += _ceiling_modes(ceiling_in)
     modes += _occupancy_modes(occ_in, cfg)
+    modes += _occ_train_modes(occ_train)
     totals = {"render": {}, "train": {}, "custom": {}, "quantized": {},
-              "probe": {}, "occupancy": {}, "bake": {}, "merge_partner": {}}
+              "probe": {}, "occupancy": {}, "bake": {}, "merge_partner": {},
+              "occ_train": {}, "occ_train_no_merge": {}}
     library = {path: {} for path in totals}   # ms per unit, where timed
     chain = {path: {} for path in totals}     # the PyTorch chain, likewise
     timed = []   # (kernel, path, mode, launches per unit, ms, plain, bound)
@@ -709,6 +712,11 @@ def main() -> int:
         log(json.dumps({key: _profile(
             lambda: tnerf.fit(dataset, epochs=1, verbose=False),
             len(dataset), "step"), "card": card}))
+    # The occupancy-train tiers, profiled in _occupancy_train_phases right
+    # after each one's timed steps: 5 steps that bake nothing.
+    for name, prof in occ_train["profiles"].items():
+        log(json.dumps({f"profile_train_occupancy_{name}": prof,
+                        "card": card}))
     # One kernel a quadrature call, in every mode of the paths, and no
     # fill beside it: the kernel writes every output itself.
     quad_calls = {
@@ -749,6 +757,8 @@ def main() -> int:
                    "render_occupancy": occ_in["launches"][k.name],
                    "render_occupancy_quantized":
                        occ_in["q_launches"][k.name],
+                   **{path: launches[k.name] for path, launches
+                      in occ_train["launches"].items()},
                    **{path: launches[k.name]
                       for path, launches in wide["launches"].items()}}
         for path in ("train", "custom", "quantized", "probe"):
@@ -818,9 +828,24 @@ def main() -> int:
                      f"launches of 262,144 voxels"),
             "merge_partner": ("merge_partner", {k.name: 0},
                               f"one call at [{CHUNK}, {OCC_PROBE} bins, "
-                              f"{N_COARSE} + {OCC_SAMPLES}], the "
-                              f"occupancy-train tier's shape, on no path "
-                              f"yet")}
+                              f"{N_COARSE} + {OCC_SAMPLES}], the occupancy "
+                              f"render's chunk (the occupancy-train path's "
+                              f"is occupancy_train_step)"),
+            "occ_train": ("occupancy_train_step",
+                          occ_train["launches"]["train_occupancy"],
+                          f"{IMG}^2 occupancy-train step (merged), "
+                          f"{IMG * IMG // TRAIN_CHUNK} chunks of "
+                          f"{TRAIN_CHUNK} rays, "
+                          f"{OCC_PROBE} probe bins, {N_COARSE} + "
+                          f"{OCC_SAMPLES} samples; launches over the merged "
+                          f"run, its exact epoch included"),
+            "occ_train_no_merge": (
+                "occupancy_train_step_no_merge",
+                occ_train["launches"]["train_occupancy_no_merge"],
+                f"{IMG}^2 occupancy-train step (--occupancy_train_no_merge),"
+                f" {IMG * IMG // TRAIN_CHUNK} chunks of {TRAIN_CHUNK} rays, "
+                f"{OCC_PROBE} probe bins -> {OCC_SAMPLES} samples; launches "
+                f"over the no-merge run")}
         for path, (key, launches, what) in occ_per.items():
             if k.name not in totals[path]:
                 continue
@@ -845,7 +870,9 @@ def main() -> int:
 _UNIT = {"render": "frame", "train": "train step",
          "custom": "custom step", "quantized": "int8 frame",
          "probe": "probe run", "occupancy": "occupancy frame",
-         "bake": "bake", "merge_partner": "call"}
+         "bake": "bake", "merge_partner": "call",
+         "occ_train": "occupancy train step",
+         "occ_train_no_merge": "no-merge occupancy train step"}
 
 
 def _by(shares: dict) -> str:
@@ -1158,6 +1185,21 @@ def _held(name: str, pairs, label: str, err=None, extra_ok: bool = True):
     return name, err, rel, rel_norm, ok, label
 
 
+def _record_held(results, errors: dict, rel_errors: dict) -> None:
+    """Logs each :func:`_held` tuple of ``results`` beside its tolerance,
+    keeps each kernel's worst errors, and fails on the first that is not
+    held."""
+    for name, err, rel, rel_norm, ok, label in results:
+        errors[name] = max(errors.get(name, 0.0), err)
+        old = rel_errors.get(name, (0.0, 0.0))
+        rel_errors[name] = (max(old[0], rel), max(old[1], rel_norm))
+        log(f"check {label}: max_abs_err {err:.3e}, relative max "
+            f"{rel:.3e}, relative norm {rel_norm:.3e} (tolerance "
+            f"{TRAIN_TOL[name]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{label} disagrees with its plain version")
+
+
 def _merge_held(label: str, cp, w, u, mp, tol: float, errors: dict):
     """``sample_merge`` on ``(cp, w, u, mp)`` against its plain version:
     run twice with identical bits, within ``tol``, finite and sorted; logs
@@ -1210,6 +1252,90 @@ def _merge_weight_cases(gen, tc, u, coarse_w):
                              ("another partner", partner))]
 
 
+def _train_chain(packed, base, slope, masks, t, target, weights_modes,
+                 white_background=True, loss_scale=None, where=""):
+    """T3's chain at ``t``'s shape, each kernel against its plain version
+    on the plain outputs of the step before and run twice with identical
+    bits: ``ray_march_mlp`` with its stash, ``ray_march_quadrature``
+    with_grad in each mode of ``weights_modes`` (weights emitted or not),
+    ``mlp_backward`` on the first mode's cotangents and
+    ``mlp_weight_grad``. ``loss_scale`` defaults to the MSE's 2 / (3 R).
+    Yields :func:`_held` tuples; returns the plain intermediates."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models.engine import tree_leaves
+
+    r, s = t.shape
+    u, n = packed["trunk_b"][0].shape[1], len(packed["trunk_w"])
+    shape = f"[{r} x {s}]{where}"
+    stashes = [trm.alloc_stash(r * s, u, n, t.device) for _ in range(3)]
+    args = (packed, base, slope, t, masks)
+    out_k = [trm.ray_march_mlp(*args, stash=st) for st in stashes[:2]]
+    out_p = trm.ray_march_mlp.plain(*args, stash=stashes[2])
+    torch.cuda.synchronize()
+
+    def kept(st):
+        return [st[k] for k in ("enc", "features", "rf")] + list(st["h"])
+
+    twice = torch.equal(out_k[0], out_k[1]) and all(
+        torch.equal(a, b) for a, b in zip(kept(stashes[0]), kept(stashes[1])))
+    yield _held("ray_march_mlp",
+                list(zip(kept(stashes[0]), kept(stashes[2])))
+                + [(out_k[0], out_p)],
+                f"ray_march_mlp train, outputs and kept activations "
+                f"{shape}, identical bits twice {twice}",
+                err=float((out_k[0] - out_p).abs().max()), extra_ok=twice)
+    stash_p = stashes[2]
+    del stashes, out_k
+
+    rgbs = out_p.reshape(r, s, 4)
+    kw = dict(target=target, loss_scale=(2.0 / (3 * r) if loss_scale is None
+                                         else loss_scale))
+    quads = []
+    for weights in weights_modes:
+        q_args = (rgbs, t, white_background, False, weights)
+        q_k = [trm.ray_march_quadrature(*q_args, **kw) for _ in range(2)]
+        q_p = trm.ray_march_quadrature.plain(*q_args, **kw)
+        torch.cuda.synchronize()
+        twice = all(torch.equal(a, b) for a, b in zip(q_k[0], q_k[1])
+                    if a is not None)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(q_k[0][:3], q_p[:3]) if a is not None)
+        yield _held("ray_march_quadrature", list(zip(q_k[0][3:], q_p[3:])),
+                    f"ray_march_quadrature with_grad, "
+                    f"{'weights' if weights else 'no weights'} {shape}, "
+                    f"identical bits twice {twice}", err=err, extra_ok=twice)
+        quads.append(q_p)
+    q_p = quads[0]
+
+    def cotangents(c):
+        return [c["d_rf"], c["d_sf"]] + list(c["d_pre"])
+
+    cots_k = [trm.mlp_backward(q_p[3], q_p[4], packed, stash_p)
+              for _ in range(2)]
+    cots_p = trm.mlp_backward.plain(q_p[3], q_p[4], packed, stash_p)
+    torch.cuda.synchronize()
+    twice = all(torch.equal(a, b) for a, b in zip(cotangents(cots_k[0]),
+                                                  cotangents(cots_k[1])))
+    yield _held("mlp_backward",
+                list(zip(cotangents(cots_k[0]), cotangents(cots_p))),
+                f"mlp_backward, every cotangent {shape}, identical bits "
+                f"twice {twice}", extra_ok=twice)
+    del cots_k
+
+    want = trm.mlp_weight_grad.plain(stash_p, cots_p, trm.zero_grads(packed))
+    runs = [trm.mlp_weight_grad(stash_p, cots_p, trm.zero_grads(packed))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    leaves = [tree_leaves(x) for x in (*runs, want)]
+    same = all(torch.equal(a, b) for a, b in zip(leaves[0], leaves[1]))
+    yield _held("mlp_weight_grad", list(zip(leaves[0], leaves[2])),
+                f"mlp_weight_grad, every packed gradient {shape}, identical "
+                f"bits twice {same}", extra_ok=same)
+    return dict(stash=stash_p, cots=cots_p, rgbs=rgbs, quad=q_p)
+
+
 def _train_kernel_checks(ti: dict):
     """Each training kernel and mode against its plain version on the same
     inputs (the plain outputs of the step before), at both passes' shapes.
@@ -1218,10 +1344,8 @@ def _train_kernel_checks(ti: dict):
     import torch
 
     from keras_nerf_tpu_torch.kernels import ray_march as trm
-    from keras_nerf_tpu_torch.models.engine import tree_leaves
 
-    cfg, packed = ti["cfg"], ti["packed"]
-    u, n = cfg.dense_units, cfg.n_layers
+    packed = ti["packed"]
     tc = ti["passes"]["coarse"]["t"]
     tf_k = [trm.sample_merge(tc, ti["wc"], ti["u"], tc) for _ in range(2)]
     tf_p = ti["passes"]["fine"]["t"]
@@ -1235,57 +1359,9 @@ def _train_kernel_checks(ti: dict):
                                          >= tf_k[0][:, :-1]).all()))
     del tf_k
     for name, p in ti["passes"].items():
-        t = p["t"]
-        r, s = t.shape
-        shape = f"[{r} x {s}]"
-        stash_k = trm.alloc_stash(r * s, u, n, t.device)
-        stash_p = trm.alloc_stash(r * s, u, n, t.device)
-        args = (packed, ti["base"], ti["slope"], t, ti["masks"])
-        out_k = trm.ray_march_mlp(*args, stash=stash_k)
-        out_p = trm.ray_march_mlp.plain(*args, stash=stash_p)
-        torch.cuda.synchronize()
-        pairs = [(stash_k[k], stash_p[k]) for k in ("enc", "features", "rf")]
-        pairs += list(zip(stash_k["h"], stash_p["h"]))
-        yield _held("ray_march_mlp", pairs + [(out_k, out_p)],
-                    f"ray_march_mlp train, outputs and kept activations "
-                    f"{shape}", err=float((out_k - out_p).abs().max()))
-        del stash_k, out_k
-
-        rgbs = out_p.reshape(r, s, 4)
-        kw = dict(target=ti["target"], loss_scale=2.0 / (3 * r))
-        q_args = (rgbs, t, True, False, p["weights"])
-        q_k = trm.ray_march_quadrature(*q_args, **kw)
-        q_p = trm.ray_march_quadrature.plain(*q_args, **kw)
-        torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in zip(q_k[:3], q_p[:3])
-                  if a is not None)
-        yield _held("ray_march_quadrature", list(zip(q_k[3:], q_p[3:])),
-                    f"ray_march_quadrature with_grad, "
-                    f"{'weights' if p['weights'] else 'no weights'} {shape}",
-                    err=err)
-
-        cots_k = trm.mlp_backward(q_p[3], q_p[4], packed, stash_p)
-        cots_p = trm.mlp_backward.plain(q_p[3], q_p[4], packed, stash_p)
-        torch.cuda.synchronize()
-        pairs = [(cots_k["d_rf"], cots_p["d_rf"]),
-                 (cots_k["d_sf"], cots_p["d_sf"])]
-        pairs += list(zip(cots_k["d_pre"], cots_p["d_pre"]))
-        yield _held("mlp_backward", pairs,
-                    f"mlp_backward, every cotangent {shape}")
-        del cots_k
-
-        want = trm.mlp_weight_grad.plain(stash_p, cots_p,
-                                         trm.zero_grads(packed))
-        runs = [trm.mlp_weight_grad(stash_p, cots_p, trm.zero_grads(packed))
-                for _ in range(2)]
-        torch.cuda.synchronize()
-        leaves = [tree_leaves(x) for x in (*runs, want)]
-        same = all(torch.equal(a, b) for a, b in zip(leaves[0], leaves[1]))
-        log(f"check mlp_weight_grad {shape}: two runs identical bits: {same}")
-        yield _held("mlp_weight_grad", list(zip(leaves[0], leaves[2])),
-                    f"mlp_weight_grad, every packed gradient, twice {shape}",
-                    extra_ok=same)
-        p.update(stash=stash_p, cots=cots_p, rgbs=rgbs, quad=q_p)
+        p.update((yield from _train_chain(
+            packed, ti["base"], ti["slope"], ti["masks"], p["t"],
+            ti["target"], (p["weights"],))))
     # ROADMAP C14: the with_grad mode past 1024 samples a ray.
     c14 = ti["c14"]
     kw = dict(target=ti["target"], loss_scale=2.0 / (3 * TRAIN_CHUNK))
@@ -1554,10 +1630,11 @@ def _c14_step(state, card_tag):
         fail(f"{label}: launch counts {launches} != expected {expected}")
 
 
-def _one_step(state, small, cfg, device, loss_fn):
+def _one_step(state, small, cfg, device, loss_fn, occ=None):
     """One SGD (lr 1) step from ``state``'s weights on ``small``'s batch and
-    draws on ``device``: its metrics and the gradients (the parameter
-    change) of both models, leaf by leaf."""
+    draws on ``device`` (with ``occ``, ``train_step``'s occupancy keywords,
+    the occupancy step on the grid or rows given): its metrics and the
+    gradients (the parameter change) of both models, leaf by leaf."""
     import torch
 
     from keras_nerf_tpu_torch.models import engine
@@ -1568,9 +1645,11 @@ def _one_step(state, small, cfg, device, loss_fn):
     p0 = [_to(p, device) for p in (state.coarse_params, state.fine_params)]
     s0 = engine.TrainState(p0[0], p0[1], {}, {}, 0)
     moved = (batch[0].to(device), tuple(x.to(device) for x in batch[1]))
+    occ = {k: v.to(device) if torch.is_tensor(v) else v
+           for k, v in (occ or {}).items()}
     s1, metrics = engine.train_step(s0, moved, [x.to(device) for x in draws],
                                     engine.make_optimizer("sgd", 1.0), cfg,
-                                    E2E_CHUNK, loss_fn=loss_fn)
+                                    E2E_CHUNK, loss_fn=loss_fn, **occ)
     grads = [[(a - b).double().cpu() for a, b in
               zip(tree_leaves(p), tree_leaves(q))]
              for p, q in zip(p0, (s1.coarse_params, s1.fine_params))]
@@ -1703,17 +1782,18 @@ class _Swapped:
         return False
 
 
-def _compare_mse_steps(label, state, small, cfg):
+def _compare_mse_steps(label, state, small, cfg, occ=None):
     """The card's 16^2 MSE step against the CPU's pinned to its fine depths
     and near-edge clip decisions (:class:`PinnedMse`), held at
     ``STEP_TOL``; fails where a clip decision differs farther from the edge
     than the render budget. The unpinned reading (each device's own depths
-    and decisions) is printed beside it, not held."""
+    and decisions) is printed beside it, not held. ``occ``: the occupancy
+    step's keywords (:func:`_one_step`)."""
     pin = PinnedMse()
     with pin.recording():
-        card = _one_step(state, small, cfg, "cuda", None)
+        card = _one_step(state, small, cfg, "cuda", None, occ)
     with pin.pinning():
-        host = _one_step(state, small, cfg, "cpu", None)
+        host = _one_step(state, small, cfg, "cpu", None, occ)
     _compare_steps(f"{label}, the CPU on the card's fine depths and clip "
                    f"decisions", state, small, cfg, None, None,
                    steps=(card, host))
@@ -1725,7 +1805,8 @@ def _compare_mse_steps(label, state, small, cfg):
              f"beyond the render budget")
     _compare_steps(f"{label}, each device on its own draws (unpinned, not "
                    f"held)", state, small, cfg, None, None,
-                   steps=(card, _one_step(state, small, cfg, "cpu", None)),
+                   steps=(card, _one_step(state, small, cfg, "cpu", None,
+                                          occ)),
                    held=False)
 
 
@@ -2878,16 +2959,39 @@ def _wide_phases(gen, errors, rel_errors, card_tag, shape,
 # The occupancy render.
 
 
+def _clone_tree(x):
+    """A clone of each tensor of a nest of dicts, lists and tuples."""
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone_tree(v) for v in x)
+    return None if x is None else x.clone()
+
+
 class _CallLog:
     """Within ``with``, counts every plain-version call of the kernels and
-    records ``ray_march_mlp``'s ``sigma_only`` flag per kernel launch (the
-    launch counts cannot tell its modes apart)."""
+    records, per kernel launch, ``ray_march_mlp``'s ``sigma_only`` flag and
+    depths' shape ``(rays, samples)`` (the launch counts cannot tell its
+    modes apart) and ``sample_merge``'s mode ``(s_c, n, s_m, the CDF
+    source's row stride)``, ``s_m`` -1 where the partner is the CDF source,
+    keeping clones of the inputs of the first launch of each mode; keeps,
+    in ``train_inputs``, clones of the inputs of the first train-mode
+    ``ray_march_mlp`` launch (the one with a stash) and of the
+    ``ray_march_quadrature`` launch after it for each (depths' shape,
+    weights emitted); counts the calls of ``occupancy_along_rays`` (the
+    probe gather)."""
 
     def __enter__(self):
         from keras_nerf_tpu_torch.kernels import KERNELS, ray_march_mlp
+        from keras_nerf_tpu_torch.kernels import (ray_march_quadrature,
+                                                  sample_merge)
+        from keras_nerf_tpu_torch.ops import occupancy as occ_mod
 
-        self.plain_calls, self.mlp_modes = 0, []
+        self.plain_calls, self.mlp_modes, self.mlp_shapes = 0, [], []
+        self.merges, self.inputs, self.probes = [], {}, 0
+        self.train_inputs, pending = {}, []
         self._saved = [(k, k.plain, k._launch) for k in KERNELS]
+        self._probe = occ_mod.occupancy_along_rays
 
         def counted(plain):
             def call(*args, **kwargs):
@@ -2897,18 +3001,56 @@ class _CallLog:
 
         for k, plain, _ in self._saved:
             k.plain = counted(plain)
-        launch = ray_march_mlp._launch
+        mlp, merge = ray_march_mlp._launch, sample_merge._launch
+        quad = ray_march_quadrature._launch
 
-        def mlp_launch(*args, **kwargs):
+        def mlp_launch(packed, base, slope, depths, *args, **kwargs):
             self.mlp_modes.append(bool(kwargs.get("sigma_only", False)))
-            return launch(*args, **kwargs)
+            self.mlp_shapes.append(tuple(depths.shape))
+            pending[:] = ([(packed, base, slope, depths, *args)]
+                          if kwargs.get("stash") is not None else [])
+            return mlp(packed, base, slope, depths, *args, **kwargs)
 
-        ray_march_mlp._launch = mlp_launch
+        def quad_launch(rgbs, t, white_background=False, sigma_only=False,
+                        emit_weights=True, **kwargs):
+            key = (tuple(t.shape), bool(emit_weights))
+            if (pending and kwargs.get("target") is not None
+                    and key not in self.train_inputs):
+                packed, base, slope, depths, masks = pending[0]
+                self.train_inputs[key] = dict(
+                    packed=_clone_tree(packed), base=base.clone(),
+                    slope=slope.clone(), t=depths.clone(),
+                    masks=masks.clone(), target=kwargs["target"].clone(),
+                    loss_scale=kwargs.get("loss_scale", 0.0),
+                    white_background=white_background)
+            pending.clear()
+            return quad(rgbs, t, white_background, sigma_only, emit_weights,
+                        **kwargs)
+
+        def merge_launch(cp, w, u, mp, *args, **kwargs):
+            s_m = 0 if mp is None else (-1 if mp is cp else mp.shape[1])
+            mode = (cp.shape[1], u.shape[1], s_m, cp.stride(0))
+            self.merges.append(mode)
+            if mode not in self.inputs:
+                self.inputs[mode] = tuple(
+                    None if x is None else x.clone() for x in (cp, w, u, mp))
+            return merge(cp, w, u, mp, *args, **kwargs)
+
+        def probe(*args, **kwargs):
+            self.probes += 1
+            return self._probe(*args, **kwargs)
+
+        ray_march_mlp._launch, sample_merge._launch = mlp_launch, merge_launch
+        ray_march_quadrature._launch = quad_launch
+        occ_mod.occupancy_along_rays = probe
         return self
 
     def __exit__(self, *exc):
+        from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+
         for k, plain, launch in self._saved:
             k.plain, k._launch = plain, launch
+        occ_mod.occupancy_along_rays = self._probe
         return False
 
 
@@ -3182,6 +3324,27 @@ def _occupancy_modes(oi: dict, cfg) -> list:
     ]
 
 
+def _occ_train_modes(oti: dict) -> list:
+    """The occupancy-train path's ``sample_merge`` modes on the inputs of
+    their first launch there, 8 launches each per 128^2 step: the partner
+    mode (merged) and the no-merge mode (``--occupancy_train_no_merge``)."""
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+
+    per_step = IMG * IMG // TRAIN_CHUNK
+    partner = oti["inputs"][OCC_STEP["merge"]["merge"]]
+    alone = oti["inputs"][OCC_STEP["no_merge"]["merge"]]
+    return [
+        (trm.sample_merge, "occ_train",
+         f"partner [{TRAIN_CHUNK}, {OCC_PROBE} bins, {N_COARSE} + "
+         f"{OCC_SAMPLES}]", lambda f: f(*partner), per_step,
+         _merge_bound(TRAIN_CHUNK, OCC_PROBE, OCC_SAMPLES, N_COARSE)),
+        (trm.sample_merge, "occ_train_no_merge",
+         f"no merge [{TRAIN_CHUNK}, {OCC_PROBE} bins -> {OCC_SAMPLES}]",
+         lambda f: f(*alone), per_step,
+         _merge_bound(TRAIN_CHUNK, OCC_PROBE, OCC_SAMPLES, 0)),
+    ]
+
+
 def _bake_times(oi: dict, cfg, card_tag):
     """The whole bake (``bake_occupancy_grid``: coordinates, the encoding,
     8 ``apply_mlp`` launches, threshold, dilation) by CUDA events, beside
@@ -3205,6 +3368,404 @@ def _bake_times(oi: dict, cfg, card_tag):
                                        "bound_ms": bound,
                                        "bound_by": "operations",
                                        "card": card_tag.strip("[]")}}))
+
+
+# ---------------------------------------------------------------------------
+# The occupancy-train tier and pixel sampling.
+
+
+class _EpochLog(_StepLog):
+    """:class:`_StepLog` that also keeps, at each epoch's end (the card
+    synchronized), the host clock, the grid and cache objects and the
+    grid's occupied share."""
+
+    def __init__(self, nerf):
+        super().__init__()
+        self.nerf, self.epochs = nerf, []
+
+    def on_epoch_end(self, epoch, logs):
+        import torch
+
+        torch.cuda.synchronize()
+        grid = self.nerf._occ_train_grid
+        self.epochs.append(dict(
+            epoch=epoch, t=time.perf_counter(), grid=grid,
+            cache=self.nerf._occ_probe_cache, steps=len(self.logs),
+            share=None if grid is None else float(grid.mean())))
+
+
+def _occ_train_warm(nerf, dataset, **tier):
+    """:func:`_occ_train_compile` with warm-up 0 and an update period past
+    any run, then one epoch of ``fit`` (its bake, and the cache's build):
+    every later epoch steps without a bake."""
+    _occ_train_compile(nerf, occupancy_train_warmup=0,
+                       occupancy_train_update=1000, **tier)
+    nerf.fit(dataset, epochs=1, verbose=False)
+
+
+def _occ_train_compile(nerf, **tier):
+    """``nerf.compile`` as :func:`_compile_train`, plus the training CLI's
+    occupancy flags ``--occupancy_train 128 --occupancy_train_samples 64
+    --occupancy_train_probe 64`` (defaults otherwise) and ``tier``'s."""
+    from keras_nerf_tpu_torch.inference import ORBIT
+
+    return nerf.compile(
+        optimizer="adam", loss="mse", batch_size=1, image_height=IMG,
+        image_width=IMG, ray_chunks=TRAIN_CHUNK, white_background=True,
+        learning_rate=1e-3, device="cuda", seed=0, near=ORBIT["near"],
+        far=ORBIT["far"], occupancy_train=OCC_GRID,
+        occupancy_train_samples=OCC_SAMPLES,
+        occupancy_train_probe=OCC_PROBE, **tier)
+
+
+def _occ_train_run(nerf, dataset, label, epochs, initial_epoch, kinds,
+                   bake_epochs, card_tag) -> dict:
+    """One ``NeRF.fit`` of the compiled ``nerf``, the launch counts set to
+    0 just before and read just after. ``kinds`` names each epoch's steps
+    (``exact``, ``merge``, ``no_merge``; ``cached`` when the steps gather
+    cached rows), ``bake_epochs`` the epochs that bake. Fails unless every
+    step's kernels ran as its kind says (:data:`OCC_STEP`: launches per
+    chunk, ``sample_merge``'s mode, the MLP's depths), each bake's 8
+    ``apply_mlp`` launches and occupied share in ``OCC_SHARE``, no plain
+    call, the probe gather only where the steps probe (and per cache
+    build), and finite metrics with nonzero gradient norms. Returns the
+    launches, the bakes' and steps' wall times and the run's log."""
+    import math
+    from collections import Counter
+
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+
+    per_epoch = len(dataset)
+    chunks = IMG * IMG // TRAIN_CHUNK
+    bakes = []
+    bake = nerf._maybe_update_occupancy_train
+
+    def timed_bake(epoch, ds):     # the bake and any cache build, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bake(epoch, ds)
+        torch.cuda.synchronize()
+        bakes.append((epoch, time.perf_counter() - t0))
+
+    nerf._maybe_update_occupancy_train = timed_bake
+    elog = _EpochLog(nerf)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        with _CallLog() as calls:
+            t0 = time.perf_counter()
+            nerf.fit(dataset, epochs=epochs, initial_epoch=initial_epoch,
+                     callbacks=[elog], verbose=False)
+            torch.cuda.synchronize()
+    finally:
+        del nerf._maybe_update_occupancy_train
+    launches = {k.name: k.launches for k in KERNELS}
+    bake_s = dict(bakes)
+    baked = [e["epoch"] for prev, e in zip([None] + elog.epochs, elog.epochs)
+             if e["grid"] is not None
+             and (prev is None or e["grid"] is not prev["grid"])]
+    builds = sum(1 for prev, e in zip([None] + elog.epochs, elog.epochs)
+                 if e["cache"] is not None
+                 and (prev is None or e["cache"] is not prev["cache"]))
+    expected = {k.name: 0 for k in KERNELS}
+    modes, shapes, probes = Counter(), Counter(), 0
+    for kind in kinds:
+        step = OCC_STEP[kind.replace("cached ", "")]
+        for name, n in MSE_LAUNCHES.items():
+            expected[name] += per_epoch * chunks * n
+        modes[step["merge"]] += per_epoch * chunks
+        for shape in step["mlp"]:
+            shapes[shape] += per_epoch * chunks
+        if kind in ("merge", "no_merge"):
+            probes += per_epoch * chunks
+    expected["apply_mlp"] = len(bake_epochs) * OCC_GRID ** 3 \
+        // occ_mod.DENSITY_CHUNK
+    pixels = IMG * IMG
+    per_build = -(-dataset.num_examples // max(
+        1, occ_mod.PROBE_ROWS_POINTS // (pixels * OCC_PROBE)))
+    probes += builds * per_build
+    shares = [e["share"] for e in elog.epochs if e["epoch"] in baked]
+    # Step walls: each epoch's, less its bake (and cache build).
+    starts = [t0] + [e["t"] for e in elog.epochs[:-1]]
+    walls = {e["epoch"]: e["t"] - start - bake_s.get(e["epoch"], 0.0)
+             for start, e in zip(starts, elog.epochs)}
+    occ_epochs = [e for e, k in zip(range(initial_epoch, epochs), kinds)
+                  if k != "exact"]
+    occ_ms = (1e3 * sum(walls[e] for e in occ_epochs)
+              / (per_epoch * len(occ_epochs)) if occ_epochs else None)
+    log(f"{label}: {len(elog.logs)} steps of NeRF.fit at {IMG}^2, "
+        f"ray_chunks {TRAIN_CHUNK}, epochs {initial_epoch}..{epochs - 1} "
+        f"({', '.join(kinds)}); bakes at epochs {baked} (shares "
+        f"{', '.join(f'{x:.4f}' for x in shares)}, must lie in "
+        f"{OCC_SHARE}; walls "
+        f"{', '.join(f'{1e3 * bake_s[e]:.1f}' for e in baked)} ms with any "
+        f"cache build); cache builds {builds}; occupancy steps "
+        + (f"{occ_ms:.1f} ms/step wall less the bakes" if occ_ms else "none")
+        + f" {card_tag}; launches {launches}; sample_merge modes "
+        f"{dict(Counter(calls.merges))}; MLP depths "
+        f"{dict(Counter(calls.mlp_shapes))}; probe gathers {calls.probes}; "
+        f"plain calls {calls.plain_calls}")
+    log(f"{label}: fine_loss by step " + " ".join(
+        f"{m['fine_loss']:.4f}" for m in elog.logs))
+    if len(elog.logs) != per_epoch * len(kinds):
+        fail(f"{label}: {len(elog.logs)} steps")
+    if baked != list(bake_epochs):
+        fail(f"{label}: bakes at epochs {baked}, expected {bake_epochs}")
+    if launches != expected:
+        fail(f"{label}: launch counts {launches} != expected {expected}")
+    if Counter(calls.merges) != modes or Counter(calls.mlp_shapes) != shapes:
+        fail(f"{label}: sample_merge modes {Counter(calls.merges)} / MLP "
+             f"depths {Counter(calls.mlp_shapes)} != expected {modes} / "
+             f"{shapes}")
+    if calls.plain_calls or calls.probes != probes:
+        fail(f"{label}: {calls.plain_calls} plain calls, {calls.probes} "
+             f"probe gathers (expected {probes})")
+    if not all(OCC_SHARE[0] <= x <= OCC_SHARE[1] for x in shares):
+        fail(f"{label}: an occupied share {shares} outside {OCC_SHARE}")
+    if not all(math.isfinite(v) for m in elog.logs for v in m.values()):
+        fail(f"{label}: non-finite training metrics")
+    if not all(m[k] > 0.0 for m in elog.logs
+               for k in ("coarse_grad_norm", "fine_grad_norm")):
+        fail(f"{label}: a gradient norm is zero")
+    return {"launches": launches, "occ_ms": occ_ms, "inputs": calls.inputs,
+            "train_inputs": calls.train_inputs, "shares": shares}
+
+
+# Per 2048-ray chunk of each kind of step: sample_merge's mode (s_c, n,
+# s_m, the CDF source's row stride) and the depths of the two MLP passes.
+OCC_STEP = {
+    "exact": {"merge": (N_COARSE, N_FINE, -1, N_COARSE),
+              "mlp": ((TRAIN_CHUNK, N_COARSE),
+                      (TRAIN_CHUNK, N_COARSE + N_FINE))},
+    "merge": {"merge": (OCC_PROBE, OCC_SAMPLES, N_COARSE, 0),
+              "mlp": ((TRAIN_CHUNK, N_COARSE),
+                      (TRAIN_CHUNK, N_COARSE + OCC_SAMPLES))},
+    "no_merge": {"merge": (OCC_PROBE, OCC_SAMPLES, 0, 0),
+                 "mlp": ((TRAIN_CHUNK, N_COARSE), (TRAIN_CHUNK, OCC_SAMPLES))},
+}
+# The occupancy-train tier's checks: (label, compile flags, fit's epochs,
+# initial epoch, each epoch's steps, the epochs that bake).
+OCC_TRAIN_RUNS = (
+    ("occupancy train (merged)",
+     dict(occupancy_train_warmup=1, occupancy_train_update=1), 3, 0,
+     ("exact", "merge", "merge"), (1, 2)),
+    ("occupancy train (--occupancy_train_no_merge)",
+     dict(occupancy_train_warmup=1, occupancy_train_update=1,
+          occupancy_train_merge=False), 2, 1, ("no_merge",), (1,)),
+    ("occupancy train (--occupancy_train_update 2 "
+     "--occupancy_train_cache)",
+     dict(occupancy_train_warmup=1, occupancy_train_update=2,
+          occupancy_train_cache=True), 3, 1,
+     ("cached merge", "cached merge"), (1,)),
+)
+# Exact epochs before the occupancy-train checks: from the seed-0 weights
+# the density lies below the bake's default threshold (1.0) everywhere, and
+# some 40 steps grow the spheres' density past it; each bake's occupied
+# share is logged and held in OCC_SHARE.
+OCC_TRAIN_PRE_EPOCHS = 12
+# The timed and profiled tiers, each after _occ_train_warm.
+OCC_TRAIN_TIMED = {
+    "merged": {}, "no_merge": dict(occupancy_train_merge=False),
+    "cache": dict(occupancy_train_cache=True)}
+
+
+def _occupancy_train_phases(cfg, dataset, errors, rel_errors,
+                            card_tag) -> dict:
+    """The occupancy-train tier at full width (``train_single
+    --occupancy_train 128 --occupancy_train_samples 64
+    --occupancy_train_probe 64``, ROADMAP A10b) and pixel sampling, through
+    ``NeRF.fit`` on the 5 spheres views, from the seed-0 weights trained
+    :data:`OCC_TRAIN_PRE_EPOCHS` epochs of exact steps first, so that the
+    bake at the default threshold marks the spheres:
+
+    * :data:`OCC_TRAIN_RUNS`, each through :func:`_occ_train_run`: merged
+      (one exact epoch, then a bake and occupancy steps each epoch: 8
+      ``sample_merge`` launches a step in the partner mode at [2048, 64
+      bins, 64 + 64], then T3 at [2048 x 128]), without merge (the no-merge
+      mode, T3 at [2048 x 64]) and with the cache every other epoch;
+    * ``sample_merge`` against its plain version on the inputs of the
+      first launch of each mode on the path (``_merge_held``), and T3's
+      chain (:func:`_train_chain`, ``TRAIN_TOL``, twice with identical
+      bits, the quadrature with and without weights) on the inputs of the
+      first launch of each occupancy pass on the path: the coarse pass at
+      [2048 x 64], which emits no weights there, and the merged fine pass
+      at [2048 x 128];
+    * 16^2 occupancy steps on the card against the CPU, merged and not, on
+      the card's grid with the same draws (:func:`_compare_mse_steps`, the
+      C11 pinning, ``STEP_TOL``), and the cached-rows step
+      (``probe_rows_for_poses``) against the probed one on the card, bit
+      for bit;
+    * 5 ``--pixel_sampling`` steps (``RayBatchDataset``);
+    * each tier of :data:`OCC_TRAIN_TIMED`, after one warm epoch that
+      bakes, timed over 10 steps (wall, no bake, no profiler) and then
+      profiled over 5.
+
+    Logs the wall time of each of these sub-phases. Returns the launches
+    by path, the recorded inputs, the timings and the profiles."""
+    import math
+
+    import torch
+
+    from keras_nerf_tpu_torch.data import RayBatchDataset
+    from keras_nerf_tpu_torch.inference import ORBIT
+    from keras_nerf_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from keras_nerf_tpu_torch.models import NeRF
+    from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+
+    dev = torch.device("cuda")
+    walls, t_start = {}, time.perf_counter()
+
+    def lap(name):
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t_start - sum(walls.values())
+
+    nerf = _compile_train(NeRF(config=cfg), "mse")
+    nerf.fit(dataset, epochs=OCC_TRAIN_PRE_EPOCHS, verbose=False)
+    lap(f"{OCC_TRAIN_PRE_EPOCHS * len(dataset)} exact steps")
+    out = {"launches": {}, "ms": {}, "profiles": {}}
+    train_inputs = {}
+    for (label, tier, epochs, first, kinds, bake_epochs), key in zip(
+            OCC_TRAIN_RUNS, ("train_occupancy", "train_occupancy_no_merge",
+                             "train_occupancy_cache")):
+        _occ_train_compile(nerf, **tier)
+        run = _occ_train_run(nerf, dataset, label, epochs, first, kinds,
+                             bake_epochs, card_tag)
+        out["launches"][key] = run["launches"]
+        out.setdefault("inputs", {}).update(run["inputs"])
+        for mode, got in run["train_inputs"].items():
+            train_inputs.setdefault(mode, got)
+        lap(label)
+        if key == "train_occupancy_cache":
+            cache = nerf._occ_probe_cache
+            if (cache is None or cache.dtype != torch.uint8 or tuple(
+                    cache.shape) != (TRAIN_POSES, IMG * IMG, OCC_PROBE)):
+                fail(f"{label}: the probe-row cache is "
+                     f"{None if cache is None else tuple(cache.shape)}")
+    inputs = out["inputs"]
+    partner = OCC_STEP["merge"]["merge"]
+    alone = OCC_STEP["no_merge"]["merge"]
+    _merge_held(f"partner on the occupancy-train path [{TRAIN_CHUNK}, "
+                f"{OCC_PROBE} bins, {N_COARSE} + {OCC_SAMPLES}]",
+                *inputs[partner], TRAIN_TOL["sample_merge"]["abs"], errors)
+    _merge_held(f"no merge on the occupancy-train path [{TRAIN_CHUNK}, "
+                f"{OCC_PROBE} bins -> {OCC_SAMPLES}]", *inputs[alone],
+                TRAIN_TOL["sample_merge"]["abs"], errors)
+    for s, where in ((N_COARSE, " (occupancy coarse pass)"),
+                     (N_COARSE + OCC_SAMPLES, " (occupancy fine pass, "
+                                              "merged)")):
+        got = train_inputs[((TRAIN_CHUNK, s), False)]
+        _record_held(_train_chain(
+            got["packed"], got["base"], got["slope"], got["masks"], got["t"],
+            got["target"], (False, True), got["white_background"],
+            got["loss_scale"], where), errors, rel_errors)
+    del train_inputs
+    lap("the kernels held on the path's inputs")
+
+    # 16^2 steps: the card against the CPU on the card's last grid, and
+    # the cached rows against the probe on the card.
+    grid = nerf._occ_train_grid
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    small = _small_step_inputs(gen, OCC_SAMPLES)
+    for merge in (True, False):
+        spec = (OCC_SAMPLES, OCC_PROBE, ORBIT["near"], ORBIT["far"],
+                occ_mod.DEFAULT_AABB, merge)
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        tier = "merged" if merge else "no merge"
+        _compare_mse_steps(
+            f"occupancy train step {E2E_IMG}^2 ({tier}), card kernels vs "
+            f"CPU plain versions on the card's grid",
+            nerf.state, small, cfg, dict(occupancy=spec, occ_grid=grid))
+        launches = {k.name: k.launches for k in KERNELS}
+        expected = {k.name: E2E_IMG * E2E_IMG // E2E_CHUNK
+                    * MSE_LAUNCHES.get(k.name, 0) for k in KERNELS}
+        log(f"occupancy train step {E2E_IMG}^2 (merge {merge}): "
+            f"{time.perf_counter() - t0:.1f} s (wall: the card's step and "
+            f"two CPU steps); card launches {launches}")
+        if launches != expected:
+            fail(f"occupancy train step {E2E_IMG}^2: launch counts "
+                 f"{launches} != expected {expected}")
+    _, poses, focal = _spheres_scene(1, seed=2, img=E2E_IMG)
+    rows = occ_mod.probe_rows_for_poses(
+        poses, focal, grid, image_height=E2E_IMG, image_width=E2E_IMG,
+        near=ORBIT["near"], far=ORBIT["far"], n_probe=OCC_PROBE)
+    spec = (OCC_SAMPLES, OCC_PROBE, ORBIT["near"], ORBIT["far"],
+            occ_mod.DEFAULT_AABB, True)
+    steps = [_one_step(nerf.state, small, cfg, "cuda", None,
+                       dict(occupancy=spec, **kw))
+             for kw in (dict(occ_grid=grid),
+                        dict(occ_rows=rows.reshape(-1, OCC_PROBE)))]
+    (m_grid, g_grid), (m_rows, g_rows) = steps
+    same = (m_grid == m_rows and all(
+        torch.equal(a, b) for ga, gb in zip(g_grid, g_rows)
+        for a, b in zip(ga, gb)))
+    log(f"occupancy train step {E2E_IMG}^2 on the card, cached rows "
+        f"(probe_rows_for_poses) vs the probed grid: bit for bit {same}")
+    if not same:
+        fail("the cached-rows step differs from the probed step")
+    lap(f"{E2E_IMG}^2 steps card vs CPU, cached vs probed")
+
+    # Pixel sampling: 5 steps of NeRF.fit on RayBatchDataset.
+    images, poses, focal = _spheres_scene(TRAIN_POSES, seed=0)
+    rays = RayBatchDataset(images, poses, focal=focal, near=ORBIT["near"],
+                           far=ORBIT["far"], n_samples=N_COARSE,
+                           batch_size=1, seed=0, device="cuda")
+    nerf.compile(optimizer="adam", loss="mse", batch_size=1,
+                 image_height=IMG, image_width=IMG, ray_chunks=TRAIN_CHUNK,
+                 white_background=True, learning_rate=1e-3, device="cuda",
+                 seed=0, pixel_sampling=True)
+    steps = _StepLog()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with _CallLog() as calls:
+        t0 = time.perf_counter()
+        nerf.fit(rays, epochs=1, callbacks=[steps], verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    n = len(steps.logs)
+    expected = {k.name: n * IMG * IMG // TRAIN_CHUNK
+                * MSE_LAUNCHES.get(k.name, 0) for k in KERNELS}
+    log(f"pixel sampling: {n} steps of NeRF.fit on RayBatchDataset "
+        f"({IMG}^2 rays a batch drawn across {TRAIN_POSES} views) in "
+        f"{wall:.3f} s {card_tag}; launches {launches}; fine_loss "
+        + " ".join(f"{m['fine_loss']:.4f}" for m in steps.logs))
+    if n != len(rays) or launches != expected or calls.plain_calls:
+        fail(f"pixel sampling: {n} steps, launches {launches} != expected "
+             f"{expected}, {calls.plain_calls} plain calls")
+    if not all(math.isfinite(v) and (not k.endswith("grad_norm") or v > 0)
+               for m in steps.logs for k, v in m.items()):
+        fail("pixel sampling: non-finite metrics or a zero gradient norm")
+    out["launches"]["train_pixel_sampling"] = launches
+    lap("pixel sampling")
+
+    # Each tier after a warm epoch (the bake): 10 steps that bake nothing
+    # timed without the profiler, then 5 under it.
+    for name, tier in OCC_TRAIN_TIMED.items():
+        _occ_train_warm(nerf, dataset, **tier)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nerf.fit(dataset, epochs=3, initial_epoch=1, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = 2 * len(dataset)
+        out["ms"][name] = 1e3 * wall / steps
+        log(f"time occupancy train step ({name}): {out['ms'][name]:.1f} "
+            f"ms/step, {steps * IMG * IMG / wall:.0f} rays/s over {steps} "
+            f"steps of NeRF.fit (wall, host clock, no bake, no profiler) "
+            f"{card_tag}")
+        out["profiles"][name] = _profile(
+            lambda: nerf.fit(dataset, epochs=2, initial_epoch=1,
+                             verbose=False), len(dataset), "step")
+        lap(f"{name} timed and profiled")
+    log(f"occupancy train tier: {time.perf_counter() - t_start:.1f} s "
+        f"(wall, CPU references included): " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in walls.items()))
+    return out
 
 
 if __name__ == "__main__":

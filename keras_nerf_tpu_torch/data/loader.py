@@ -11,8 +11,10 @@ to the device and generates its rays and stratified depths there
 Randomness comes from ``torch.Generator``s seeded from ``seed`` and the
 epoch, so a run (and a resumed run) repeats: a full permutation of the train
 split every epoch (on the host), and the depth jitter (on the device).
-Batches drop the remainder (`loader.py:101-107`). Pixel sampling and
-sharded batches are not ported yet (ROADMAP.md).
+Batches drop the remainder (`loader.py:101-107`). With ``pixel_sampling``
+the train split is a :class:`RayBatchDataset`: every batch draws its rays
+at random (image, pixel) pairs across all of its images. Sharded batches
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,7 +28,10 @@ import numpy as np
 import torch
 
 from keras_nerf_tpu_torch.data.image import load_images
-from keras_nerf_tpu_torch.data.rays import generate_ray_batch
+from keras_nerf_tpu_torch.data.rays import (
+    generate_ray_batch,
+    sample_random_ray_batch,
+)
 from keras_nerf_tpu_torch.data.utils import get_focal_from_fov
 from keras_nerf_tpu_torch.device import resolve_device
 
@@ -38,7 +43,9 @@ def _epoch_seed(seed: int, epoch: int, stream: int) -> int:
 class NeRFDataset:
     """One split. Iterating yields ``(images [B, H, W, 4], (origin
     [B, H, W, 3], direction [B, H, W, 3], points [B, H, W, N]))`` float32
-    tensors on ``device`` (`loader.py:100`)."""
+    tensors on ``device`` (`loader.py:100`); ``last_indices`` holds the
+    indices of the images of the batch last yielded, in batch order (the
+    occupancy probe-row cache reads them, ``NeRF._run_train_step``)."""
 
     def __init__(self, images: np.ndarray, poses: np.ndarray, *,
                  focal: float, near: float, far: float, n_samples: int,
@@ -61,6 +68,7 @@ class NeRFDataset:
         self.seed = int(seed)
         self.device = resolve_device(device)
         self._epoch = 0
+        self.last_indices = None
 
     def __len__(self) -> int:
         return self.images.shape[0] // self.batch_size
@@ -83,6 +91,7 @@ class NeRFDataset:
         jitter.manual_seed(_epoch_seed(self.seed, epoch, 1))
         for b in range(len(self)):
             idx = perm[b * self.batch_size:(b + 1) * self.batch_size]
+            self.last_indices = idx
             images = torch.as_tensor(self.images[idx], device=self.device)
             rays = generate_ray_batch(
                 self.poses[idx], jitter, image_height=self.image_height,
@@ -105,6 +114,63 @@ class NeRFDataset:
                 break
             out.append(batch)
         return out
+
+
+class RayBatchDataset:
+    """The pixel-sampling train split (``--pixel_sampling``,
+    `loader.py:142-195`): every batch holds ``batch_size * H * W`` rays at
+    random (image, pixel) pairs across ALL the split's images
+    (:func:`~keras_nerf_tpu_torch.data.rays.sample_random_ray_batch`), in
+    the whole-image batch's shapes, so the engine needs no change. An epoch
+    is ``len(self)`` batches: as many rays as one pass over every pixel.
+
+    The images and poses stay on ``device``, where each batch is drawn;
+    the draws come from a ``torch.Generator`` there, seeded from ``seed``
+    and the epoch."""
+
+    # Batches are scrambled pixels, not images: windowed metrics (SSIM)
+    # over them are not meaningful; NeRF.fit warns (loss and PSNR exact).
+    PIXELWISE_METRICS_ONLY = True
+
+    def __init__(self, images: np.ndarray, poses: np.ndarray, *,
+                 focal: float, near: float, far: float, n_samples: int,
+                 batch_size: int, seed: int = 42, device="cuda"):
+        if images.shape[0] != poses.shape[0]:
+            raise ValueError(
+                f"images ({images.shape[0]}) and poses ({poses.shape[0]}) "
+                "must have the same leading dimension")
+        self.device = resolve_device(device)
+        self.images = torch.as_tensor(np.asarray(images, dtype=np.float32),
+                                      device=self.device)
+        self.poses = torch.as_tensor(np.asarray(poses, dtype=np.float32),
+                                     device=self.device)
+        self.focal = float(focal)
+        self.near = float(near)
+        self.far = float(far)
+        self.n_samples = int(n_samples)
+        self.batch_size = int(batch_size)
+        self.image_height = images.shape[1]
+        self.image_width = images.shape[2]
+        self.seed = int(seed)
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return max(1, self.images.shape[0] // self.batch_size)
+
+    @property
+    def num_examples(self) -> int:
+        return self.images.shape[0]
+
+    def __iter__(self) -> Iterator:
+        draws = torch.Generator(device=self.device)
+        draws.manual_seed(_epoch_seed(self.seed, self._epoch, 2))
+        self._epoch += 1
+        for _ in range(len(self)):
+            yield sample_random_ray_batch(
+                self.images, self.poses, draws, batch=self.batch_size,
+                image_height=self.image_height,
+                image_width=self.image_width, focal=self.focal,
+                near=self.near, far=self.far, n_samples=self.n_samples)
 
 
 class DatasetLoader:
@@ -131,22 +197,28 @@ class DatasetLoader:
     def load_dataset(self, batch_size: int, image_width: int,
                      image_height: int, near: float, far: float,
                      n_sample: int, seed: int = 42, sharding=None,
-                     pixel_sampling: bool = False) -> list[NeRFDataset]:
+                     pixel_sampling: bool = False) -> list:
         """``[train, val, test]``; the train split is shuffled, and split
-        ``i`` draws from ``seed + i`` (`loader.py:227-275`)."""
-        if pixel_sampling or sharding is not None:
+        ``i`` draws from ``seed + i`` (`loader.py:227-275`). With
+        ``pixel_sampling`` the train split is a :class:`RayBatchDataset`;
+        validation and test stay whole images."""
+        if sharding is not None:
             raise NotImplementedError(
-                "pixel_sampling and sharded batches are not ported yet "
-                "(ROADMAP.md, section A)")
+                "sharded batches are not ported yet (ROADMAP.md, section A, "
+                "A13)")
         datasets = []
         for split_idx, subset in enumerate(["train", "val", "test"]):
             fov, paths, poses = self._load_split(subset)
             images = load_images(paths, image_height, image_width,
                                  self.white_background, self.resize_method)
-            datasets.append(NeRFDataset(
-                images, poses, focal=get_focal_from_fov(fov, image_width),
-                near=near, far=far, n_samples=n_sample,
-                batch_size=batch_size, shuffle=(subset == "train"),
-                seed=seed + split_idx, device=self.device))
+            kw = dict(focal=get_focal_from_fov(fov, image_width), near=near,
+                      far=far, n_samples=n_sample, batch_size=batch_size,
+                      seed=seed + split_idx, device=self.device)
+            if pixel_sampling and subset == "train":
+                datasets.append(RayBatchDataset(images, poses, **kw))
+            else:
+                datasets.append(NeRFDataset(images, poses,
+                                            shuffle=(subset == "train"),
+                                            **kw))
             logging.info("Loaded %s dataset. %d images.", subset, len(paths))
         return datasets

@@ -92,6 +92,7 @@ from keras_nerf_tpu_torch.kernels.ceiling import (
 from keras_nerf_tpu_torch.kernels.quantize import ray_march_mlp_int8_plain
 from keras_nerf_tpu_torch.ops.rendering import RenderOutput, render_rays
 from keras_nerf_tpu_torch.ops.sampling import (
+    fma_f32,
     invert_cdf_of,
     merge_sorted,
     midpoints,
@@ -264,17 +265,6 @@ def _bf16_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32) @ w.to(torch.float32)
 
 
-def _fma(a, b, c) -> torch.Tensor:
-    """float32 ``a * b + c`` with one rounding: the float64 product of two
-    float32 values is exact, so only the sum rounds (then once more to
-    float32, which agrees with a true FMA but for rare double-rounding
-    ties)."""
-    f64 = torch.float64
-    a, b, c = (x.to(f64) if isinstance(x, torch.Tensor) else x
-               for x in (a, b, c))
-    return (a * b + c).to(torch.float32)
-
-
 def sin_poly(x: torch.Tensor) -> torch.Tensor:
     """The TPU kernel's degree-9 sin on range-reduced arguments
     (`ray_march.py:875-890`), with its float32 coefficients and the Horner
@@ -282,10 +272,10 @@ def sin_poly(x: torch.Tensor) -> torch.Tensor:
     the CUDA kernel follows with ``__fmaf_rn``."""
     c9, c7, c5, c3, c1 = _SIN_COEFFS
     x2 = x * x
-    p = _fma(c9, x2, c7)
-    p = _fma(p, x2, c5)
-    p = _fma(p, x2, c3)
-    p = _fma(p, x2, c1)
+    p = fma_f32(c9, x2, c7)
+    p = fma_f32(p, x2, c5)
+    p = fma_f32(p, x2, c3)
+    p = fma_f32(p, x2, c1)
     return x * p
 
 
@@ -298,10 +288,10 @@ def encode_points_f32(base: torch.Tensor, slope: torch.Tensor,
     lanes keep ``rep``. ``rep`` and the reduction are single-rounding FMAs,
     as in the CUDA kernels (``csrc/encode.cuh``). The int8 tier quantizes
     these values; :func:`encode_points` rounds them to bf16."""
-    rep = _fma(depths[..., None], slope[:, None, :], base[:, None, :])
+    rep = fma_f32(depths[..., None], slope[:, None, :], base[:, None, :])
     m_raw, m_sin, m_cos = masks[0], masks[1], masks[2]
     shifted = torch.where(m_cos != 0, rep + _HALF_PI, rep)
-    reduced = _fma(-_TWO_PI, torch.round(shifted * _INV_TWO_PI), shifted)
+    reduced = fma_f32(-_TWO_PI, torch.round(shifted * _INV_TWO_PI), shifted)
     trig = torch.where((m_sin != 0) | (m_cos != 0), sin_poly(reduced),
                        torch.zeros_like(rep))
     return torch.where(m_raw != 0, rep, trig)
@@ -355,8 +345,8 @@ def ray_points(origin: torch.Tensor, direction: torch.Tensor,
     [R, S]`` along the rays ``[R, 3]`` (`engine.py:243-245`). ``o + d t``
     rounds once, as XLA's fused multiply-add does (ROADMAP C1)."""
     r, s = points.shape
-    positions = _fma(direction[:, None, :], points[..., None],
-                     origin[:, None, :])
+    positions = fma_f32(direction[:, None, :], points[..., None],
+                        origin[:, None, :])
     dirs = direction[:, None, :].expand(r, s, 3)
     return positions.reshape(r * s, 3), dirs.reshape(r * s, 3)
 

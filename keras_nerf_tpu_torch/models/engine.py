@@ -26,8 +26,13 @@ The int8 render tier (:func:`quantize_render_params`, then
 ``render_image_batch(packed_q=...)``) runs on the kernel path only: both
 passes through ``ray_march_mlp_int8`` (T4); the reference path ignores it.
 
-The fine draws ``u`` are injected: per-chunk ``[R, n_fine]`` tensors, or a
-``torch.Generator`` that makes them with :func:`sorted_uniforms`.
+The occupancy-train tier (``train_step(occupancy=...)``) trains the fine
+pass on depths drawn inside a baked occupancy grid instead of the coarse
+weights' importance samples; the coarse pass trains as before.
+
+The fine draws ``u`` are injected: per-chunk ``[R, n_fine]`` tensors
+(``[R, n_samples]`` in the occupancy tier), or a ``torch.Generator`` that
+makes them with :func:`sorted_uniforms`.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from keras_nerf_tpu_torch.ops.encoding import (
     encode_position_and_directions,
     encoded_dim,
 )
+from keras_nerf_tpu_torch.ops import occupancy as occ_mod
 from keras_nerf_tpu_torch.ops.metrics import psnr, ssim
 from keras_nerf_tpu_torch.ops.rendering import RenderOutput, render_rays
 from keras_nerf_tpu_torch.ops.sampling import (
@@ -178,7 +184,8 @@ def _fused_chunk_pair(packed_c: dict, packed_f: dict, origin: torch.Tensor,
                       u: torch.Tensor, config: NeRFConfig,
                       with_weights: bool = True, coarse_image: bool = True,
                       target: torch.Tensor | None = None,
-                      grads: tuple = (None, None), quantized: bool = False):
+                      grads: tuple = (None, None), quantized: bool = False,
+                      fine_sample_inputs: tuple | None = None):
     """Coarse pass then the fine pass with in-kernel sampling off the
     coarse weights (`engine.py:496-571`). Without ``target`` these are the
     render modes (the coarse pass sigma-only when its image is unused);
@@ -186,7 +193,10 @@ def _fused_chunk_pair(packed_c: dict, packed_f: dict, origin: torch.Tensor,
     :func:`quantize_render_params` as ``packed_c``/``packed_f``. With
     ``target`` they are the train modes: each pass adds the packed
     gradient of its chunk MSE into its accumulator of ``grads`` and sees
-    only its own packed weights, and the fine pass emits no weights."""
+    only its own packed weights, and the fine pass emits no weights.
+    ``fine_sample_inputs`` (train modes) replaces the fine pass's sampling
+    inputs: the occupancy tier's ``(bin_mids, occ, u, partner or None)``;
+    the coarse pass then emits no weights, which nothing reads."""
     kw = dict(pos_emb_xyz=config.pos_emb_xyz, pos_emb_dir=config.pos_emb_dir,
               white_background=config.white_background)
     if target is None:
@@ -201,16 +211,21 @@ def _fused_chunk_pair(packed_c: dict, packed_f: dict, origin: torch.Tensor,
     if quantized:
         raise ValueError("the int8 tier renders only: it has no gradients")
     out_c = fused_train_chunk(packed_c, origin, direction, coarse_points,
-                              target, grads=grads[0], **kw)
+                              target, grads=grads[0],
+                              emit_weights=fine_sample_inputs is None, **kw)
+    if fine_sample_inputs is None:
+        fine_sample_inputs = (coarse_points, out_c[2], u)
     out_f = fused_train_chunk(packed_f, origin, direction, None, target,
                               emit_weights=False,
-                              sample_inputs=(coarse_points, out_c[2], u),
+                              sample_inputs=fine_sample_inputs,
                               grads=grads[1], **kw)
     return out_c, out_f
 
 
 def _chunk_draws(fine_draws, num_chunks: int, rays_per_chunk: int,
                  n_fine: int, device: torch.device):
+    """One sorted ``[rays_per_chunk, n_fine]`` draw tensor per chunk: made
+    by the generator ``fine_draws``, or its own tensors checked."""
     if isinstance(fine_draws, torch.Generator):
         return [sorted_uniforms(fine_draws, (rays_per_chunk,), n_fine)
                 for _ in range(num_chunks)]
@@ -539,17 +554,39 @@ def _chunked_batch(batch, config: NeRFConfig, ray_chunks: int):
             images[..., :3].reshape(n, ray_chunks, 3).to(torch.float32))
 
 
-def _fused_grads(state: TrainState, chunks, draws, config: NeRFConfig):
+def _occupancy_bins(occupancy: tuple, origin: torch.Tensor,
+                    direction: torch.Tensor, occ_grid: torch.Tensor | None,
+                    rows: torch.Tensor | None):
+    """A chunk's probe bins ``(bin_mids, occ)``, each ``[R, n_probe]``: the
+    cached rows when given, else the grid probed along the rays (the same
+    centres, so the two are bit for bit one step; `engine.py:688-696`)."""
+    _, n_probe, near, far, aabb, _ = occupancy
+    if rows is not None:
+        return occ_mod.cached_probe_bins(rows, near, far, n_probe)
+    return occ_mod.occupancy_along_rays(origin, direction, occ_grid, near,
+                                        far, n_probe, aabb)
+
+
+def _fused_grads(state: TrainState, chunks, draws, config: NeRFConfig,
+                 occupancy: tuple | None = None, bins=None):
     """The fused MSE path: pack once, add every chunk's packed gradients
-    into two accumulators, unpack once (`engine.py:712-753`)."""
+    into two accumulators, unpack once (`engine.py:712-753`). With
+    ``occupancy``, ``bins(i, o, d)`` gives chunk ``i``'s probe bins and the
+    fine pass samples its depths from them in ``sample_merge``: with the
+    stratified coarse depths as partner when the tier merges (``s_m > 0``),
+    without partner otherwise (``s_m = 0``)."""
     enc = (config.pos_emb_xyz, config.pos_emb_dir)
     packed_c = pack_mlp_params(state.coarse_params, config.mlp, *enc)
     packed_f = pack_mlp_params(state.fine_params, config.mlp, *enc)
     acc = (zero_grads(packed_c), zero_grads(packed_f))
     images = ([], [])
-    for o, d, t, tgt, u in zip(*chunks, draws):
+    for i, (o, d, t, tgt, u) in enumerate(zip(*chunks, draws)):
+        fine_in = None
+        if occupancy is not None:
+            fine_in = (*bins(i, o, d), u, t if occupancy[5] else None)
         outs = _fused_chunk_pair(packed_c, packed_f, o, d, t, u, config,
-                                 target=tgt, grads=acc)
+                                 target=tgt, grads=acc,
+                                 fine_sample_inputs=fine_in)
         for img, out in zip(images, outs):
             img.append(out[0])
     grads = tuple(unpack_grads(a, config.mlp, *enc) for a in acc)
@@ -557,16 +594,26 @@ def _fused_grads(state: TrainState, chunks, draws, config: NeRFConfig):
 
 
 def _autograd_grads(state: TrainState, chunks, draws, config: NeRFConfig,
-                    loss_fn):
+                    loss_fn, occupancy: tuple | None = None, bins=None):
     """Torch autograd per chunk over ``render_chunk_pair`` of ``loss_fn``'s
     coarse + fine loss; ``.grad`` sums the chunks (`engine.py:754-787`).
     The kernel branch of ``render_chunk`` (T5/T6) or the float32
-    reference."""
+    reference. With ``occupancy`` the coarse pass renders as without it,
+    and the fine pass renders the depths :func:`sample_occupied` draws
+    from chunk ``i``'s probe bins ``bins(i, o, d)``, rank-merged with the
+    stratified depths when the tier merges; it reads no coarse weights."""
     params = tuple(tree_map(lambda x: x.detach().requires_grad_(True), p)
                    for p in (state.coarse_params, state.fine_params))
     images = ([], [])
-    for o, d, t, tgt, u in zip(*chunks, draws):
-        outs = render_chunk_pair(*params, o, d, t, u, config)
+    for i, (o, d, t, tgt, u) in enumerate(zip(*chunks, draws)):
+        if occupancy is None:
+            outs = render_chunk_pair(*params, o, d, t, u, config)
+        else:
+            fine = occ_mod.sample_occupied(u, *bins(i, o, d))
+            if occupancy[5]:
+                fine = merge_sorted(t, fine)
+            outs = (render_chunk(params[0], o, d, t, config)[0],
+                    render_chunk(params[1], o, d, fine, config)[0])
         sum(loss_fn(tgt, out.image) for out in outs).backward()
         for img, out in zip(images, outs):
             img.append(out.image.detach())
@@ -577,7 +624,10 @@ def _autograd_grads(state: TrainState, chunks, draws, config: NeRFConfig,
 def train_step(state: TrainState, batch,
                fine_draws: torch.Generator | Sequence[torch.Tensor],
                optimizer: Optimizer, config: NeRFConfig,
-               ray_chunks: int, loss_fn=None) -> tuple[TrainState, dict]:
+               ray_chunks: int, loss_fn=None, occupancy: tuple | None = None,
+               occ_grid: torch.Tensor | None = None,
+               occ_rows: torch.Tensor | None = None
+               ) -> tuple[TrainState, dict]:
     """One optimizer step over one batch of whole-image rays
     (`engine.py:587-833`, `nerf.py:332-473`).
 
@@ -590,23 +640,51 @@ def train_step(state: TrainState, batch,
     Args:
       batch: ``(images [B, H, W, 3 or 4], (origin, direction, points))``.
       fine_draws: a ``torch.Generator`` on the rays' device, or one sorted
-        ``[ray_chunks, n_fine]`` draw tensor per chunk.
+        ``[ray_chunks, n_fine]`` draw tensor per chunk (``[ray_chunks,
+        n_samples]`` with ``occupancy``).
       loss_fn: ``loss(y_true, y_pred) -> scalar`` applied per chunk;
         :func:`mse_loss` by default, which the fused T3 path trains
         (:func:`_use_fused_train`).
+      occupancy: ``(n_samples, n_probe, near, far, aabb, merge)`` turns on
+        the opt-in occupancy-train tier (`engine.py:672-787`): the fine
+        pass trains on ``n_samples`` depths drawn uniformly over the
+        occupied probe bins of ``occ_grid`` (``[G, G, G]``, baked outside
+        the step) along each ray, rank-merged with the stratified coarse
+        depths when ``merge`` is set (so free space stays supervised),
+        instead of the coarse weights' importance samples; the coarse pass
+        trains exactly as without it.
+      occ_rows: ``[num_rays, n_probe]`` uint8 probe rows of this batch's
+        rays (``ops.occupancy.probe_rows_for_poses``), the probe-row cache
+        tier: used in place of probing ``occ_grid``, which it then needs
+        not; the same step bit for bit.
     """
     if loss_fn is None:
         loss_fn = mse_loss
     images = batch[0]
     chunks = _chunked_batch(batch, config, ray_chunks)
     num_chunks = chunks[0].shape[0]
-    draws = _chunk_draws(fine_draws, num_chunks, ray_chunks, config.n_fine,
-                         chunks[0].device)
-    if _use_fused_train(config, loss_fn, chunks[0].device):
-        grads, (imgs_c, imgs_f) = _fused_grads(state, chunks, draws, config)
+    device = chunks[0].device
+    bins = None
+    if occupancy is not None:
+        if occ_grid is None and occ_rows is None:
+            raise ValueError("occupancy training needs occ_grid or the "
+                             "cached occ_rows")
+        rows = (None if occ_rows is None else torch.as_tensor(
+            occ_rows, device=device).reshape(num_chunks, ray_chunks, -1))
+
+        def bins(i, o, d):
+            return _occupancy_bins(occupancy, o, d, occ_grid,
+                                   None if rows is None else rows[i])
+    draws = _chunk_draws(fine_draws, num_chunks, ray_chunks,
+                         config.n_fine if occupancy is None else occupancy[0],
+                         device)
+    if _use_fused_train(config, loss_fn, device):
+        grads, (imgs_c, imgs_f) = _fused_grads(state, chunks, draws, config,
+                                               occupancy, bins)
     else:
         grads, (imgs_c, imgs_f) = _autograd_grads(state, chunks, draws,
-                                                  config, loss_fn)
+                                                  config, loss_fn, occupancy,
+                                                  bins)
     inv = 1.0 / num_chunks
     grads_c, grads_f = (tree_map(lambda g: g * inv, x) for x in grads)
     target = chunks[3]

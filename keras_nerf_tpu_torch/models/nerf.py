@@ -4,7 +4,11 @@ directory, ``compile`` for a device, image shape and optimizer, then
 ``fit``/``evaluate`` or ``predict_and_render_images`` (or, opt-in,
 ``bake_occupancy`` then ``render_occupancy``); ``save_model`` writes the JAX
 package's checkpoint format. The state is an explicit
-:class:`~keras_nerf_tpu_torch.models.engine.TrainState`."""
+:class:`~keras_nerf_tpu_torch.models.engine.TrainState`. Training has two
+opt-in tiers: ``compile(occupancy_train=G)`` (the fine pass on depths
+inside a G^3 grid that ``fit`` re-bakes from the live fine model, with an
+optional probe-row cache) and ``pixel_sampling`` (rays drawn across all
+views, ``data.RayBatchDataset``)."""
 
 from __future__ import annotations
 
@@ -63,6 +67,9 @@ class NeRF:
         self._train_config = None
         self.occ_grid: torch.Tensor | None = None
         self._occ_aabb = None
+        self.occupancy_train = 0
+        self._occ_train_grid: torch.Tensor | None = None
+        self._occ_probe_cache: torch.Tensor | None = None
 
     @property
     def coarse_params(self):
@@ -81,7 +88,18 @@ class NeRF:
                 learning_rate: float = 1e-3, lr_final: float = 0.0,
                 lr_decay_steps: int = 0, seed: int = 42, device="cuda",
                 use_kernels: bool | None = None,
-                quantized_render: bool = False):
+                quantized_render: bool = False, occupancy_train: int = 0,
+                occupancy_train_samples: int = 64,
+                occupancy_train_merge: bool = True,
+                occupancy_train_warmup: int = 2,
+                occupancy_train_update: int = 1,
+                occupancy_train_threshold: float = 1.0,
+                occupancy_train_probe: int = 64,
+                occupancy_train_until: int = 0,
+                occupancy_train_dilate: int = 1,
+                occupancy_train_cache: bool = False,
+                pixel_sampling: bool = False, near: float = 2.0,
+                far: float = 6.0):
         """Fix shapes, device and optimizer; restore the checkpoint's
         weights and optimizer state, or draw random weights from ``seed``
         (`nerf.py:79-354`). ``ray_chunks`` is clamped to the rays of one
@@ -97,7 +115,24 @@ class NeRF:
         It needs the kernel path: with ``use_kernels=False`` (or on the CPU
         with an architecture outside the kernels' envelope) it is ignored
         with a warning, as the JAX package does (`nerf.py:337-348`); on a
-        card it always runs the int8 kernel."""
+        card it always runs the int8 kernel.
+
+        ``occupancy_train = G > 0`` opts training into the occupancy tier
+        (`nerf.py:247-310`, :meth:`_maybe_update_occupancy_train`): from
+        epoch ``occupancy_train_warmup`` on, ``fit`` bakes a G^3 grid from
+        the live fine model (density above ``occupancy_train_threshold``,
+        dilated ``occupancy_train_dilate`` times over [-2, 2]^3) every
+        ``occupancy_train_update`` epochs, and each step's fine pass trains
+        on ``occupancy_train_samples`` depths inside it over
+        ``occupancy_train_probe`` probe bins on ``[near, far]``, merged
+        with the stratified depths unless ``occupancy_train_merge`` is
+        False; from epoch ``occupancy_train_until`` (if > 0) on, exact
+        steps again. ``occupancy_train_cache`` keeps every train image's
+        probe rows per bake (``ops.occupancy.probe_rows_for_poses``) and
+        gathers them instead of probing; it refuses ``pixel_sampling``,
+        whose batches are no images. ``pixel_sampling`` records that the
+        train split is a ``RayBatchDataset`` (the training configuration
+        and ``fit``'s SSIM warning)."""
         if callable(loss):
             self.loss_fn = loss
         elif loss in ("mse", None):
@@ -117,17 +152,53 @@ class NeRF:
         if self.num_rays % self.ray_chunks:
             raise ValueError(f"ray_chunks {self.ray_chunks} must divide the "
                              f"number of rays {self.num_rays}")
+        # The occupancy tier's schedule and step (`nerf.py:247-310`); a
+        # compile starts without a grid or a cache.
+        self.occupancy_train = int(occupancy_train) if is_training else 0
+        self._occ_train_grid = None
+        self._occ_probe_cache = None
+        self.occupancy_train_cache = (bool(occupancy_train_cache)
+                                      and self.occupancy_train > 0)
+        if self.occupancy_train_cache and pixel_sampling:
+            raise ValueError(
+                "--occupancy_train_cache cannot compose with "
+                "--pixel_sampling (pixel batches scramble the per-image "
+                "rays the cache is keyed by)")
+        if self.occupancy_train > 0:
+            from keras_nerf_tpu_torch.ops.occupancy import DEFAULT_AABB
+
+            self._occ_train_cfg = dict(
+                grid_size=self.occupancy_train,
+                warmup=max(0, int(occupancy_train_warmup)),
+                update=max(1, int(occupancy_train_update)),
+                threshold=float(occupancy_train_threshold),
+                until=max(0, int(occupancy_train_until)),
+                dilate=max(0, int(occupancy_train_dilate)))
+            self._occ_spec = (int(occupancy_train_samples),
+                              int(occupancy_train_probe), float(near),
+                              float(far), DEFAULT_AABB,
+                              bool(occupancy_train_merge))
         if is_training:
+            # Every knob that moves convergence (`nerf.py:180-199`), so that
+            # a resume with other flags warns by name.
             self._train_config = {
                 "optimizer": optimizer, "learning_rate": float(learning_rate),
                 "lr_final": float(lr_final),
                 "lr_decay_steps": int(lr_decay_steps),
                 "white_background": bool(white_background),
-                "pixel_sampling": False, "occupancy_train": 0,
+                "pixel_sampling": bool(pixel_sampling),
                 "num_coarse_samples": self.config.n_coarse,
                 "num_fine_samples": self.config.n_fine,
                 "pos_emb_xyz": self.config.pos_emb_xyz,
-                "pos_emb_dir": self.config.pos_emb_dir}
+                "pos_emb_dir": self.config.pos_emb_dir,
+                "occupancy_train": int(occupancy_train),
+                "occupancy_train_samples": int(occupancy_train_samples),
+                "occupancy_train_merge": bool(occupancy_train_merge),
+                "occupancy_train_warmup": int(occupancy_train_warmup),
+                "occupancy_train_update": int(occupancy_train_update),
+                "occupancy_train_until": int(occupancy_train_until),
+                "occupancy_train_dilate": int(occupancy_train_dilate),
+                "occupancy_train_cache": bool(occupancy_train_cache)}
             if self.model_path is not None and self.state is None:
                 checkpoint.warn_train_config_mismatch(self.model_path,
                                                       self._train_config)
@@ -179,13 +250,80 @@ class NeRF:
 
     # ------------------------------------------------------------------ steps
 
-    def _train_step(self, batch, fine_draws=None) -> dict:
-        """One step; the metrics stay 0-d tensors on the device."""
+    def _train_step(self, batch, fine_draws=None, indices=None) -> dict:
+        """One step; the metrics stay 0-d tensors on the device. Once the
+        occupancy tier has a grid the step is the occupancy step
+        (warm-up and pre-bake epochs run the exact step); with the
+        probe-row cache and the batch's image ``indices`` it gathers the
+        cached rows instead of probing the grid (`nerf.py:366-383`)."""
+        kw = {}
+        if self.occupancy_train > 0 and self._occ_train_grid is not None:
+            kw = dict(occupancy=self._occ_spec, occ_grid=self._occ_train_grid)
+            if self._occ_probe_cache is not None and indices is not None:
+                rows = self._occ_probe_cache[torch.as_tensor(
+                    indices, device=self._occ_probe_cache.device)]
+                kw["occ_rows"] = rows.reshape(-1, rows.shape[-1])
         self.state, metrics = engine.train_step(
             self.state, self._on_device(batch),
             self._train_draws if fine_draws is None else fine_draws,
-            self.optimizer, self.config, self.ray_chunks, self.loss_fn)
+            self.optimizer, self.config, self.ray_chunks, self.loss_fn, **kw)
         return metrics
+
+    def _maybe_update_occupancy_train(self, epoch: int, train_dataset=None):
+        """(Re-)bake the training grid from the live fine model at the
+        start of ``epoch`` (`nerf.py:385-430`): nothing before the warm-up
+        epoch; then a bake every ``occupancy_train_update`` epochs (the
+        model sharpens, the grid follows); from ``occupancy_train_until``
+        on, no grid (exact steps). With the cache, every train image's
+        probe rows are rebuilt against each new grid."""
+        if self.occupancy_train <= 0:
+            return
+        cfg = self._occ_train_cfg
+        if cfg["until"] > 0 and epoch >= cfg["until"]:
+            if self._occ_train_grid is not None:
+                logging.info(
+                    "occupancy-train: epoch %d >= --occupancy_train_until "
+                    "%d; exact steps for the remaining epochs", epoch,
+                    cfg["until"])
+                self._occ_train_grid = None
+                self._occ_probe_cache = None
+            return
+        if epoch < cfg["warmup"]:
+            return
+        if (self._occ_train_grid is not None
+                and (epoch - cfg["warmup"]) % cfg["update"] != 0):
+            return
+        from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+
+        density = occ_mod.model_density_fn(self.fine_params, self.config)
+        grid = occ_mod.bake_occupancy_grid(
+            density, cfg["grid_size"], occ_mod.DEFAULT_AABB,
+            cfg["threshold"], dilate=cfg["dilate"], device=self.device)
+        if self._occ_train_grid is None:
+            logging.info("occupancy-train: first grid baked at epoch %d "
+                         "(%d^3, %.1f%% occupied)", epoch, cfg["grid_size"],
+                         100.0 * float(grid.mean()))
+        self._occ_train_grid = grid
+        if self.occupancy_train_cache:
+            self._occ_probe_cache = self._build_probe_cache(grid,
+                                                            train_dataset)
+
+    def _build_probe_cache(self, grid, train_dataset):
+        """Every train image's probe rows against ``grid``, ``[N, H W,
+        n_probe]`` uint8 on the device (`nerf.py:432-449`); None, with a
+        warning, for a dataset without poses (the steps then probe)."""
+        if train_dataset is None or not hasattr(train_dataset, "poses"):
+            logging.warning(
+                "occupancy_train_cache: train dataset does not expose "
+                "poses/focal; falling back to per-step grid probing")
+            return None
+        from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+
+        _, probe, near, far, aabb, _ = self._occ_spec
+        return occ_mod.probe_rows_for_poses(
+            train_dataset.poses, train_dataset.focal, grid,
+            image_height=self.image_height, image_width=self.image_width,
+            near=near, far=far, n_probe=probe, aabb=aabb)
 
     def _record(self, trackers: dict, metrics: dict, where: str) -> dict:
         for k, v in metrics.items():
@@ -197,12 +335,14 @@ class NeRF:
                 logging.warning("%s = %s %s", name, g, where)
         return metrics
 
-    def train_step(self, batch, fine_draws=None) -> dict[str, float]:
+    def train_step(self, batch, fine_draws=None,
+                   indices=None) -> dict[str, float]:
         """One gradient step; returns the six metrics and both gradient
-        norms as floats (`nerf.py:332-473`)."""
+        norms as floats (`nerf.py:332-473`). ``indices``, the batch's image
+        indices, let the step gather the probe-row cache's rows."""
         self._require_compiled()
         metrics = {k: float(v) for k, v in
-                   self._train_step(batch, fine_draws).items()}
+                   self._train_step(batch, fine_draws, indices).items()}
         return self._record(self.metrics, metrics,
                             f"at step {self.state.step}")
 
@@ -251,27 +391,38 @@ class NeRF:
         ``on_epoch_end(epoch, logs)`` with the train means and their
         ``val_`` twins. Step metrics stay on the device and reach the host
         once per epoch (`nerf.py:686-692`), unless a verbose callback wants
-        them every batch. Returns one logs dict per epoch."""
+        them every batch. Each epoch starts with the occupancy tier's bake
+        schedule (:meth:`_maybe_update_occupancy_train`). Returns one logs
+        dict per epoch."""
         self._require_compiled()
         for cb in callbacks:
             if hasattr(cb, "set_model"):
                 cb.set_model(self)
+        # Pixel-sampling batches are scrambled (image, pixel) draws: the
+        # windowed train SSIM is over no images (`nerf.py:679-686`).
+        if getattr(train_dataset, "PIXELWISE_METRICS_ONLY", False):
+            logging.warning(
+                "pixel-sampling mode: train coarse_ssim/fine_ssim are "
+                "computed over scrambled pixel batches — ignore them "
+                "(val_*_ssim remain whole-image and meaningful)")
         eager = any(hasattr(cb, "on_train_batch_end")
                     and getattr(cb, "verbose", True) for cb in callbacks)
         history = []
         for epoch in range(initial_epoch, epochs):
+            self._maybe_update_occupancy_train(epoch, train_dataset)
             for tracker in (*self.metrics.values(),
                             *self.val_metrics.values()):
                 tracker.reset()
             pending = []
             for batch_idx, batch in enumerate(train_dataset):
+                indices = getattr(train_dataset, "last_indices", None)
                 if eager:
-                    logs = self.train_step(batch)
+                    logs = self.train_step(batch, indices=indices)
                     for cb in callbacks:
                         if hasattr(cb, "on_train_batch_end"):
                             cb.on_train_batch_end(batch_idx, logs)
                 else:
-                    pending.append(self._train_step(batch))
+                    pending.append(self._train_step(batch, indices=indices))
             for batch_idx, logs in enumerate(self._fetch(pending)):
                 self._record(self.metrics, logs,
                              f"(epoch {epoch} batch {batch_idx})")

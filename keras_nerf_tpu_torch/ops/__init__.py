@@ -18,6 +18,7 @@ from keras_nerf_tpu_torch.ops.occupancy import (
     model_density_fn,
     occupancy_along_rays,
     probe_bin_mids,
+    probe_rows_for_poses,
     render_image_batch_occ,
     sample_occupied,
 )
@@ -37,7 +38,7 @@ __all__ = [
     "encoded_dim", "grid_coordinates", "invert_cdf", "merge_sorted",
     "midpoints", "model_density_fn", "mse", "occupancy_along_rays",
     "positional_encoding", "positional_encoding_block", "probe_bin_mids",
-    "psnr", "render_image_batch_occ", "render_rays", "sample_occupied",
-    "sample_pdf_sorted", "sorted_uniforms", "ssim",
+    "probe_rows_for_poses", "psnr", "render_image_batch_occ", "render_rays",
+    "sample_occupied", "sample_pdf_sorted", "sorted_uniforms", "ssim",
     "stratified_sample_points",
 ]

@@ -8,7 +8,9 @@
 * :func:`occupancy_along_rays` probes ``n_probe`` uniform bins per ray and
   gathers the containing voxel's occupancy: a ``[R, D]`` weight field;
 * :func:`sample_occupied` inverts that field with the fine pass's
-  inverse-CDF sampling, so that every MLP sample lands in occupied space.
+  inverse-CDF sampling, so that every MLP sample lands in occupied space;
+* :func:`probe_rows_for_poses` probes every ray of a set of views once
+  against a fixed grid: the occupancy-train tier's probe-row cache.
 
 :func:`render_image_batch_occ` then evaluates only ``n_samples`` fine-model
 points per ray; the coarse pass disappears. On the kernel path each chunk's
@@ -19,8 +21,10 @@ depths are drawn inside the ``sample_merge`` kernel in its no-merge mode
 and render background.
 
 This changes the math against the reference, which always runs the dense
-coarse march, so it is opt-in for novel views; training and evaluation
-never use it. Its quality cost is measured in ``docs/QUALITY.md``.
+coarse march, so it is opt-in for novel views. The occupancy-train tier
+(``engine.train_step(occupancy=...)``, ``NeRF.compile(occupancy_train=G)``)
+trains the fine pass on grid-placed depths the same way; evaluation never
+uses the grid. The quality cost is measured in ``docs/QUALITY.md``.
 """
 
 from __future__ import annotations
@@ -172,6 +176,59 @@ def probe_bin_mids(near: float, far: float, n_probe: int,
     head = (i.to(f64) * (stop * c).to(f64) + (start * (1 - i * c)).to(f64))
     edges = torch.cat([head.to(f32), stop[None]])
     return 0.5 * (edges[1:] + edges[:-1])
+
+
+# Probe points a chunk of probe_rows_for_poses makes at most: its float32
+# [k, H W, n_probe, 3] temporary stays near 100 MB.
+PROBE_ROWS_POINTS = 1 << 23
+
+
+@torch.no_grad()
+def probe_rows_for_poses(poses, focal: float, occ_grid: torch.Tensor, *,
+                         image_height: int, image_width: int, near: float,
+                         far: float, n_probe: int,
+                         aabb=DEFAULT_AABB) -> torch.Tensor:
+    """The probe-row cache (`ops/occupancy.py:175-206`): ``[N, 4, 4]``
+    poses -> ``[N, H W, n_probe]`` uint8 occupancy rows against the FIXED
+    grid ``occ_grid``, on the grid's device.
+
+    A ray's origin and direction depend only on its pose (only the
+    stratified depths are jittered), and the grid is constant between
+    re-bakes, so each image's probe rows are a constant that the training
+    step can gather instead of probing (``engine.train_step(occ_rows=)``);
+    uint8 is exact for a binary grid. The rays are
+    :func:`~keras_nerf_tpu_torch.data.rays.generate_rays`', probed by
+    :func:`occupancy_along_rays`, in chunks of whole images of at most
+    :data:`PROBE_ROWS_POINTS` probe points."""
+    from keras_nerf_tpu_torch.data.rays import generate_rays
+
+    device = occ_grid.device
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
+    pixels = image_height * image_width
+    rows = torch.empty((poses.shape[0], pixels, n_probe), dtype=torch.uint8,
+                       device=device)
+    step = max(1, PROBE_ROWS_POINTS // (pixels * n_probe))
+    for i in range(0, poses.shape[0], step):
+        rays = [generate_rays(c2w, image_height, image_width, focal)
+                for c2w in poses[i:i + step]]
+        o = torch.cat([r[0].reshape(-1, 3) for r in rays])
+        d = torch.cat([r[1].reshape(-1, 3) for r in rays])
+        _, occ = occupancy_along_rays(o, d, occ_grid, near, far, n_probe,
+                                      aabb)
+        rows[i:i + len(rays)] = occ.reshape(len(rays), pixels, n_probe).to(
+            torch.uint8)
+    return rows
+
+
+def cached_probe_bins(rows: torch.Tensor, near: float, far: float,
+                      n_probe: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The probe bins of cached rows ``[R, n_probe]``: ``(bin_mids``
+    broadcast to every ray, the rows as float32``)``, the same tensors
+    :func:`occupancy_along_rays` gives for the rays the rows were probed
+    from (the same centres, bit for bit)."""
+    mids = _probe_constants_on(DEFAULT_AABB, float(near), float(far),
+                               n_probe, rows.device)[0]
+    return mids.expand(rows.shape), rows.to(torch.float32)
 
 
 def occupancy_along_rays(origin: torch.Tensor, direction: torch.Tensor,

@@ -11,6 +11,18 @@ from __future__ import annotations
 import torch
 
 
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding: the float64 product of two
+    float32 values is exact, so only the sum rounds (then once more to
+    float32, which agrees with a true FMA but for rare double-rounding
+    ties)."""
+    f64 = torch.float64
+    a, b, c = (x.to(f64) if isinstance(x, torch.Tensor) else x
+               for x in (a, b, c))
+    return (a * b + c).to(torch.float32)
+
+
 def stratified_sample_points(
     generator: torch.Generator,
     batch_shape: tuple[int, ...],

@@ -358,9 +358,10 @@ def test_ray_march_mlp_train_mode_matches_plain(cuda_device, n_layers, skip):
         _assert_bf16_close(stash_k["h"][i], stash_p["h"][i], 3e-2, i)
 
 
-# Past 1024 samples the with_grad mode keeps a carry a window in shared
-# memory (ROADMAP C14): 4, 4 and 15 carries.
-@pytest.mark.parametrize("s", QUAD_S + [1025, 1088, 4096])
+# k = 3, 4, 5 and 7 samples a lane (the occupancy-train fine pass runs
+# 128 samples, k = 4). Past 1024 samples the with_grad mode keeps a carry a
+# window in shared memory (ROADMAP C14): 4, 4 and 15 carries.
+@pytest.mark.parametrize("s", QUAD_S + [96, 128, 160, 224, 1025, 1088, 4096])
 @pytest.mark.parametrize("white_bg", [True, False])
 def test_ray_march_quadrature_with_grad_matches_plain(cuda_device, white_bg,
                                                       s):
@@ -1040,3 +1041,97 @@ def test_train_then_occupancy_render_cli_on_the_card(cuda_device, tmp_path):
     assert "Baked 32^3 occupancy grid" in render.stderr
     for name in ("orbit.gif", "orbit_depth.gif"):
         assert (out / name).stat().st_size > 0, name
+
+
+def _occupancy_step_inputs(seed=8):
+    """A 16^2 view, 16 + 16 samples at 8 x 256 with the fog's sigma bias,
+    a 32^3 ball with holes and the occupancy tier's draws, on the CPU."""
+    from keras_nerf_tpu_torch.data import generate_ray_batch, pose_spherical
+
+    cfg = NeRFConfig(n_coarse=16, n_fine=16, white_background=True)
+    g = torch.Generator().manual_seed(seed)
+    params = list(engine.init_params(g, cfg, torch.device("cpu")))
+    for p in params:
+        p["sigma"]["bias"] += 1.0
+    rays = generate_ray_batch(pose_spherical(30.0, ORBIT["phi"],
+                                             ORBIT["z_translate"])[None], g,
+                              image_height=16, image_width=16, focal=20.0,
+                              near=ORBIT["near"], far=ORBIT["far"],
+                              n_samples=16)
+    c = (torch.arange(32) + 0.5) / 32 * 4.0 - 2.0
+    x, y, z = torch.meshgrid(c, c, c, indexing="ij")
+    grid = ((x * x + y * y + z * z < 1.44)
+            & (torch.rand(32, 32, 32, generator=g) > 0.3)).float()
+    draws = [sorted_uniforms(g, (128,), 16) for _ in range(2)]
+    target = torch.rand(1, 16, 16, 4, generator=g)
+    return cfg, params, (target, rays), grid, draws
+
+
+def _occupancy_step(cfg, params, batch, draws, dev, **occ):
+    def on(x):
+        return engine.tree_map(lambda v: v.to(dev), x)
+
+    state = engine.TrainState(*on(params), {}, {}, 0)
+    trm.reset_launch_counts()
+    new, metrics = engine.train_step(
+        state, on(batch), on(draws), engine.make_optimizer("sgd", 1.0), cfg,
+        128, **{k: v.to(dev) if torch.is_tensor(v) else v
+                for k, v in occ.items()})
+    launches = {k.name: k.launches for k in trm.KERNELS}
+    grads = torch.cat([(a - b).double().cpu().flatten() for a, b in
+                       zip(engine.tree_leaves(state[:2]),
+                           engine.tree_leaves(new[:2]))])
+    return metrics, grads, launches
+
+
+@pytest.mark.parametrize("merge", [True, False])
+def test_occupancy_train_step_matches_cpu(cuda_device, merge):
+    """One occupancy-train step (``sample_merge`` in its partner or its
+    no-merge mode, then T3 per pass) on the card against the CPU's on the
+    same grid and draws: losses rtol 0.03, the whole gradient's relative
+    norm 0.03 (chip_smoke.py's STEP_TOL), the T3 kernels and one
+    sample_merge launch per chunk."""
+    from keras_nerf_tpu_torch.ops.occupancy import DEFAULT_AABB
+
+    cfg, params, batch, grid, draws = _occupancy_step_inputs()
+    spec = (16, 16, ORBIT["near"], ORBIT["far"], DEFAULT_AABB, merge)
+    (m_card, g_card, launches), (m_host, g_host, on_host) = (
+        _occupancy_step(cfg, params, batch, draws, dev, occupancy=spec,
+                        occ_grid=grid)
+        for dev in (cuda_device, torch.device("cpu")))
+    assert launches == {"sample_merge": 2, "ray_march_mlp": 4,
+                        "ray_march_quadrature": 4, "mlp_backward": 4,
+                        "mlp_weight_grad": 4, "apply_mlp": 0,
+                        "ray_march_mlp_int8": 0, "mma_ceiling": 0}
+    assert not any(on_host.values())
+    for key in ("coarse_loss", "fine_loss"):
+        assert math.isclose(float(m_card[key]), float(m_host[key]),
+                            rel_tol=0.03), key
+    assert float((g_card - g_host).norm() / g_host.norm()) <= 0.03
+
+
+def test_cached_rows_occupancy_step_equals_probed_on_the_card(cuda_device):
+    """The probe-row cache tier on the card: the rows of
+    ``probe_rows_for_poses`` in place of the grid give the same step, bit
+    for bit."""
+    from keras_nerf_tpu_torch.data import pose_spherical
+    from keras_nerf_tpu_torch.ops.occupancy import (
+        DEFAULT_AABB,
+        probe_rows_for_poses,
+    )
+
+    cfg, params, batch, grid, draws = _occupancy_step_inputs(seed=9)
+    spec = (16, 16, ORBIT["near"], ORBIT["far"], DEFAULT_AABB, True)
+    pose = pose_spherical(30.0, ORBIT["phi"], ORBIT["z_translate"])[None]
+    rows = probe_rows_for_poses(pose, 20.0, grid.to(cuda_device),
+                                image_height=16, image_width=16,
+                                near=ORBIT["near"], far=ORBIT["far"],
+                                n_probe=16)
+    (m_grid, g_grid, _), (m_rows, g_rows, _) = (
+        _occupancy_step(cfg, params, batch, draws, cuda_device,
+                        occupancy=spec, **kw)
+        for kw in (dict(occ_grid=grid),
+                   dict(occ_rows=rows.reshape(-1, 16))))
+    assert torch.equal(g_grid, g_rows)
+    for key in m_grid:
+        assert torch.equal(m_grid[key], m_rows[key]), key

@@ -113,9 +113,8 @@ def test_loader_refuses_what_is_not_ported(tmp_path):
     scene = tsyn.write_synthetic_scene(str(tmp_path), image_wh=8, n_train=1,
                                        n_val=1, n_test=1)
     loader = DatasetLoader(scene, device="cpu")
-    for kw in (dict(pixel_sampling=True), dict(sharding=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            loader.load_dataset(1, 8, 8, 2.0, 6.0, 4, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        loader.load_dataset(1, 8, 8, 2.0, 6.0, 4, sharding=object())
 
 
 def test_random_ray_batch_and_rebatch():

@@ -50,6 +50,16 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   through ``render_orbit(occupancy_samples=64)`` in bf16 and int8 (4
   ``sample_merge``, 4 full MLP and 4 quadrature launches per frame) and
   holds a 16^2 occupancy frame against the CPU's on the card's grid;
+* the fast render (``inference --fast_render``), on the fog weights:
+  ``sample_merge``'s no-merge mode at [4096, 64 -> 96] on the coarse
+  weights, the full forward and the quadrature without weights at [4096 x
+  96] against their plain versions, 4 orbit frames at ``--fast_render 96``
+  in bf16 and 4 at 64 in int8 (per chunk a sigma-only MLP and quadrature,
+  ``sample_merge`` without partner, the full MLP at K samples and the
+  quadrature without weights; no plain call), 16^2 frames of both against
+  the CPU's; then the quality tools' entry points on a 16^2 scene written
+  by the port's writer: 2 epochs of ``train_single``, ``eval_checkpoint``
+  and ``render_frontier --bench_wh 16 --iters 2``;
 * the occupancy-train tier (``train_single --occupancy_train 128
   --occupancy_train_samples 64 --occupancy_train_probe 64``) and pixel
   sampling, after 60 exact steps from the seed-0 weights: ``NeRF.fit``
@@ -78,8 +88,9 @@ beside its cuBLAS yardstick, one product per weight array, and
 ``mlp_backward``, ``ray_march_mlp`` and ``apply_mlp`` beside their PyTorch
 chains, one bf16 matmul per layer; the
 card's SM clock, power and temperature sampled before and after), and the
-five model paths (the occupancy render among them) and the three
-occupancy-train tiers are profiled with ``torch.profiler``:
+five model paths (the occupancy render among them), the two fast-render
+orbits and the three occupancy-train tiers are profiled with
+``torch.profiler``:
 device time by kernel and the device's busy share. A last profiler phase
 (``profile_quadrature``) fails unless each ``ray_march_quadrature`` call of
 the paths' modes runs one kernel on the card and nothing else (no fill).
@@ -126,6 +137,10 @@ OCC_GRID, OCC_SAMPLES, OCC_PROBE = 128, 64, 64
 # half the grid is occupied, so the probe bins' CDF is far from uniform.
 OCC_QUANTILE = 0.8
 OCC_SHARE = (0.05, 0.95)
+# inference --fast_render: the bf16 orbit at 96 importance samples a ray and
+# the int8 one at 64, two of the render frontier's fast tiers.
+FAST_RENDER, FAST_RENDER_INT8 = 96, 64
+TOOLS_IMG = 16   # the quality tools' scene
 
 # Tolerances of kernel vs plain version on the same inputs, with reasons.
 TOL = {
@@ -542,7 +557,14 @@ def main() -> int:
     occ_in = _occupancy_phases(nerf, cfg, gen, (o, d, tc), errors,
                                rel_errors, card_tag)
 
-    # ---- 4e. every path past 8 x 256 (C10, C12) -----------------------
+    # ---- 4e. the fast render (--fast_render) and the quality tools ------
+    fast_in = _fast_render_phases(
+        nerf, cfg, {"tc": tc, "wc": wc, "packed": packed, "base": base,
+                    "slope": slope, "masks": masks},
+        params, fine_params, packed_q, images, errors, card_tag)
+    _quality_tools_phase(card_tag)
+
+    # ---- 4f. every path past 8 x 256 (C10, C12) -----------------------
     wide = {"launches": {}, "times": {}}
     for shape, int8_widths in WIDE_SHAPES:
         t0 = time.perf_counter()
@@ -647,9 +669,11 @@ def main() -> int:
     modes += _ceiling_modes(ceiling_in)
     modes += _occupancy_modes(occ_in, cfg)
     modes += _occ_train_modes(occ_train)
+    modes += _fast_render_modes(fast_in, cfg)
     totals = {"render": {}, "train": {}, "custom": {}, "quantized": {},
               "probe": {}, "occupancy": {}, "bake": {}, "merge_partner": {},
-              "occ_train": {}, "occ_train_no_merge": {}}
+              "occ_train": {}, "occ_train_no_merge": {}, "fast_render": {},
+              "fast_render_int8": {}}
     library = {path: {} for path in totals}   # ms per unit, where timed
     chain = {path: {} for path in totals}     # the PyTorch chain, likewise
     timed = []   # (kernel, path, mode, launches per unit, ms, plain, bound)
@@ -706,6 +730,11 @@ def main() -> int:
         lambda: render_orbit(occ_in["nerf"], FRAMES, img_wh=IMG,
                              occupancy_samples=OCC_SAMPLES, **ORBIT),
         len(FRAMES), "frame"), "card": card}))
+    log(json.dumps({"profile_fast_render": {
+        name: _profile(lambda m=m: render_orbit(m, FRAMES, img_wh=IMG,
+                                                **ORBIT), len(FRAMES),
+                       "frame")
+        for name, m in fast_in["models"].items()}, "card": card}))
     for key, loss in (("profile_train", "mse"),
                       ("profile_train_custom", l1_loss)):
         _compile_train(tnerf, loss)
@@ -759,6 +788,8 @@ def main() -> int:
                        occ_in["q_launches"][k.name],
                    **{path: launches[k.name] for path, launches
                       in occ_train["launches"].items()},
+                   **{path: launches[k.name] for path, launches
+                      in fast_in["launches"].items()},
                    **{path: launches[k.name]
                       for path, launches in wide["launches"].items()}}
         for path in ("train", "custom", "quantized", "probe"):
@@ -845,17 +876,34 @@ def main() -> int:
                 f"{IMG}^2 occupancy-train step (--occupancy_train_no_merge),"
                 f" {IMG * IMG // TRAIN_CHUNK} chunks of {TRAIN_CHUNK} rays, "
                 f"{OCC_PROBE} probe bins -> {OCC_SAMPLES} samples; launches "
-                f"over the no-merge run")}
+                f"over the no-merge run"),
+            "fast_render": (
+                "fast_render_frame",
+                fast_in["launches"][f"render_fast_bf16_{FAST_RENDER}"],
+                f"{IMG}^2 frame at --fast_render {FAST_RENDER}, the fine "
+                f"pass's kernels (the coarse pass's are render_frame's), "
+                f"{per_frame} chunks of {CHUNK} rays; launches over "
+                f"{len(FRAMES)} frames, both passes"),
+            "fast_render_int8": (
+                "fast_render_int8_frame",
+                fast_in["launches"][f"render_fast_int8_{FAST_RENDER_INT8}"],
+                f"{IMG}^2 int8 frame at --fast_render {FAST_RENDER_INT8}, "
+                f"the fine pass's kernels (the coarse pass's are the int8 "
+                f"render's), {per_frame} chunks of {CHUNK} rays; launches "
+                f"over {len(FRAMES)} frames, both passes")}
         for path, (key, launches, what) in occ_per.items():
             if k.name not in totals[path]:
                 continue
             kms, pms, bms, by, _ = totals[path][k.name]
+            cms = chain[path].get(k.name)
             log(f"time {k.name} ({key}): {kms:.4f} ms kernel, {pms:.3f} ms "
-                f"plain, bound {bms:.4f} ms ({_by(by)}) per {what} "
-                f"{card_tag}")
+                f"plain, bound {bms:.4f} ms ({_by(by)})"
+                + (f", PyTorch chain {cms:.4f} ms" if cms else "")
+                + f" per {what} {card_tag}")
             entry[key] = {"launches": launches[k.name], "ms": kms,
                           "plain_ms": pms, "bound_ms": bms,
-                          "bound_by": _by(by), "per": what}
+                          "bound_by": _by(by), "pytorch_chain_ms": cms,
+                          "per": what}
         if k.name in wide["times"]:
             entry["wide"] = wide["times"][k.name]
         entries.append(entry)
@@ -872,7 +920,9 @@ _UNIT = {"render": "frame", "train": "train step",
          "probe": "probe run", "occupancy": "occupancy frame",
          "bake": "bake", "merge_partner": "call",
          "occ_train": "occupancy train step",
-         "occ_train_no_merge": "no-merge occupancy train step"}
+         "occ_train_no_merge": "no-merge occupancy train step",
+         "fast_render": f"fast-render frame ({FAST_RENDER})",
+         "fast_render_int8": f"int8 fast-render frame ({FAST_RENDER_INT8})"}
 
 
 def _by(shares: dict) -> str:
@@ -2978,8 +3028,9 @@ class _CallLog:
     in ``train_inputs``, clones of the inputs of the first train-mode
     ``ray_march_mlp`` launch (the one with a stash) and of the
     ``ray_march_quadrature`` launch after it for each (depths' shape,
-    weights emitted); counts the calls of ``occupancy_along_rays`` (the
-    probe gather)."""
+    weights emitted); records each quadrature launch's ``(depths' shape,
+    sigma_only, weights emitted)``; counts the calls of
+    ``occupancy_along_rays`` (the probe gather)."""
 
     def __enter__(self):
         from keras_nerf_tpu_torch.kernels import KERNELS, ray_march_mlp
@@ -2989,6 +3040,7 @@ class _CallLog:
 
         self.plain_calls, self.mlp_modes, self.mlp_shapes = 0, [], []
         self.merges, self.inputs, self.probes = [], {}, 0
+        self.quad_modes = []
         self.train_inputs, pending = {}, []
         self._saved = [(k, k.plain, k._launch) for k in KERNELS]
         self._probe = occ_mod.occupancy_along_rays
@@ -3014,6 +3066,8 @@ class _CallLog:
         def quad_launch(rgbs, t, white_background=False, sigma_only=False,
                         emit_weights=True, **kwargs):
             key = (tuple(t.shape), bool(emit_weights))
+            self.quad_modes.append((tuple(t.shape), bool(sigma_only),
+                                    bool(emit_weights)))
             if (pending and kwargs.get("target") is not None
                     and key not in self.train_inputs):
                 packed, base, slope, depths, masks = pending[0]
@@ -3245,8 +3299,6 @@ def _occupancy_chunk_checks(packed, packed_q, cfg, o, d, mids, occ, u,
     ``ray_march_mlp`` and ``ray_march_mlp_int8`` (the fine int8 weights) in
     full mode, and ``ray_march_quadrature`` without weights on the plain
     bf16 MLP's output (``TOL``). Returns the timing phase's inputs."""
-    import torch
-
     from keras_nerf_tpu_torch.kernels import ray_march as trm
 
     base, slope, masks = trm.ray_encoding_coeffs(o, d, cfg.pos_emb_xyz,
@@ -3264,19 +3316,7 @@ def _occupancy_chunk_checks(packed, packed_q, cfg, o, d, mids, occ, u,
         ("ray_march_quadrature", f"full, no weights {shape}",
          trm.ray_march_quadrature(quad_in, t, True, False, False),
          trm.ray_march_quadrature.plain(quad_in, t, True, False, False)))
-    torch.cuda.synchronize()
-    ok = True
-    for name, label, got, want in held:
-        pairs = [(g, w) for g, w in zip(got, want) if g is not None]
-        err = max(float((g - w).abs().max()) for g, w in pairs)
-        good = (all(bool(torch.isfinite(g).all()) for g, _ in pairs)
-                and err <= TOL[name])
-        errors[name] = max(errors.get(name, 0.0), err)
-        ok = ok and good
-        log(f"check {name} occupancy {label}: max_abs_err {err:.3e} "
-            f"(tolerance {TOL[name]:.0e}) {'ok' if good else 'FAIL'}")
-    if not ok:
-        fail("an occupancy kernel disagrees with its plain version")
+    _held_at_tol(held, "occupancy", errors)
     return {"base": base, "slope": slope, "masks": masks, "t": t,
             "rgbs": quad_in}
 
@@ -3368,6 +3408,281 @@ def _bake_times(oi: dict, cfg, card_tag):
                                        "bound_ms": bound,
                                        "bound_by": "operations",
                                        "card": card_tag.strip("[]")}}))
+
+
+# ---------------------------------------------------------------------------
+# The fast render tier and the quality tools.
+
+
+def _held_at_tol(held, where: str, errors: dict) -> None:
+    """Each ``(kernel, label, outputs, plain outputs)`` of ``held`` within
+    ``TOL[kernel]`` and finite (None outputs skipped); logs each, keeps each
+    kernel's worst error and fails if any is not held."""
+    import torch
+
+    torch.cuda.synchronize()
+    ok = True
+    for name, label, got, want in held:
+        pairs = [(g, w) for g, w in zip(got, want) if g is not None]
+        err = max(float((g - w).abs().max()) for g, w in pairs)
+        good = (all(bool(torch.isfinite(g).all()) for g, _ in pairs)
+                and err <= TOL[name])
+        errors[name] = max(errors.get(name, 0.0), err)
+        ok = ok and good
+        log(f"check {name} {where} {label}: max_abs_err {err:.3e} "
+            f"(tolerance {TOL[name]:.0e}) {'ok' if good else 'FAIL'}")
+    if not ok:
+        fail(f"a {where} kernel disagrees with its plain version")
+
+
+def _fast_render_phases(nerf, cfg, chunk: dict, params, fine_params,
+                        packed_q, bf16_images, errors, card_tag) -> dict:
+    """``inference --fast_render`` at full width, on the fog weights of the
+    bf16 orbit (``nerf``): ``sample_merge``'s no-merge mode at [4096, 64 ->
+    96] on the fog's coarse weights (``TOL``, identical bits twice), the
+    full forward and the quadrature without weights at [4096 x 96] on its
+    depths against their plain versions; 4 orbit frames through
+    ``render_orbit`` in bf16 at 96 samples and in int8 at 64, each chunk
+    one sigma-only MLP, one sigma-only quadrature, one ``sample_merge``
+    without partner at K draws, one full MLP at [4096 x K] and one
+    quadrature without weights, and no plain call; 16^2 frames of both
+    against the CPU's (``E2E_TOL``). Returns the timing and profile
+    phases' inputs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from keras_nerf_tpu_torch.data import (
+        generate_ray_batch,
+        get_focal_from_fov,
+        pose_spherical,
+    )
+    from keras_nerf_tpu_torch.inference import ORBIT, render_orbit
+    from keras_nerf_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models import NeRF
+    from keras_nerf_tpu_torch.models.engine import render_image_batch
+    from keras_nerf_tpu_torch.ops import sorted_uniforms
+
+    dev = torch.device("cuda")
+    # A generator of its own, so that every other draw is unchanged.
+    fgen = torch.Generator(device=dev)
+    fgen.manual_seed(18)
+    tc, wc, packed = chunk["tc"], chunk["wc"], chunk["packed"]
+    base, slope, masks = chunk["base"], chunk["slope"], chunk["masks"]
+    inputs = {}
+    for k in (FAST_RENDER, FAST_RENDER_INT8):
+        u = sorted_uniforms(fgen, (CHUNK,), k)
+        t = trm.sample_merge.plain(tc, wc, u, None)
+        rgbs = trm.ray_march_mlp.plain(packed, base, slope, t, masks)
+        inputs[k] = {"u": u, "t": t, "rgbs": rgbs.reshape(CHUNK, k, 4)}
+    k = FAST_RENDER
+    u, t, quad_in = (inputs[k][x] for x in ("u", "t", "rgbs"))
+    _merge_held(f"fast render, no merge [{CHUNK}, {N_COARSE} -> {k}]", tc,
+                wc, u, None, TOL["sample_merge"], errors)
+    _held_at_tol((
+        ("ray_march_mlp", f"full [{CHUNK} x {k}]",
+         [trm.ray_march_mlp(packed, base, slope, t, masks)],
+         [quad_in.reshape(-1, 4)]),
+        ("ray_march_quadrature", f"full, no weights [{CHUNK} x {k}]",
+         trm.ray_march_quadrature(quad_in, t, True, False, False),
+         trm.ray_march_quadrature.plain(quad_in, t, True, False, False))),
+        "fast render", errors)
+
+    chunks = len(FRAMES) * IMG * IMG // CHUNK
+    runs = {}
+    for label, samples, quantized, mlp in (
+            ("bf16", FAST_RENDER, False, "ray_march_mlp"),
+            ("int8", FAST_RENDER_INT8, True, "ray_march_mlp_int8")):
+        m = NeRF(config=cfg)
+        m.compile(batch_size=1, image_height=IMG, image_width=IMG,
+                  ray_chunks=CHUNK, white_background=True, device="cuda",
+                  seed=0, fast_render=samples, quantized_render=quantized)
+        m.state = nerf.state
+        render_orbit(m, FRAMES[:1], img_wh=IMG, **ORBIT)   # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with _CallLog() as calls:
+            t0 = time.perf_counter()
+            images, depths = render_orbit(m, FRAMES, img_wh=IMG, **ORBIT)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {kk.name: kk.launches for kk in KERNELS}
+        expected = {kk.name: 0 for kk in KERNELS}
+        expected.update(sample_merge=chunks, ray_march_quadrature=2 * chunks)
+        expected[mlp] = 2 * chunks
+        merges = sorted({m_[:3] for m_ in calls.merges})
+        quads = {q: calls.quad_modes.count(q) for q in set(calls.quad_modes)}
+        want_quads = {((CHUNK, N_COARSE), True, True): chunks,
+                      ((CHUNK, samples), False, False): chunks}
+        name = f"render_fast_{label}_{samples}"
+        log(f"fast render main path ({label}, --fast_render {samples}): "
+            f"{len(FRAMES)} frames {IMG}^2 in {wall:.3f} s "
+            f"({1e3 * wall / len(FRAMES):.1f} ms/frame wall, host clock) "
+            f"{card_tag}; launches {launches}; sample_merge modes (s_c, n, "
+            f"s_m) {merges}; quadrature (shape, sigma-only, weights) "
+            f"{quads}; MLP depths {sorted(set(calls.mlp_shapes))}, "
+            f"sigma-only {sum(calls.mlp_modes)}; plain calls "
+            f"{calls.plain_calls}")
+        if launches != expected:
+            fail(f"{name}: launch counts {launches} != expected {expected}")
+        if merges != [(N_COARSE, samples, 0)] or quads != want_quads:
+            fail(f"{name}: sample_merge modes {merges}, quadrature modes "
+                 f"{quads}; expected [({N_COARSE}, {samples}, 0)] and "
+                 f"{want_quads}")
+        if not quantized and (
+                sum(calls.mlp_modes) != chunks
+                or set(calls.mlp_shapes) != {(CHUNK, N_COARSE),
+                                             (CHUNK, samples)}):
+            fail(f"{name}: MLP launches sigma-only {sum(calls.mlp_modes)}, "
+                 f"depths {set(calls.mlp_shapes)}")
+        if calls.plain_calls:
+            fail(f"{name}: {calls.plain_calls} plain calls")
+        if images.shape != (len(FRAMES), IMG, IMG, 3) or not (
+                np.isfinite(images).all() and images.min() >= 0.0
+                and images.max() <= 1.0 and np.isfinite(depths).all()):
+            fail(f"{name}: frames malformed, not finite or outside [0, 1]")
+        diff = np.abs(images - bf16_images)
+        log(f"fast render frames ({label}, {samples}): image mean "
+            f"{images.mean():.4f} std {images.std():.4f}, depth mean "
+            f"{depths.mean():.4f}; against the exact bf16 frames of the same "
+            f"poses: max abs {diff.max():.4f} mean {diff.mean():.3e}")
+        runs[name] = (launches, m)
+
+    # End to end: 16^2 frames of both tiers on the card and on the CPU.
+    rays = generate_ray_batch(
+        pose_spherical(30.0, ORBIT["phi"], ORBIT["z_translate"])[None], fgen,
+        image_height=E2E_IMG, image_width=E2E_IMG,
+        focal=get_focal_from_fov(ORBIT["fov"], E2E_IMG), near=ORBIT["near"],
+        far=ORBIT["far"], n_samples=N_COARSE)
+    cpu = torch.device("cpu")
+    rays_cpu = tuple(x.to(cpu) for x in rays)
+    for label, samples, pq in (("bf16", FAST_RENDER, None),
+                               ("int8", FAST_RENDER_INT8, packed_q)):
+        fcfg = dataclasses.replace(cfg, fast_render=samples)
+        draws = [sorted_uniforms(fgen, (E2E_IMG * E2E_IMG,), samples)]
+        _, card = render_image_batch(params, fine_params, rays, draws, fcfg,
+                                     E2E_IMG * E2E_IMG, packed_q=pq)
+        _, host = render_image_batch(
+            _to(params, cpu), _to(fine_params, cpu), rays_cpu,
+            [x.to(cpu) for x in draws], fcfg, E2E_IMG * E2E_IMG,
+            packed_q=None if pq is None else tuple(_to(q, cpu) for q in pq))
+        diff = {kk: (card[kk].cpu() - host[kk]).abs()
+                for kk in ("image", "depth")}
+        err = {kk: float(v.max()) for kk, v in diff.items()}
+        log(f"fast render ({label}, {samples}) end to end {E2E_IMG}^2, card "
+            f"kernels vs CPU plain versions: " + ", ".join(
+                f"{kk} max_abs_err {err[kk]:.3e} mean {float(v.mean()):.3e} "
+                f"(tolerance {E2E_TOL[kk]:.0e})" for kk, v in diff.items()))
+        if any(err[kk] > E2E_TOL[kk] for kk in err):
+            fail(f"the card's fast render ({label}) disagrees with the plain "
+                 f"versions")
+    return {"inputs": inputs, "chunk": chunk, "q": packed_q,
+            "launches": {n: r[0] for n, r in runs.items()},
+            "models": {n: r[1] for n, r in runs.items()}}
+
+
+def _fast_render_modes(fi: dict, cfg) -> list:
+    """The fast render's fine-pass modes at its 4096-ray chunks, 4 launches
+    each per frame (the coarse pass's are the render's and the int8
+    render's): at 96 draws ``sample_merge`` without partner, the full
+    forward (beside its PyTorch chain) and the quadrature without weights;
+    at 64 the same with the int8 forward. Bounds as for the render and
+    int8 modes."""
+    from keras_nerf_tpu_torch.kernels import ray_march as trm
+    from keras_nerf_tpu_torch.models.engine import tree_leaves
+    from keras_nerf_tpu_torch.time_ray_march_mlp import pytorch_chain
+
+    per_frame = IMG * IMG // CHUNK
+    c = fi["chunk"]
+    packed, tc, wc = c["packed"], c["tc"], c["wc"]
+    base, slope, masks = c["base"], c["slope"], c["masks"]
+    fwd = trm.fwd_flop_per_point(cfg.mlp)
+    modes = []
+    for k, path, mlp, weights, peak in (
+            (FAST_RENDER, "fast_render", trm.ray_march_mlp, packed,
+             PEAK_BF16_FLOPS),
+            (FAST_RENDER_INT8, "fast_render_int8", trm.ray_march_mlp_int8,
+             fi["q"][1], PEAK_INT8_OPS)):
+        u, t, rgbs = (fi["inputs"][k][x] for x in ("u", "t", "rgbs"))
+        pts = CHUNK * k
+        weight_bytes = sum(x.numel() * x.element_size()
+                           for x in tree_leaves(weights))
+        chain = []
+        if mlp is trm.ray_march_mlp:
+            enc = trm.encode_points(base, slope, t, masks).reshape(-1, 128)
+            chain = [None, None, pytorch_chain(packed, enc)]
+        modes += [
+            (trm.sample_merge, path, f"no merge [{CHUNK}, {N_COARSE} -> {k}]",
+             lambda f, u=u: f(tc, wc, u, None), per_frame,
+             _merge_bound(CHUNK, N_COARSE, k, 0)),
+            (mlp, path, f"full [{CHUNK} x {k}]",
+             lambda f, mlp_w=weights, t=t: f(mlp_w, base, slope, t, masks),
+             per_frame,
+             _bound(2 * CHUNK * 128 * F32B + weight_bytes + pts * F32B * 5,
+                    pts * fwd, peak), *chain),
+            (trm.ray_march_quadrature, path,
+             f"full, no weights [{CHUNK} x {k}]",
+             lambda f, rgbs=rgbs, t=t: f(rgbs, t, True, False, False),
+             per_frame,
+             _bound(CHUNK * (5 * k + 4) * F32B, CHUNK * k * 16,
+                    PEAK_F32_FLOPS)),
+        ]
+    return modes
+
+
+def _quality_tools_phase(card_tag) -> None:
+    """The quality tools' entry points on the card: a 16^2 spheres scene
+    written by the port's writer under ``build/``, 2 epochs of the training
+    CLI, then ``eval_checkpoint`` on its test split and ``render_frontier
+    --bench_wh 16 --iters 2`` (its ten tiers), both in this process. Holds
+    the six metrics finite, and every tier's PSNR finite and its time
+    taken. Removes the directory after."""
+    import math
+    import shutil
+
+    from keras_nerf_tpu_torch import eval_checkpoint, render_frontier
+    from keras_nerf_tpu_torch import train_single
+    from keras_nerf_tpu_torch.data.synthetic import write_synthetic_scene
+
+    root = os.path.join(HERE, "build", "chip_smoke_tools")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = write_synthetic_scene(os.path.join(root, "scene"),
+                                 image_wh=TOOLS_IMG, n_train=4, n_val=2,
+                                 n_test=2)
+    args = train_single.build_arg_parser().parse_args([
+        "--name", "tools", "--data_dir", data, "--img_wh", str(TOOLS_IMG),
+        "--white_bg", "--num_epochs", "2", "--ray_chunks", "256",
+        "--log_dir", os.path.join(root, "logs"),
+        "--model_dirs", os.path.join(root, "model")])
+    nerf = train_single.run_training(args)
+    model = os.path.join(root, "model", "tools")
+    record = eval_checkpoint.evaluate_checkpoint(
+        eval_checkpoint.build_arg_parser().parse_args([
+            "--model_path", model, "--data_dir", data, "--img_wh",
+            str(TOOLS_IMG), "--white_bg", "--ray_chunks", "256"]))
+    log(f"eval_checkpoint on the card: {json.dumps(record)}")
+    metrics = [v for k, v in record.items() if k not in ("model_path",
+                                                         "split")]
+    if len(metrics) != 6 or not all(math.isfinite(v) for v in metrics):
+        fail(f"eval_checkpoint: {record}")
+    frontier = render_frontier.main([
+        "--model", model, "--data", data, "--img_wh", str(TOOLS_IMG),
+        "--bench_wh", str(TOOLS_IMG), "--iters", "2",
+        "--out_json", os.path.join(root, "frontier.json"),
+        "--out_png", os.path.join(root, "frontier.png")])
+    rows = frontier["rows"]
+    if len(rows) != 10 or not all(
+            math.isfinite(r["psnr_db"]) and r["fps"] is not None
+            and r["fps"] > 0 for r in rows):
+        fail(f"render_frontier: {rows}")
+    wall = time.perf_counter() - t0
+    log(f"quality tools on the card ({TOOLS_IMG}^2 scene, 2 epochs, "
+        f"eval_checkpoint, render_frontier's 10 tiers): {wall:.1f} s wall "
+        f"{card_tag}; trained {nerf.state.step} steps")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------

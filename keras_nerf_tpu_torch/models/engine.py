@@ -25,6 +25,8 @@ counterpart of ``use_pallas``, `engine.py:452-466`):
 The int8 render tier (:func:`quantize_render_params`, then
 ``render_image_batch(packed_q=...)``) runs on the kernel path only: both
 passes through ``ray_march_mlp_int8`` (T4); the reference path ignores it.
+The opt-in fast render (``NeRFConfig.fast_render``) renders the fine pass on
+its importance samples alone, on both paths and in both precisions.
 
 The occupancy-train tier (``train_step(occupancy=...)``) trains the fine
 pass on depths drawn inside a baked occupancy grid instead of the coarse
@@ -91,6 +93,13 @@ class NeRFConfig:
     skip_layer: int = 4
     white_background: bool = False
     use_kernels: bool | None = None
+    # Opt-in fast render (`engine.py:86-94`), inference only: the fine pass
+    # renders ``fast_render`` importance samples of the coarse weights
+    # alone, without the coarse depths merged in, so a ray costs n_coarse +
+    # fast_render points instead of n_coarse + (n_coarse + n_fine). 0 = off
+    # (the exact math); training, evaluation and the int8 calibration zero
+    # it.
+    fast_render: int = 0
 
     @property
     def mlp(self) -> MLPConfig:
@@ -136,16 +145,18 @@ def render_chunk(params: Params, origin: torch.Tensor,
                  coarse_weights: torch.Tensor | None = None):
     """Differentiable render of one chunk through one MLP
     (`engine.py:201-258`). With ``coarse_weights`` (and draws ``u``) this is
-    the fine pass: sample and merge, then render. When
+    the fine pass: sample and merge, then render; with ``fast_render > 0``
+    the ``[R, fast_render]`` draws' depths alone, unmerged. When
     :func:`resolve_use_kernels` is true the points go through
     ``fused_point_forward`` (T5 forward, T6 backward), else through the
     float32 ``apply_mlp``. Returns ``(RenderOutput, depths used)``."""
     if coarse_weights is not None:
         # The coarse weights are data here: the fine loss never reaches the
         # coarse parameters (`nerf.py:390-417`).
-        fine_points = invert_cdf(u, midpoints(coarse_points),
-                                 coarse_weights.detach())
-        points = merge_sorted(coarse_points, fine_points)
+        points = invert_cdf(u, midpoints(coarse_points),
+                            coarse_weights.detach())
+        if config.fast_render <= 0:
+            points = merge_sorted(coarse_points, points)
     else:
         points = coarse_points
     if resolve_use_kernels(config, origin.device):
@@ -188,7 +199,9 @@ def _fused_chunk_pair(packed_c: dict, packed_f: dict, origin: torch.Tensor,
                       fine_sample_inputs: tuple | None = None):
     """Coarse pass then the fine pass with in-kernel sampling off the
     coarse weights (`engine.py:496-571`). Without ``target`` these are the
-    render modes (the coarse pass sigma-only when its image is unused);
+    render modes (the coarse pass sigma-only when its image is unused;
+    with ``fast_render > 0`` the fine pass renders ``sample_merge``'s
+    no-merge mode, the draws' depths alone);
     ``quantized`` renders with the int8 dicts of
     :func:`quantize_render_params` as ``packed_c``/``packed_f``. With
     ``target`` they are the train modes: each pass adds the packed
@@ -203,9 +216,15 @@ def _fused_chunk_pair(packed_c: dict, packed_f: dict, origin: torch.Tensor,
         out_c = fused_render_chunk(packed_c, origin, direction, coarse_points,
                                    sigma_only=not coarse_image,
                                    quantized=quantized, **kw)
+        fine_in = (coarse_points, out_c[2], u)
+        if config.fast_render > 0:
+            # The fast render samples in the kernel too: partner None is the
+            # no-merge mode, JAX's sample_pdf_sorted of the coarse weights
+            # (`engine.py:547-553`) up to the CDF's summation order.
+            fine_in += (None,)
         out_f = fused_render_chunk(packed_f, origin, direction, None,
                                    emit_weights=with_weights,
-                                   sample_inputs=(coarse_points, out_c[2], u),
+                                   sample_inputs=fine_in,
                                    quantized=quantized, **kw)
         return out_c, out_f
     if quantized:
@@ -253,7 +272,8 @@ def render_image_batch(coarse_params: Params, fine_params: Params, rays,
     Args:
       rays: ``(origin [B,H,W,3], direction [B,H,W,3], points [B,H,W,Nc])``.
       fine_draws: a ``torch.Generator`` on the rays' device, or one sorted
-        ``[ray_chunks, n_fine]`` draw tensor per chunk.
+        ``[ray_chunks, n_fine]`` draw tensor per chunk (``[ray_chunks,
+        fast_render]`` when ``config.fast_render > 0``).
       with_weights: include per-sample ``weights`` in the dicts (skipped by
         the fine kernel pass when False).
       coarse_image: False declares the coarse image unused: it comes back
@@ -277,8 +297,8 @@ def render_image_batch(coarse_params: Params, fine_params: Params, rays,
     o = origin.reshape(num_chunks, ray_chunks, 3)
     d = direction.reshape(num_chunks, ray_chunks, 3)
     t = points.reshape(num_chunks, ray_chunks, config.n_coarse)
-    draws = _chunk_draws(fine_draws, num_chunks, ray_chunks, config.n_fine,
-                         origin.device)
+    draws = _chunk_draws(fine_draws, num_chunks, ray_chunks,
+                         config.fast_render or config.n_fine, origin.device)
 
     outs_c, outs_f = [], []
     if resolve_use_kernels(config, origin.device):
@@ -339,6 +359,7 @@ def quantize_render_params(coarse_params: Params, fine_params: Params, rays,
       fine_draws: a ``torch.Generator`` on the rays' device, or the sorted
         draws ``[n_calib, n_fine]`` themselves (JAX's key is not portable).
     """
+    config = dataclasses.replace(config, fast_render=0)
     origin, direction, points = rays
     num_rays = origin[..., 0].numel()
     # Ceil stride: floor would fall back to contiguous leading rays whenever
@@ -660,6 +681,7 @@ def train_step(state: TrainState, batch,
     """
     if loss_fn is None:
         loss_fn = mse_loss
+    config = dataclasses.replace(config, fast_render=0)
     images = batch[0]
     chunks = _chunked_batch(batch, config, ray_chunks)
     num_chunks = chunks[0].shape[0]
@@ -714,6 +736,7 @@ def eval_step(state: TrainState, batch,
     `engine.py:836-878`); 0-d tensors on the rays' device."""
     if loss_fn is None:
         loss_fn = mse_loss
+    config = dataclasses.replace(config, fast_render=0)
     images, rays = batch
     target = images[..., :3].to(torch.float32)
     out_c, out_f = render_image_batch(state.coarse_params, state.fine_params,

@@ -87,7 +87,7 @@ class NeRF:
                 white_background: bool = False, is_training: bool = True,
                 learning_rate: float = 1e-3, lr_final: float = 0.0,
                 lr_decay_steps: int = 0, seed: int = 42, device="cuda",
-                use_kernels: bool | None = None,
+                use_kernels: bool | None = None, fast_render: int = 0,
                 quantized_render: bool = False, occupancy_train: int = 0,
                 occupancy_train_samples: int = 64,
                 occupancy_train_merge: bool = True,
@@ -108,6 +108,12 @@ class NeRF:
         ``loss`` is ``"mse"``, None or a callable ``loss(y_true, y_pred) ->
         scalar``, applied per chunk in training and to the whole images in
         evaluation (`nerf.py:106-115`).
+
+        ``fast_render = K > 0`` opts :meth:`predict_and_render_images` into
+        the fast render (``NeRFConfig.fast_render``): the fine pass renders
+        K importance samples alone (`nerf.py:85-121`). Training and
+        evaluation keep the exact math, the int8 calibration too, and the
+        occupancy render ignores it. It composes with ``quantized_render``.
 
         ``quantized_render`` opts :meth:`predict_and_render_images` into
         the int8 render tier, calibrated on its first rays
@@ -143,7 +149,8 @@ class NeRF:
         self.device = resolve_device(device)
         self.config = NeRFConfig(**{**self.config.to_model_config(),
                                     "white_background": white_background,
-                                    "use_kernels": use_kernels})
+                                    "use_kernels": use_kernels,
+                                    "fast_render": int(fast_render)})
         self.batch_size = batch_size
         self.image_height = image_height
         self.image_width = image_width
@@ -458,16 +465,22 @@ class NeRF:
 
     def load_model(self, path: str):
         """Restore architecture, weights and optimizer state from a
-        checkpoint directory; runtime options are kept."""
+        checkpoint directory (`nerf.py:799-822`). The runtime options the
+        checkpoint does not record (``white_background``, ``use_kernels``,
+        ``fast_render``) are kept; the baked occupancy grid, which belongs
+        to the old weights, is dropped (the int8 calibration follows the
+        state object by itself)."""
         self._require_compiled()
         old = self.config
         self.config = checkpoint.load_model_config(
             path, white_background=old.white_background,
-            use_kernels=old.use_kernels)
+            use_kernels=old.use_kernels, fast_render=old.fast_render)
         self.model_path = path
         logging.info("Loading NeRF weights from %s", path)
         self.state = checkpoint.load_train_state(path, self.state,
                                                  self.device)
+        self.occ_grid = None
+        self._occ_aabb = None
 
     def predict_and_render_images(
             self, rays, with_weights: bool = True, coarse_image: bool = True,
@@ -476,7 +489,9 @@ class NeRF:
         """Render ``rays = (origin, direction, points)`` into ``(coarse,
         fine)`` dicts (`nerf.py:229-304`). ``with_weights=False`` drops the
         per-sample weights; ``coarse_image=False`` skips the coarse colour
-        heads (coarse image zero) — the orbit renderer uses both."""
+        heads (coarse image zero) — the orbit renderer uses both. The fine
+        pass follows ``compile(fast_render=)``; ``fine_draws`` tensors are
+        then ``[ray_chunks, fast_render]``."""
         self._require_compiled()
         rays = tuple(torch.as_tensor(x, dtype=torch.float32,
                                      device=self.device) for x in rays)

@@ -180,6 +180,11 @@ def run_training(args):
     save_path = os.path.join(args.model_dirs, args.name)
     nerf.save_model(save_path)
     logging.info("Saved final model to %s", save_path)
+    if nerf.device.type == "cuda":
+        import torch
+
+        logging.info("Peak device memory allocated: %.2f GiB",
+                     torch.cuda.max_memory_allocated(nerf.device) / 2**30)
     return nerf
 
 

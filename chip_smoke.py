@@ -619,6 +619,10 @@ def main() -> int:
     occ_train = _occupancy_train_phases(cfg, dataset, errors, rel_errors,
                                         card_tag)
 
+    # ---- 6d. data parallelism (A13): train --num_gpus 1 on NCCL, two
+    # ranks on the card for a shard_rays step and the banded render ------
+    dp_launches = _data_parallel_phases(card_tag)
+
     # ---- 7. times ---------------------------------------------------------
     # One call per kernel mode at its path's chunk shape, with the least
     # time the card could take for it: the larger of its bytes (each input
@@ -791,7 +795,9 @@ def main() -> int:
                    **{path: launches[k.name] for path, launches
                       in fast_in["launches"].items()},
                    **{path: launches[k.name]
-                      for path, launches in wide["launches"].items()}}
+                      for path, launches in wide["launches"].items()},
+                   **{f"data_parallel_{path}": launches[k.name]
+                      for path, launches in dp_launches.items()}}
         for path in ("train", "custom", "quantized", "probe"):
             if k.name not in totals[path]:
                 continue
@@ -4081,6 +4087,344 @@ def _occupancy_train_phases(cfg, dataset, errors, rel_errors,
         f"(wall, CPU references included): " + ", ".join(
             f"{k} {v:.1f} s" for k, v in walls.items()))
     return out
+
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism (keras_nerf_tpu_torch.parallel, train --num_gpus).
+
+DP_STEPS = 5              # phase (a): 5 train views, batch 1, one epoch
+DP_RANKS = 2              # phases (b) and (c): two processes on the card
+DP_TIMEOUT = 600          # seconds for the two ranks of (b) and (c)
+DP_TIMED_STEPS = 10       # world-1 step and all-reduce timings
+
+
+def _dp_flags(root: str, name: str) -> list:
+    """The training CLI's flags of phase (a): the spheres views at 128^2,
+    8 x 256, 64 + 128 samples, --ray_chunks 2048, one epoch of 5 steps."""
+    return ["--name", name, "--data_dir", os.path.join(root, "scene"),
+            "--img_wh", str(IMG), "--white_bg", "--num_epochs", "1",
+            "--batch_size", "1", "--ray_chunks", str(TRAIN_CHUNK),
+            "--seed", "0", "--log_freq", "1",
+            "--log_dir", os.path.join(root, "logs"),
+            "--model_dirs", os.path.join(root, "model")]
+
+
+def _load_state(path: str):
+    from keras_nerf_tpu_torch.models import NeRF
+
+    return NeRF(model_path=path).compile(
+        batch_size=1, image_height=IMG, image_width=IMG,
+        ray_chunks=TRAIN_CHUNK, white_background=True, is_training=False,
+        device="cuda").state
+
+
+def _dp_world1_phase(root: str, card_tag) -> dict:
+    """(a) ``python -m keras_nerf_tpu_torch.train --num_gpus 1`` (one rank,
+    NCCL, in this process) against ``train_single``'s ungrouped
+    ``NeRF.fit`` from the same seed: the same 5 steps' parameters bit for
+    bit, since a one-rank sum divided by 1 is exact and rank 0 draws what
+    an ungrouped run draws. Then times the world-1 NCCL step beside the
+    plain step, in turns on one batch, and the two flat all-reduces."""
+    import numpy as np
+    import torch
+
+    from keras_nerf_tpu_torch import train, train_single
+    from keras_nerf_tpu_torch.kernels import reset_launch_counts
+    from keras_nerf_tpu_torch.models import engine
+    from keras_nerf_tpu_torch.models.engine import tree_leaves
+    from keras_nerf_tpu_torch.parallel import make_group
+    from keras_nerf_tpu_torch.data import DatasetLoader
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    train.main(["--num_gpus", "1", *_dp_flags(root, "world1")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    log(f"data parallel (a): train --num_gpus 1 (NCCL, one rank), {DP_STEPS}"
+        f" steps at {IMG}^2 with validation, test and checkpoints, "
+        f"{wall:.2f} s wall {card_tag}; launches {launches}")
+    _ran(launches, MSE_LAUNCHES, "train --num_gpus 1")
+    t0 = time.perf_counter()
+    train_single.run_training(train_single.build_arg_parser().parse_args(
+        _dp_flags(root, "plain")))
+    log(f"data parallel (a): train_single (no group), the same run, "
+        f"{time.perf_counter() - t0:.2f} s wall {card_tag}")
+    grouped, plain = (_load_state(os.path.join(root, "model", name))
+                      for name in ("world1", "plain"))
+    leaves = [(a, b) for a, b in zip(tree_leaves(grouped[:4]),
+                                     tree_leaves(plain[:4]))
+              if torch.is_tensor(a)]
+    differ = sum(not torch.equal(a, b) for a, b in leaves)
+    worst = max(float((a - b).abs().max()) for a, b in leaves)
+    if grouped.coarse_opt.get("count") != plain.coarse_opt.get("count"):
+        fail("train --num_gpus 1 took another number of Adam steps")
+    log(f"data parallel (a): {len(leaves)} tensors of the state after "
+        f"{grouped.step} steps, {differ} differ from the ungrouped run's "
+        f"(max abs {worst:.3e}); bit for bit expected")
+    if differ or grouped.step != plain.step or grouped.step != DP_STEPS:
+        fail("train --num_gpus 1 is not the ungrouped run bit for bit")
+
+    # Times: the grouped and the plain step in turns on one batch, from
+    # the trained state (not updated), then each flat all-reduce.
+    group = make_group(1, device="cuda")
+    try:
+        train_ds = DatasetLoader(os.path.join(root, "scene"), True,
+                                 device="cuda").load_dataset(
+            batch_size=1, image_width=IMG, image_height=IMG, near=2.0,
+            far=6.0, n_sample=N_COARSE, seed=0)[0]
+        batch = next(iter(train_ds))
+        cfg = engine.NeRFConfig(n_coarse=N_COARSE, n_fine=N_FINE,
+                                white_background=True)
+        opt = engine.make_optimizer("adam", 1e-3)
+        gen = torch.Generator(device="cuda")
+
+        def step(g):
+            gen.manual_seed(0)
+            return engine.train_step(plain, batch, gen, opt, cfg,
+                                     TRAIN_CHUNK, group=g)
+
+        for g in (None, group):   # warm-up
+            step(g)
+        ms = {"plain": [], "nccl": []}
+        for i in range(2 * DP_TIMED_STEPS):
+            g = group if i % 2 else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(g)
+            torch.cuda.synchronize()
+            ms["nccl" if g else "plain"].append(
+                1e3 * (time.perf_counter() - t0))
+        sizes = [sum(x.numel() for x in tree_leaves(p))
+                 for p in (plain.coarse_params, plain.fine_params)]
+        flat = torch.zeros(sizes[0], device="cuda")
+        reduce_ms = _time_ms(lambda: group.all_reduce_(flat), 20,
+                             spin=False)
+        out = {"step_ms_plain": float(np.median(ms["plain"])),
+               "step_ms_nccl_world1": float(np.median(ms["nccl"])),
+               "all_reduce_ms": reduce_ms, "all_reduce_floats": sizes[0]}
+        log(f"time data parallel (a): {IMG}^2 train step, ray_chunks "
+            f"{TRAIN_CHUNK}, median of {DP_TIMED_STEPS} in turns: plain "
+            f"{out['step_ms_plain']:.2f} ms, NCCL world 1 "
+            f"{out['step_ms_nccl_world1']:.2f} ms (wall, host clock); one "
+            f"flat all-reduce of {sizes[0]} float32 (a model's gradients; "
+            f"a step makes two, and one of its 8 metrics) {reduce_ms:.4f} "
+            f"ms (CUDA events, paced by the host's calls) {card_tag}")
+        log(json.dumps({"data_parallel_world1": out, "card": card_tag}))
+    finally:
+        group.close()
+    return launches
+
+
+def _dp_worker(paths, group) -> None:
+    """One of the ranks of phases (b) and (c), spawned by ``run_ranks``
+    with gloo over CUDA tensors on card 0. (b) one shard_rays step of
+    ``sharded_train_step`` on its height band with its band's draws; (c)
+    the banded render of ``NeRF.predict_and_render_images`` in bf16 and in
+    int8. ``paths`` is ``(inputs, out_dir)``; writes its results and each
+    phase's launches to ``out_dir/rank{rank}.pt``."""
+    import torch
+
+    from keras_nerf_tpu_torch.kernels import reset_launch_counts
+    from keras_nerf_tpu_torch.models import NeRF, engine
+    from keras_nerf_tpu_torch.parallel import (
+        replicate,
+        shard_batch,
+        sharded_train_step,
+    )
+
+    inputs_path, out_dir = paths
+    rank, n = group.rank, group.size
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(inputs_path, map_location="cuda:0")
+    out = {"launches": {}}
+    cfg = engine.NeRFConfig(n_coarse=N_COARSE, n_fine=N_FINE,
+                            white_background=True)
+    state = replicate(engine.TrainState(
+        inp["coarse"], inp["fine"], {}, {}, 0), group)
+    band = shard_batch(inp["batch"], group, shard_rays=True)
+    step = sharded_train_step(group, engine.make_optimizer("sgd", 1.0),
+                              cfg, TRAIN_CHUNK)
+    per_band = len(inp["draws"]) // n
+    reset_launch_counts()
+    new, metrics = step(state, band, inp["draws"][rank * per_band:
+                                                  (rank + 1) * per_band])
+    torch.cuda.synchronize()
+    out["launches"]["train_shard_rays"] = _counts()
+    out["step"] = {"coarse": _to(new.coarse_params, "cpu"),
+                   "fine": _to(new.fine_params, "cpu"),
+                   "metrics": {k: float(v) for k, v in metrics.items()}}
+    per_band = len(inp["render_draws"]) // n
+    for tier in ("bf16", "int8"):
+        nerf = NeRF(config=cfg).compile(
+            batch_size=1, image_height=IMG, image_width=IMG,
+            ray_chunks=CHUNK, white_background=True, is_training=False,
+            device="cuda:0", seed=0, quantized_render=tier == "int8",
+            group=group)
+        nerf.state = engine.TrainState(inp["render_coarse"],
+                                       inp["render_fine"], {}, {}, 0)
+        reset_launch_counts()
+        _, fine = nerf.predict_and_render_images(
+            inp["rays"], with_weights=False, coarse_image=False,
+            fine_draws=inp["render_draws"][rank * per_band:
+                                           (rank + 1) * per_band])
+        torch.cuda.synchronize()
+        out["launches"][f"render_{tier}"] = _counts()
+        out[tier] = {k: v.cpu() for k, v in fine.items()}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _dp_ranks_phase(root: str, trained, card_tag) -> dict:
+    """(b) and (c): two spawned ranks on the one card (gloo over CUDA
+    tensors). (b): one ``shard_rays`` step at batch 1 from ``trained``
+    (SGD, lr 1) against the one-rank step fed the same per-band draws:
+    the bands' 2048-ray chunks are the whole image's, so only the order of
+    the final sum differs; held at ``STEP_TOL``. (c): the banded render of
+    the fog weights in bf16 and int8 against the one-rank frame fed the
+    same draws, held at ``E2E_TOL``."""
+    import torch
+
+    from keras_nerf_tpu_torch.data import generate_ray_batch, pose_spherical
+    from keras_nerf_tpu_torch.data import get_focal_from_fov
+    from keras_nerf_tpu_torch.inference import ORBIT
+    from keras_nerf_tpu_torch.models import NeRF, engine, init_mlp
+    from keras_nerf_tpu_torch.ops import sorted_uniforms
+    from keras_nerf_tpu_torch.parallel import run_ranks
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    cfg = engine.NeRFConfig(n_coarse=N_COARSE, n_fine=N_FINE,
+                            white_background=True)
+    images, poses, focal = _spheres_scene(1, seed=19)
+    batch = (torch.as_tensor(images, device="cuda"), generate_ray_batch(
+        poses, gen, image_height=IMG, image_width=IMG, focal=focal,
+        near=ORBIT["near"], far=ORBIT["far"], n_samples=N_COARSE))
+    draws = [sorted_uniforms(gen, (TRAIN_CHUNK,), N_FINE)
+             for _ in range(IMG * IMG // TRAIN_CHUNK)]
+    rays = generate_ray_batch(
+        pose_spherical(30.0, ORBIT["phi"], ORBIT["z_translate"])[None], gen,
+        image_height=IMG, image_width=IMG,
+        focal=get_focal_from_fov(ORBIT["fov"], IMG), near=ORBIT["near"],
+        far=ORBIT["far"], n_samples=N_COARSE)
+    render_draws = [sorted_uniforms(gen, (CHUNK,), N_FINE)
+                    for _ in range(IMG * IMG // CHUNK)]
+    fog = [_fog(init_mlp(gen, cfg.mlp, cfg.in_xyz, cfg.in_dir))
+           for _ in range(2)]
+    inputs = {"coarse": trained.coarse_params, "fine": trained.fine_params,
+              "batch": batch, "draws": draws, "rays": rays,
+              "render_draws": render_draws, "render_coarse": fog[0],
+              "render_fine": fog[1]}
+    inputs_path = os.path.join(root, "dp_inputs.pt")
+    torch.save(inputs, inputs_path)
+    out_dir = os.path.join(root, "dp_out")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        run_ranks(_dp_worker, (inputs_path, out_dir), DP_RANKS, "cuda:0",
+                  backend="gloo", timeout=DP_TIMEOUT)
+    except RuntimeError as e:
+        fail(f"the data-parallel ranks failed: {e}")
+    log(f"data parallel (b, c): {DP_RANKS} spawned ranks on one card (gloo "
+        f"over CUDA tensors), {time.perf_counter() - t0:.1f} s wall "
+        f"(process start included) {card_tag}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+             for r in range(DP_RANKS)]
+    launches = {}
+    for r, res in enumerate(ranks):
+        for path, counts in res["launches"].items():
+            log(f"data parallel ({'b' if path.startswith('train') else 'c'}"
+                f") {path}, rank {r}: launches {counts}")
+            launches[f"{path}_rank{r}"] = counts
+        _ran(res["launches"]["train_shard_rays"], MSE_LAUNCHES,
+             f"rank {r}'s shard_rays step")
+        _ran(res["launches"]["render_bf16"],
+             ("sample_merge", "ray_march_mlp", "ray_march_quadrature"),
+             f"rank {r}'s banded bf16 render")
+        _ran(res["launches"]["render_int8"],
+             ("sample_merge", "ray_march_mlp_int8", "ray_march_quadrature"),
+             f"rank {r}'s banded int8 render")
+
+    # (b): the one-rank step on the whole image with the bands' draws.
+    state = engine.TrainState(trained.coarse_params, trained.fine_params,
+                              {}, {}, 0)
+    new, metrics = engine.train_step(state, batch, draws,
+                                     engine.make_optimizer("sgd", 1.0), cfg,
+                                     TRAIN_CHUNK)
+    got = ranks[0]["step"]
+    m_a = got["metrics"]
+    m_b = {k: float(v) for k, v in metrics.items()}
+    loss_err = max(abs(m_a[k] - m_b[k]) / abs(m_b[k])
+                   for k in ("coarse_loss", "fine_loss"))
+    worst = {}
+    for model in ("coarse", "fine"):
+        p0 = engine.tree_leaves(getattr(state, f"{model}_params"))
+        worst[model] = _worst_leaf(
+            ((a - b.cpu()), (a - c.cpu())) for a, b, c in zip(
+                (x.cpu() for x in p0), engine.tree_leaves(got[model]),
+                engine.tree_leaves(getattr(new, f"{model}_params"))))
+    log(f"data parallel (b): shard_rays step on {DP_RANKS} ranks vs the "
+        f"one-rank step, same draws: loss relative err {loss_err:.3e} "
+        f"(tolerance {STEP_TOL['loss_rtol']}); worst leaf gradient relative "
+        f"norm / max " + ", ".join(f"{m} {w[0]:.3e} / {w[1]:.3e}"
+                                   for m, w in worst.items())
+        + f" (tolerance {STEP_TOL['grad_rel_norm']} / "
+        f"{STEP_TOL['grad_rel_max']}) {card_tag}")
+    if not (loss_err <= STEP_TOL["loss_rtol"]
+            and all(map(_within_step_tol, worst.values()))):
+        fail("the shard_rays step disagrees with the one-rank step")
+    if any(ranks[r]["step"]["metrics"] != m_a for r in range(DP_RANKS)):
+        fail("the ranks' step metrics differ")
+
+    # (c): the one-rank frames with the same weights and draws.
+    for tier in ("bf16", "int8"):
+        nerf = NeRF(config=cfg).compile(
+            batch_size=1, image_height=IMG, image_width=IMG, ray_chunks=CHUNK,
+            white_background=True, is_training=False, device="cuda", seed=0,
+            quantized_render=tier == "int8")
+        nerf.state = engine.TrainState(fog[0], fog[1], {}, {}, 0)
+        _, fine = nerf.predict_and_render_images(
+            rays, with_weights=False, coarse_image=False,
+            fine_draws=render_draws)
+        errs = {k: max(float((res[tier][k] - fine[k].cpu()).abs().max())
+                       for res in ranks) for k in ("image", "depth")}
+        log(f"data parallel (c): banded {tier} render on {DP_RANKS} ranks vs "
+            f"the one-rank frame, same draws: " + ", ".join(
+                f"{k} max_abs_err {v:.3e} (tolerance {E2E_TOL[k]:.0e})"
+                for k, v in errs.items()) + f" {card_tag}")
+        if any(errs[k] > E2E_TOL[k] for k in errs):
+            fail(f"the banded {tier} render disagrees with one rank's")
+    return launches
+
+
+def _data_parallel_phases(card_tag) -> dict:
+    """Phases (a), (b) and (c) of data parallelism on one card; returns
+    each path's launches, read just after it ran."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from keras_nerf_tpu_torch.data.synthetic import write_synthetic_scene
+
+    import torch
+
+    nccl = dist.is_nccl_available()
+    log(f"torch.distributed: NCCL available {nccl}"
+        + (f" (version {torch.cuda.nccl.version()})" if nccl else "")
+        + f", gloo available {dist.is_gloo_available()}")
+    root = os.path.join(HERE, "build", "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_synthetic_scene(os.path.join(root, "scene"), image_wh=IMG,
+                          n_train=DP_STEPS, n_val=1, n_test=1)
+    launches = {"train_nccl_world1": _dp_world1_phase(root, card_tag)}
+    trained = _load_state(os.path.join(root, "model", "world1"))
+    for path, counts in _dp_ranks_phase(root, trained, card_tag).items():
+        launches[path] = counts
+    log(f"data parallel phases: {time.perf_counter() - t0:.1f} s wall "
+        f"{card_tag}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -13,8 +13,13 @@ epoch, so a run (and a resumed run) repeats: a full permutation of the train
 split every epoch (on the host), and the depth jitter (on the device).
 Batches drop the remainder (`loader.py:101-107`). With ``pixel_sampling``
 the train split is a :class:`RayBatchDataset`: every batch draws its rays
-at random (image, pixel) pairs across all of its images. Sharded batches
-are not ported yet (ROADMAP.md).
+at random (image, pixel) pairs across all of its images.
+
+With ``sharding`` (a ``parallel.BatchSharding``, JAX's ``sharding=``,
+`loader.py:64,117-119,192-193`) the batches stay global: every rank builds
+the same global batch from the same seeded order and draws, on its group's
+device, and the model compiled with that group takes the rank's share of
+it (``NeRF.compile(group=...)``).
 """
 
 from __future__ import annotations
@@ -201,11 +206,17 @@ class DatasetLoader:
         """``[train, val, test]``; the train split is shuffled, and split
         ``i`` draws from ``seed + i`` (`loader.py:227-275`). With
         ``pixel_sampling`` the train split is a :class:`RayBatchDataset`;
-        validation and test stay whole images."""
-        if sharding is not None:
+        validation and test stay whole images. ``sharding`` places every
+        split's batches on its group's device (see the module docstring)."""
+        from keras_nerf_tpu_torch.parallel import BatchSharding
+
+        if sharding is not None and not isinstance(sharding, BatchSharding):
             raise NotImplementedError(
-                "sharded batches are not ported yet (ROADMAP.md, section A, "
-                "A13)")
+                f"sharding must be a parallel.BatchSharding; a "
+                f"{type(sharding).__name__} (such as the JAX package's "
+                f"NamedSharding) has no counterpart in the port (ROADMAP.md, "
+                f"A13)")
+        device = self.device if sharding is None else sharding.group.device
         datasets = []
         for split_idx, subset in enumerate(["train", "val", "test"]):
             fov, paths, poses = self._load_split(subset)
@@ -213,7 +224,7 @@ class DatasetLoader:
                                  self.white_background, self.resize_method)
             kw = dict(focal=get_focal_from_fov(fov, image_width), near=near,
                       far=far, n_samples=n_sample, batch_size=batch_size,
-                      seed=seed + split_idx, device=self.device)
+                      seed=seed + split_idx, device=device)
             if pixel_sampling and subset == "train":
                 datasets.append(RayBatchDataset(images, poses, **kw))
             else:

@@ -11,7 +11,9 @@ unless ``--device cpu`` is given; ``--quantized_render`` renders through the
 int8 tier; ``--fast_render K`` renders the fine pass on K importance samples
 alone (it composes with ``--quantized_render``); ``--occupancy_grid G`` bakes a G^3 occupancy grid once and renders
 every frame with the fine model alone, ``--occupancy_samples`` points per
-ray inside occupied space (the two compose).
+ray inside occupied space (the two compose). ``--num_gpus N`` renders
+each frame in N horizontal bands, one process a card
+(``keras_nerf_tpu_torch.parallel``); rank 0 writes the GIFs.
 """
 
 from __future__ import annotations
@@ -106,7 +108,21 @@ def main(argv=None):
     parser.add_argument("--near", type=float, default=ORBIT["near"])
     parser.add_argument("--far", type=float, default=ORBIT["far"])
     parser.add_argument("--fov", type=float, default=ORBIT["fov"])
+    parser.add_argument("--eagerly", action="store_true",
+                        help="accepted for the root CLI's sake: the port "
+                             "has no jit and always runs eagerly")
     parser.add_argument("--white_bg", action="store_true")
+    parser.add_argument("--mixed_precision", action="store_true",
+                        help="bfloat16 MLP compute on the reference path "
+                             "(the kernels' precision is their own)")
+    parser.add_argument("--use_pallas", action="store_true",
+                        help="force the fused kernels on (default: auto — "
+                             "on for the card)")
+    parser.add_argument("--no_pallas", action="store_true",
+                        help="force the reference path (end-to-end float32 "
+                             "matmuls when --mixed_precision is off; the "
+                             "fused kernels are bf16-operand/f32-accumulate "
+                             "by design)")
     parser.add_argument("--phi", type=float, default=ORBIT["phi"])
     parser.add_argument("--z_translate", type=float,
                         default=ORBIT["z_translate"])
@@ -114,6 +130,14 @@ def main(argv=None):
     parser.add_argument("--output_freq", type=int, default=10)
     parser.add_argument("--frame_batch", type=int, default=1,
                         help="orbit frames rendered per call")
+    parser.add_argument("--num_gpus", type=int, default=1,
+                        help="render over this many cards (0 = all), one "
+                             "process each: each frame is split into "
+                             "horizontal image bands (an extension: the "
+                             "reference inference is single-device). "
+                             "img_wh must divide by the card count. "
+                             "Composes with --fast_render, "
+                             "--quantized_render and --occupancy_grid")
     parser.add_argument("--fast_render", type=int, default=0,
                         help="opt-in approximation: the fine pass renders "
                              "this many importance samples of the coarse "
@@ -170,21 +194,48 @@ def main(argv=None):
     if args.name == "":
         args.name = os.path.basename(os.path.normpath(args.model_dirs))
     logging.info(args)
+    if args.eagerly:
+        logging.info("--eagerly: the port has no jit; it always runs "
+                     "eagerly")
 
-    from keras_nerf_tpu_torch.models import NeRF
+    from keras_nerf_tpu_torch.device import resolve_device
+    from keras_nerf_tpu_torch.parallel import run_ranks, world_size
     from keras_nerf_tpu_torch.utils import checkpoint as ckpt
 
     if not ckpt.has_weights(args.model_dirs):
         raise FileNotFoundError(
             f"Model weights not found in {args.model_dirs} (need "
             f"{ckpt.COARSE_WEIGHTS} and {ckpt.FINE_WEIGHTS})")
+    device = resolve_device(args.device)
+    n = world_size(args.num_gpus, device)
+    if n == 1:
+        render_and_write(args)
+        return
+    if args.img_wh % n:
+        raise SystemExit(f"--img_wh {args.img_wh} must divide by the {n} "
+                         f"mesh devices (height bands)")
+    logging.info("Rendering over %d ranks (height bands)", n)
+    run_ranks(render_and_write, args, n, device.type)
+
+
+def render_and_write(args, group=None):
+    """Load ``--model_dirs``, render the orbit (in height bands under a
+    ``parallel.Group``) and write both GIFs (rank 0 alone under a
+    group)."""
+    from keras_nerf_tpu_torch.models import NeRF
+    from keras_nerf_tpu_torch.train_single import use_kernels_flag
+
     frame_batch = max(1, args.frame_batch)
-    nerf = NeRF(model_path=args.model_dirs)
+    nerf = NeRF(model_path=args.model_dirs,
+                compute_dtype=("bfloat16" if args.mixed_precision
+                               else "float32"))
     nerf.compile(batch_size=frame_batch, image_height=args.img_wh,
                  image_width=args.img_wh, ray_chunks=args.ray_chunks,
                  white_background=args.white_bg, is_training=False,
-                 device=args.device, fast_render=args.fast_render,
-                 quantized_render=args.quantized_render)
+                 device=args.device if group is None else group.device,
+                 use_kernels=use_kernels_flag(args),
+                 fast_render=args.fast_render,
+                 quantized_render=args.quantized_render, group=group)
     if args.occupancy_grid > 0:
         aabb = None
         if args.occupancy_aabb is not None:
@@ -204,6 +255,8 @@ def main(argv=None):
         near=args.near, far=args.far, frame_batch=frame_batch,
         occupancy_samples=(args.occupancy_samples if args.occupancy_grid > 0
                            else 0))
+    if not nerf.is_chief:
+        return
     frames, depth_frames = gif_frames(images, depths)
     gif_path = write_gifs(frames, depth_frames, args.output_dir, args.name)
     logging.info("Wrote %s (%d frames)", gif_path, len(frames))

@@ -92,6 +92,10 @@ class NeRFConfig:
     dense_units: int = 256
     skip_layer: int = 4
     white_background: bool = False
+    # The reference path's matmul precision (`engine.py:75`): "float32", or
+    # "bfloat16" for --mixed_precision. The kernels' precision is their
+    # own (bf16 operands, float32 accumulation) and ignores it.
+    compute_dtype: str = "float32"
     use_kernels: bool | None = None
     # Opt-in fast render (`engine.py:86-94`), inference only: the fine pass
     # renders ``fast_render`` importance samples of the coarse weights
@@ -106,6 +110,10 @@ class NeRFConfig:
         return MLPConfig(n_layers=self.n_layers,
                          dense_units=self.dense_units,
                          skip_layer=self.skip_layer)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
 
     @property
     def in_xyz(self) -> int:
@@ -149,7 +157,8 @@ def render_chunk(params: Params, origin: torch.Tensor,
     the ``[R, fast_render]`` draws' depths alone, unmerged. When
     :func:`resolve_use_kernels` is true the points go through
     ``fused_point_forward`` (T5 forward, T6 backward), else through the
-    float32 ``apply_mlp``. Returns ``(RenderOutput, depths used)``."""
+    ``apply_mlp`` in ``config.dtype``. Returns ``(RenderOutput, depths
+    used)``."""
     if coarse_weights is not None:
         # The coarse weights are data here: the fine loss never reaches the
         # coarse parameters (`nerf.py:390-417`).
@@ -172,7 +181,8 @@ def render_chunk(params: Params, origin: torch.Tensor,
         enc_xyz, enc_dir = encode_position_and_directions(
             origin, direction, points, config.pos_emb_xyz,
             config.pos_emb_dir)
-        rgb, sigma = apply_mlp(params, enc_xyz, enc_dir, config.mlp)
+        rgb, sigma = apply_mlp(params, enc_xyz, enc_dir, config.mlp,
+                               config.dtype)
     out = render_rays(rgb, sigma, points,
                       white_background=config.white_background)
     return out, points
@@ -421,6 +431,38 @@ def tree_leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+def _leaf_paths(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs, the path as JAX's ``keystr`` without quotes
+    (``[trunk][0][kernel]``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, f"{prefix}[{k}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{prefix}[{i}]")
+    elif tree is not None:
+        yield prefix, tree
+
+
+def _group_mean(tree, group):
+    """``tree``'s leaves averaged over ``group``'s ranks: one all-reduce of
+    one flat buffer (JAX's ``pmean``)."""
+    leaves = tree_leaves(tree)
+    flat = torch.cat([x.reshape(-1) for x in leaves])
+    group.all_reduce_(flat).div_(group.size)
+    parts = iter(flat.split([x.numel() for x in leaves]))
+    return tree_map(lambda x: next(parts).view_as(x), tree)
+
+
+def _metrics_mean(metrics: dict, group) -> dict:
+    """0-d metric tensors averaged over ``group``'s ranks, in one
+    all-reduce."""
+    keys = list(metrics)
+    values = torch.stack([metrics[k].to(torch.float32) for k in keys])
+    group.all_reduce_(values).div_(group.size)
+    return dict(zip(keys, values.unbind()))
+
+
 def global_norm(tree) -> torch.Tensor:
     """``sqrt(sum of squares)`` over every leaf (``optax.global_norm``)."""
     return torch.sqrt(sum(torch.sum(torch.square(x))
@@ -647,8 +689,8 @@ def train_step(state: TrainState, batch,
                optimizer: Optimizer, config: NeRFConfig,
                ray_chunks: int, loss_fn=None, occupancy: tuple | None = None,
                occ_grid: torch.Tensor | None = None,
-               occ_rows: torch.Tensor | None = None
-               ) -> tuple[TrainState, dict]:
+               occ_rows: torch.Tensor | None = None, group=None,
+               debug_grads: bool = False) -> tuple[TrainState, dict]:
     """One optimizer step over one batch of whole-image rays
     (`engine.py:587-833`, `nerf.py:332-473`).
 
@@ -678,6 +720,16 @@ def train_step(state: TrainState, batch,
         rays (``ops.occupancy.probe_rows_for_poses``), the probe-row cache
         tier: used in place of probing ``occ_grid``, which it then needs
         not; the same step bit for bit.
+      group: a ``parallel.Group``: this is one rank's step of synchronous
+        data parallelism (`engine.py:796-798,831-832`). ``batch`` is the
+        rank's share and ``fine_draws`` its own; each model's averaged
+        gradients are all-reduced as one flat buffer and divided by the
+        world size before the update, the gradient norms are those of the
+        all-reduced gradients and the metrics are averaged over the ranks
+        last, so every rank returns the same state and metrics.
+      debug_grads: add one gradient norm per parameter tensor,
+        ``grad_norm/{coarse,fine}[path]`` as JAX names them
+        (`engine.py:823-830`).
     """
     if loss_fn is None:
         loss_fn = mse_loss
@@ -709,6 +761,8 @@ def train_step(state: TrainState, batch,
                                                   bins)
     inv = 1.0 / num_chunks
     grads_c, grads_f = (tree_map(lambda g: g * inv, x) for x in grads)
+    if group is not None:
+        grads_c, grads_f = (_group_mean(g, group) for g in (grads_c, grads_f))
     target = chunks[3]
     # The reported losses are loss_fn's of the chunk images (`:768-769`).
     loss_c, loss_f = (torch.stack([loss_fn(tgt, img) for tgt, img in
@@ -724,16 +778,29 @@ def train_step(state: TrainState, batch,
                              target.reshape(shape), loss_c, loss_f)
     metrics["coarse_grad_norm"] = global_norm(grads_c)
     metrics["fine_grad_norm"] = global_norm(grads_f)
+    if debug_grads:
+        for name, g in (("coarse", grads_c), ("fine", grads_f)):
+            for path, leaf in _leaf_paths(g):
+                metrics[f"grad_norm/{name}{path}"] = torch.sqrt(
+                    torch.sum(torch.square(leaf)))
+    if group is not None:
+        metrics = _metrics_mean(metrics, group)
     return new_state, metrics
 
 
 @torch.no_grad()
 def eval_step(state: TrainState, batch,
               fine_draws: torch.Generator | Sequence[torch.Tensor],
-              config: NeRFConfig, ray_chunks: int, loss_fn=None) -> dict:
+              config: NeRFConfig, ray_chunks: int, loss_fn=None, group=None,
+              gather_images: bool = False) -> dict:
     """Chunked render without weights, then the six metrics over the whole
     images, the losses by ``loss_fn`` (:func:`mse_loss` by default;
-    `engine.py:836-878`); 0-d tensors on the rays' device."""
+    `engine.py:836-878`); 0-d tensors on the rays' device.
+
+    With a ``parallel.Group`` the batch is this rank's share: the ranks'
+    metrics are averaged; with ``gather_images`` (height bands) the bands
+    of both images and of the target are all-gathered into whole images
+    first, so PSNR and SSIM are whole-image numbers."""
     if loss_fn is None:
         loss_fn = mse_loss
     config = dataclasses.replace(config, fast_render=0)
@@ -743,5 +810,11 @@ def eval_step(state: TrainState, batch,
                                       rays, fine_draws, config, ray_chunks,
                                       with_weights=False)
     img_c, img_f = out_c["image"], out_f["image"]
-    return _batch_metrics(img_c, img_f, target, loss_fn(target, img_c),
-                          loss_fn(target, img_f))
+    if gather_images and group is not None:
+        img_c, img_f, target = (group.all_gather(x, 1)
+                                for x in (img_c, img_f, target))
+    metrics = _batch_metrics(img_c, img_f, target, loss_fn(target, img_c),
+                             loss_fn(target, img_f))
+    if group is not None:
+        metrics = _metrics_mean(metrics, group)
+    return metrics

@@ -3,8 +3,8 @@
 Parameters stay in the reference layout (`models/mlp.py:69-103` of the JAX
 package): a dict with ``trunk`` (a list of ``{"kernel" [fan_in, fan_out],
 "bias" [fan_out]}``), ``sigma``, ``features``, ``rgb_features`` and ``rgb``,
-float32 tensors. :func:`apply_mlp` is the float32 reference forward; the
-kernel path (``kernels/ray_march.py``) reads a packed bf16 copy.
+float32 tensors. :func:`apply_mlp` is the reference forward (float32, or
+bf16 products under mixed precision); the kernel path (``kernels/ray_march.py``) reads a packed bf16 copy.
 """
 
 from __future__ import annotations
@@ -60,23 +60,30 @@ def init_mlp(generator: torch.Generator, config: MLPConfig, in_xyz: int,
     }
 
 
-def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    return x @ p["kernel"] + p["bias"]
+def _dense(x: torch.Tensor, p: Params, dtype: torch.dtype) -> torch.Tensor:
+    return x @ p["kernel"].to(dtype) + p["bias"].to(dtype)
 
 
 def apply_mlp(params: Params, enc_xyz: torch.Tensor, enc_dir: torch.Tensor,
-              config: MLPConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Float32 forward: ``(enc_xyz [..., Dx], enc_dir [..., Dd]) ->
-    (rgb [..., 3], sigma [..., 1])`` (`keras_nerf/model/nerf/mlp.py:29-50`).
-    Float32 matmuls only; callers on the card keep TF32 off."""
+              config: MLPConfig, compute_dtype: torch.dtype = torch.float32
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward: ``(enc_xyz [..., Dx], enc_dir [..., Dd]) -> (rgb [..., 3],
+    sigma [..., 1])`` in float32 (`keras_nerf/model/nerf/mlp.py:29-50`).
+    The activations, kernels and biases are cast to ``compute_dtype`` and
+    every product and activation runs in it (``bfloat16`` is the JAX
+    package's mixed precision, `models/mlp.py:106-139`); float32 by
+    default, where callers on the card keep TF32 off. The parameters stay
+    float32 and receive float32 gradients."""
     skip = set(config.skip_indices())
-    x = enc_xyz
+    inputs = enc_xyz.to(compute_dtype)
+    x = inputs
     for i, layer in enumerate(params["trunk"]):
-        x = torch.relu(_dense(x, layer))
+        x = torch.relu(_dense(x, layer, compute_dtype))
         if i in skip:
-            x = torch.cat([x, enc_xyz], dim=-1)
-    sigma = torch.relu(_dense(x, params["sigma"]))
-    features = torch.cat([_dense(x, params["features"]), enc_dir], dim=-1)
-    rgb_features = _dense(features, params["rgb_features"])
-    rgb = torch.sigmoid(_dense(rgb_features, params["rgb"]))
-    return rgb, sigma
+            x = torch.cat([x, inputs], dim=-1)
+    sigma = torch.relu(_dense(x, params["sigma"], compute_dtype))
+    features = torch.cat([_dense(x, params["features"], compute_dtype),
+                          enc_dir.to(compute_dtype)], dim=-1)
+    rgb_features = _dense(features, params["rgb_features"], compute_dtype)
+    rgb = torch.sigmoid(_dense(rgb_features, params["rgb"], compute_dtype))
+    return rgb.to(torch.float32), sigma.to(torch.float32)

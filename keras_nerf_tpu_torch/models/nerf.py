@@ -8,7 +8,14 @@ package's checkpoint format. The state is an explicit
 opt-in tiers: ``compile(occupancy_train=G)`` (the fine pass on depths
 inside a G^3 grid that ``fit`` re-bakes from the live fine model, with an
 optional probe-row cache) and ``pixel_sampling`` (rays drawn across all
-views, ``data.RayBatchDataset``)."""
+views, ``data.RayBatchDataset``).
+
+Across cards: ``compile(group=...)`` with a ``parallel.Group`` makes this
+one rank of synchronous data parallelism (JAX's ``compile(mesh=...)``):
+the state is broadcast from rank 0, every step trains on the rank's share
+of the global batch and averages the gradients over the group, renders
+run in height bands gathered into whole images, and rank 0 alone logs and
+writes checkpoints while the others wait at a barrier."""
 
 from __future__ import annotations
 
@@ -51,19 +58,26 @@ class NeRF:
                  pos_emb_xyz: int = 10, pos_emb_dir: int = 4,
                  n_layers: int = 8, dense_units: int = 256,
                  skip_layer: int = 4, model_path: str | None = None,
-                 config: NeRFConfig | None = None):
+                 config: NeRFConfig | None = None,
+                 compute_dtype: str = "float32"):
+        """``compute_dtype`` is the reference path's matmul precision
+        (``"bfloat16"`` for ``--mixed_precision``); ``config`` keeps its
+        own."""
         self.model_path = model_path
         if model_path is not None:
-            self.config = checkpoint.load_model_config(model_path)
+            self.config = checkpoint.load_model_config(
+                model_path, compute_dtype=compute_dtype)
         elif config is not None:
             self.config = config
         else:
             self.config = NeRFConfig(
                 n_coarse=n_coarse, n_fine=n_fine, pos_emb_xyz=pos_emb_xyz,
                 pos_emb_dir=pos_emb_dir, n_layers=n_layers,
-                dense_units=dense_units, skip_layer=skip_layer)
+                dense_units=dense_units, skip_layer=skip_layer,
+                compute_dtype=compute_dtype)
         self.state: engine.TrainState | None = None
         self.device = None
+        self.group = None
         self._train_config = None
         self.occ_grid: torch.Tensor | None = None
         self._occ_aabb = None
@@ -99,7 +113,8 @@ class NeRF:
                 occupancy_train_dilate: int = 1,
                 occupancy_train_cache: bool = False,
                 pixel_sampling: bool = False, near: float = 2.0,
-                far: float = 6.0):
+                far: float = 6.0, group=None, shard_rays: bool = False,
+                debug_grads: bool = False, debug_nans: bool = False):
         """Fix shapes, device and optimizer; restore the checkpoint's
         weights and optimizer state, or draw random weights from ``seed``
         (`nerf.py:79-354`). ``ray_chunks`` is clamped to the rays of one
@@ -138,7 +153,21 @@ class NeRF:
         gathers them instead of probing; it refuses ``pixel_sampling``,
         whose batches are no images. ``pixel_sampling`` records that the
         train split is a ``RayBatchDataset`` (the training configuration
-        and ``fit``'s SSIM warning)."""
+        and ``fit``'s SSIM warning).
+
+        ``group`` (a ``parallel.Group``) makes this model one rank of data
+        parallelism (`nerf.py:127-171,276-329`): ``batch_size`` is the
+        global batch, split along its leading axis (it must divide over
+        the ranks), or with ``shard_rays`` along every image's height;
+        ``ray_chunks`` is per rank. Batches given to ``train_step``,
+        ``test_step`` and ``fit`` are global, the same on every rank, and
+        each rank takes its share here (``parallel.shard_batch``);
+        evaluation batches that the ranks do not divide run whole on
+        every rank.
+        ``debug_grads`` adds one gradient norm per parameter tensor to
+        the step metrics, and warns by name of a dead or non-finite one;
+        ``debug_nans`` raises at once when a step's loss or gradients are
+        not finite."""
         if callable(loss):
             self.loss_fn = loss
         elif loss in ("mse", None):
@@ -149,16 +178,43 @@ class NeRF:
         self.device = resolve_device(device)
         self.config = NeRFConfig(**{**self.config.to_model_config(),
                                     "white_background": white_background,
+                                    "compute_dtype": self.config.compute_dtype,
                                     "use_kernels": use_kernels,
                                     "fast_render": int(fast_render)})
         self.batch_size = batch_size
         self.image_height = image_height
         self.image_width = image_width
         self.num_rays = batch_size * image_height * image_width
-        self.ray_chunks = min(ray_chunks, self.num_rays)
-        if self.num_rays % self.ray_chunks:
+        # Under a group the step sees one rank's rays, and ray_chunks is
+        # per rank (`nerf.py:127-171`), with JAX's refusals.
+        self.group = group
+        n = 1 if group is None else group.size
+        self.shard_rays = bool(shard_rays) and group is not None
+        if self.shard_rays and pixel_sampling:
+            raise ValueError(
+                "--shard_rays cannot compose with --pixel_sampling "
+                "(pixel batches have no image-height axis; use plain DP)")
+        if self.shard_rays and image_height % n != 0:
+            raise ValueError(
+                f"image_height {image_height} must divide across {n} mesh "
+                f"devices under --shard_rays (the image HEIGHT axis is "
+                f"sharded)")
+        if is_training and not self.shard_rays and batch_size % n != 0:
+            raise ValueError(
+                f"batch_size {batch_size} must divide across {n} mesh "
+                f"devices (the global image batch is sharded along its "
+                f"leading axis; pass shard_rays=True to split the "
+                f"image-height axis instead)")
+        if self.num_rays % n != 0:
+            raise ValueError(f"global num_rays {self.num_rays} must divide "
+                             f"across {n} mesh devices")
+        per_rank_rays = self.num_rays // n
+        self.ray_chunks = min(ray_chunks, per_rank_rays)
+        if per_rank_rays % self.ray_chunks:
             raise ValueError(f"ray_chunks {self.ray_chunks} must divide the "
-                             f"number of rays {self.num_rays}")
+                             f"number of rays {per_rank_rays}")
+        self.debug_grads = bool(debug_grads)
+        self.debug_nans = bool(debug_nans)
         # The occupancy tier's schedule and step (`nerf.py:247-310`); a
         # compile starts without a grid or a cache.
         self.occupancy_train = int(occupancy_train) if is_training else 0
@@ -166,6 +222,11 @@ class NeRF:
         self._occ_probe_cache = None
         self.occupancy_train_cache = (bool(occupancy_train_cache)
                                       and self.occupancy_train > 0)
+        if self.occupancy_train_cache and group is not None:
+            raise ValueError(
+                "--occupancy_train_cache is a single-device tier (the "
+                "cache indexes whole images; under a mesh use the "
+                "plain grid probe)")
         if self.occupancy_train_cache and pixel_sampling:
             raise ValueError(
                 "--occupancy_train_cache cannot compose with "
@@ -222,11 +283,15 @@ class NeRF:
                 state = checkpoint.load_train_state(self.model_path, state,
                                                     self.device)
             self.state = state
+        if group is not None:
+            from keras_nerf_tpu_torch.parallel import replicate
+
+            replicate(self.state, group)
         self._seed = seed
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(seed + 1)
-        self._train_draws = torch.Generator(device=self.device)
-        self._train_draws.manual_seed(seed + 2)
+        # Each rank draws its own fine samples (JAX folds the device index
+        # into the key); rank 0 draws what an ungrouped model draws.
+        self._generator = self._rank_generator(seed + 1)
+        self._train_draws = self._rank_generator(seed + 2)
         self.quantized_render = bool(quantized_render)
         if (self.quantized_render
                 and not engine.resolve_use_kernels(self.config, self.device)):
@@ -243,6 +308,40 @@ class NeRF:
         if self.state is None:
             raise RuntimeError("call compile() first")
 
+    @property
+    def is_chief(self) -> bool:
+        """True on the one process that logs and writes files: rank 0 of
+        the group, or the only process."""
+        return self.group is None or self.group.rank == 0
+
+    def _rank_generator(self, seed: int) -> torch.Generator:
+        from keras_nerf_tpu_torch.parallel import rank_seed
+
+        rank = 0 if self.group is None else self.group.rank
+        return torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, rank))
+
+    def _shard(self, batch):
+        from keras_nerf_tpu_torch.parallel import shard_batch
+
+        return shard_batch(batch, self.group, self.shard_rays)
+
+    def _bake_replicated(self, density, grid_size, aabb, threshold, dilate):
+        """``bake_occupancy_grid`` of ``density``; under a group baked on
+        rank 0 alone and broadcast (`nerf.py:419-421`)."""
+        from keras_nerf_tpu_torch.ops import occupancy as occ_mod
+
+        if self.is_chief:
+            grid = occ_mod.bake_occupancy_grid(
+                density, grid_size, aabb, threshold, dilate=dilate,
+                device=self.device)
+        else:
+            grid = torch.empty((grid_size,) * 3, dtype=torch.float32,
+                               device=self.device)
+        if self.group is not None:
+            self.group.broadcast_(grid)
+        return grid
+
     def _on_device(self, batch):
         images, rays = batch
         return (torch.as_tensor(images, dtype=torch.float32,
@@ -250,10 +349,14 @@ class NeRF:
                 tuple(torch.as_tensor(x, dtype=torch.float32,
                                       device=self.device) for x in rays))
 
-    def _eval_draws(self) -> torch.Generator:
-        """The same fine draws for every evaluation (JAX's fixed eval
-        key)."""
-        return torch.Generator(device=self.device).manual_seed(self._seed + 3)
+    def _eval_draws(self, whole: bool = False) -> torch.Generator:
+        """The same fine draws for every evaluation (JAX's fixed eval key),
+        this rank's own unless ``whole`` (a batch every rank evaluates
+        alike)."""
+        if whole:
+            return torch.Generator(device=self.device).manual_seed(
+                self._seed + 3)
+        return self._rank_generator(self._seed + 3)
 
     # ------------------------------------------------------------------ steps
 
@@ -262,7 +365,8 @@ class NeRF:
         occupancy tier has a grid the step is the occupancy step
         (warm-up and pre-bake epochs run the exact step); with the
         probe-row cache and the batch's image ``indices`` it gathers the
-        cached rows instead of probing the grid (`nerf.py:366-383`)."""
+        cached rows instead of probing the grid (`nerf.py:366-383`).
+        Under a group the rank trains on its share of the global batch."""
         kw = {}
         if self.occupancy_train > 0 and self._occ_train_grid is not None:
             kw = dict(occupancy=self._occ_spec, occ_grid=self._occ_train_grid)
@@ -270,11 +374,28 @@ class NeRF:
                 rows = self._occ_probe_cache[torch.as_tensor(
                     indices, device=self._occ_probe_cache.device)]
                 kw["occ_rows"] = rows.reshape(-1, rows.shape[-1])
+        batch = self._on_device(batch)
+        if self.group is not None:
+            batch = self._shard(batch)
         self.state, metrics = engine.train_step(
-            self.state, self._on_device(batch),
+            self.state, batch,
             self._train_draws if fine_draws is None else fine_draws,
-            self.optimizer, self.config, self.ray_chunks, self.loss_fn, **kw)
+            self.optimizer, self.config, self.ray_chunks, self.loss_fn,
+            group=self.group, debug_grads=self.debug_grads, **kw)
+        if self.debug_nans:
+            self._raise_on_nans(metrics)
         return metrics
+
+    def _raise_on_nans(self, metrics: dict):
+        """``--debug_nans``: a non-finite loss or gradient norm raises (the
+        reference's per-gradient ``assert_all_finite``, `nerf.py:380-382`);
+        this waits for the step."""
+        for name in ("coarse_loss", "fine_loss", "coarse_grad_norm",
+                     "fine_grad_norm"):
+            value = float(metrics[name])
+            if not math.isfinite(value):
+                raise FloatingPointError(
+                    f"debug_nans: {name} = {value} at step {self.state.step}")
 
     def _maybe_update_occupancy_train(self, epoch: int, train_dataset=None):
         """(Re-)bake the training grid from the live fine model at the
@@ -303,10 +424,10 @@ class NeRF:
         from keras_nerf_tpu_torch.ops import occupancy as occ_mod
 
         density = occ_mod.model_density_fn(self.fine_params, self.config)
-        grid = occ_mod.bake_occupancy_grid(
-            density, cfg["grid_size"], occ_mod.DEFAULT_AABB,
-            cfg["threshold"], dilate=cfg["dilate"], device=self.device)
-        if self._occ_train_grid is None:
+        grid = self._bake_replicated(density, cfg["grid_size"],
+                                     occ_mod.DEFAULT_AABB, cfg["threshold"],
+                                     cfg["dilate"])
+        if self._occ_train_grid is None and self.is_chief:
             logging.info("occupancy-train: first grid baked at epoch %d "
                          "(%d^3, %.1f%% occupied)", epoch, cfg["grid_size"],
                          100.0 * float(grid.mean()))
@@ -333,13 +454,23 @@ class NeRF:
             near=near, far=far, n_probe=probe, aabb=aabb)
 
     def _record(self, trackers: dict, metrics: dict, where: str) -> dict:
+        """Add ``metrics`` to ``trackers`` and warn of a zero or non-finite
+        gradient norm, naming the parameter tensor under ``debug_grads``
+        (`nerf.py:451-465`)."""
         for k, v in metrics.items():
             if k in trackers:
                 trackers[k].update(v)
+        if not self.is_chief:
+            return metrics
         for name in ("coarse_grad_norm", "fine_grad_norm"):
             g = metrics.get(name)
             if g is not None and (g == 0.0 or not math.isfinite(g)):
                 logging.warning("%s = %s %s", name, g, where)
+        for k, v in metrics.items():
+            if k.startswith("grad_norm/") and (v == 0.0
+                                               or not math.isfinite(v)):
+                logging.warning("dead/non-finite gradient in %s (norm = %s) "
+                                "%s", k[len("grad_norm/"):], v, where)
         return metrics
 
     def train_step(self, batch, fine_draws=None,
@@ -354,10 +485,23 @@ class NeRF:
                             f"at step {self.state.step}")
 
     def _eval_step(self, batch, fine_draws=None) -> dict:
+        """One evaluation. Under a group the rank's share of a global batch
+        that the ranks divide, or, where they do not divide it, the whole
+        batch on every rank with the same draws and no collective
+        (`nerf.py:321-329,480-486`)."""
+        batch = self._on_device(batch)
+        draws, chunks, kw = self._eval_draws(), self.ray_chunks, {}
+        if self.group is not None:
+            dim = 1 if self.shard_rays else 0
+            if batch[0].shape[dim] % self.group.size:
+                draws = self._eval_draws(whole=True)
+                chunks = min(chunks, self.image_height * self.image_width)
+            else:
+                batch = self._shard(batch)
+                kw = dict(group=self.group, gather_images=self.shard_rays)
         return engine.eval_step(
-            self.state, self._on_device(batch),
-            self._eval_draws() if fine_draws is None else fine_draws,
-            self.config, self.ray_chunks, self.loss_fn)
+            self.state, batch, draws if fine_draws is None else fine_draws,
+            self.config, chunks, self.loss_fn, **kw)
 
     def test_step(self, batch, fine_draws=None) -> dict[str, float]:
         """Full chunked render plus the six metrics (`nerf.py:475-497`)."""
@@ -407,7 +551,8 @@ class NeRF:
                 cb.set_model(self)
         # Pixel-sampling batches are scrambled (image, pixel) draws: the
         # windowed train SSIM is over no images (`nerf.py:679-686`).
-        if getattr(train_dataset, "PIXELWISE_METRICS_ONLY", False):
+        if (getattr(train_dataset, "PIXELWISE_METRICS_ONLY", False)
+                and self.is_chief):
             logging.warning(
                 "pixel-sampling mode: train coarse_ssim/fine_ssim are "
                 "computed over scrambled pixel batches — ignore them "
@@ -445,7 +590,7 @@ class NeRF:
             logs.update({f"val_{k}": t.result()
                          for k, t in self.val_metrics.items()})
             history.append(logs)
-            if verbose:
+            if verbose and self.is_chief:
                 logging.info("epoch %d: %s", epoch, " ".join(
                     f"{k}={v:.4f}" for k, v in logs.items()))
             for cb in callbacks:
@@ -457,11 +602,15 @@ class NeRF:
 
     def save_model(self, path: str, weights_only: bool = False):
         """Config JSON, both weight files and the optimizer state
-        (`nerf.py:790-797`), readable by ``keras_nerf_tpu``."""
+        (`nerf.py:790-797`), readable by ``keras_nerf_tpu``. Under a group
+        rank 0 writes and every rank returns once it has."""
         self._require_compiled()
-        checkpoint.save_model(path, self.state, self.config,
-                              weights_only=weights_only,
-                              train_config=self._train_config)
+        if self.is_chief:
+            checkpoint.save_model(path, self.state, self.config,
+                                  weights_only=weights_only,
+                                  train_config=self._train_config)
+        if self.group is not None:
+            self.group.barrier()
 
     def load_model(self, path: str):
         """Restore architecture, weights and optimizer state from a
@@ -491,13 +640,26 @@ class NeRF:
         per-sample weights; ``coarse_image=False`` skips the coarse colour
         heads (coarse image zero) — the orbit renderer uses both. The fine
         pass follows ``compile(fast_render=)``; ``fine_draws`` tensors are
-        then ``[ray_chunks, fast_render]``."""
+        then ``[ray_chunks, fast_render]``. Under a group each rank renders
+        its height band of ``rays`` (``fine_draws`` then those of the
+        band's chunks) and every rank returns the whole images
+        (``parallel.sharded_render``; `nerf.py:499-534`)."""
         self._require_compiled()
         rays = tuple(torch.as_tensor(x, dtype=torch.float32,
                                      device=self.device) for x in rays)
         if self.quantized_render:
             self._ensure_packed_q(rays, torch.Generator(
                 device=self.device).manual_seed(self._seed + 4))
+        if self.group is not None:
+            from keras_nerf_tpu_torch.parallel import sharded_render
+
+            render = sharded_render(self.group, self.config, self.ray_chunks,
+                                    with_weights=with_weights,
+                                    coarse_image=coarse_image,
+                                    quantized=self.quantized_render)
+            return render(self.coarse_params, self.fine_params, rays,
+                          self._generator if fine_draws is None
+                          else fine_draws, self._packed_q)
         return engine.render_image_batch(
             self.coarse_params, self.fine_params, rays,
             self._generator if fine_draws is None else fine_draws,
@@ -510,14 +672,20 @@ class NeRF:
         object (`nerf.py:536-554`), on this call's rays (strided over the
         image, :func:`engine.quantize_render_params`) with the calibration
         draws ``fine_draws``. Any weight change (a train step, a checkpoint
-        load) replaces ``self.state`` and so calibrates again."""
+        load) replaces ``self.state`` and so calibrates again. Under a
+        group rank 0's int8 weights are broadcast to the others."""
         if self._packed_q is not None and self._packed_q_state is self.state:
             return
         self._packed_q = engine.quantize_render_params(
             self.coarse_params, self.fine_params, rays, fine_draws,
             self.config)
+        if self.group is not None:
+            from keras_nerf_tpu_torch.parallel import replicate
+
+            replicate(self._packed_q, self.group)
         self._packed_q_state = self.state
-        logging.info("quantized_render: int8 weights calibrated")
+        if self.is_chief:
+            logging.info("quantized_render: int8 weights calibrated")
 
     # ------------------------------------------------ occupancy-grid rendering
 
@@ -526,7 +694,8 @@ class NeRF:
         """Bake a binary ``[G, G, G]`` occupancy grid from the FINE model's
         density over ``aabb`` (``ops/occupancy.py``; `nerf.py:558-582`):
         one ``apply_mlp`` launch per 262,144 voxels on the kernel path.
-        Logs the occupied share; :meth:`render_occupancy` renders with it."""
+        Logs the occupied share; :meth:`render_occupancy` renders with it.
+        Under a group rank 0 bakes and broadcasts the grid."""
         self._require_compiled()
         from keras_nerf_tpu_torch.ops import occupancy as occ_mod
 
@@ -534,12 +703,12 @@ class NeRF:
             aabb = occ_mod.DEFAULT_AABB
         aabb = tuple(tuple(float(v) for v in row) for row in aabb)
         density = occ_mod.model_density_fn(self.fine_params, self.config)
-        self.occ_grid = occ_mod.bake_occupancy_grid(
-            density, grid_size, aabb, sigma_threshold, dilate,
-            device=self.device)
+        self.occ_grid = self._bake_replicated(density, grid_size, aabb,
+                                              sigma_threshold, dilate)
         self._occ_aabb = aabb
-        logging.info("Baked %d^3 occupancy grid: %.1f%% occupied",
-                     grid_size, 100.0 * float(self.occ_grid.mean()))
+        if self.is_chief:
+            logging.info("Baked %d^3 occupancy grid: %.1f%% occupied",
+                         grid_size, 100.0 * float(self.occ_grid.mean()))
         return self.occ_grid
 
     def render_occupancy(
@@ -550,10 +719,12 @@ class NeRF:
         """Occupancy-accelerated render of ``rays = (origin, direction,
         points)`` with the FINE model alone, ``n_samples`` MLP points per
         ray inside occupied space: ``{"image", "depth"}`` (`nerf.py:
-        584-626`, without its mesh branch). Needs :meth:`bake_occupancy`
-        first. Compiled with ``quantized_render=True``, the fine MLP runs
-        the int8 kernel (calibrated once per state on these rays, as
-        :meth:`predict_and_render_images` does): the two tiers compose."""
+        584-626`). Needs :meth:`bake_occupancy` first. Compiled with
+        ``quantized_render=True``, the fine MLP runs the int8 kernel
+        (calibrated once per state on these rays, as
+        :meth:`predict_and_render_images` does): the two tiers compose.
+        Under a group in height bands, as :meth:`predict_and_render_images`
+        renders (``parallel.sharded_render_occ``)."""
         self._require_compiled()
         if self.occ_grid is None:
             raise RuntimeError("call bake_occupancy() before "
@@ -567,6 +738,16 @@ class NeRF:
             self._ensure_packed_q(rays, torch.Generator(
                 device=self.device).manual_seed(self._seed + 4))
             packed_q = self._packed_q[1]
+        if self.group is not None:
+            from keras_nerf_tpu_torch.parallel import sharded_render_occ
+
+            render = sharded_render_occ(
+                self.group, self.config, self.ray_chunks, near=near, far=far,
+                n_samples=n_samples, n_probe=n_probe, aabb=self._occ_aabb,
+                quantized=packed_q is not None)
+            return render(self.fine_params, rays, self.occ_grid,
+                          self._generator if fine_draws is None
+                          else fine_draws, packed_q)
         return occ_mod.render_image_batch_occ(
             self.fine_params, rays, self.occ_grid,
             self._generator if fine_draws is None else fine_draws,

@@ -118,14 +118,14 @@ def model_density_fn(params: dict, config, *, chunk: int = DENSITY_CHUNK):
     Kernel path (:func:`~keras_nerf_tpu_torch.models.engine.
     resolve_use_kernels` of the parameters' device): ``encode_block128``
     and the ``apply_mlp`` kernel (T5) over weights packed once; reference
-    path: the float32 ``apply_mlp`` with the encoding at ``t = 0``."""
+    path: ``apply_mlp`` in ``config.dtype`` with the encoding at ``t = 0``."""
     from keras_nerf_tpu_torch.kernels.ray_march import (
         apply_mlp,
         encode_block128,
         pack_mlp_params,
     )
     from keras_nerf_tpu_torch.models import engine
-    from keras_nerf_tpu_torch.models.mlp import apply_mlp as apply_mlp_f32
+    from keras_nerf_tpu_torch.models.mlp import apply_mlp as apply_mlp_ref
     from keras_nerf_tpu_torch.ops.encoding import (
         encode_position_and_directions,
     )
@@ -143,8 +143,8 @@ def model_density_fn(params: dict, config, *, chunk: int = DENSITY_CHUNK):
         enc_xyz, enc_dir = encode_position_and_directions(
             p, d, torch.zeros((p.shape[0], 1), dtype=p.dtype, device=device),
             config.pos_emb_xyz, config.pos_emb_dir)
-        _, sigma = apply_mlp_f32(params, enc_xyz[:, 0], enc_dir[:, 0],
-                                 config.mlp)
+        _, sigma = apply_mlp_ref(params, enc_xyz[:, 0], enc_dir[:, 0],
+                                 config.mlp, config.dtype)
         return sigma[:, 0]
 
     @torch.no_grad()

@@ -12,10 +12,12 @@ holds weights), evaluates the test split and saves the final model to
 ``--pixel_sampling`` (each batch's rays drawn across every train view) and
 ``--occupancy_train G`` with its ``--occupancy_train_*`` flags (the fine
 pass on depths inside a G^3 grid baked from the live fine model).
-
-Flags of the root CLI not ported yet (ROADMAP.md): ``--eagerly``,
-``--mixed_precision``, ``--debug_nans``, ``--debug_grads``,
-``--profile_dir`` and ``--use_pallas``/``--no_pallas``.
+Debugging and precision: ``--mixed_precision`` (bf16 products on the
+reference path), ``--debug_nans``, ``--debug_grads``, ``--profile_dir``,
+``--use_pallas``/``--no_pallas`` (the kernel path forced on or off) and
+``--eagerly`` (accepted; the port runs eagerly always).
+:func:`run_training` is also the per-rank body of the data-parallel CLI,
+``keras_nerf_tpu_torch.train``.
 """
 
 from __future__ import annotations
@@ -47,13 +49,44 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_epochs", type=int, default=250)
     parser.add_argument("--batch_size", type=int, default=1)
     parser.add_argument("--ray_chunks", type=int, default=2048)
+    parser.add_argument("--eagerly", action="store_true",
+                        help="disable jit (debug mode); the port has no jit "
+                             "and always runs eagerly, so this only logs")
     parser.add_argument("--learning_rate", type=float, default=1e-3)
     parser.add_argument("--lr_final", type=float, default=0.0,
                         help="exponential lr decay target over the whole "
                              "run (0 = constant lr)")
     parser.add_argument("--optimizer", type=str, default="adam",
                         choices=["adam", "sgd"])
-    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--mixed_precision", action="store_true",
+                        help="bfloat16 MLP compute on the reference path "
+                             "(the kernels' precision is their own: bf16 "
+                             "operands, float32 accumulation)")
+    parser.add_argument("--seed", type=int, default=42,
+                        help="global RNG seed (the reference hardcodes 42, "
+                             "train_single.py:10)")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="raise at once when a step's loss or gradients "
+                             "are not finite (the reference's per-gradient "
+                             "assert_all_finite, nerf.py:380-382); waits "
+                             "for every step")
+    parser.add_argument("--debug_grads", action="store_true",
+                        help="log one gradient norm per parameter tensor "
+                             "each step and warn naming any dead/non-finite "
+                             "layer (the reference eager-mode per-variable "
+                             "zero-grad counters, nerf.py:429-451); adds "
+                             "per-step metric traffic — debug only")
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="write a torch.profiler trace of the first "
+                             "training epoch to this directory")
+    parser.add_argument("--use_pallas", action="store_true",
+                        help="force the fused kernels on (default: auto — "
+                             "on for the card)")
+    parser.add_argument("--no_pallas", action="store_true",
+                        help="force the reference path (end-to-end float32 "
+                             "matmuls when --mixed_precision is off; the "
+                             "fused kernels are bf16-operand/f32-accumulate "
+                             "by design)")
     parser.add_argument("--resize_method", type=str, default="lanczos",
                         choices=["lanczos", "antialias-bilinear"])
     parser.add_argument("--pixel_sampling", action="store_true",
@@ -123,22 +156,84 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def run_training(args):
-    """Load the scene, train, evaluate and save (`train_single.py:179-327`)."""
+class ProfileFirstEpoch:
+    """A ``NeRF.fit`` callback: a ``torch.profiler`` trace of the first
+    epoch, written as ``trace_rank{r}.json`` (Chrome trace format) to
+    ``profile_dir`` (``--profile_dir``)."""
+
+    verbose = False
+
+    def __init__(self, profile_dir: str, rank: int = 0):
+        self.path = os.path.join(profile_dir, f"trace_rank{rank}.json")
+        self._prof = None
+
+    def set_model(self, model):
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if model.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(activities=activities)
+        self._prof.__enter__()
+        logging.info("Profiling to %s (stops after the first epoch)",
+                     self.path)
+
+    def on_epoch_end(self, epoch, logs):
+        if self._prof is None:
+            return
+        self._prof.__exit__(None, None, None)
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self._prof.export_chrome_trace(self.path)
+        self._prof = None
+        logging.info("Profiler trace written to %s", self.path)
+
+
+def use_kernels_flag(args) -> bool | None:
+    """``--use_pallas`` / ``--no_pallas`` as ``use_kernels``: True, False
+    or None (auto); ``--use_pallas`` wins, as in the root CLI."""
+    return True if args.use_pallas else (False if args.no_pallas else None)
+
+
+def run_training(args, group=None):
+    """Load the scene, train, evaluate and save (`train_single.py:179-327`).
+    With a ``parallel.Group`` this is one rank of the data-parallel run:
+    the global batch is ``batch_size`` times the ranks (``batch_size`` with
+    ``--shard_rays``), every rank loads every global batch and the model
+    trains on the rank's share, and rank 0 alone logs its metrics and
+    writes files."""
     from keras_nerf_tpu_torch.data import DatasetLoader
     from keras_nerf_tpu_torch.models import NeRF
     from keras_nerf_tpu_torch.utils import checkpoint as ckpt
     from keras_nerf_tpu_torch.utils.monitor import NeRFTrainMonitor
 
     logging.info(args)
+    if args.eagerly:
+        logging.info("--eagerly: the port has no jit; it always runs "
+                     "eagerly")
+    if args.debug_nans:
+        logging.info("debug_nans enabled: a non-finite loss or gradient "
+                     "raises at once")
+    shard_rays = bool(getattr(args, "shard_rays", False)) and group is not None
+    n_ranks = 1 if group is None else group.size
+    global_batch = args.batch_size if shard_rays else args.batch_size * n_ranks
+    device = args.device if group is None else group.device
+    sharding = None
+    if group is not None:
+        from keras_nerf_tpu_torch.parallel import BatchSharding
+
+        sharding = BatchSharding(group, shard_rays)
+        logging.info("Group: %d ranks (%s); global batch %d%s", n_ranks,
+                     group.backend, global_batch,
+                     " (ray-sharded: image height split across the ranks)"
+                     if shard_rays else "")
     loader = DatasetLoader(args.data_dir, args.white_bg,
                            resize_method=args.resize_method,
-                           device=args.device)
+                           device=device)
     train_dataset, val_dataset, test_dataset = loader.load_dataset(
-        batch_size=args.batch_size, image_width=args.img_wh,
+        batch_size=global_batch, image_width=args.img_wh,
         image_height=args.img_wh, near=args.near, far=args.far,
         n_sample=args.num_coarse_samples, seed=args.seed,
-        pixel_sampling=args.pixel_sampling)
+        sharding=sharding, pixel_sampling=args.pixel_sampling)
 
     model_log_dir = os.path.join(args.log_dir, args.name, "model")
     model_path = model_log_dir if ckpt.has_weights(model_log_dir) else None
@@ -148,18 +243,21 @@ def run_training(args):
                 n_fine=args.num_fine_samples, pos_emb_xyz=args.pos_emb_xyz,
                 pos_emb_dir=args.pos_emb_dir, n_layers=args.num_layers,
                 dense_units=args.num_units, skip_layer=args.skip_layer,
-                model_path=model_path)
+                model_path=model_path,
+                compute_dtype=("bfloat16" if args.mixed_precision
+                               else "float32"))
     monitor = NeRFTrainMonitor(
         dataset=test_dataset, log_dir=os.path.join(args.log_dir, args.name),
-        batch_size=args.batch_size, update_freq=args.log_freq,
+        batch_size=global_batch, update_freq=args.log_freq,
         verbose=args.verbose)
     nerf.compile(optimizer=args.optimizer, loss="mse",
-                 batch_size=args.batch_size, image_height=args.img_wh,
+                 batch_size=global_batch, image_height=args.img_wh,
                  image_width=args.img_wh, ray_chunks=args.ray_chunks,
                  white_background=args.white_bg,
                  learning_rate=args.learning_rate, lr_final=args.lr_final,
                  lr_decay_steps=args.num_epochs * max(len(train_dataset), 1),
-                 seed=args.seed, device=args.device,
+                 seed=args.seed, device=device,
+                 use_kernels=use_kernels_flag(args),
                  occupancy_train=args.occupancy_train,
                  occupancy_train_samples=args.occupancy_train_samples,
                  occupancy_train_warmup=args.occupancy_train_warmup,
@@ -170,10 +268,15 @@ def run_training(args):
                  occupancy_train_until=args.occupancy_train_until,
                  occupancy_train_dilate=args.occupancy_train_dilate,
                  pixel_sampling=args.pixel_sampling, near=args.near,
-                 far=args.far)
+                 far=args.far, group=group, shard_rays=shard_rays,
+                 debug_grads=args.debug_grads, debug_nans=args.debug_nans)
+    callbacks = [monitor]
+    if args.profile_dir:
+        callbacks.append(ProfileFirstEpoch(
+            args.profile_dir, 0 if group is None else group.rank))
     nerf.fit(train_dataset, validation_data=val_dataset,
              epochs=args.num_epochs, initial_epoch=monitor.last_epoch,
-             callbacks=[monitor])
+             callbacks=callbacks)
     test_metrics = nerf.evaluate(test_dataset)
     logging.info("Final test metrics: %s", " ".join(
         f"{k}={v:.4f}" for k, v in test_metrics.items()))

@@ -14,10 +14,16 @@ after the reference's ``NeRFTrainMonitor``,
   where it is missing the panels are skipped, with one logged line;
 * the checkpoint goes to ``{log_dir}/model`` (the full config at epoch 0,
   weights and optimizer state after).
+
+Under a model compiled with a group, the monitor runs on every rank: its
+renders are the banded, collective ones, so every rank takes part in them,
+and rank 0 alone draws the panels and writes ``log.csv`` and the
+checkpoint while the others wait.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import logging
 import os
 from csv import DictReader, DictWriter
@@ -41,7 +47,12 @@ class NeRFTrainMonitor:
         self.verbose = verbose
         self.model = None
         self._plt = None
-        self._panels = True
+        # Decided alike on every rank, since the panels' renders are
+        # collective under a group.
+        self._panels = importlib.util.find_spec("matplotlib") is not None
+        if not self._panels:
+            logging.info("matplotlib is not installed: the monitor writes "
+                         "log.csv and checkpoints, no PNG panels")
 
         self.log_model_dir = os.path.join(log_dir, "model")
         os.makedirs(self.log_model_dir, exist_ok=True)
@@ -87,19 +98,17 @@ class NeRFTrainMonitor:
     # ---------------------------------------------------------------- panels
 
     def _pyplot(self):
-        if self._plt is None and self._panels:
-            try:
-                import matplotlib
-            except ImportError:
-                logging.info("matplotlib is not installed: the monitor "
-                             "writes log.csv and checkpoints, no PNG panels")
-                self._panels = False
-                return None
+        if self._plt is None:
+            import matplotlib
+
             matplotlib.use("Agg")
             import matplotlib.pyplot as plt
 
             self._plt = plt
         return self._plt
+
+    def _chief(self) -> bool:
+        return getattr(self.model, "is_chief", True)
 
     def _panel_row(self, fig, gs, row, coarse, fine, gt, i):
         titles = ["Coarse Image", "Coarse Depth", "Fine Image", "Fine Depth",
@@ -124,10 +133,12 @@ class NeRFTrainMonitor:
         ax.set_title(title)
 
     def _save_panels(self, rays, images, name, curves=None, title=""):
-        plt = self._pyplot()
-        if plt is None:
+        if not self._panels:
             return
         coarse, fine = self.model.predict_and_render_images(rays)
+        if not self._chief():
+            return
+        plt = self._pyplot()
         for i in range(min(self.batch_size, images.shape[0])):
             fig = plt.figure(figsize=(20, 10 if curves else 5))
             gs = fig.add_gridspec(2 if curves else 1, 5)
@@ -175,14 +186,15 @@ class NeRFTrainMonitor:
             self._save_panels(fresh[1], _numpy(fresh[0]),
                               f"test_sample_{{i}}_{epoch}.png")
 
-        write_header = (not os.path.exists(self.log_csv)
-                        or os.path.getsize(self.log_csv) == 0)
-        with open(self.log_csv, "a") as f:
-            row = {"epoch": epoch, **logs}
-            writer = DictWriter(f, row.keys())
-            if write_header:
-                writer.writeheader()
-            writer.writerow(row)
+        if self._chief():
+            write_header = (not os.path.exists(self.log_csv)
+                            or os.path.getsize(self.log_csv) == 0)
+            with open(self.log_csv, "a") as f:
+                row = {"epoch": epoch, **logs}
+                writer = DictWriter(f, row.keys())
+                if write_header:
+                    writer.writeheader()
+                writer.writerow(row)
 
         self.model.save_model(self.log_model_dir, weights_only=(epoch != 0))
         self.coarse_log_list_batch, self.fine_log_list_batch = [], []

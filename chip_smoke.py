@@ -75,6 +75,11 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   [2048 x 128]; 16^2 occupancy steps on the card against the CPU (merged and
   not, the MSE step's pinning) and the cached-rows step against the probed
   one, bit for bit; 5 ``--pixel_sampling`` steps; each tier timed;
+* data parallelism (``_data_parallel_phases``), then the last ported
+  tools (``_a15_tools_phases``): ``real_scene_drill`` on its 800^2 scene
+  for 1 epoch, ``lr_probe`` with 2 arms x 1 epoch x 10 steps and
+  ``profile_step --chunks 2048`` (components, the host timeline and its
+  five longest gaps), each failing unless every T3 kernel launched in it;
 * u = 768 (3 layers) on every path: each bf16 kernel mode held against its
   plain version (twice, identical bits), the 16^2 render, an MSE and an L1
   step, a 32^3 bake, the int8 calibration and an int8 render, each against
@@ -103,6 +108,7 @@ phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -622,6 +628,10 @@ def main() -> int:
     # ---- 6d. data parallelism (A13): train --num_gpus 1 on NCCL, two
     # ranks on the card for a shard_rays step and the banded render ------
     dp_launches = _data_parallel_phases(card_tag)
+
+    # ---- 6e. the last ported tools: the real-scene drill, lr_probe and
+    # profile_step ------------------------------------------------------
+    _a15_tools_phases(card_tag)
 
     # ---- 7. times ---------------------------------------------------------
     # One call per kernel mode at its path's chunk shape, with the least
@@ -3691,6 +3701,94 @@ def _quality_tools_phase(card_tag) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+A15_LR_STEPS = 10   # lr_probe's steps an epoch, on a 10-view scene
+
+
+def _a15_tools_phases(card_tag) -> dict:
+    """The last ported tools on the card, each driven with the launch
+    counts set to 0 just before and read just after, each failing unless
+    every T3 kernel launched: (a) ``real_scene_drill`` on its 800^2 scene
+    (12 train views resized to 128^2 by ``antialias-bilinear``), 1 epoch,
+    its checks; (b) ``lr_probe`` with 2 arms x 1 epoch x 10 steps on a
+    10-view 128^2 spheres scene, its ranking finite; (c) ``profile_step
+    --chunks 2048``: the per-component ms and the five longest host gaps,
+    every component timed. Writes under ``build/`` and removes it after.
+    Returns each phase's launches."""
+    import math
+    import shutil
+
+    import torch
+
+    from keras_nerf_tpu_torch import lr_probe, profile_step, real_scene_drill
+    from keras_nerf_tpu_torch.data.synthetic import write_synthetic_scene
+    from keras_nerf_tpu_torch.kernels import reset_launch_counts
+
+    root = os.path.join(HERE, "build", "chip_smoke_a15")
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    try:
+        drill = real_scene_drill.main(["--epochs", "1", "--out",
+                                       os.path.join(root, "drill")])
+    except real_scene_drill.DrillFailed as e:
+        fail(f"real_scene_drill: {e}")
+    launches["real_scene_drill"] = _counts()
+    _ran(launches["real_scene_drill"], MSE_LAUNCHES, "real_scene_drill")
+    log(f"real_scene_drill (800^2 source -> 128^2, 1 epoch): checks "
+        f"{json.dumps(drill['checks'])}, skipped {drill['skipped']}; "
+        f"{time.perf_counter() - t0:.1f} s wall {card_tag}; launches "
+        f"{launches['real_scene_drill']}")
+
+    t0 = time.perf_counter()
+    data = write_synthetic_scene(os.path.join(root, "scene"), image_wh=IMG,
+                                 n_train=A15_LR_STEPS, n_val=2, n_test=1)
+    reset_launch_counts()
+    ranked = lr_probe.main([
+        "--data_dir", data, "--img_wh", str(IMG), "--white_bg", "--epochs",
+        "1", "--steps_per_epoch", str(A15_LR_STEPS), "--recipes", "1e-3:0",
+        "5e-4:5e-6"])
+    launches["lr_probe"] = _counts()
+    _ran(launches["lr_probe"], MSE_LAUNCHES, "lr_probe")
+    if len(ranked) != 2 or not all(math.isfinite(v) for row in ranked
+                                   for v in row[1]):
+        fail(f"lr_probe: {ranked}")
+    log(f"lr_probe (2 arms x 1 epoch x {A15_LR_STEPS} steps, {IMG}^2): "
+        + ", ".join(f"[{label}] val {curve[-1]:.4f} dB in {sec:.1f} s"
+                    for label, curve, sec, _ in ranked)
+        + f"; {time.perf_counter() - t0:.1f} s wall {card_tag}; launches "
+        f"{launches['lr_probe']}")
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    prof = profile_step.main(["--chunks", str(TRAIN_CHUNK)])
+    launches["profile_step"] = _counts()
+    _ran(launches["profile_step"], MSE_LAUNCHES, "profile_step")
+    comps = prof["components_ms"]
+    gaps = prof["host_timeline"]["longest_gaps"]
+    if (not all(math.isfinite(v) for v in comps.values())
+            or not all(comps[c] > 0 for c in profile_step.COMPONENTS)
+            or len(gaps) != 5):
+        fail(f"profile_step: {comps}, gaps {gaps}")
+    log(f"profile_step --chunks {TRAIN_CHUNK}: train_step "
+        f"{prof['train_step_ms'][str(TRAIN_CHUNK)]:.3f} ms, components "
+        + ", ".join(f"{k} {v:.3f}" for k, v in comps.items())
+        + f" ms/step; {prof['host_timeline']['launches']} launches a step "
+        f"by range {json.dumps(prof['host_timeline']['launches_by_range'])},"
+        f" host blocked on a full launch queue "
+        f"{prof['host_timeline']['queue_full_ms']:.3f} ms; five longest host "
+        f"gaps " + "; ".join(f"{g['gap_ms']:.3f} ms after {g['after']} "
+                             f"before {g['before']}" for g in gaps)
+        + f"; {time.perf_counter() - t0:.1f} s wall {card_tag}; launches "
+        f"{launches['profile_step']}")
+    shutil.rmtree(root, ignore_errors=True)
+    # The three runs' models are gone: return their cached blocks.
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # The occupancy-train tier and pixel sampling.
 
@@ -4319,6 +4417,10 @@ def _dp_ranks_phase(root: str, trained, card_tag) -> dict:
     torch.save(inputs, inputs_path)
     out_dir = os.path.join(root, "dp_out")
     os.makedirs(out_dir, exist_ok=True)
+    # The ranks share the card with this process: hand its cached blocks
+    # back first.
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
         run_ranks(_dp_worker, (inputs_path, out_dir), DP_RANKS, "cuda:0",
@@ -4417,6 +4519,13 @@ def _data_parallel_phases(card_tag) -> dict:
     t0 = time.perf_counter()
     write_synthetic_scene(os.path.join(root, "scene"), image_wh=IMG,
                           n_train=DP_STEPS, n_val=1, n_test=1)
+    # NCCL and the spawned ranks allocate outside this process's caching
+    # allocator: hand its cached blocks back first.
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"card memory before the data-parallel phases: allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
     launches = {"train_nccl_world1": _dp_world1_phase(root, card_tag)}
     trained = _load_state(os.path.join(root, "model", "world1"))
     for path, counts in _dp_ranks_phase(root, trained, card_tag).items():

@@ -3,7 +3,9 @@
     python -m keras_nerf_tpu_torch.inference --model_dirs model/lego_128 \\
         --img_wh 128 --white_bg --output_dir output
 
-Loads a checkpoint written by ``keras_nerf_tpu`` (``--model_dirs``), builds
+Loads a checkpoint written by ``keras_nerf_tpu`` (``--model_dirs``; a
+directory holding only a reference ``.h5`` artifact is converted in place
+first, which needs ``h5py``), builds
 ``pose_spherical`` cameras for theta in ``0..350`` step ``--output_freq``,
 renders each frame's fine image and depth through the kernel path and
 writes ``{name}.gif`` and ``{name}_depth.gif`` at 20 fps. Runs on ``cuda``
@@ -202,6 +204,9 @@ def main(argv=None):
     from keras_nerf_tpu_torch.parallel import run_ranks, world_size
     from keras_nerf_tpu_torch.utils import checkpoint as ckpt
 
+    # A reference .h5 artifact is converted in place first
+    # (`inference.py:145-147`, utils/import_h5.py).
+    ckpt.maybe_import_reference(args.model_dirs)
     if not ckpt.has_weights(args.model_dirs):
         raise FileNotFoundError(
             f"Model weights not found in {args.model_dirs} (need "

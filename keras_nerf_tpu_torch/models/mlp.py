@@ -87,3 +87,13 @@ def apply_mlp(params: Params, enc_xyz: torch.Tensor, enc_dir: torch.Tensor,
     rgb_features = _dense(features, params["rgb_features"], compute_dtype)
     rgb = torch.sigmoid(_dense(rgb_features, params["rgb"], compute_dtype))
     return rgb.to(torch.float32), sigma.to(torch.float32)
+
+
+def param_count(params: Params) -> int:
+    """The number of parameters of a tree of tensors or arrays
+    (`models/mlp.py:144-145`)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return math.prod(params.shape)

@@ -24,9 +24,11 @@ from keras_nerf_tpu_torch.ops.occupancy import (
 )
 from keras_nerf_tpu_torch.ops.rendering import RenderOutput, render_rays
 from keras_nerf_tpu_torch.ops.sampling import (
+    batched_searchsorted_right,
     invert_cdf,
     merge_sorted,
     midpoints,
+    sample_pdf,
     sample_pdf_sorted,
     sorted_uniforms,
     stratified_sample_points,
@@ -34,11 +36,12 @@ from keras_nerf_tpu_torch.ops.sampling import (
 
 __all__ = [
     "DEFAULT_AABB", "RenderOutput", "bake_occupancy_grid",
-    "block_permutation", "dilate_occupancy", "encode_position_and_directions",
-    "encoded_dim", "grid_coordinates", "invert_cdf", "merge_sorted",
-    "midpoints", "model_density_fn", "mse", "occupancy_along_rays",
-    "positional_encoding", "positional_encoding_block", "probe_bin_mids",
-    "probe_rows_for_poses", "psnr", "render_image_batch_occ", "render_rays",
-    "sample_occupied", "sample_pdf_sorted", "sorted_uniforms", "ssim",
+    "batched_searchsorted_right", "block_permutation", "dilate_occupancy",
+    "encode_position_and_directions", "encoded_dim", "grid_coordinates",
+    "invert_cdf", "merge_sorted", "midpoints", "model_density_fn", "mse",
+    "occupancy_along_rays", "positional_encoding",
+    "positional_encoding_block", "probe_bin_mids", "probe_rows_for_poses",
+    "psnr", "render_image_batch_occ", "render_rays", "sample_occupied",
+    "sample_pdf", "sample_pdf_sorted", "sorted_uniforms", "ssim",
     "stratified_sample_points",
 ]

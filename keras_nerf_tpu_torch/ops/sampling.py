@@ -42,6 +42,27 @@ def stratified_sample_points(
     return torch.clamp(t + noise, near, far)
 
 
+def batched_searchsorted_right(cdf: torch.Tensor,
+                               u: torch.Tensor) -> torch.Tensor:
+    """``searchsorted(cdf, u, side="right")`` for every leading index:
+    ``cdf [..., S]`` sorted along its last axis, queries ``u [..., N]``;
+    int32 ``[..., N]`` indices in ``0..S``, each the count of CDF entries
+    ``<= u`` (`ops/sampling.py:48-60`)."""
+    le = cdf[..., None, :] <= u[..., :, None]               # [..., N, S]
+    return le.sum(dim=-1, dtype=torch.int32)
+
+
+def sample_pdf(generator: torch.Generator, mid_points: torch.Tensor,
+               weights: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """Inverse-CDF depths ``[..., n_samples]``, NOT sorted, from unsorted
+    uniform draws of ``generator`` over bins ``mid_points [..., S]`` with
+    weights ``[..., S+1]`` (the full coarse weights, `nerf.py:186-187`;
+    `ops/sampling.py:63-87`, `keras_nerf/model/nerf/utils.py:61-97`)."""
+    u = torch.rand((*mid_points.shape[:-1], n_samples), generator=generator,
+                   dtype=mid_points.dtype, device=mid_points.device)
+    return invert_cdf(u, mid_points, weights)
+
+
 def invert_cdf(u: torch.Tensor, mid_points: torch.Tensor,
                weights: torch.Tensor) -> torch.Tensor:
     """Inverse-CDF depths for the draws ``u [..., N]`` over bins

@@ -20,7 +20,11 @@ import os
 
 import numpy as np
 
-from keras_nerf_tpu_torch.models.engine import NeRFConfig, TrainState
+from keras_nerf_tpu_torch.models.engine import (
+    NeRFConfig,
+    TrainState,
+    tree_leaves,
+)
 from keras_nerf_tpu_torch.utils.convert import (
     opt_state_from_jax,
     opt_state_to_jax,
@@ -75,6 +79,23 @@ def has_weights(path: str) -> bool:
     """Both weight files exist."""
     return (os.path.exists(os.path.join(path, COARSE_WEIGHTS))
             and os.path.exists(os.path.join(path, FINE_WEIGHTS)))
+
+
+def maybe_import_reference(path: str) -> bool:
+    """Where ``path`` holds a reference ``.h5`` artifact and no msgpack
+    weights, convert it in place (:mod:`~keras_nerf_tpu_torch.utils.
+    import_h5`; `checkpoint.py:133-150`). Returns True if it converted.
+    Without ``h5py`` the conversion raises an error that names it."""
+    if has_weights(path):
+        return False
+    from keras_nerf_tpu_torch.utils.import_h5 import (
+        find_h5_pair, import_reference_model)
+
+    if find_h5_pair(path) is None:
+        return False
+    logging.info("found reference .h5 checkpoint in %s; importing", path)
+    import_reference_model(path)
+    return True
 
 
 def _ext_hook(code: int, data: bytes):
@@ -134,6 +155,20 @@ def load_params(path: str, device=None):
     return tuple(
         params_from_jax(read_msgpack_tree(os.path.join(path, name)), device)
         for name in (COARSE_WEIGHTS, FINE_WEIGHTS))
+
+
+def load_weights(path: str, target_coarse, target_fine):
+    """Both parameter trees from ``path``, refused unless each has its
+    target's layout, as float32 tensors on the targets' device
+    (`checkpoint.py:153-159`)."""
+    device = tree_leaves(target_coarse)[0].device
+    loaded = load_params(path, device)
+    for name, got, want in zip(("coarse", "fine"), loaded,
+                               (target_coarse, target_fine)):
+        if not _same_layout(got, want):
+            raise ValueError(f"{name} weights in {path} do not have the "
+                             "target's layout")
+    return loaded
 
 
 def save_model(path: str, state: TrainState, config: NeRFConfig,

@@ -80,6 +80,17 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
   for 1 epoch, ``lr_probe`` with 2 arms x 1 epoch x 10 steps and
   ``profile_step --chunks 2048`` (components, the host timeline and its
   five longest gaps), each failing unless every T3 kernel launched in it;
+  then the profilers ported last at small sizes (``A15_PROFILERS``:
+  ``profile_render`` and its ``--components``, ``profile_occtrain``,
+  ``profile_probe``, ``profile_shard_step``, ``profile_pallas`` and its
+  ``--components``, ``profile_ablate``, which builds every ablation
+  library of both forwards, holds the build without a macro bit for bit
+  against the package's kernels and times each ablation beside it), each
+  failing unless every kernel it times launched in it; ``aabb_demo`` on a
+  scale-2 16^2 scene and ``quantize_sim_ptq`` in its three modes on a
+  16^2 scene, each trained 2 epochs, and the run-log tools
+  (``extract_milestones``, ``plot_quality``, ``plot_compare``) on the
+  r5best run log;
 * u = 768 (3 layers) on every path: each bf16 kernel mode held against its
   plain version (twice, identical bits), the 16^2 render, an MSE and an L1
   step, a 32^3 bake, the int8 calibration and an int8 render, each against
@@ -385,6 +396,16 @@ def main() -> int:
         if line.startswith("==") or "registers" in line or "spill" in line \
                 or "Compiling entry" in line:
             log("  " + line.strip())
+    # profile_ablate's ten libraries build on the host's cores while the
+    # card runs the phases below; _a15_profiler_phases waits for them.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from keras_nerf_tpu_torch import profile_ablate
+
+    ablation_pool = ThreadPoolExecutor(max_workers=1)
+    ablation_builds = ablation_pool.submit(profile_ablate.build_all,
+                                           profile_ablate.build_plan())
+    ablation_pool.shutdown(wait=False)
 
     # ---- 3. per-kernel check at main-path shapes -------------------------
     cfg = NeRFConfig(n_coarse=N_COARSE, n_fine=N_FINE, white_background=True)
@@ -631,7 +652,7 @@ def main() -> int:
 
     # ---- 6e. the last ported tools: the real-scene drill, lr_probe and
     # profile_step ------------------------------------------------------
-    _a15_tools_phases(card_tag)
+    _a15_tools_phases(card_tag, ablation_builds)
 
     # ---- 7. times ---------------------------------------------------------
     # One call per kernel mode at its path's chunk shape, with the least
@@ -3704,7 +3725,7 @@ def _quality_tools_phase(card_tag) -> None:
 A15_LR_STEPS = 10   # lr_probe's steps an epoch, on a 10-view scene
 
 
-def _a15_tools_phases(card_tag) -> dict:
+def _a15_tools_phases(card_tag, ablation_builds) -> dict:
     """The last ported tools on the card, each driven with the launch
     counts set to 0 just before and read just after, each failing unless
     every T3 kernel launched: (a) ``real_scene_drill`` on its 800^2 scene
@@ -3712,7 +3733,8 @@ def _a15_tools_phases(card_tag) -> dict:
     its checks; (b) ``lr_probe`` with 2 arms x 1 epoch x 10 steps on a
     10-view 128^2 spheres scene, its ranking finite; (c) ``profile_step
     --chunks 2048``: the per-component ms and the five longest host gaps,
-    every component timed. Writes under ``build/`` and removes it after.
+    every component timed; then :func:`_a15_profiler_phases`, which waits
+    for ``ablation_builds``. Writes under ``build/`` and removes it after.
     Returns each phase's launches."""
     import math
     import shutil
@@ -3782,10 +3804,148 @@ def _a15_tools_phases(card_tag) -> dict:
                              f"before {g['before']}" for g in gaps)
         + f"; {time.perf_counter() - t0:.1f} s wall {card_tag}; launches "
         f"{launches['profile_step']}")
+    launches.update(_a15_profiler_phases(root, card_tag, ablation_builds))
     shutil.rmtree(root, ignore_errors=True)
-    # The three runs' models are gone: return their cached blocks.
+    # The runs' models are gone: return their cached blocks.
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# The tools' small sizes on the card: each launches the kernels it times.
+A15_PROFILERS = (
+    # (module, argv, kernels that must launch in it)
+    ("profile_render", ["--img_wh", "128", "--chunks", "4096", "--iters",
+                        "2"], ("sample_merge", "ray_march_mlp",
+                               "ray_march_quadrature")),
+    ("profile_render", ["--components", "--img_wh", "128", "--chunk", "2048",
+                        "--iters", "2"], tuple(MSE_LAUNCHES)),
+    ("profile_occtrain", ["--img_wh", "64", "--chunks", "2048", "--iters",
+                          "2"], tuple(MSE_LAUNCHES)),
+    ("profile_probe", ["--iters", "5"], ()),
+    ("profile_shard_step", ["--n", "1", "4", "--iters", "2", "--ray_chunks",
+                            "2048"], tuple(MSE_LAUNCHES)),
+    ("profile_pallas", ["--iters", "2", "--chunks", "2048", "4096"],
+     (*MSE_LAUNCHES, *CUSTOM_LAUNCHES)),
+    ("profile_pallas", ["--components", "--iters", "2", "--launch_points",
+                        "196608", "393216"], tuple(CUSTOM_LAUNCHES)),
+    # Every ablation library built; the build without a macro held bit for
+    # bit against the package's kernel inside the tool.
+    ("profile_ablate", ["--iters", "8"],
+     ("ray_march_mlp", "ray_march_quadrature", "mlp_backward",
+      "mlp_weight_grad", "ray_march_mlp_int8")),
+)
+
+
+def _a15_profiler_phases(root: str, card_tag, ablation_builds) -> dict:
+    """The profilers and the quality and log tools ported last, each driven
+    through its ``main`` with the launch counts set to 0 just before and
+    read just after, failing unless each kernel it times launched: the
+    runs of :data:`A15_PROFILERS` (``profile_ablate``'s ms of each
+    ablation printed beside the build without a macro), then ``aabb_demo``
+    on a scale-2 16^2 scene and ``quantize_sim_ptq`` in its three modes on
+    a 16^2 scene, each trained 2 epochs, and the log tools on the repo's
+    r5best run log. ``ablation_builds``: the future of
+    ``profile_ablate.build_all``, started after the package's build.
+    Returns each run's launches."""
+    import importlib
+    import math
+
+    from keras_nerf_tpu_torch import train_single
+    from keras_nerf_tpu_torch.data.synthetic import write_synthetic_scene
+    from keras_nerf_tpu_torch.kernels import reset_launch_counts
+
+    t0 = time.perf_counter()
+    try:
+        ablation_builds.result()
+    except RuntimeError as e:
+        fail(f"profile_ablate's builds: {e}")
+    log(f"profile_ablate's 10 libraries built (waited "
+        f"{time.perf_counter() - t0:.1f} s here)")
+    launches = {}
+    for name, argv, kernels in A15_PROFILERS:
+        tool = importlib.import_module(f"keras_nerf_tpu_torch.{name}")
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        out = tool.main(argv)
+        label = f"{name} {' '.join(argv)}"
+        launches[label] = _counts()
+        _ran(launches[label], kernels, label)
+        if name == "profile_ablate":
+            rows = out["readings"]
+            if any(r["ms"] is None for row in rows.values()
+                   for r in row.values()) or not out["bit_for_bit"]:
+                fail(f"profile_ablate: a build was not timed or not held "
+                     f"against the package's kernel: {json.dumps(out)}")
+            for key, row in rows.items():
+                log(f"profile_ablate {key}: " + ", ".join(
+                    f"{abl} {r['ms']:.4f} ms" for abl, r in row.items())
+                    + f" {card_tag}")
+            log(f"profile_ablate: the build without a macro equals the "
+                f"package's kernel bit for bit "
+                f"{json.dumps(out['bit_for_bit'])}")
+        log(f"{label}: {time.perf_counter() - t0:.1f} s wall {card_tag}; "
+            f"launches {launches[label]}")
+        gc.collect()
+
+    t0 = time.perf_counter()
+    tools = {}
+    for scene, kw, near_far in (("scaled2", dict(scale=2.0), ("4", "12")),
+                                ("spheres", {}, ("2", "6"))):
+        data = write_synthetic_scene(os.path.join(root, scene),
+                                     image_wh=TOOLS_IMG, n_train=4, n_val=2,
+                                     n_test=2, **kw)
+        train_single.run_training(train_single.build_arg_parser().parse_args([
+            "--name", scene, "--data_dir", data, "--img_wh", str(TOOLS_IMG),
+            "--white_bg", "--num_epochs", "2", "--ray_chunks", "256",
+            "--near", near_far[0], "--far", near_far[1],
+            "--log_dir", os.path.join(root, "logs"),
+            "--model_dirs", os.path.join(root, "model")]))
+        tools[scene] = (os.path.join(root, "model", scene), data)
+    from keras_nerf_tpu_torch import aabb_demo, quantize_sim_ptq
+
+    model, data = tools["scaled2"]
+    reset_launch_counts()
+    demo = aabb_demo.main(["--model_path", model, "--data_dir", data,
+                           "--img_wh", str(TOOLS_IMG), "--white_bg",
+                           "--ray_chunks", "256", "--occ_grid", "16",
+                           "--aabb", "-4", "-4", "-4", "4", "4", "4"])
+    launches["aabb_demo"] = _counts()
+    _ran(launches["aabb_demo"], ("sample_merge", "ray_march_mlp",
+                                 "ray_march_quadrature", "apply_mlp"),
+         "aabb_demo")
+    if not all(math.isfinite(demo[k]) for k in (
+            "exact_psnr", "occ_default_aabb_psnr", "occ_correct_aabb_psnr")):
+        fail(f"aabb_demo: {demo}")
+    log(f"aabb_demo ({TOOLS_IMG}^2 scale-2 scene, 2 epochs): "
+        f"{json.dumps(demo)}")
+    model, data = tools["spheres"]
+    for mode in ("smooth", "tensor", "feature"):
+        sim = quantize_sim_ptq.main([
+            "--model", model, "--data", data, "--img_wh", str(TOOLS_IMG),
+            "--ray_chunks", "256", "--calib_points", "1024", "--mode", mode])
+        if not all(math.isfinite(v) for k, v in sim.items()
+                   if k.startswith(("psnr", "delta"))):
+            fail(f"quantize_sim_ptq {mode}: {sim}")
+        log(f"quantize_sim_ptq --mode {mode} ({TOOLS_IMG}^2, 2 epochs): "
+            f"f32 {sim['psnr_f32']:.4f} dB, int8 c+f "
+            f"{sim['delta_coarse_fine']:+.4f}, fine only "
+            f"{sim['delta_fine']:+.4f}")
+
+    from keras_nerf_tpu_torch import (extract_milestones, plot_compare,
+                                      plot_quality)
+    run_log = os.path.join(HERE, "assets", "quality128_r5best_torch_run.log")
+    csv = os.path.join(HERE, "assets", "quality128_r5best_torch_log.csv")
+    ms = extract_milestones.main([run_log])
+    pq = plot_quality.main([csv, "--run_log", run_log, "--out_png",
+                            os.path.join(root, "q.png")])
+    pc = plot_compare.main([os.path.join(root, "c.png"), f"r5best={run_log}"])
+    if (ms["epochs"] != 100 or [r["epoch"] for r in pq["rows"]] != [3, 6, 9]
+            or pc["milestones"]["r5best"] != pq["rows"]):
+        fail(f"log tools: {ms}, {pq['rows']}, {pc['milestones']}")
+    log(f"quality and log tools (aabb_demo, quantize_sim_ptq x 3, "
+        f"extract_milestones, plot_quality, plot_compare): "
+        f"{time.perf_counter() - t0:.1f} s wall {card_tag}")
     return launches
 
 

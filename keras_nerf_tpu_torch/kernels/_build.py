@@ -163,18 +163,20 @@ def _declare(lib: ctypes.CDLL, names=ENTRY_POINTS) -> None:
         fn.restype = _I
 
 
-def build_single(source: Path, out_dir: Path, names) -> ctypes.CDLL:
+def build_single(source: Path, out_dir: Path, names,
+                 defines=()) -> ctypes.CDLL:
     """One ``.cu`` file (of this or another checkout) compiled alone with
     this package's flags into a library of its own, its C entry points
     ``names`` declared as :func:`load` declares them: the timing tools
     launch another build of a kernel through this package's wrappers.
-    What the compiler printed (``-Xptxas -v``) goes to ``build.log``
-    beside it."""
+    ``defines`` adds ``-D`` macros (``profile_ablate``'s ``KNT_ABL_*``
+    builds; :func:`load` never passes one). What the compiler printed
+    (``-Xptxas -v``) goes to ``build.log`` beside it."""
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"lib{source.stem}.so"
     (out_dir / "build.log").write_text(_run(
-        [find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib_path),
-         str(source)]))
+        [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-shared",
+         "-o", str(lib_path), str(source)]))
     lib = ctypes.CDLL(str(lib_path))
     _declare(lib, names)
     return lib

@@ -4,7 +4,8 @@
 // :875. Each point's argument is rep = base_r + t * slope_r (per-ray
 // coefficients from ray_encoding_coeffs); cos lanes add pi/2, sin and cos
 // lanes are range-reduced by 2 pi before a degree-9 polynomial, raw lanes
-// keep rep, empty lanes are 0.
+// keep rep, empty lanes are 0. With KNT_ABL_NOSIN (profile_ablate's build,
+// never the package's) the sine lanes keep their shifted argument instead.
 #pragma once
 
 #include "common.cuh"
@@ -41,8 +42,12 @@ __device__ __forceinline__ float encode_lane(const float* __restrict__ base,
   if (masks[kEncLanes + l] != 0.f || masks[2 * kEncLanes + l] != 0.f) {
     const float shifted =
         masks[2 * kEncLanes + l] != 0.f ? __fadd_rn(rep, kHalfPi) : rep;
+#if defined(KNT_ABL_NOSIN)
+    return shifted;  // profile_ablate's nosin build: no reduction, no sine
+#else
     const float turns = rintf(__fmul_rn(shifted, kInvTwoPi));
     return sin_poly(__fmaf_rn(-kTwoPi, turns, shifted));
+#endif
   }
   return 0.f;
 }
@@ -62,8 +67,12 @@ __device__ __forceinline__ int lane_kind(const float* __restrict__ masks, int l)
 __device__ __forceinline__ float encode_value(float t, float slope, float base, int kind) {
   const float rep = __fmaf_rn(t, slope, base);
   const float shifted = kind == 3 ? __fadd_rn(rep, kHalfPi) : rep;
+#if defined(KNT_ABL_NOSIN)
+  const float s = shifted;
+#else
   const float turns = rintf(__fmul_rn(shifted, kInvTwoPi));
   const float s = sin_poly(__fmaf_rn(-kTwoPi, turns, shifted));
+#endif
   return kind == 1 ? rep : kind == 0 ? 0.f : s;
 }
 

@@ -82,6 +82,11 @@
 //   block per SM.
 // * No atomics and a fixed k order: two runs give identical bits. A ring
 //   fault traps (gmma::mbar_wait) instead of holding the card.
+// * Ablation builds (profile_ablate, never the package's library): on the
+//   resident route KNT_ABL_NOENC skips the encoding tile, KNT_ABL_NOEPI the
+//   trunk epilogues' bias and relu, KNT_ABL_NOSTASH the train mode's stash
+//   stores; KNT_ABL_NOSIN acts in encode.cuh. Each computes the wrong
+//   function on purpose.
 #include <cuda.h>
 
 #include <cstring>
@@ -310,12 +315,17 @@ __device__ __forceinline__ void run_layer(const FwdParams& prm, const Smem& sm, 
     const float b0 = l.bias[c], b1 = l.bias[c + 1];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+#if defined(KNT_ABL_NOEPI)
+      // profile_ablate's noepi build: no bias, no relu (wrong math).
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+#else
       float v0 = __fadd_rn(acc[4 * j + 2 * h], b0);
       float v1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
       if (relu) {
         v0 = fmaxf(v0, 0.f);
         v1 = fmaxf(v1, 0.f);
       }
+#endif
       const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
       *reinterpret_cast<__nv_bfloat162*>(sm.act + swz<kTile>(r0 + 8 * h, c)) = o;
       const float x0 = __low2float(o), x1 = __high2float(o);
@@ -352,6 +362,7 @@ __device__ __forceinline__ void run_layer(const FwdParams& prm, const Smem& sm, 
   gmma::fence_proxy_async();
   gmma::bar_sync(bar, bar_threads);
 
+#if !defined(KNT_ABL_NOSTASH)  // profile_ablate's nostash build
   if (prm.train) {
     bf16* dst = L < prm.n ? prm.stash.h[L] : L == prm.n ? prm.stash.features : prm.stash.rf;
     if (kSplitCols)
@@ -359,6 +370,7 @@ __device__ __forceinline__ void run_layer(const FwdParams& prm, const Smem& sm, 
     else
       store_tile<kTile>(dst, p0, a_row, min(a_row + 64, rows), l.n, sm.act, t, 128);
   }
+#endif
 }
 
 // u = 768: a warpgroup's half of a product's columns (384; rgb_features'
@@ -436,12 +448,17 @@ __device__ __forceinline__ void wide_pass(const FwdParams& prm, const Smem& sm, 
     const float b0 = l.bias[c], b1 = l.bias[c + 1];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+#if defined(KNT_ABL_NOEPI)
+      // profile_ablate's noepi build: no bias, no relu (wrong math).
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+#else
       float v0 = __fadd_rn(acc[4 * j + 2 * h], b0);
       float v1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
       if (relu) {
         v0 = fmaxf(v0, 0.f);
         v1 = fmaxf(v1, 0.f);
       }
+#endif
       const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
       if constexpr (kLast)
         *reinterpret_cast<__nv_bfloat162*>(sm.act + swz<kTile>(r0 + 8 * h, c)) = o;
@@ -476,10 +493,12 @@ __device__ __forceinline__ void wide_pass(const FwdParams& prm, const Smem& sm, 
   }
   gmma::fence_proxy_async();
   gmma::bar_sync(kFullBar, kConsumers);
+#if !defined(KNT_ABL_NOSTASH)
   if (prm.train) {
     bf16* dst = L < prm.n ? prm.stash.h[L] : L == prm.n ? prm.stash.features : prm.stash.rf;
     store_tile<kTile>(dst, p0, 0, rows, l.n, sm.act, ct, kConsumers);
   }
+#endif
 }
 
 // One product at u = 768: every pass of each warpgroup's half.
@@ -515,6 +534,7 @@ __device__ __forceinline__ void prologue(const FwdParams& prm, const Smem& sm, i
   if (prm.products > prm.n)
     for (int i = ct; i < u / 2 * 3; i += kConsumers)
       sm.wrgb[i] = __bfloat162float(prm.w.w_rgb[(i / 3) * kEncLanes + i % 3]);
+#if !defined(KNT_ABL_NOENC)  // profile_ablate's noenc build: no encoding tile
   if (!kEncIn) {
     // Positional encoding of the tile's points (ray_march.py:1259-1280),
     // 8 lanes (one 16-byte chunk) per thread and step.
@@ -535,13 +555,17 @@ __device__ __forceinline__ void prologue(const FwdParams& prm, const Smem& sm, i
       *reinterpret_cast<uint4*>(sm.enc + swz<kTile>(r, c)) = make_uint4(q[0], q[1], q[2], q[3]);
     }
   }
+#endif
   gmma::fence_proxy_async();
   gmma::bar_sync(kFullBar, kConsumers);
   if (kEncIn) {
     gmma::mbar_wait(sm.enc_full, 0);
-  } else if (prm.train) {
+  }
+#if !defined(KNT_ABL_NOSTASH)
+  else if (prm.train) {
     store_tile<kTile>(prm.stash.enc, p0, 0, rows, kEncLanes, sm.enc, ct, kConsumers);
   }
+#endif
 }
 
 // The outputs of the tile's points: sigma = relu(h . w_sf[:, u] (+ enc .

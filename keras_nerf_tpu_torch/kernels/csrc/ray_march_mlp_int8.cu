@@ -62,6 +62,10 @@
 //   stored. Sigma-only mode stops after the trunk.
 // * No atomics and a fixed order: two runs give identical bits. A ring
 //   fault traps (gmma::mbar_wait) instead of holding the card.
+// * Ablation builds (profile_ablate, never the package's library): with
+//   KNT_ABL_NOENC the encoding is not made, with KNT_ABL_NOEPI a code is
+//   its accumulator's low bits; KNT_ABL_NOSIN acts in encode.cuh. Each
+//   computes the wrong function on purpose.
 #include <cuda.h>
 
 #include "encode.cuh"
@@ -339,9 +343,15 @@ __device__ __forceinline__ void part_epilogue(const I8Params& prm, const Layer& 
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * j + 2 * h + e;
+#if defined(KNT_ABL_NOEPI)
+        // profile_ablate's noepi build: the accumulator's low bits as the
+        // code; no dequantization, bias, relu or requantization (wrong math).
+        bits[e] = 0x4B400000u + (static_cast<uint32_t>(acc[i]) & 0x7Fu);
+#else
         float v = __fmul_rn(__int2float_rn(acc[i]), e ? uu.y : uu.x);
         if (enc) v = __fadd_rn(v, __fmul_rn(__int2float_rn(acc_e[i]), e ? ue.y : ue.x));
         bits[e] = quant_bits(__fadd_rn(v, e ? bb.y : bb.x), e ? rr.y : rr.x, lo);
+#endif
         q[e] = static_cast<int>(bits[e] - 0x4B400000u);
       }
       // The two codes' low bytes side by side, at swz(r0 + 8 h, c).
@@ -514,6 +524,7 @@ mlp_int8_kernel(const __grid_constant__ I8Params prm) {
   // lane i % 128 of every other row. Its rows' depths are read at once, and
   // its ray's coefficients again only where the ray changes (a tile spans
   // one or two rays of S >= 64).
+#if !defined(KNT_ABL_NOENC)  // profile_ablate's noenc build: no encoding
   {
     constexpr int kRows = kTile / (kThreads / kEncLanes);
     const int l = threadIdx.x % kEncLanes, kind = lane_kind(prm.masks, l);
@@ -545,6 +556,7 @@ mlp_int8_kernel(const __grid_constant__ I8Params prm) {
       sm.qenc[swz(r, l)] = static_cast<uint8_t>(quant(x, r0));
     }
   }
+#endif
   gmma::fence_proxy_async();
   __syncthreads();
 

@@ -2238,6 +2238,34 @@ def bwd_dx_flop_per_point(config) -> int:
             + 2 * u * u * (config.n_layers - 1))
 
 
+def padded_fwd_flop_per_point(config, sigma_only: bool = False) -> int:
+    """Padded forward FLOPs per point: the products of the JAX package's
+    Pallas forward against its packed layout (`ray_march.py:194-229`), the
+    encoded input a 128-lane block and the heads lane-padded. The FLOP
+    model behind the JAX package's MFU figures; :func:`fwd_flop_per_point`
+    is the work the function needs. 8 x 256: 1,376,256 (1,114,112
+    sigma-only)."""
+    u = config.dense_units
+    skip = set(config.skip_indices())
+    last_skip = (config.n_layers - 1) in skip
+    flops = 2 * LANE * u
+    for i in range(1, config.n_layers):
+        flops += 2 * u * u
+        if i - 1 in skip:   # the layer after a skip concat reads the encoding
+            flops += 2 * LANE * u
+    if sigma_only:
+        flops += 2 * u * LANE
+        if last_skip:
+            flops += 2 * LANE * LANE
+        return flops
+    flops += 2 * u * (u + LANE)
+    if last_skip:
+        flops += 2 * LANE * (u + LANE)
+    half = u // 2
+    flops += 2 * u * half + 2 * LANE * half + 2 * half * LANE
+    return flops
+
+
 def fwd_flop_per_point(config, pos_emb_xyz: int = 10,
                        pos_emb_dir: int = 4, sigma_only: bool = False) -> int:
     """Unpadded forward FLOPs per point (2 per multiply-add): the work the

@@ -42,9 +42,10 @@ import time
 import numpy as np
 import torch
 
+from keras_nerf_tpu_torch.timing import LAUNCH_PREFIXES, sync
+
 COMPONENTS = ("ray batch", "coarse pass", "sample_merge", "fine pass",
               "backward kernels", "adam")
-_LAUNCH_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy")
 _TOP_GAPS = 5
 
 
@@ -64,11 +65,6 @@ class _Clock:
 
     def ms(self, a, b) -> float:
         return a.elapsed_time(b) if self.cuda else 1e3 * (b - a)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def headline(device: torch.device, img_wh: int, seed: int = 0):
@@ -103,13 +99,13 @@ def step_ms(state, batch, gen, opt, cfg, chunks: int, iters: int,
 
     for _ in range(2):
         state, _ = engine.train_step(state, batch, gen, opt, cfg, chunks)
-    _sync(device)
+    sync(device)
     clock = _Clock(device)
     t0 = clock.mark()
     for _ in range(iters):
         state, _ = engine.train_step(state, batch, gen, opt, cfg, chunks)
     t1 = clock.mark()
-    _sync(device)
+    sync(device)
     return clock.ms(t0, t1) / iters, state
 
 
@@ -186,13 +182,13 @@ def instrumented_step(state, dataset, gen, opt, cfg, chunks: int,
     walls = []
     with _Instrument(device, opt) as ins:
         for _ in range(iters):
-            _sync(device)
+            sync(device)
             start = ins.clock.mark()
             batch = ins.timed("ray batch", "ray batch", next, iter(dataset))
             state, _ = engine.train_step(state, batch, gen, ins.optimizer,
                                          cfg, chunks)
             end = ins.clock.mark()
-            _sync(device)
+            sync(device)
             walls.append(ins.clock.ms(start, end))
     for comp, _, a, b in ins.log:
         totals[comp] += ins.clock.ms(a, b) / iters
@@ -218,11 +214,11 @@ def host_timeline(state, dataset, gen, opt, cfg, chunks: int,
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with _Instrument(device, opt) as ins:
-        _sync(device)
+        sync(device)
         with torch.profiler.profile(activities=acts) as prof:
             batch = ins.timed("ray batch", "ray batch", next, iter(dataset))
             engine.train_step(state, batch, gen, ins.optimizer, cfg, chunks)
-            _sync(device)
+            sync(device)
     events = prof.events()
     cpu = torch.autograd.DeviceType.CPU
     kernels = {k.name for k in KERNELS}
@@ -232,13 +228,13 @@ def host_timeline(state, dataset, gen, opt, cfg, chunks: int,
         launches = sorted(
             (ev.time_range.start, on_card.get(ev.id, ev.name))
             for ev in events if ev.device_type == cpu
-            and ev.name.startswith(_LAUNCH_PREFIXES))
+            and ev.name.startswith(LAUNCH_PREFIXES))
     else:
         # No card: the kernel wrappers' ranges, each a plain-version call.
         launches = sorted((ev.time_range.start, ev.name) for ev in events
                           if ev.device_type == cpu and ev.name in kernels)
     host_ops = [ev for ev in events if ev.device_type == cpu
-                and not ev.name.startswith(_LAUNCH_PREFIXES)]
+                and not ev.name.startswith(LAUNCH_PREFIXES)]
     gaps = sorted(((t1 - t0, a, b, t0, t1) for (t0, a), (t1, b)
                    in zip(launches, launches[1:])), key=lambda g: -g[0])
     longest = []

@@ -33,11 +33,12 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
 import torch
+
+from keras_nerf_tpu_torch.timing import card_line
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRAWS_SEED = 17      # the fine draws of every PSNR render (JAX's key 17)
@@ -70,17 +71,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", type=str, default="cuda",
                     help="'cuda' (default) or 'cpu' (no timing on the CPU)")
     return ap
-
-
-def card_name(device: torch.device) -> str:
-    """``name, power limit`` as ``nvidia-smi`` gives them; ``cpu`` on the
-    CPU."""
-    if device.type != "cuda":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", f"--id={device.index or 0}"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def load(args, device):
@@ -281,7 +271,7 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     base, pc, pf, test_batches = load(args, device)
-    backend = card_name(device)
+    backend = card_line(device)
     print(f"backend: {backend}")
     rows, setup = measure_tiers(args, base, pc, pf, test_batches, device)
     record = {

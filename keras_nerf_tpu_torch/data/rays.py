@@ -82,7 +82,8 @@ def sample_random_ray_batch(images: torch.Tensor, poses: torch.Tensor,
                             batch: int, image_height: int, image_width: int,
                             focal: float, near: float, far: float,
                             n_samples: int, flat: torch.Tensor | None = None,
-                            points: torch.Tensor | None = None):
+                            points: torch.Tensor | None = None,
+                            rotate=_rotate_and_normalize):
     """A training batch of ``batch * H * W`` rays at random (image, pixel)
     pairs across the whole split: the pixel-sampling mode
     (`keras_nerf_tpu/data/rays.py:105-155`), whose every step sees rays of
@@ -96,6 +97,9 @@ def sample_random_ray_batch(images: torch.Tensor, poses: torch.Tensor,
       flat: the flat indices ``[batch H W]`` (``image H W + y W + x``)
         instead of drawing them; ``points`` the depths ``[batch H W,
         n_samples]`` likewise (a test feeds the JAX package's draws).
+      rotate: ``(rotations [R, 3, 3], camera vectors [R, 3]) -> unit
+        directions [R, 3]``; ROADMAP C15's diagnostic passes the TPU's
+        bf16-operand form (``tpu_rays``).
 
     Returns ``(pixels [batch, H, W, C], (origin, direction [batch, H, W,
     3], points [batch, H, W, n_samples]))``: a batch of "virtual images"
@@ -118,7 +122,7 @@ def sample_random_ray_batch(images: torch.Tensor, poses: torch.Tensor,
     x_c = (px.to(torch.float32) - w * 0.5) / focal
     y_c = (py.to(torch.float32) - h * 0.5) / focal
     cam = torch.stack([x_c, -y_c, -torch.ones_like(x_c)], dim=-1)
-    direction = _rotate_and_normalize(c2w[:, :3, :3], cam)
+    direction = rotate(c2w[:, :3, :3], cam)
     origin = c2w[:, :3, -1]
     if points is None:
         points = stratified_sample_points(generator, (r,), n_samples, near,

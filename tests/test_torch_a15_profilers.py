@@ -24,6 +24,7 @@ every reading and its JSON record last. Times are not held: a CPU time is
 no device time.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import json
 from pathlib import Path
 

@@ -33,6 +33,7 @@ each with its reason:
   ``assets/quality128_r5best_torch_run.log``.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import dataclasses
 import importlib.util
 import json

@@ -20,6 +20,7 @@
 * ``profile_step --device cpu``: runs and prints every field.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import importlib.util
 import json
 import os

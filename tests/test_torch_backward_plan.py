@@ -13,6 +13,7 @@ memory at every width. A width outside the JAX package's envelope raises,
 naming the width, before anything is built or launched.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import re
 from pathlib import Path
 

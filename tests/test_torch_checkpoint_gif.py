@@ -8,6 +8,7 @@ two packages resume each other's runs in ``test_torch_train.py``). The
 GIF writer's files read back with PIL.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import numpy as np
 import pytest

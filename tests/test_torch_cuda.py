@@ -34,6 +34,7 @@ one step. ``mma_ceiling`` (T7) is held as ``ray_march_mlp``, relative to its
 largest output, 3e-2.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import functools
 import math
 

@@ -23,6 +23,7 @@ seed, weights from JAX through ``params_from_jax``. Budgets:
 Run with ``-s`` to see each reading beside its budget.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,7 @@
 image loading, and the loader's rays. Ray tracing and image code are numpy
 copies (exact); rays are float32 on both sides (atol 1e-6)."""
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,7 @@ Training, evaluation and the int8 calibration zero the field, so their
 results are the same bits with the tier on and off.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import dataclasses
 import os
 import subprocess

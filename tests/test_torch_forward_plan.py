@@ -15,6 +15,7 @@ or launched. The tiles' 128-byte swizzled layout is mirrored by
 :func:`swizzled_offset`, held here against the layout ``wgmma`` reads.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import re
 from pathlib import Path
 

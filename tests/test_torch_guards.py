@@ -1,6 +1,7 @@
 """Guards of the port: no JAX inside it, the card as the default device, and
 kernel wrappers that never launch (or count) on a CPU tensor."""
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import dataclasses
 import os
 import subprocess

@@ -14,6 +14,7 @@ a stand-in for the reference's ``NeRFMLP`` (its layer names) where
 TensorFlow imports.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import json
 import os
 import shutil

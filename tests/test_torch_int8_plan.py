@@ -20,6 +20,7 @@ held against the layout ``wgmma`` reads. The epilogue's two float32 tricks
 The int8 weights' K-major copies are made once per quantized state.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import re
 from pathlib import Path
 

@@ -6,6 +6,7 @@ Tolerances: float32 forward atol 1e-5; packing and encoding coefficients
 exact (both are copies and exact float32 products).
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -24,6 +24,7 @@ runs its kernels in interpret mode. Budgets, each with its reason:
 ``-s`` prints each reading beside its budget.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import os
 import subprocess
 import sys

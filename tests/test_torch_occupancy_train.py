@@ -28,6 +28,7 @@ Gradients of a step are read as the SGD (lr 1) parameter change. ``-s``
 prints each reading beside its budget.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import json
 import os
 import sys

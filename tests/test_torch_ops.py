@@ -5,6 +5,7 @@ port's functions run on CPU tensors. Tolerance: atol 1e-5 (float32 math in
 both; only transcendental implementations and sum orders differ).
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

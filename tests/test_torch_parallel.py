@@ -33,6 +33,7 @@ unsharded steps.
 Run with ``-s`` to see each reading beside its budget.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import datetime
 import threading
 import uuid

@@ -11,6 +11,7 @@ The thread ranks are ``tests/test_torch_parallel.py``'s. Run with ``-s``
 to see each reading beside its budget.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import csv
 import json
 import os

@@ -9,6 +9,7 @@ and the training CLI's ``--pixel_sampling`` records JAX's training
 configuration.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import logging
 
 import jax
@@ -158,3 +159,101 @@ def test_train_single_pixel_sampling_cli_matches_jax_config(tmp_path):
     assert port._train_config["pixel_sampling"] is True
     assert [int(r["epoch"]) for r in rows] == [0, 1]
     assert all(np.isfinite(float(r["fine_loss"])) for r in rows)
+
+
+# ------------------------------------------------------------------- C16
+
+C16_STEPS = 40
+# assets/quality128_ps_run.log's learning rate, compressed to 40 steps.
+C16_LR, C16_LR_FINAL = 5e-4, 5e-6
+# The budget: each parameter tensor's gap from JAX's over its displacement
+# (C15's measure), at the per-step float32 gradient error one reference
+# step is held to (1e-4, `tests/test_torch_train.py`). Readings on the
+# CPU: coarse 1.6e-6, fine 8.4e-6. The encoding is 4 frequencies, as in
+# JAX's data-parallel tests: at the anchor's 10 the fine first layer's
+# kernel reads 1.5e-2 here, and 3.5e-2 on whole images of the same poses,
+# which is the fine depths' float32 rounding (C13: JAX's CDF summation
+# order) times the 2^9 frequency, not the sampler.
+C16_REL_BUDGET = 1e-4
+
+
+def test_c16_pixel_sampled_adam_steps_track_jax():
+    """ROADMAP C16's matched run: 40 Adam steps of pixel-sampled training
+    in both packages from one state. Each step's batch is JAX's
+    ``sample_random_ray_batch`` and the port's fed its flat indices and
+    depths (equal at ``RAY_ATOL``), JAX's fine draws are injected, on the
+    float32 reference path at the anchor's learning rate. Holds each
+    model's worst parameter tensor after step 40 at ``C16_REL_BUDGET``,
+    and checks that a run with one step at twice its learning rate breaks
+    it."""
+    from keras_nerf_tpu.models import engine as jengine
+    from keras_nerf_tpu_torch.models import engine as tengine
+    from keras_nerf_tpu_torch.utils.convert import params_from_jax
+    from tests.test_torch_parallel_fit import (C15_FAULT_COUNT,
+                                               _c15_worst_leaf, _jax_draws,
+                                               _report)
+
+    chunk, hw, n, views = 32, 8, 16, 4
+    images, poses = _views(n=views, h=hw, w=hw, seed=16)
+    kw = dict(batch=1, image_height=hw, image_width=hw, focal=7.0, near=2.0,
+              far=6.0, n_samples=n)
+    jcfg = jengine.NeRFConfig(n_coarse=n, n_fine=n, n_layers=3,
+                              dense_units=64, skip_layer=2, pos_emb_xyz=4,
+                              white_background=True, use_pallas=False)
+    cfg = tengine.NeRFConfig(**jcfg.to_model_config(),
+                             white_background=True, use_kernels=False)
+    opt_j = jengine.make_optimizer("adam", jengine.exponential_lr(
+        C16_LR, C16_LR_FINAL, C16_STEPS))
+    schedule = tengine.exponential_lr(C16_LR, C16_LR_FINAL, C16_STEPS)
+    s = s0 = jengine.init_train_state(jax.random.PRNGKey(0), jcfg, opt_j)
+    step = jax.jit(lambda st, b, k: jengine.train_step(
+        st, b, k, optimizer=opt_j, config=jcfg, ray_chunks=chunk))
+    port_batches, draw_keys = [], []
+    for i in range(C16_STEPS):
+        key, draw_key = jax.random.PRNGKey(3000 + i), jax.random.PRNGKey(
+            4000 + i)
+        batch = jrays.sample_random_ray_batch(
+            jnp.asarray(images), jnp.asarray(poses), key, **kw)
+        s, _ = step(s, batch, draw_key)
+        k_idx, k_t = jax.random.split(key)
+        flat = np.array(jax.random.randint(k_idx, (hw * hw,), 0,
+                                           views * hw * hw))
+        pix, rays = sample_random_ray_batch(
+            torch.as_tensor(images), torch.as_tensor(poses),
+            flat=torch.as_tensor(flat),
+            points=torch.as_tensor(np.array(jstrat(k_t, (hw * hw,), n, 2.0,
+                                                   6.0))), **kw)
+        for got, want in zip((pix, *rays), (batch[0], *batch[1])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=0, atol=RAY_ATOL)
+        port_batches.append((pix, rays))
+        draw_keys.append(draw_key)
+
+    def port_run(learning_rate):
+        opt_t = tengine.make_optimizer("adam", learning_rate)
+        p = [params_from_jax(jax.tree.map(np.asarray, x), "cpu")
+             for x in (s0.coarse_params, s0.fine_params)]
+        t = tengine.TrainState(p[0], p[1], opt_t.init(p[0]),
+                               opt_t.init(p[1]), 0)
+        for batch, key in zip(port_batches, draw_keys):
+            t, _ = tengine.train_step(
+                t, batch, _jax_draws(key, hw * hw // chunk, chunk, n), opt_t,
+                cfg, chunk)
+        assert t.step == int(s.step) == C16_STEPS
+        return t
+
+    t = port_run(schedule)
+    fault = port_run(lambda count: schedule(count) * (
+        2.0 if count == C15_FAULT_COUNT else 1.0))
+    for name in ("coarse", "fine"):
+        start, theirs = (getattr(x, f"{name}_params") for x in (s0, s))
+        worst, _ = _c15_worst_leaf(getattr(t, f"{name}_params"), theirs,
+                                   start)
+        _report(f"C16 {name}: worst tensor's gap over its displacement "
+                f"after {C16_STEPS} pixel-sampled steps", worst,
+                C16_REL_BUDGET)
+        planted, _ = _c15_worst_leaf(getattr(fault, f"{name}_params"),
+                                     theirs, start)
+        print(f"C16 {name}, step at count {C15_FAULT_COUNT} at twice its "
+              f"learning rate: {planted:.3e} (must exceed the budget)")
+        assert planted > C16_REL_BUDGET, name

@@ -17,6 +17,7 @@ each with its reason:
   about 1e-4 dB.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import dataclasses
 import importlib.util
 import json

@@ -26,6 +26,7 @@ mode. Budgets, each with its reason:
 ``-s`` prints each reading beside its budget.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import functools
 import importlib.util
 import logging

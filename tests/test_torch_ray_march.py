@@ -9,6 +9,7 @@ of the JAX package's own fused-sampling check
 weights atol 2e-3; the sampling chain alone atol 1e-4.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ mode) at the fused-sampling budgets of `test_pallas_kernel.py:431-434`
 1e-4.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import dataclasses
 import os
 import subprocess

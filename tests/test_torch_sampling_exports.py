@@ -13,6 +13,7 @@ and its CDF to JAX's within ``CDF_BUDGET``, as C13's test holds
 ``sample_merge``.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

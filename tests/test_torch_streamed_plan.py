@@ -14,6 +14,7 @@ than 40 tasks or 256 tiles into launches, which must leave every sum as a
 single launch would make it, bit for bit.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import re
 from pathlib import Path
 

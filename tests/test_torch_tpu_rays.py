@@ -8,10 +8,15 @@ with float32 operands), within ``ULP_BUDGET`` float32 ulps of each
 component; the pixel error of such rays against exact float64 rays over
 20 poses of the spheres fixture's orbit, printed with ``-s``, is the
 0.165 px mean (0.155 median, 0.412 p99, 0.577 max) that C15's hypothesis
-rests on. ``python -m keras_nerf_tpu_torch.tpu_rays -- <flags>`` trains
-with these rays for the whole run and puts the loader back after.
+rests on. ``tpu_random_ray_batch`` (the pixel sampler's rays) is JAX's
+``sample_random_ray_batch`` with its ``rij,rj->ri`` einsum so cast, within
+the same budget, on the same draws. ``python -m keras_nerf_tpu_torch.tpu_rays
+[train_single|aabb_demo] -- <flags>`` runs with these rays for the whole
+run (whole images, pixel sampling, the occupancy probe-row cache) and puts
+the defaults back after.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,11 +24,16 @@ import pytest
 import torch
 
 from keras_nerf_tpu.data.rays import camera_plane_directions
-from keras_nerf_tpu_torch import tpu_rays
+from keras_nerf_tpu_torch import aabb_demo, tpu_rays
+from keras_nerf_tpu_torch import train_single as port_cli
 from keras_nerf_tpu_torch.data import loader
-from keras_nerf_tpu_torch.data.rays import generate_ray_batch
+from keras_nerf_tpu_torch.data import rays as port_rays
+from keras_nerf_tpu_torch.data.rays import (generate_ray_batch,
+                                            sample_random_ray_batch)
 from keras_nerf_tpu_torch.data.synthetic import write_synthetic_scene
 from keras_nerf_tpu_torch.data.utils import get_focal_from_fov, pose_spherical
+from keras_nerf_tpu_torch.ops.occupancy import (occupancy_along_rays,
+                                                probe_rows_for_poses)
 
 # The products of bf16 operands are exact in float32; what is left is the
 # order of the two float32 additions and the norm's rounding.
@@ -135,5 +145,155 @@ def test_cli_trains_with_tpu_rays_then_restores_the_loader(tmp_path,
     # Train (2), val (1), test (1), the monitor's batches: all TPU rays.
     assert len(calls) >= 4
     assert (tmp_path / "model" / "lego" / "fine.msgpack").exists()
-    with pytest.raises(SystemExit, match="--pixel_sampling"):
-        tpu_rays.main(["--", "--pixel_sampling"])
+    _assert_defaults_restored()
+
+
+GENERATE_RAYS = port_rays.generate_rays
+
+
+def _assert_defaults_restored():
+    assert loader.generate_ray_batch is generate_ray_batch
+    assert loader.sample_random_ray_batch is sample_random_ray_batch
+    assert port_rays.generate_rays is GENERATE_RAYS
+
+
+def _ulps(got, want):
+    return float((np.abs(got - want) / np.spacing(np.abs(want))).max())
+
+
+def test_tpu_random_ray_batch_matches_jax_bf16_einsum():
+    """The pixel sampler's rays (`keras_nerf_tpu/data/rays.py:147`) over
+    the 20 fixture poses, one 128^2 batch of draws: directions within
+    ``ULP_BUDGET`` of JAX's einsum on bfloat16 operands, and the pixels,
+    origins and depths the default sampler's bit for bit."""
+    poses = np.stack(_fixture_poses())
+    focal = get_focal_from_fov(FOV, 128)
+    rng = np.random.default_rng(7)
+    images = rng.uniform(size=(20, 128, 128, 4)).astype(np.float32)
+    r = 128 * 128
+    flat = rng.integers(0, 20 * r, size=r)
+    points = np.sort(rng.uniform(2.0, 6.0, size=(r, 4)), axis=-1).astype(
+        np.float32)
+    kw = dict(batch=1, image_height=128, image_width=128, focal=focal,
+              near=2.0, far=6.0, n_samples=4, flat=torch.as_tensor(flat),
+              points=torch.as_tensor(points))
+    args = (torch.as_tensor(images), torch.as_tensor(poses))
+    pix, (o, d, t) = tpu_rays.tpu_random_ray_batch(*args, **kw)
+    pix0, (o0, d0, t0) = sample_random_ray_batch(*args, **kw)
+    assert torch.equal(pix, pix0) and torch.equal(o, o0)
+    assert torch.equal(t, t0) and not torch.equal(d, d0)
+
+    img, py, px = flat // r, (flat // 128) % 128, flat % 128
+    cam = jnp.stack([(px.astype(np.float32) - 64.0) / focal,
+                     -((py.astype(np.float32) - 64.0) / focal),
+                     -jnp.ones(r, jnp.float32)], axis=-1)
+    want = jnp.einsum("rij,rj->ri",
+                      jnp.asarray(poses)[img][:, :3, :3].astype(jnp.bfloat16),
+                      cam.astype(jnp.bfloat16),
+                      preferred_element_type=jnp.float32)
+    want = np.asarray(want / jnp.linalg.norm(want, axis=-1, keepdims=True))
+    worst = _ulps(d.reshape(r, 3).numpy(), want)
+    print(f"\ntpu_random_ray_batch against JAX's bf16 einsum, 16384 "
+          f"pixel-sampled rays over 20 poses: worst {worst:.1f} ulps "
+          f"(budget {ULP_BUDGET})")
+    assert worst <= ULP_BUDGET
+
+
+def test_probe_rows_take_tpu_rays_inside_the_swap():
+    """JAX's probe-row cache is made from its ``generate_rays``
+    (`keras_nerf_tpu/ops/occupancy.py:197-203`), so on a TPU from the
+    TPU's rays: inside ``swapped`` the port's rows are those of
+    ``tpu_default_rays``, outside those of ``generate_rays``."""
+    poses = np.stack(_fixture_poses(3))
+    focal = get_focal_from_fov(FOV, 32)
+    grid = (torch.rand((16, 16, 16), generator=torch.Generator()
+                       .manual_seed(0)) < 0.5).float()
+    kw = dict(image_height=32, image_width=32, near=2.0, far=6.0,
+              n_probe=16)
+
+    def rows_of(make_rays):
+        out = []
+        for c2w in poses:
+            o, d = make_rays(torch.as_tensor(c2w), 32, 32, focal)
+            out.append(occupancy_along_rays(o.reshape(-1, 3),
+                                            d.reshape(-1, 3), grid, 2.0, 6.0,
+                                            16)[1].to(torch.uint8))
+        return torch.stack(out)
+
+    with tpu_rays.swapped():
+        inside = probe_rows_for_poses(poses, focal, grid, **kw)
+    outside = probe_rows_for_poses(poses, focal, grid, **kw)
+    _assert_defaults_restored()
+    assert torch.equal(inside, rows_of(tpu_rays.tpu_default_rays))
+    assert torch.equal(outside, rows_of(port_rays.generate_rays))
+    assert not torch.equal(inside, outside)
+
+
+def test_swapped_restores_the_defaults_after_an_error():
+    with pytest.raises(RuntimeError, match="inside"):
+        with tpu_rays.swapped():
+            assert loader.sample_random_ray_batch is (
+                tpu_rays.tpu_random_ray_batch)
+            assert port_rays.generate_rays is tpu_rays.tpu_default_rays
+            raise RuntimeError("inside")
+    _assert_defaults_restored()
+
+
+def test_cli_pixel_sampling_trains_with_tpu_rays(tmp_path, monkeypatch):
+    scene = write_synthetic_scene(str(tmp_path / "scene"), image_wh=16,
+                                  n_train=2, n_val=1, n_test=1)
+    calls = []
+    batch = tpu_rays.tpu_random_ray_batch
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return batch(*args, **kwargs)
+
+    monkeypatch.setattr(tpu_rays, "tpu_random_ray_batch", counted)
+    tpu_rays.main(["train_single", "--", "--device", "cpu", "--data_dir",
+                   scene, *TINY, "--pixel_sampling", "--num_epochs", "2",
+                   "--log_dir", str(tmp_path / "logs"),
+                   "--model_dirs", str(tmp_path / "model")])
+    _assert_defaults_restored()
+    # Two epochs of the 2-image train split at batch 1.
+    assert len(calls) == 4
+    assert (tmp_path / "model" / "lego" / "fine.msgpack").exists()
+
+
+TINY = ["--img_wh", "16", "--num_coarse_samples", "8", "--num_fine_samples",
+        "8", "--num_layers", "2", "--num_units", "16", "--skip_layer", "1",
+        "--white_bg", "--ray_chunks", "128"]
+
+
+def test_aabb_demo_runs_on_tpu_rays_then_restores_the_loader(tmp_path,
+                                                             monkeypatch):
+    """``tpu_rays aabb_demo`` evaluates on the TPU's rays (every test
+    batch through ``tpu_ray_batch``): its record is the demo's own inside
+    ``swapped``, and differs from the one on exact rays."""
+    scene = write_synthetic_scene(str(tmp_path / "scene"), image_wh=16,
+                                  n_train=2, n_val=1, n_test=2, scale=2.0)
+    port_cli.main(["--device", "cpu", "--data_dir", scene, *TINY,
+                   "--near", "4", "--far", "12", "--num_epochs", "1",
+                   "--log_dir", str(tmp_path / "logs"),
+                   "--model_dirs", str(tmp_path / "model")])
+    flags = ["--model_path", str(tmp_path / "model" / "lego"), "--data_dir",
+             scene, "--img_wh", "16", "--white_bg", "--ray_chunks", "256",
+             "--occ_grid", "16", "--aabb", "-4", "-4", "-4", "4", "4", "4",
+             "--device", "cpu"]
+    calls = []
+    batch = tpu_rays.tpu_ray_batch
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return batch(*args, **kwargs)
+
+    monkeypatch.setattr(tpu_rays, "tpu_ray_batch", counted)
+    record = tpu_rays.main(["aabb_demo", "--", *flags])
+    _assert_defaults_restored()
+    assert len(calls) == 2    # the two test images, each read once
+    exact = aabb_demo.main(flags)
+    with tpu_rays.swapped():
+        again = aabb_demo.main(flags)
+    assert record == again
+    assert record["exact_psnr"] != exact["exact_psnr"] or (
+        record["occ_correct_aabb_psnr"] != exact["occ_correct_aabb_psnr"])

@@ -16,6 +16,7 @@ the port). Budgets:
 Gradients of a step are read as the SGD (lr 1) parameter change.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import csv
 import os
 import subprocess

@@ -13,6 +13,7 @@ operands, partials added in slice order) is held against
 in another order.
 """
 
+import tests.test_torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 import pytest
 import torch

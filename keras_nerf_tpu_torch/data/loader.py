@@ -32,6 +32,7 @@ from collections.abc import Iterator
 import numpy as np
 import torch
 
+from keras_nerf_tpu_torch import spans
 from keras_nerf_tpu_torch.data.image import load_images
 from keras_nerf_tpu_torch.data.rays import (
     generate_ray_batch,
@@ -50,7 +51,9 @@ class NeRFDataset:
     [B, H, W, 3], direction [B, H, W, 3], points [B, H, W, N]))`` float32
     tensors on ``device`` (`loader.py:100`); ``last_indices`` holds the
     indices of the images of the batch last yielded, in batch order (the
-    occupancy probe-row cache reads them, ``NeRF._run_train_step``)."""
+    occupancy probe-row cache reads them, ``NeRF._train_step``). Each
+    batch's upload and rays are one ``data.batch`` span, closed before the
+    batch is handed over."""
 
     def __init__(self, images: np.ndarray, poses: np.ndarray, *,
                  focal: float, near: float, far: float, n_samples: int,
@@ -95,13 +98,14 @@ class NeRFDataset:
         jitter = torch.Generator(device=self.device)
         jitter.manual_seed(_epoch_seed(self.seed, epoch, 1))
         for b in range(len(self)):
-            idx = perm[b * self.batch_size:(b + 1) * self.batch_size]
-            self.last_indices = idx
-            images = torch.as_tensor(self.images[idx], device=self.device)
-            rays = generate_ray_batch(
-                self.poses[idx], jitter, image_height=self.image_height,
-                image_width=self.image_width, focal=self.focal,
-                near=self.near, far=self.far, n_samples=self.n_samples)
+            with spans.span("data.batch"):
+                idx = perm[b * self.batch_size:(b + 1) * self.batch_size]
+                self.last_indices = idx
+                images = torch.as_tensor(self.images[idx], device=self.device)
+                rays = generate_ray_batch(
+                    self.poses[idx], jitter, image_height=self.image_height,
+                    image_width=self.image_width, focal=self.focal,
+                    near=self.near, far=self.far, n_samples=self.n_samples)
             yield images, rays
 
     def rebatch(self, batch_size: int) -> "NeRFDataset":

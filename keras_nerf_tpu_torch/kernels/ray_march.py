@@ -80,6 +80,7 @@ import functools
 import numpy as np
 import torch
 
+from keras_nerf_tpu_torch import spans
 from keras_nerf_tpu_torch.ops.encoding import (
     _selection_constants,
     block_permutation,
@@ -1825,8 +1826,9 @@ def _first_tensor(x):
 class KernelWrapper:
     """One kernel's entry point: the CUDA kernel for CUDA tensors, its plain
     version for CPU tensors. ``launches`` counts kernel launches only (the
-    plain version never touches it); ``source`` and ``replaces`` name the
-    CUDA source and the TPU kernel it ports."""
+    plain version never touches it), and each launch also counts in the
+    open spans' ``csrc_launches`` (``spans.csrc_launched``); ``source`` and
+    ``replaces`` name the CUDA source and the TPU kernel it ports."""
 
     def __init__(self, name: str, plain, launch, source: str, replaces: str):
         self.name = name
@@ -1844,6 +1846,7 @@ class KernelWrapper:
             raise ValueError(f"{self.name}: unsupported device {device}")
         out = self._launch(*args, **kwargs)
         self.launches += 1
+        spans.csrc_launched()
         return out
 
     def __repr__(self):

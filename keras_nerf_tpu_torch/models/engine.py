@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from keras_nerf_tpu_torch import spans
 from keras_nerf_tpu_torch.kernels.quantize import (
     collect_act_amax,
     quantize_packed,
@@ -315,22 +316,25 @@ def render_image_batch(coarse_params: Params, fine_params: Params, rays,
         if packed_q is not None:
             packed_c, packed_f = packed_q
         else:
-            packed_c, packed_f = (
-                pack_mlp_params(p, config.mlp, config.pos_emb_xyz,
-                                config.pos_emb_dir)
-                for p in (coarse_params, fine_params))
+            with spans.span("engine.pack"):
+                packed_c, packed_f = (
+                    pack_mlp_params(p, config.mlp, config.pos_emb_xyz,
+                                    config.pos_emb_dir)
+                    for p in (coarse_params, fine_params))
         for i in range(num_chunks):
-            out_c, out_f = _fused_chunk_pair(
-                packed_c, packed_f, o[i], d[i], t[i], draws[i], config,
-                with_weights=with_weights, coarse_image=coarse_image,
-                quantized=packed_q is not None)
+            with spans.span("engine.chunk"):
+                out_c, out_f = _fused_chunk_pair(
+                    packed_c, packed_f, o[i], d[i], t[i], draws[i], config,
+                    with_weights=with_weights, coarse_image=coarse_image,
+                    quantized=packed_q is not None)
             outs_c.append(RenderOutput(*out_c))
             outs_f.append(RenderOutput(*out_f))
     else:
         for i in range(num_chunks):
-            out_c, out_f = render_chunk_pair(coarse_params, fine_params,
-                                             o[i], d[i], t[i], draws[i],
-                                             config)
+            with spans.span("engine.chunk"):
+                out_c, out_f = render_chunk_pair(coarse_params, fine_params,
+                                                 o[i], d[i], t[i], draws[i],
+                                                 config)
             if not coarse_image:
                 out_c = out_c._replace(image=torch.zeros_like(out_c.image))
             outs_c.append(out_c)
@@ -639,20 +643,23 @@ def _fused_grads(state: TrainState, chunks, draws, config: NeRFConfig,
     stratified coarse depths as partner when the tier merges (``s_m > 0``),
     without partner otherwise (``s_m = 0``)."""
     enc = (config.pos_emb_xyz, config.pos_emb_dir)
-    packed_c = pack_mlp_params(state.coarse_params, config.mlp, *enc)
-    packed_f = pack_mlp_params(state.fine_params, config.mlp, *enc)
-    acc = (zero_grads(packed_c), zero_grads(packed_f))
+    with spans.span("engine.pack"):
+        packed_c = pack_mlp_params(state.coarse_params, config.mlp, *enc)
+        packed_f = pack_mlp_params(state.fine_params, config.mlp, *enc)
+        acc = (zero_grads(packed_c), zero_grads(packed_f))
     images = ([], [])
     for i, (o, d, t, tgt, u) in enumerate(zip(*chunks, draws)):
-        fine_in = None
-        if occupancy is not None:
-            fine_in = (*bins(i, o, d), u, t if occupancy[5] else None)
-        outs = _fused_chunk_pair(packed_c, packed_f, o, d, t, u, config,
-                                 target=tgt, grads=acc,
-                                 fine_sample_inputs=fine_in)
+        with spans.span("engine.chunk"):
+            fine_in = None
+            if occupancy is not None:
+                fine_in = (*bins(i, o, d), u, t if occupancy[5] else None)
+            outs = _fused_chunk_pair(packed_c, packed_f, o, d, t, u, config,
+                                     target=tgt, grads=acc,
+                                     fine_sample_inputs=fine_in)
         for img, out in zip(images, outs):
             img.append(out[0])
-    grads = tuple(unpack_grads(a, config.mlp, *enc) for a in acc)
+    with spans.span("engine.pack"):
+        grads = tuple(unpack_grads(a, config.mlp, *enc) for a in acc)
     return grads, images
 
 
@@ -669,15 +676,19 @@ def _autograd_grads(state: TrainState, chunks, draws, config: NeRFConfig,
                    for p in (state.coarse_params, state.fine_params))
     images = ([], [])
     for i, (o, d, t, tgt, u) in enumerate(zip(*chunks, draws)):
-        if occupancy is None:
-            outs = render_chunk_pair(*params, o, d, t, u, config)
-        else:
-            fine = occ_mod.sample_occupied(u, *bins(i, o, d))
-            if occupancy[5]:
-                fine = merge_sorted(t, fine)
-            outs = (render_chunk(params[0], o, d, t, config)[0],
-                    render_chunk(params[1], o, d, fine, config)[0])
-        sum(loss_fn(tgt, out.image) for out in outs).backward()
+        with spans.span("engine.chunk"):
+            with spans.span("engine.forward"):
+                if occupancy is None:
+                    outs = render_chunk_pair(*params, o, d, t, u, config)
+                else:
+                    fine = occ_mod.sample_occupied(u, *bins(i, o, d))
+                    if occupancy[5]:
+                        fine = merge_sorted(t, fine)
+                    outs = (render_chunk(params[0], o, d, t, config)[0],
+                            render_chunk(params[1], o, d, fine, config)[0])
+                loss = sum(loss_fn(tgt, out.image) for out in outs)
+            with spans.span("engine.backward"):
+                loss.backward()
         for img, out in zip(images, outs):
             img.append(out.image.detach())
     grads = tuple(tree_map(lambda x: x.grad, p) for p in params)
@@ -768,9 +779,12 @@ def train_step(state: TrainState, batch,
     loss_c, loss_f = (torch.stack([loss_fn(tgt, img) for tgt, img in
                                    zip(target, imgs)]).mean()
                       for imgs in (imgs_c, imgs_f))
-    coarse, opt_c = optimizer.update(grads_c, state.coarse_opt,
-                                     state.coarse_params)
-    fine, opt_f = optimizer.update(grads_f, state.fine_opt, state.fine_params)
+    with spans.span("engine.update"):
+        coarse, opt_c = optimizer.update(grads_c, state.coarse_opt,
+                                         state.coarse_params)
+    with spans.span("engine.update"):
+        fine, opt_f = optimizer.update(grads_f, state.fine_opt,
+                                       state.fine_params)
     new_state = TrainState(coarse, fine, opt_c, opt_f, state.step + 1)
     shape = images.shape[:3] + (3,)
     metrics = _batch_metrics(torch.cat(imgs_c).reshape(shape),

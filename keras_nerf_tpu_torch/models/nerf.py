@@ -25,6 +25,7 @@ from collections.abc import Sequence
 
 import torch
 
+from keras_nerf_tpu_torch import spans
 from keras_nerf_tpu_torch.device import resolve_device
 from keras_nerf_tpu_torch.models import engine
 from keras_nerf_tpu_torch.models.engine import NeRFConfig
@@ -84,6 +85,7 @@ class NeRF:
         self.occupancy_train = 0
         self._occ_train_grid: torch.Tensor | None = None
         self._occ_probe_cache: torch.Tensor | None = None
+        self._frames = 0    # render calls: the unit of their spans
 
     @property
     def coarse_params(self):
@@ -568,31 +570,37 @@ class NeRF:
             pending = []
             for batch_idx, batch in enumerate(train_dataset):
                 indices = getattr(train_dataset, "last_indices", None)
+                with spans.span("fit.step", unit=self.state.step):
+                    if eager:
+                        logs = self.train_step(batch, indices=indices)
+                    else:
+                        pending.append(self._train_step(batch,
+                                                        indices=indices))
                 if eager:
-                    logs = self.train_step(batch, indices=indices)
                     for cb in callbacks:
                         if hasattr(cb, "on_train_batch_end"):
                             cb.on_train_batch_end(batch_idx, logs)
-                else:
-                    pending.append(self._train_step(batch, indices=indices))
-            for batch_idx, logs in enumerate(self._fetch(pending)):
-                self._record(self.metrics, logs,
-                             f"(epoch {epoch} batch {batch_idx})")
-                for cb in callbacks:
-                    if hasattr(cb, "on_train_batch_end"):
-                        cb.on_train_batch_end(batch_idx, logs)
-            if validation_data is not None:
-                val = self._fetch([self._eval_step(batch)
-                                   for batch in validation_data])
-                for logs in val:
-                    self._record(self.val_metrics, logs, "in validation")
-            logs = {k: t.result() for k, t in self.metrics.items()}
-            logs.update({f"val_{k}": t.result()
-                         for k, t in self.val_metrics.items()})
-            history.append(logs)
-            if verbose and self.is_chief:
-                logging.info("epoch %d: %s", epoch, " ".join(
-                    f"{k}={v:.4f}" for k, v in logs.items()))
+            with spans.span("fit.epoch_end"):
+                for batch_idx, logs in enumerate(self._fetch(pending)):
+                    self._record(self.metrics, logs,
+                                 f"(epoch {epoch} batch {batch_idx})")
+                    for cb in callbacks:
+                        if hasattr(cb, "on_train_batch_end"):
+                            cb.on_train_batch_end(batch_idx, logs)
+                if validation_data is not None:
+                    val = self._fetch([self._eval_step(batch)
+                                       for batch in validation_data])
+                    for logs in val:
+                        self._record(self.val_metrics, logs, "in validation")
+                logs = {k: t.result() for k, t in self.metrics.items()}
+                logs.update({f"val_{k}": t.result()
+                             for k, t in self.val_metrics.items()})
+                history.append(logs)
+                if verbose and self.is_chief:
+                    logging.info("epoch %d: %s", epoch, " ".join(
+                        f"{k}={v:.4f}" for k, v in logs.items()))
+            # After the span: ``--profile_dir``'s callback stops the
+            # profile here and exports the epoch's closed spans.
             for cb in callbacks:
                 if hasattr(cb, "on_epoch_end"):
                     cb.on_epoch_end(epoch, logs)
@@ -645,27 +653,29 @@ class NeRF:
         band's chunks) and every rank returns the whole images
         (``parallel.sharded_render``; `nerf.py:499-534`)."""
         self._require_compiled()
-        rays = tuple(torch.as_tensor(x, dtype=torch.float32,
-                                     device=self.device) for x in rays)
-        if self.quantized_render:
-            self._ensure_packed_q(rays, torch.Generator(
-                device=self.device).manual_seed(self._seed + 4))
-        if self.group is not None:
-            from keras_nerf_tpu_torch.parallel import sharded_render
+        frame, self._frames = self._frames, self._frames + 1
+        with spans.span("render.call", unit=frame):
+            rays = tuple(torch.as_tensor(x, dtype=torch.float32,
+                                         device=self.device) for x in rays)
+            if self.quantized_render:
+                self._ensure_packed_q(rays, torch.Generator(
+                    device=self.device).manual_seed(self._seed + 4))
+            if self.group is not None:
+                from keras_nerf_tpu_torch.parallel import sharded_render
 
-            render = sharded_render(self.group, self.config, self.ray_chunks,
-                                    with_weights=with_weights,
-                                    coarse_image=coarse_image,
-                                    quantized=self.quantized_render)
-            return render(self.coarse_params, self.fine_params, rays,
-                          self._generator if fine_draws is None
-                          else fine_draws, self._packed_q)
-        return engine.render_image_batch(
-            self.coarse_params, self.fine_params, rays,
-            self._generator if fine_draws is None else fine_draws,
-            self.config, self.ray_chunks, with_weights=with_weights,
-            coarse_image=coarse_image,
-            packed_q=self._packed_q if self.quantized_render else None)
+                render = sharded_render(
+                    self.group, self.config, self.ray_chunks,
+                    with_weights=with_weights, coarse_image=coarse_image,
+                    quantized=self.quantized_render)
+                return render(self.coarse_params, self.fine_params, rays,
+                              self._generator if fine_draws is None
+                              else fine_draws, self._packed_q)
+            return engine.render_image_batch(
+                self.coarse_params, self.fine_params, rays,
+                self._generator if fine_draws is None else fine_draws,
+                self.config, self.ray_chunks, with_weights=with_weights,
+                coarse_image=coarse_image,
+                packed_q=self._packed_q if self.quantized_render else None)
 
     def _ensure_packed_q(self, rays, fine_draws):
         """Calibrate and quantize the int8 render weights once per state

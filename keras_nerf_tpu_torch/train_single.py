@@ -23,6 +23,7 @@ reference path), ``--debug_nans``, ``--debug_grads``, ``--profile_dir``,
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 
@@ -159,7 +160,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
 class ProfileFirstEpoch:
     """A ``NeRF.fit`` callback: a ``torch.profiler`` trace of the first
     epoch, written as ``trace_rank{r}.json`` (Chrome trace format) to
-    ``profile_dir`` (``--profile_dir``)."""
+    ``profile_dir`` (``--profile_dir``), with the port's spans of the epoch
+    (:mod:`keras_nerf_tpu_torch.spans`) among its events."""
 
     verbose = False
 
@@ -170,10 +172,13 @@ class ProfileFirstEpoch:
     def set_model(self, model):
         import torch
 
+        from keras_nerf_tpu_torch import spans
+
         activities = [torch.profiler.ProfilerActivity.CPU]
         if model.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         self._prof = torch.profiler.profile(activities=activities)
+        spans.drain()
         self._prof.__enter__()
         logging.info("Profiling to %s (stops after the first epoch)",
                      self.path)
@@ -181,9 +186,17 @@ class ProfileFirstEpoch:
     def on_epoch_end(self, epoch, logs):
         if self._prof is None:
             return
+        from keras_nerf_tpu_torch import spans
+
         self._prof.__exit__(None, None, None)
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         self._prof.export_chrome_trace(self.path)
+        with open(self.path) as f:
+            trace = json.load(f)
+        trace["traceEvents"] += spans.chrome_events(
+            spans.drain(), trace.get("baseTimeNanoseconds", 0))
+        with open(self.path, "w") as f:
+            json.dump(trace, f)
         self._prof = None
         logging.info("Profiler trace written to %s", self.path)
 

@@ -8,7 +8,9 @@ and drives both paths of the port at full width (8 x 256 MLPs, 64 coarse +
 128 fine samples, 128^2 images), with random weights from fixed seeds:
 
 * render: holds the render kernels against their plain PyTorch versions at
-  4096-ray chunks (``sample_merge`` also on heavy-tailed weights and on all
+  4096-ray chunks (``ray_march_mlp``'s persistent route also bit for bit
+  against its resident kernel, and every orbit launch on the persistent
+  route; ``sample_merge`` also on heavy-tailed weights and on all
   mass in one bin in its three modes; every ``sample_merge`` check runs the
   kernel twice, with identical bits, and logs whether it equals its plain
   version bit for bit), renders 4 orbit frames through
@@ -102,7 +104,8 @@ and its plain version is timed with CUDA events, beside the launch floor
 (``torch.cuda._sleep(0)`` timed the same way) (``mlp_weight_grad`` also
 beside its cuBLAS yardstick, one product per weight array, and
 ``mlp_backward``, ``ray_march_mlp`` and ``apply_mlp`` beside their PyTorch
-chains, one bf16 matmul per layer; the
+chains, one bf16 matmul per layer; T1's and T2's MLP modes also on both of
+``ray_march_mlp``'s routes in turns; the
 card's SM clock, power and temperature sampled before and after), and the
 five model paths (the occupancy render among them), the two fast-render
 orbits and the three occupancy-train tiers are profiled with
@@ -477,6 +480,17 @@ def main() -> int:
     fine_kern = ray_march_quadrature(fine_in, tf_plain, True, False, False)
     torch.cuda.synchronize()
     e6, ok6 = check("ray_march_quadrature", fine_kern, fine_plain)
+    # Both modes take the persistent route at u = 256: the resident kernel
+    # on the same inputs gives the same bits.
+    same = [torch.equal(got, ray_march_mlp(packed, base, slope, t, masks,
+                                           sigma_only=so, route="resident"))
+            for got, t, so in ((sig_kern, tc, True),
+                               (rgbs_kern, tf_plain, False))]
+    torch.cuda.synchronize()
+    log(f"check ray_march_mlp persistent route against the resident kernel "
+        f"(sigma-only, full): identical bits {same}")
+    if not all(same):
+        fail("the persistent route's bits differ from the resident kernel's")
     for label, err, ok, name in (
             (f"ray_march_mlp sigma-only [{CHUNK} x {N_COARSE}]", e1, ok1,
              "ray_march_mlp"),
@@ -514,9 +528,13 @@ def main() -> int:
                     ray_march_quadrature=2 * chunks)
     log(f"main path: {len(FRAMES)} frames {IMG}^2 in {wall:.3f} s "
         f"({1e3 * wall / len(FRAMES):.1f} ms/frame wall, host clock) "
-        f"{card_tag}; launches {render_launches}")
+        f"{card_tag}; launches {render_launches}; ray_march_mlp by route "
+        f"{dict(ray_march_mlp.routes)}")
     if render_launches != expected:
         fail(f"launch counts {render_launches} != expected {expected}")
+    if dict(ray_march_mlp.routes) != {"persistent": 2 * chunks}:
+        fail(f"ray_march_mlp routes {dict(ray_march_mlp.routes)}: every "
+             f"no-grad launch at u = 256 should take the persistent one")
     if images.shape != (len(FRAMES), IMG, IMG, 3) or \
             depths.shape != (len(FRAMES), IMG, IMG):
         fail(f"frame shapes {images.shape} {depths.shape}")
@@ -748,6 +766,8 @@ def main() -> int:
         tot[3][by] = tot[3].get(by, 0.0) + count * bms
         if design and design[0]:
             tot[4] = (tot[4] or 0.0) + count * dms
+    _route_turns(packed, (base, slope, masks), (tc, tf_plain), timed,
+                 card_tag)
     clocks.append(_gpu_clocks("after the kernel timings"))
     log(json.dumps({"clocks": clocks, "card": card}))
     _t3_bound(cfg, totals["train"], card_tag)
@@ -1016,6 +1036,32 @@ def _time_ms(fn, iters, spin=True):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def _route_turns(packed, coeffs, depths, timed, card_tag):
+    """T1's and T2's MLP modes at u = 256 on both of ``ray_march_mlp``'s
+    routes in turns (persistent, resident, resident, persistent): the
+    persistent kernel the plan takes and the resident one, each the least of
+    its two timings, beside the rows' bound and plain version."""
+    from keras_nerf_tpu_torch.kernels.ray_march import ray_march_mlp
+
+    rows = {mode: (pms, bms) for k, path, mode, _, _, pms, bms in timed
+            if k is ray_march_mlp and path == "render"}
+    base, slope, masks = coeffs
+    for t, so in zip(depths, (True, False)):
+        mode = (f"{'sigma-only' if so else 'full'} "
+                f"[{t.shape[0]} x {t.shape[1]}]")
+        ms = {"persistent": [], "resident": []}
+        for route in ("persistent", "resident", "resident", "persistent"):
+            ms[route].append(_time_ms(
+                lambda r=route: ray_march_mlp(packed, base, slope, t, masks,
+                                              sigma_only=so, route=r), 20))
+        pms, bms = rows[mode]
+        per, res = min(ms["persistent"]), min(ms["resident"])
+        log(f"time ray_march_mlp {mode} by route: persistent {per:.4f} "
+            f"ms/launch ({100 * bms / per:.2f}% of the bound), resident "
+            f"{res:.4f} ({100 * bms / res:.2f}%), bound {bms:.4f}, plain "
+            f"{pms:.3f} ms/launch; turns {ms} {card_tag}")
 
 
 def _gpu_clocks(when: str) -> dict:

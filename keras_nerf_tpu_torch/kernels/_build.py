@@ -137,6 +137,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "knt_sample_merge": [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "knt_ray_march_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "knt_ray_march_mlp_persistent": [_P] * 6 + [_I, _I, _I, _P],
     "knt_ray_march_quadrature": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _P],
     "knt_ray_march_quadrature_grad": [_P] * 8 + [_I, _I, _I, _F, _I, _P],

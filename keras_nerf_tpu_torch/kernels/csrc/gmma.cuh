@@ -8,8 +8,9 @@
 //   aligned, written by the host before the launch);
 // * wgmma: fence, commit, wait, the shared-memory matrix descriptors of the
 //   128-byte swizzle (MN-major and K-major), m64nNk16 bf16 x bf16 -> f32
-//   products (N = 64, 128, 256) and m64nNk32 s8 x s8 -> s32 products (N =
-//   64, 128) with both operands in shared memory;
+//   products (N = 64, 128, 256) with both operands in shared memory or (N =
+//   128) A in registers, and m64nNk32 s8 x s8 -> s32 products (N = 64, 128)
+//   with both operands in shared memory;
 // * the proxy fences that hand data written by threads to wgmma (shared
 //   memory) or to a TMA load (device memory), the named barrier, and
 //   setmaxnreg;
@@ -154,6 +155,12 @@ __device__ __forceinline__ void fence_operands(int (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
 // Descriptor of an operand in the 128-byte swizzled layout: start address,
 // leading byte offset (LBO) and stride byte offset (SBO), each in 16-byte
 // units, layout type 1 (128B swizzle) in bits 62-63. The atom must start on
@@ -286,6 +293,37 @@ __device__ __forceinline__ void mma_m64k16(float (&d)[N / 2], uint64_t desc_a,
   } else {
     mma_m64n256k16<TransA, TransB>(d, desc_a, desc_b, scale_d);
   }
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128] with A in registers: each thread's
+// four 32-bit registers hold bf16 pairs, (row g, columns 2q, 2q + 1), (g +
+// 8, the same), (g, 8 + 2q, 9 + 2q), (g + 8, the same), g = 16 (t / 32) +
+// (t % 32) / 4 and q = t % 4: the accumulators of a product (above) for
+// columns 16 k .. 16 k + 15, d[8k .. 8k + 7] rounded to bf16 pairs in order,
+// are the A registers of the k-th k16 step of a product over them. B from
+// shared memory as above; the registers must hold their values until the
+// product has retired (wait).
+template <int TransB>
+__device__ __forceinline__ void mma_rs_m64n128k16(float (&d)[64], uint32_t a0, uint32_t a1,
+                                                  uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                  int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d), "n"(TransB));
 }
 
 // D[64 x N] (+)= A[64 x 32] B[32 x N], int8 codes (s8) from shared memory,

@@ -702,13 +702,427 @@ int launch_width(const FwdParams& prm, cudaStream_t stream) {
   return launch_tile<768, kEncIn>(prm, stream);
 }
 
+// ---- the persistent route: the no-grad ray-march modes at u = 256 --------
+//
+// The kernel above builds each 128-point tile's encoding before the tile's
+// first product, then stops both consumer warpgroups at every layer (wgmma
+// wait 0, a named barrier, the epilogue into the activation tile, a proxy
+// fence, a second barrier) while the tensor cores idle; every block starts
+// from nothing (barriers, ring, heads' columns). ray_march_mlp_plan takes
+// this kernel instead where the call allows it (u = 256, at most kMaxLayers
+// layers, no stash, the encoding built in the kernel: knt_ray_march_mlp's
+// sigma-only and full modes); the same math, bit for bit, in another
+// schedule:
+// * Persistent: min(tiles, SMs) blocks of 384 threads, block b walking
+//   tiles b, b + gridDim.x, ... The weights' order repeats every tile, so
+//   the producer thread's ring (8 stages of [64 K x 128 N]) runs on across
+//   tiles; barriers and the heads' float32 columns are set up once.
+// * The activations stay in registers: each consumer warpgroup owns 64 rows
+//   and every column, and a layer's bf16 outputs, packed from its m64nNk16
+//   accumulators, are the A registers of the next product's k16 steps
+//   (gmma.cuh: mma_rs_m64n128k16), 64 registers a thread. A product runs as two
+//   halves of 128 columns, 64 accumulators each; the first half's outputs
+//   wait packed (32 registers) until the second's products have read the
+//   A registers: 160 at most, where a whole 256-column product beside its
+//   A registers took 192 and ptxas spilled and serialized the products
+//   (C7512). There is no activation tile, so no barrier or proxy fence
+//   between layers. The encoding is read from shared memory (a K-major A),
+//   as the first layer, the skip layers, the features' and rf's second K
+//   runs and the sigma head's encoding part need it.
+// * The encoding is built off the critical path: warps 1-3 of the producer
+//   warpgroup build tile i + 1's into the second of two encoding tiles while
+//   the consumers multiply tile i, from encode.cuh's lane_kind /
+//   encode_value (each thread keeps one 16-byte chunk of lanes, its kinds
+//   read once, its ray's base and slope as float4s, four lanes at a time
+//   within the producer warpgroup's 40 registers), and hand it over by
+//   mbarrier (enc_full; enc_empty back once both warpgroups have finished
+//   the tile).
+// * Epilogues under the other warpgroup's products: each warpgroup runs a
+//   half's products, then that half's epilogue (bias, relu, bf16 into its A
+//   registers, the sigma and rgb dots), and the two drift apart over the
+//   ring (a warpgroup waits only for the producer, which waits for both to
+//   release a stage eight back), so one's epilogue runs while the other
+//   issues. Ordering them strictly in turns of four stages by mbarriers
+//   was 6% slower on an H100 (a 4096 x 192 full-mode launch, 1.71 against
+//   1.61 ms).
+// * The heads' dots meet in each quad by shuffles and its first thread
+//   writes its two rows' outputs (the sigma head's encoding part read from
+//   shared memory), in write_out's order above.
+// * Shared memory: ring 128 KB + two encoding tiles 64 KB + the heads'
+//   float32 columns 3 KB + 20 mbarriers + 1 KB of alignment = 196.2 KB
+//   (mirrored by ray_march_mlp_plan), one block an SM.
+// * No atomics and the resident kernel's k order: the same bits.
+namespace persistent {
+
+constexpr int kTile = 128;                        // points a tile, 64 rows a warpgroup
+constexpr int kUnits = 256;
+constexpr int kHalf = 128;                        // output columns a product's half
+constexpr int kStages = 8;                        // ring stages of [64 K x 128 N]
+constexpr int kStageBytes = 2 * kBox;
+constexpr int kEncBytes = kTile * 2 * kEncLanes;  // one encoding tile
+constexpr int kEncoders = 96;                     // warps 1-3 of the producer warpgroup
+// float32 area: w_sf[:, u] [u], w_sf_enc[:, u] [128], w_rgb[:, 0..2] [u / 2][3].
+constexpr int kFloats = kUnits + kEncLanes + kUnits / 2 * 3;
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kEncBytes + 4 * kFloats +
+                           8 * (2 * kStages + 4);
+static_assert(kSmemBytes <= 232448, "the persistent route exceeds the H100's 227 KB");
+
+struct PSmem {
+  uint8_t* ring;
+  uint8_t* enc;        // two encoding tiles
+  float* wsig;         // w_sf[:, u]
+  float* wsig_enc;     // w_sf_enc[:, u]
+  float* wrgb;         // w_rgb[:, 0..2]
+  uint64_t* full;      // kStages
+  uint64_t* empty;     // kStages
+  uint64_t* enc_full;  // 2
+  uint64_t* enc_empty; // 2
+};
+
+__device__ __forceinline__ int tiles_of(const FwdParams& prm) { return (prm.P + kTile - 1) / kTile; }
+
+// The producer thread: every stage of every product of every tile the block
+// walks, in the order the consumers use them (each half of a product's
+// columns in turn, its K runs in order).
+__device__ void produce(const FwdParams& prm, const PSmem& sm) {
+  const int tiles = tiles_of(prm);
+  int g = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int L = 0; L < prm.products; ++L) {
+      const Layer l = layer_of(prm, L);
+      for (int half = 0; half < l.n / kHalf; ++half) {
+        for (int run = 0; run < 2; ++run) {
+          for (int ks = 0; ks < l.slabs[run]; ++ks, ++g) {
+            const int s = g % kStages;
+            gmma::mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
+            gmma::mbar_arrive_expect_tx(&sm.full[s], kStageBytes);
+            for (int b = 0; b < 2; ++b)
+              gmma::tma_load_2d(sm.ring + s * kStageBytes + b * kBox, l.map[run], &sm.full[s],
+                                kHalf * half + 64 * b, 64 * ks);
+          }
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// Warps 1-3: the encoding of every tile the block walks (zero past the last
+// point), tile k into encoding tile k % 2 once the consumers have finished
+// tile k - 2. Thread e keeps lanes c .. c + 7, c = 8 (e % 16), of rows e / 16,
+// e / 16 + 6, ...
+__device__ void encode(const FwdParams& prm, const PSmem& sm) {
+  const int e = threadIdx.x - 32;
+  const int c = (e % 16) * 8;
+  int kinds = 0;  // 2 bits a lane
+  for (int i = 0; i < 8; ++i) kinds |= lane_kind(prm.masks, c + i) << (2 * i);
+  const int tiles = tiles_of(prm);
+  int k = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+    const int b = k & 1;
+    gmma::mbar_wait(&sm.enc_empty[b], ((k >> 1) & 1) ^ 1);
+    uint8_t* enc = sm.enc + b * kEncBytes;
+    const int p0 = tile * kTile, rows = min(kTile, prm.P - p0);
+    for (int r = e / 16; r < kTile; r += kEncoders / 16) {
+      const int p = p0 + r;
+      const float t = r < rows ? __ldg(prm.depths + p) : 0.f;
+      const size_t off = (size_t)(p / prm.S) * kEncLanes + c;
+      // Four lanes at a time (8 bytes of the chunk), within 40 registers.
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        uint2 q = make_uint2(0u, 0u);
+        if (r < rows) {
+          const float4 bs = __ldg(reinterpret_cast<const float4*>(prm.base + off) + h);
+          const float4 sl = __ldg(reinterpret_cast<const float4*>(prm.slope + off) + h);
+          const int kd = kinds >> (8 * h);
+          q.x = bf16x2(encode_value(t, sl.x, bs.x, kd & 3),
+                       encode_value(t, sl.y, bs.y, (kd >> 2) & 3));
+          q.y = bf16x2(encode_value(t, sl.z, bs.z, (kd >> 4) & 3),
+                       encode_value(t, sl.w, bs.w, (kd >> 6) & 3));
+        }
+        *reinterpret_cast<uint2*>(enc + swz<kTile>(r, c) + 8 * h) = q;
+      }
+    }
+    gmma::fence_proxy_async();
+    gmma::mbar_arrive(&sm.enc_full[b]);
+  }
+}
+
+// One ring stage of a product's half, in three steps: begin (the stage's
+// data), the four k16 steps of the caller, end (commit; release the stage
+// before once this one's group is the only one in flight). Ring: the next
+// stage, the one to release, and the half's scale-d.
+struct Ring {
+  int g, pending, scale;
+};
+
+__device__ __forceinline__ uint64_t begin_stage(const PSmem& sm, Ring& is,
+                                                float (&acc)[kHalf / 2]) {
+  const int s = is.g % kStages;
+  gmma::mbar_wait(&sm.full[s], (is.g / kStages) & 1);
+  gmma::fence_operands(acc);
+  gmma::fence();
+  return gmma::desc_sw128(sm.ring + s * kStageBytes, kBox, 1024);
+}
+
+__device__ __forceinline__ void end_stage(const PSmem& sm, Ring& is, float (&acc)[kHalf / 2]) {
+  gmma::commit();
+  gmma::fence_operands(acc);
+  gmma::wait<1>();
+  gmma::fence_operands(acc);
+  if (is.pending >= 0 && threadIdx.x % 32 == 0) gmma::mbar_arrive(&sm.empty[is.pending]);
+  is.pending = is.g % kStages;
+  ++is.g;
+}
+
+// Product L for consumer warpgroup wg over its 64 rows, kHalves halves of
+// 128 columns in turn: each half's K runs from the A registers (every
+// product after the first) and the encoding tile `enc` (its rows) into 64
+// accumulators, then its epilogue (bias, relu on the trunk, bf16) and the
+// head's dots, summed over each quad into head[h] (r, g, b, sigma). The
+// first half's bf16 outputs wait in `held` while the second still reads
+// `a`: 64 + 32 + 64 registers at most. A two-half product leaves its
+// outputs in `a`, the next product's A registers; rf (one half) feeds the
+// rgb head alone.
+template <int kHalves, int kHead>
+__device__ __forceinline__ void run_layer(const FwdParams& prm, const PSmem& sm, int L,
+                                          const uint8_t* enc, uint32_t (&a)[64], Ring& is,
+                                          float (&head)[2][4]) {
+  const int lane = threadIdx.x % 32;
+  const Layer l = layer_of(prm, L);
+  const bool relu = L < prm.n;
+  // The encoding's K runs: the first product's (one or two), or a second.
+  const int enc_slabs = l.enc0 ? l.slabs[0] + l.slabs[1] : l.slabs[1];
+  float dot[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  uint32_t held[32];
+#pragma unroll
+  for (int half = 0; half < kHalves; ++half) {
+    float acc[kHalf / 2];
+    is.pending = -1;
+    is.scale = 0;  // the half's first step overwrites the accumulators
+    if (!l.enc0) {
+      gmma::fence_operands(a);
+#pragma unroll
+      for (int ks = 0; ks < kUnits / 64; ++ks) {
+        const uint64_t db = begin_stage(sm, is, acc);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int r = 16 * ks + 4 * k;
+          gmma::mma_rs_m64n128k16<1>(acc, a[r], a[r + 1], a[r + 2], a[r + 3],
+                                     db + (k * 2048 >> 4), is.scale);
+          is.scale = 1;
+        }
+        end_stage(sm, is, acc);
+      }
+    }
+    for (int ks = 0; ks < enc_slabs; ++ks) {
+      const uint64_t db = begin_stage(sm, is, acc);
+      const uint64_t da = gmma::desc_sw128_kmajor(enc + (ks % (kEncLanes / 64)) * kTile * 128);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        gmma::mma_m64k16<kHalf, 0, 1>(acc, da + 2 * k, db + (k * 2048 >> 4), is.scale);
+        is.scale = 1;
+      }
+      end_stage(sm, is, acc);
+    }
+    gmma::wait<0>();
+    gmma::fence_operands(acc);
+    if (is.pending >= 0 && lane == 0) gmma::mbar_arrive(&sm.empty[is.pending]);
+
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j) {
+      const int c = kHalf * half + 8 * j + 2 * (lane % 4);
+      const float b0 = l.bias[c], b1 = l.bias[c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = __fadd_rn(acc[4 * j + 2 * h], b0);
+        float v1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+        const uint32_t bits = *reinterpret_cast<const uint32_t*>(&o);
+        if (kHalves == 2 && half == 0) held[2 * j + h] = bits;
+        if (kHalves == 2 && half == 1) a[32 + 2 * j + h] = bits;
+        const float x0 = __low2float(o), x1 = __high2float(o);
+        if (kHead == kSigmaHead) {
+          dot[h][0] = __fmaf_rn(x0, sm.wsig[c], dot[h][0]);
+          dot[h][0] = __fmaf_rn(x1, sm.wsig[c + 1], dot[h][0]);
+        } else if (kHead == kRgbHead) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            dot[h][q] = __fmaf_rn(x0, sm.wrgb[3 * c + q], dot[h][q]);
+            dot[h][q] = __fmaf_rn(x1, sm.wrgb[3 * c + 3 + q], dot[h][q]);
+          }
+        }
+      }
+    }
+  }
+  if (kHalves == 2) {
+#pragma unroll
+    for (int r = 0; r < 32; ++r) a[r] = held[r];
+    gmma::fence_operands(a);
+  }
+  if (kHead != kNoHead) {
+    constexpr int kQ = kHead == kSigmaHead ? 1 : 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        float x = dot[h][q];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        head[h][kHead == kSigmaHead ? 3 : q] = x;
+      }
+    }
+  }
+}
+
+// The outputs of the quad's two rows, by its first thread, as write_out above.
+__device__ __forceinline__ void write_rows(const FwdParams& prm, const PSmem& sm,
+                                           const uint8_t* enc, int p0, int rows, int row0,
+                                           const float (&head)[2][4]) {
+  const bool sigma_only = prm.products == prm.n;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= rows) continue;
+    float v3 = head[h][3];
+    if (prm.sf_enc_on) {
+      float e = 0.f;
+      for (int c = 0; c < kEncLanes; ++c) {
+        const bf16 x = *reinterpret_cast<const bf16*>(enc + swz<kTile>(r, c));
+        e = __fmaf_rn(__bfloat162float(x), sm.wsig_enc[c], e);
+      }
+      v3 = __fadd_rn(v3, e);
+    }
+    const int p = p0 + r;
+    const float sig = fmaxf(__fadd_rn(v3, prm.w.b_sf[prm.u]), 0.f);
+    if (sigma_only) {
+      prm.out[p] = sig;
+      continue;
+    }
+    float4 o;
+    o.x = 1.f / (1.f + expf(-__fadd_rn(head[h][0], prm.w.b_rgb[0])));
+    o.y = 1.f / (1.f + expf(-__fadd_rn(head[h][1], prm.w.b_rgb[1])));
+    o.z = 1.f / (1.f + expf(-__fadd_rn(head[h][2], prm.w.b_rgb[2])));
+    o.w = sig;
+    reinterpret_cast<float4*>(prm.out)[p] = o;
+  }
+}
+
+// Consumer warpgroup wg: its 64 rows of every tile the block walks.
+__device__ void consume(const FwdParams& prm, const PSmem& sm) {
+  const int ct = threadIdx.x - 128;
+  const int wg = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+  const int tiles = tiles_of(prm);
+  uint32_t a[64];  // the current product's input, bf16 pairs as wgmma A registers
+  Ring is{0, -1, 0};
+  int k = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+    const int b = k & 1;
+    const uint8_t* enc = sm.enc + b * kEncBytes;
+    const uint8_t* own = enc + wg * 64 * 128;  // this warpgroup's rows of each 64-lane box
+    gmma::mbar_wait(&sm.enc_full[b], (k >> 1) & 1);
+    float head[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int L = 0; L < prm.n - 1; ++L) run_layer<2, kNoHead>(prm, sm, L, own, a, is, head);
+    run_layer<2, kSigmaHead>(prm, sm, prm.n - 1, own, a, is, head);
+    if (prm.products > prm.n) {
+      run_layer<2, kNoHead>(prm, sm, prm.n, own, a, is, head);
+      run_layer<1, kRgbHead>(prm, sm, prm.n + 1, own, a, is, head);
+    }
+    const int p0 = tile * kTile;
+    if (lane % 4 == 0)
+      write_rows(prm, sm, enc, p0, min(kTile, prm.P - p0), 64 * wg + 16 * warp + lane / 4, head);
+    __syncwarp();
+    if (lane == 0) gmma::mbar_arrive(&sm.enc_empty[b]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_forward_kernel(const __grid_constant__ FwdParams prm) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (gmma::smem_addr(smem_raw) & 1023)) & 1023);
+  PSmem sm;
+  sm.ring = base;
+  sm.enc = sm.ring + kStages * kStageBytes;
+  sm.wsig = reinterpret_cast<float*>(sm.enc + 2 * kEncBytes);
+  sm.wsig_enc = sm.wsig + kUnits;
+  sm.wrgb = sm.wsig_enc + kEncLanes;
+  sm.full = reinterpret_cast<uint64_t*>(sm.wsig + kFloats);
+  sm.empty = sm.full + kStages;
+  sm.enc_full = sm.empty + kStages;
+  sm.enc_empty = sm.enc_full + 2;
+
+  const int ld = kUnits + kEncLanes;
+  for (int c = threadIdx.x; c < kUnits; c += kThreads)
+    sm.wsig[c] = __bfloat162float(prm.w.w_sf[(size_t)c * ld + kUnits]);
+  if (prm.sf_enc_on)
+    for (int c = threadIdx.x; c < kEncLanes; c += kThreads)
+      sm.wsig_enc[c] = __bfloat162float(prm.w.w_sf_enc[(size_t)c * ld + kUnits]);
+  if (prm.products > prm.n)
+    for (int i = threadIdx.x; i < kUnits / 2 * 3; i += kThreads)
+      sm.wrgb[i] = __bfloat162float(prm.w.w_rgb[(i / 3) * kEncLanes + i % 3]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      gmma::mbar_init(&sm.full[s], 1);
+      gmma::mbar_init(&sm.empty[s], kConsumers / 32);
+    }
+    for (int b = 0; b < 2; ++b) {
+      gmma::mbar_init(&sm.enc_full[b], kEncoders);
+      gmma::mbar_init(&sm.enc_empty[b], kConsumers / 32);
+    }
+    gmma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // As above: 128 x 40 + 256 x 232 registers.
+  if (threadIdx.x < 128) {
+    gmma::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) produce(prm, sm);
+    else if (threadIdx.x >= 32) encode(prm, sm);
+    return;
+  }
+  gmma::setmaxnreg_inc<232>();
+  consume(prm, sm);
+}
+
+// The grid: one block an SM, at most one a tile.
+int launch(const FwdParams& prm, cudaStream_t stream) {
+  if (prm.u != kUnits || prm.train || ((uintptr_t)prm.base | (uintptr_t)prm.slope) % 16)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mlp_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (prm.P + kTile - 1) / kTile;
+  mlp_forward_kernel<<<tiles < sms ? tiles : sms, kThreads, kSmemBytes, stream>>>(prm);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace persistent
+
 // Returns 0, a cudaError_t, or -CUresult when a tensor map cannot be encoded.
+// walk: the persistent route (no stash, no enc_in, u = 256).
 int launch(const MlpWeights* w, const float* base, const float* slope, const float* depths,
            const float* masks, const bf16* enc_in, float* out, int P, int S, bool sigma_only,
-           const MlpStash* stash, void* stream) {
+           const MlpStash* stash, void* stream, bool walk = false) {
   const int u = w->units, n = w->n_layers;
   if (n < 1 || n > kMaxLayers || (u != 256 && u != 512 && u != 768))
     return (int)cudaErrorInvalidValue;
+  if (walk && (enc_in != nullptr || stash != nullptr)) return (int)cudaErrorInvalidValue;
   const gmma::EncodeTiled fn = gmma::encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const int tile = tile_of(u);
@@ -745,6 +1159,7 @@ int launch(const MlpWeights* w, const float* base, const float* slope, const flo
   prm.sf_enc_on = w->w_sf_enc != nullptr;
   prm.train = stash != nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (walk) return persistent::launch(prm, s);
   return enc_in != nullptr ? launch_width<true>(prm, s) : launch_width<false>(prm, s);
 }
 
@@ -1159,6 +1574,20 @@ KNT_EXPORT int knt_ray_march_mlp(const MlpWeights* w, const float* base,
   if (stash != nullptr && sigma_only) return (int)cudaErrorInvalidValue;
   return launch(w, base, slope, depths, masks, nullptr, out, (int)points, S, sigma_only != 0,
                 stash, stream);
+}
+
+// The persistent route (ray_march_mlp_plan's "persistent"): knt_ray_march_mlp's
+// sigma-only and full modes at u = 256 (base and slope 16-byte aligned),
+// the same bits.
+KNT_EXPORT int knt_ray_march_mlp_persistent(const MlpWeights* w, const float* base,
+                                            const float* slope, const float* depths,
+                                            const float* masks, float* out, int rays, int S,
+                                            int sigma_only, void* stream) {
+  const long long points = (long long)rays * S;
+  if (points <= 0) return 0;
+  if (points > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return launch(w, base, slope, depths, masks, nullptr, out, (int)points, S, sigma_only != 0,
+                nullptr, stream, true);
 }
 
 // enc: [P, 128] bf16 encoded points (16-byte aligned); out: [P, 4] (r, g,

@@ -58,13 +58,17 @@ every other shape, in the same source, that reads each layer's input back
 from device memory by TMA and the weights' maps from a device table built
 once per packed state (:func:`mlp_table_layout`); the plans pick the route
 by shape (:func:`ray_march_mlp_plan`, :func:`mlp_backward_plan`,
-:func:`ray_march_mlp_int8_plan`). ``mlp_weight_grad`` splits a call of more
-than :data:`MAX_WG_TASKS` arrays or :data:`MAX_WG_TILES` tiles over
-launches (:func:`weight_grad_plan`) with the same bits.
+:func:`ray_march_mlp_int8_plan`). ``ray_march_mlp``'s no-grad modes at u =
+256 take a third route, a persistent kernel whose activations stay in
+registers and whose encoding and epilogues run under the products.
+``mlp_weight_grad`` splits a call of more than :data:`MAX_WG_TASKS` arrays
+or :data:`MAX_WG_TILES` tiles over launches (:func:`weight_grad_plan`)
+with the same bits.
 
 Each kernel is reached through a :class:`KernelWrapper`: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version, and
-``launches`` counts kernel launches only. The plain versions repeat the
+``launches`` counts kernel launches only (``routes`` by route, for the
+kernels that have routes). The plain versions repeat the
 kernels' arithmetic in PyTorch (bf16-rounded operands, float32 products
 with TF32 off, the same float32 constants and operation order where it
 matters), so the CPU tests hold them against the JAX package and
@@ -1130,10 +1134,44 @@ def _streamed_plan(units: int, resident_bytes: int) -> dict:
             "blocks_per_sm": 2 if 2 * (smem + 1024) <= SMEM_PER_SM else 1}
 
 
-def ray_march_mlp_plan(units: int, n_layers: int = 8) -> dict:
+# The persistent route (csrc/ray_march_mlp.cu, namespace persistent): the
+# no-grad ray-march modes at u = 256, one block an SM walking 128-point
+# tiles, a ring of 8 weight stages of [64 K x 128 N], two encoding tiles.
+PERSIST_UNITS = 256          # kUnits
+PERSIST_TILE = 128           # kTile
+PERSIST_STAGES = 8           # kStages
+PERSIST_STAGE_BYTES = 2 * 64 * 128      # kStageBytes
+PERSIST_FLOATS = 256 + LANE + 128 * 3   # kFloats
+PERSIST_SMEM = (1024 + PERSIST_STAGES * PERSIST_STAGE_BYTES + 2 * PERSIST_TILE
+                * 2 * LANE + 4 * PERSIST_FLOATS + 8 * (2 * PERSIST_STAGES + 4))
+H100_SMS = 132
+
+
+def persistent_tiles(points: int, sms: int = H100_SMS) -> list:
+    """The persistent route's walk: the tiles of ``points`` each of its
+    ``min(tiles, sms)`` blocks takes, block ``b`` tiles ``b, b + grid,
+    ...`` (mirrors csrc/ray_march_mlp.cu: persistent::launch and the
+    loops of its kernel)."""
+    tiles = -(-points // PERSIST_TILE)
+    grid = min(tiles, sms)
+    return [list(range(b, tiles, grid)) for b in range(grid)]
+
+
+def ray_march_mlp_plan(units: int, n_layers: int = 8,
+                       no_grad: bool = False) -> dict:
     """The route, tile and shared memory of the ``ray_march_mlp`` kernel
     (and of ``apply_mlp``, its input mode) for ``n_layers`` layers of
-    ``units`` (mirrors csrc/ray_march_mlp.cu).
+    ``units`` (mirrors csrc/ray_march_mlp.cu). ``no_grad``: the call is a
+    ray-march mode without a stash (sigma-only or full), whose encoding the
+    kernel builds and which keeps nothing.
+
+    ``route`` "persistent" (``no_grad`` at u = 256, at most
+    :data:`MAX_LAYERS` layers): a block an SM, at most one a tile
+    (:func:`persistent_tiles`), walks the 128-point tiles, the activations in
+    registers as the next product's A operand; ``smem_bytes``: the ring of
+    ``stages`` weight stages, two encoding tiles (one built while the other
+    is multiplied), the heads' float32 columns, the mbarriers and 1 KB of
+    alignment.
 
     ``route`` "resident" (u = 256, 512 or 768, at most :data:`MAX_LAYERS`
     layers): the activation tile stays in shared memory. ``tile``: points
@@ -1150,6 +1188,10 @@ def ray_march_mlp_plan(units: int, n_layers: int = 8) -> dict:
     the mbarriers) does not grow with the width. Raises, naming the width,
     on one outside the JAX package's envelope."""
     _check_units("ray_march_mlp", units)
+    if no_grad and units == PERSIST_UNITS and n_layers <= MAX_LAYERS:
+        return {"route": "persistent", "tile": PERSIST_TILE,
+                "split": "rows", "passes": 1, "stages": PERSIST_STAGES,
+                "smem_bytes": PERSIST_SMEM}
     if units > FWD_MAX_UNITS or n_layers > MAX_LAYERS:
         return _streamed_plan(units, STREAM_TILE * 2 * LANE
                               + 4 * 4 * STREAM_TILE
@@ -1183,20 +1225,41 @@ def _raise_on_mapped(err: int, name: str) -> None:
     _raise_on(err, name)
 
 
+def _ray_march_mlp_route(packed, base, slope, depths, masks,
+                         sigma_only=False, stash=None, lib=None, route=None):
+    """The route of a ``ray_march_mlp`` call: ``route`` where given, else
+    the plan's."""
+    return route or ray_march_mlp_plan(packed["trunk_b"][0].shape[1],
+                                       len(packed["trunk_w"]),
+                                       no_grad=stash is None)["route"]
+
+
+def _apply_mlp_route(packed, *args, **kw):
+    return ray_march_mlp_plan(packed["trunk_b"][0].shape[1],
+                              len(packed["trunk_w"]))["route"]
+
+
 def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
-                        sigma_only=False, stash=None, lib=None):
+                        sigma_only=False, stash=None, lib=None, route=None):
     """The ``ray_march_mlp`` launch; ``lib`` another build of its C entry
     point (``time_ray_march_mlp`` times a parent's kernel through it),
-    else this package's library."""
+    else this package's library (its entry points declared, as
+    ``_build.build_single`` does). ``route`` "resident" takes the resident
+    kernel where the plan picks the persistent one (a build from before
+    that route, the tests that hold the two against each other)."""
     from keras_nerf_tpu_torch.kernels._build import load
 
     dev = base.device
     r, s = depths.shape
     f32 = torch.float32
     plan = ray_march_mlp_plan(packed["trunk_b"][0].shape[1],
-                              len(packed["trunk_w"]))
+                              len(packed["trunk_w"]), no_grad=stash is None)
     if stash is not None and sigma_only:
         raise ValueError("the train mode (stash) runs the full MLP")
+    if route not in (None, plan["route"], "resident") or (
+            route == "resident" and plan["route"] == "streamed"):
+        raise ValueError(f"ray_march_mlp: route {route!r} cannot run this "
+                         f"call (the plan's: {plan['route']!r})")
     if plan["route"] == "streamed":
         return _mlp_streamed(packed, dev, load() if lib is None else lib,
                              sigma_only, stash, (base, slope, depths, masks))
@@ -1208,16 +1271,24 @@ def _ray_march_mlp_cuda(packed, base, slope, depths, masks,
                                 dev)
     shape = (r * s,) if sigma_only else (r * s, 4)
     out = torch.empty(shape, dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        _raise_on_mapped(lib.knt_ray_march_mlp(
-            ctypes.addressof(weights),
+    args = (ctypes.addressof(weights),
             _check(base, "base", f32, dev, (r, LANE)),
             _check(slope, "slope", f32, dev, (r, LANE)),
             _check(depths, "depths", f32, dev),
             _check(masks, "masks", f32, dev, (3, LANE)), out.data_ptr(), r, s,
-            int(sigma_only),
-            None if stash_s is None else ctypes.addressof(stash_s),
-            _stream(dev)), "ray_march_mlp")
+            int(sigma_only))
+    with torch.cuda.device(dev):
+        if (route or plan["route"]) == "resident":
+            _raise_on_mapped(lib.knt_ray_march_mlp(
+                *args, None if stash_s is None else ctypes.addressof(stash_s),
+                _stream(dev)), "ray_march_mlp")
+            return out
+        # The persistent kernel reads each ray's base and slope as float4s.
+        if (args[1] | args[2]) % 16:
+            raise ValueError("ray_march_mlp reads base and slope 16 bytes at "
+                             "a time: their data must be 16-byte aligned")
+        _raise_on_mapped(lib.knt_ray_march_mlp_persistent(
+            *args, _stream(dev)), "ray_march_mlp (persistent)")
     return out
 
 
@@ -1828,15 +1899,20 @@ class KernelWrapper:
     version for CPU tensors. ``launches`` counts kernel launches only (the
     plain version never touches it), and each launch also counts in the
     open spans' ``csrc_launches`` (``spans.csrc_launched``); ``source`` and
-    ``replaces`` name the CUDA source and the TPU kernel it ports."""
+    ``replaces`` name the CUDA source and the TPU kernel it ports. Where
+    the kernel has routes, ``route`` names a launch's from its arguments
+    and ``routes`` counts the launches by route beside ``launches``."""
 
-    def __init__(self, name: str, plain, launch, source: str, replaces: str):
+    def __init__(self, name: str, plain, launch, source: str, replaces: str,
+                 route=None):
         self.name = name
         self.plain = plain
         self._launch = launch
+        self._route = route
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.routes = collections.Counter()
 
     def __call__(self, *args, **kwargs):
         device = _first_tensor(args).device
@@ -1846,6 +1922,8 @@ class KernelWrapper:
             raise ValueError(f"{self.name}: unsupported device {device}")
         out = self._launch(*args, **kwargs)
         self.launches += 1
+        if self._route is not None:
+            self.routes[self._route(*args, **kwargs)] += 1
         spans.csrc_launched()
         return out
 
@@ -1866,7 +1944,7 @@ sample_merge = KernelWrapper(
     _CSRC + "sample_merge.cu", _TPU + ":987")
 ray_march_mlp = KernelWrapper(
     "ray_march_mlp", ray_march_mlp_plain, _ray_march_mlp_cuda,
-    _CSRC + "ray_march_mlp.cu", _TPU + ":369")
+    _CSRC + "ray_march_mlp.cu", _TPU + ":369", route=_ray_march_mlp_route)
 ray_march_quadrature = KernelWrapper(
     "ray_march_quadrature", ray_march_quadrature_plain,
     _ray_march_quadrature_cuda, _CSRC + "ray_march_quadrature.cu",
@@ -1880,7 +1958,7 @@ mlp_weight_grad = KernelWrapper(
 # The TPU's fused_apply_mlp (T5), through ray_march_mlp.cu's input mode.
 apply_mlp = KernelWrapper(
     "apply_mlp", apply_mlp_plain, _apply_mlp_cuda,
-    _CSRC + "ray_march_mlp.cu", _TPU + ":438")
+    _CSRC + "ray_march_mlp.cu", _TPU + ":438", route=_apply_mlp_route)
 # The int8 trunk of fused_train_chunk(quantized=True) (T4).
 ray_march_mlp_int8 = KernelWrapper(
     "ray_march_mlp_int8", ray_march_mlp_int8_plain, _ray_march_mlp_int8_cuda,
@@ -1897,6 +1975,7 @@ KERNELS = (sample_merge, ray_march_mlp, ray_march_quadrature, mlp_backward,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.routes.clear()
 
 
 def fused_render_chunk(packed: dict, origin: torch.Tensor,

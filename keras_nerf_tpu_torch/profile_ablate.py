@@ -20,7 +20,10 @@ The ablations are compile-time macros (:data:`ABLATIONS`), each an
   encoding). The int8 forward has no train mode: its ``nostash`` build is
   its ``none`` build.
 
-They act on the resident route, the one the 8 x 256 MLP takes. Each
+They act on the resident kernel, which the 8 x 256 MLP's train mode
+takes; the bf16 builds run it in every mode (the package's no-grad modes
+take the persistent kernel, which no macro touches, and which the
+``none`` build's resident kernel is held against bit for bit). Each
 ablated build computes the wrong function on purpose: only its time is
 read. Every build (``none`` too, no macro) is compiled alone by
 ``_build.build_single`` into ``build/ablate/<kernel>/<ablation>/``, all at
@@ -203,7 +206,7 @@ class _Runner:
                                      sigma_only=sigma_only, stash=stash)
         return trm._ray_march_mlp_cuda(self.packed, *self.args(i),
                                        sigma_only=sigma_only, stash=stash,
-                                       lib=lib)
+                                       lib=lib, route="resident")
 
     def int8(self, lib, i, sigma_only):
         trm = self.trm

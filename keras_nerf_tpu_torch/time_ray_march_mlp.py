@@ -19,7 +19,10 @@ chunk's sigma-only [4096 x 64] and full [4096 x 192] modes, and
 At each it runs in turns: parent, this tree, this tree's streamed route
 (the kernel that the plans pick past u = 768 or 16 layers, whose weights'
 tensor maps come from a device table, forced here at the resident route's
-shapes), the PyTorch chain, the streamed route, this tree, parent; device
+shapes), the PyTorch chain, the streamed route, this tree, parent; in the
+sigma-only and full modes, whose plan at u = 256 is the persistent route,
+this tree's resident kernel too, after the streamed route and before the
+chain, and the parent's build runs its resident kernel; device
 ms per launch by CUDA events over ``iters`` launches, with a
 spin kernel holding the stream while the host enqueues them
 (``time_mlp_backward.time_ms``). Each build is first held against the
@@ -127,12 +130,15 @@ def make_inputs(rays: int, samples: int, device, seed: int = 0,
 
 
 STREAMED = "streamed"   # the label of this tree's streamed route
+RESIDENT = "resident"   # this tree's resident kernel where the plan persists
 
 
 def _call(mode: str, packed, rm_args, enc, stash, lib=None, plain=False):
     """One launch of ``mode`` through this package's wrapper, on ``lib``'s
     build (None: this package's library; :data:`STREAMED`: its streamed
-    route, whatever the shape), or the plain version."""
+    route, whatever the shape; :data:`RESIDENT`: its resident kernel; a
+    parent's build: its resident kernel, the only one it has in every
+    mode), or the plain version."""
     if mode in ("sigma_only", "full", "train"):
         kw = dict(sigma_only=mode == "sigma_only",
                   stash=stash if mode == "train" else None)
@@ -141,7 +147,10 @@ def _call(mode: str, packed, rm_args, enc, stash, lib=None, plain=False):
         if lib == STREAMED:
             return trm._mlp_streamed(packed, enc.device, _build.load(),
                                      points=rm_args, **kw)
-        return trm._ray_march_mlp_cuda(packed, *rm_args, lib=lib, **kw)
+        if lib is not None:
+            kw["route"] = "resident"
+        return trm._ray_march_mlp_cuda(
+            packed, *rm_args, lib=None if lib == RESIDENT else lib, **kw)
     st = stash if mode == "input_stash" else None
     if plain:
         return trm.apply_mlp_plain(packed, enc, stash=st)
@@ -168,7 +177,7 @@ def measure(parent: Path | None = None, iters: int = 20,
     q = "clocks.sm,power.draw,power.limit,temperature.gpu"
     out = {"card": _smi("name,power.limit"), "clocks": [
         {"when": "before the turns", q: _smi(q)}], "turns": {}, "errors": {}}
-    builds = {"new": None, STREAMED: STREAMED}
+    builds = {"new": None, STREAMED: STREAMED, RESIDENT: RESIDENT}
     if lib is not None:
         builds["parent"] = lib
     for width, (key, (mode, rays, samples)) in (
@@ -182,7 +191,11 @@ def measure(parent: Path | None = None, iters: int = 20,
         want_stash = (trm.alloc_stash(p, u, n, dev, enc=enc) if mode ==
                       "input_stash" else trm.alloc_stash(p, u, n, dev))
         want = _call(mode, packed, rm_args, enc, want_stash, plain=True)
+        persists = mode in ("sigma_only", "full") and trm.ray_march_mlp_plan(
+            u, n, no_grad=True)["route"] == "persistent"
         for label, lb in builds.items():
+            if label == RESIDENT and not persists:
+                continue
             got = _call(mode, packed, rm_args, enc, stash, lib=lb)
             torch.cuda.synchronize()
             err = {"out_abs_max": float((got - want).abs().max())}
@@ -196,8 +209,9 @@ def measure(parent: Path | None = None, iters: int = 20,
                          -1, trm.LANE))
         chain = pytorch_chain(packed, chain_enc,
                               sigma_only=mode == "sigma_only")
+        middle = [STREAMED] + ([RESIDENT] if persists else [])
         order = (["parent"] if lib is not None else []) + [
-            "new", STREAMED, "pytorch chain", STREAMED, "new"] + (
+            "new", *middle, "pytorch chain", *middle[::-1], "new"] + (
             ["parent"] if lib is not None else [])
         times = []
         for label in order:

@@ -91,12 +91,12 @@ def test_ray_march_mlp_matches_plain(cuda_device, n_layers, skip,
     assert float((got - want).abs().max()) <= 3e-2
 
 
-def _fwd_inputs(device, units, rays, samples, seed=7, n_layers=8):
-    """Seeded weights of an ``n_layers``-layer MLP (skip 4) of width
+def _fwd_inputs(device, units, rays, samples, seed=7, n_layers=8, skip=4):
+    """Seeded weights of an ``n_layers``-layer MLP (skip ``skip``) of width
     ``units`` (a fog: sigma bias +1, so every head and every layer carries
     a value), random rays' encoding coefficients and depths, and the same
     points encoded outside the kernel for the input mode."""
-    cfg = NeRFConfig(dense_units=units, n_layers=n_layers)
+    cfg = NeRFConfig(dense_units=units, n_layers=n_layers, skip_layer=skip)
     g = torch.Generator(device=device).manual_seed(seed)
     params = init_mlp(g, cfg.mlp, cfg.in_xyz, cfg.in_dir)
     params["sigma"]["bias"] += 1.0
@@ -190,6 +190,65 @@ def test_forward_refuses_other_widths_before_launching(cuda_device,
     with pytest.raises(ValueError, match="384"):
         trm.apply_mlp(packed, enc)
     assert (trm.ray_march_mlp.launches, trm.apply_mlp.launches) == before
+
+
+# (rays, samples) of the persistent route's edges: one tile; 305 points, not
+# a multiple of 128 (the last tile's rows past P); 25 tiles, fewer blocks
+# than SMs; the 800^2 render's chunk, 36 tiles a block and more.
+_PERSIST = {"one_tile": (2, 64), "ragged_305": (5, 61),
+            "fewer_tiles_than_sms": (50, 64), "chunk_800_3200x192": (3200, 192)}
+
+
+@pytest.mark.parametrize("n_layers,skip", [(8, 4), (3, 1)])
+@pytest.mark.parametrize("sigma_only", [True, False])
+@pytest.mark.parametrize("case", sorted(_PERSIST))
+def test_persistent_route_gives_the_resident_bits(cuda_device, case,
+                                                  sigma_only, n_layers, skip):
+    """The no-grad modes at u = 256 take the persistent kernel; the resident
+    kernel's C entry on the same inputs gives the same bits (the same bf16
+    operands, float32 sums in the same k order, the same epilogue and heads'
+    operations), and both are held against the plain version at 3e-2."""
+    rays, samples = _PERSIST[case]
+    cfg, packed, rm_args, _ = _fwd_inputs(cuda_device, 256, rays, samples,
+                                          n_layers=n_layers, skip=skip)
+    assert trm.ray_march_mlp_plan(256, n_layers, no_grad=True)["route"] == (
+        "persistent")
+    before = dict(trm.ray_march_mlp.routes)
+    got = trm.ray_march_mlp(packed, *rm_args, sigma_only=sigma_only)
+    want = trm.ray_march_mlp(packed, *rm_args, sigma_only=sigma_only,
+                             route="resident")
+    plain = trm.ray_march_mlp_plain(packed, *rm_args, sigma_only=sigma_only)
+    torch.cuda.synchronize()
+    moved = {k: v - before.get(k, 0)
+             for k, v in trm.ray_march_mlp.routes.items()}
+    assert {k: v for k, v in moved.items() if v} == {"persistent": 1,
+                                                     "resident": 1}
+    assert got.shape == want.shape == plain.shape
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want), case
+    assert float((got - plain).abs().max()) <= 3e-2, case
+
+
+def test_route_counter_keeps_train_mode_and_apply_mlp_off_the_persistent_route(
+        cuda_device):
+    """The train mode (a stash) and ``apply_mlp`` keep their resident route
+    at u = 256; a no-grad call takes the persistent one."""
+    cfg, packed, rm_args, enc = _fwd_inputs(cuda_device, 256, 17, 64)
+    p, u, n = enc.shape[0], cfg.dense_units, cfg.n_layers
+    trm.reset_launch_counts()
+    trm.ray_march_mlp(packed, *rm_args,
+                      stash=trm.alloc_stash(p, u, n, cuda_device))
+    trm.apply_mlp(packed, enc)
+    trm.apply_mlp(packed, enc, stash=trm.alloc_stash(p, u, n, cuda_device,
+                                                     enc=enc))
+    torch.cuda.synchronize()
+    assert dict(trm.ray_march_mlp.routes) == {"resident": 1}
+    assert dict(trm.apply_mlp.routes) == {"resident": 2}
+    trm.ray_march_mlp(packed, *rm_args, sigma_only=True)
+    trm.ray_march_mlp(packed, *rm_args)
+    torch.cuda.synchronize()
+    assert dict(trm.ray_march_mlp.routes) == {"resident": 1, "persistent": 2}
+    assert trm.ray_march_mlp.launches == 3 and trm.apply_mlp.launches == 2
 
 
 # The register route (k = ceil(S / 32) samples a lane), its edges, and the
